@@ -1,0 +1,150 @@
+"""Port engine surfaces vs the JAX package's: the config (same nine
+``config.json`` keys and defaults, same engine defaults and ``VQT_*``
+mapping, same validation), startup's refusal to run without ingest or on a
+missing card, and the coalescer's failure contract (errors reach every
+waiter; nothing falls back)."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import pytest
+import torch
+
+from video_quierer_tpu.engine import config as jax_config
+from video_quierer_tpu_torch.engine import config as torch_config
+from video_quierer_tpu_torch.engine.system import VideoSearchEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_api_config_keys_and_defaults_match():
+    want = jax_config.ApiConfig().model_dump()
+    got = torch_config.ApiConfig().to_dict()
+    assert list(got) == list(want) and len(got) == 9
+    assert got == want
+
+
+def test_engine_config_defaults_match():
+    want = jax_config.EngineConfig()
+    got = torch_config.EngineConfig()
+    for section in ("ingest", "index", "cache", "model"):
+        assert dataclasses.asdict(getattr(got, section)) == \
+            dataclasses.asdict(getattr(want, section)), section
+    for field in ("videos_dir", "coalesce_width", "thumbnail_base_url",
+                  "invalidate_on_config_change"):
+        assert getattr(got, field) == getattr(want, field)
+
+
+def test_env_overrides_match(monkeypatch):
+    assert torch_config._ENV_OVERRIDES.keys() == \
+        jax_config._ENV_OVERRIDES.keys()
+    env = {"VQT_COALESCE_WIDTH": "128", "VQT_DTYPE": "float32",
+           "VQT_DEVICE_RERANK": "off", "VQT_STREAM_MIRROR": "0",
+           "VQT_IVF_NPROBE": "junk"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = torch_config.apply_env_overrides(torch_config.EngineConfig())
+    want = jax_config.apply_env_overrides(jax_config.EngineConfig())
+    assert got.coalesce_width == want.coalesce_width == 128
+    assert got.model.dtype == want.model.dtype == "float32"
+    assert got.index.device_rerank == want.index.device_rerank == "off"
+    assert got.ingest.stream_mirror is want.ingest.stream_mirror is False
+    assert got.index.ivf_nprobe == want.index.ivf_nprobe == 8
+
+
+@pytest.mark.parametrize("section,field,value", [
+    ("api", "sampling_mode", "weekly"), ("api", "max_frames", 0),
+    ("index", "device_rerank", "maybe"), ("model", "parallel", "tp"),
+    ("ingest", "sampling_strategy", "random"), (None, "coalesce_width", 0),
+])
+def test_validation_matches(section, field, value):
+    for mod in (jax_config, torch_config):
+        cfg = mod.EngineConfig()
+        target = cfg if section is None else getattr(cfg, section)
+        object.__setattr__(target, field, value)
+        with pytest.raises(ValueError):
+            cfg.validate()
+
+
+def test_load_api_config_file(tmp_path):
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps({"max_frames": 120, "enhanced_mode": False,
+                                "unknown": 1}))
+    got = torch_config.load_api_config(path)
+    want = jax_config.load_api_config(path)
+    assert got.to_dict() == want.model_dump()
+    path.write_text("{not json")
+    assert torch_config.load_api_config(path) == torch_config.ApiConfig()
+
+
+def _engine(tmp_path, embedder=None):
+    cfg = torch_config.EngineConfig(videos_dir=str(tmp_path))
+    cfg.index.embed_dim = 64
+    return VideoSearchEngine(tmp_path, config=cfg, embedder=embedder,
+                             device="cpu")
+
+
+def test_startup_refuses_videos_that_need_ingest(tmp_path):
+    (tmp_path / "clip.mp4").write_bytes(b"not really a video")
+    engine = _engine(tmp_path)
+    with pytest.raises(NotImplementedError, match="ingest"):
+        engine.startup()
+    assert not engine.ready
+
+
+def test_startup_without_cache_or_videos_writes_empty_cache(tmp_path):
+    engine = _engine(tmp_path)
+    engine.startup()
+    assert engine.ready and len(engine.index) == 0
+    assert (tmp_path / "video_search_cache.pkl").exists()
+    stats = engine.stats()
+    assert stats["index"]["accuracy_mode"] == "exact-f32-rerank"
+    assert stats["metrics"]["counters"]["fused_search_fallbacks"] == 0
+
+
+class _BrokenEmbedder:
+    """Tokenizes, then fails in the text tower."""
+
+    def __init__(self):
+        from video_quierer_tpu_torch.models.clip.tokenizer import \
+            HashTokenizer
+        self.tokenizer = HashTokenizer()
+        self.params = None
+        self.prepare_text_ids = staticmethod(lambda ids: ids)
+
+    def text_encode_fn(self, params, ids):
+        raise RuntimeError("tower failed")
+
+
+def test_coalescer_propagates_failures_to_every_waiter(tmp_path):
+    engine = _engine(tmp_path, embedder=_BrokenEmbedder())
+    engine.index.add_batch(torch.randn(10, 64).numpy(), "a.mp4",
+                           [float(i) for i in range(10)])
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(engine.search_coalesced_ex, f"q{i}", 5,
+                                False) for i in range(8)]
+            for f in futs:
+                with pytest.raises(RuntimeError, match="tower failed"):
+                    f.result(timeout=60)
+        # the read locks were released: a writer can still get in
+        with engine.lock:
+            pass
+        assert engine.metrics.counter("fused_search_fallbacks") == 0
+    finally:
+        engine.close()
+
+
+def test_server_refuses_to_start_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the server would start")
+    out = subprocess.run(
+        [sys.executable, "-m", "video_quierer_tpu_torch.api",
+         "--videos-dir", str(tmp_path), "--port", "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr

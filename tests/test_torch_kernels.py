@@ -1,0 +1,167 @@
+"""The port's CUDA kernels (video_quierer_tpu_torch/csrc/*.cu) vs their
+plain PyTorch versions, on the card.
+
+Imports torch, numpy and the port only (no jax), so the file also runs on
+a GPU machine without the JAX package:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Kernel tests carry the ``gpu`` marker and skip where no CUDA card is
+present; the CPU tests check the wrappers' CPU routing and launch counts.
+Tolerances: B1 exact (the inputs are multiples of 1/256, so every f32 dot
+product is exact in any summation order); B2 per-row cosine >= 1 - 1e-5
+in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from video_quierer_tpu_torch.models.clip.bridge import init_params
+from video_quierer_tpu_torch.models.clip.config import (
+    CLIPConfig,
+    CLIPTextConfig,
+    get_config,
+)
+from video_quierer_tpu_torch.models.clip.model import CLIP
+from video_quierer_tpu_torch.ops import fused_layer as fl
+from video_quierer_tpu_torch.ops import topk
+from video_quierer_tpu_torch.ops.attention import attention, attention_ref
+from video_quierer_tpu_torch.utils.env import resolve_device
+
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+MIN_COS = {torch.float32: 1 - 1e-5, torch.bfloat16: 0.999}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    """The card; decided at run time, so collection is the same
+    everywhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels run only on the GPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _exact(seed, shape):
+    """Multiples of 1/256 in [-1/4, 1/4]: exact in bf16."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.integers(-64, 65, shape) / 256)
+                            .astype(np.float32))
+
+
+def _text_model(name_or_cfg, dtype, device):
+    cfg = (get_config(name_or_cfg) if isinstance(name_or_cfg, str)
+           else name_or_cfg)
+    model = CLIP(cfg)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)))
+    return model.to(device, dtype).eval()
+
+
+def _ids(b, s, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, vocab - 2, size=(b, s))
+    ids[np.arange(b), rng.integers(s // 2, s, size=b)] = vocab - 1
+    return torch.from_numpy(ids).long()
+
+
+# -- CPU routing (runs everywhere) ---------------------------------------
+
+def test_resolve_device_never_falls_back_to_cpu():
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    counts = (attention.launches, fl.fused_layer.launches,
+              topk.cand_scan_prefix.launches)
+    q = _exact(0, (2, 8, 128))
+    attention(q, q, q, num_heads=2, causal=True)
+    topk.cand_scan_prefix(_exact(1, (8192, 64)), _exact(2, (3, 64)), 5000,
+                          bucket=1024, rounds=2)
+    cfg = CLIPConfig(projection_dim=64, text=CLIPTextConfig(
+        vocab_size=100, hidden_size=128, num_layers=1, num_heads=2))
+    model = _text_model(cfg, torch.float32, "cpu")
+    ops = [fl._layer_operands(b, torch.float32) for b in model.text.layers]
+    out = fl.fused_text_encode(model, _ids(32, 8, 100), ops)
+    assert out.shape == (32, 64)
+    assert (attention.launches, fl.fused_layer.launches,
+            topk.cand_scan_prefix.launches) == counts
+
+
+# -- kernels vs plain, on the card ---------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,valid,causal", [(1, 8, 8, True),
+                                              (64, 77, 77, True),
+                                              (3, 50, 33, False)])
+def test_attention_kernel(cuda, dtype, b, s, valid, causal):
+    q, k, v = (torch.randn(b, s, 512, generator=torch.Generator()
+                           .manual_seed(i)).mul(0.5).to(cuda, dtype)
+               for i in range(3))
+    before = attention.launches
+    got = attention(q, k, v, num_heads=8, valid_len=valid, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    qs = (q.float() * 64 ** -0.5).to(dtype)
+    want = attention_ref(qs, k, v, num_heads=8, valid_len=valid,
+                         causal=causal)
+    torch.testing.assert_close(got[:, :valid].float(),
+                               want[:, :valid].float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [8, 16])
+def test_fused_layer_kernel(cuda, dtype, s):
+    model = _text_model("openai/clip-vit-base-patch32", dtype, cuda)
+    ops = [fl._layer_operands(b, dtype) for b in model.text.layers[:2]]
+    ids = _ids(64, s, 49408).to(cuda)
+    before = fl.fused_layer.launches
+    with torch.inference_mode():
+        got = fl.fused_text_encode(model, ids, ops)
+        want = fl.fused_text_encode(model, ids, ops, layer=fl.fused_layer_ref)
+    torch.cuda.synchronize()
+    assert fl.fused_layer.launches == before + len(ops)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert cos.min().item() >= MIN_COS[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 5, 16, 17, 64, 70, 256])
+def test_cand_scan_kernel(cuda, b):
+    emb = _exact(b, (4 * 4096, 512)).to(cuda, torch.bfloat16)
+    q = _exact(100 + b, (b, 512)).to(cuda)
+    valid = 2 * 4096 + 1500
+    before = topk.cand_scan_prefix.launches
+    kv, ki = topk.cand_scan_prefix(emb, q, valid, bucket=1024, rounds=2)
+    torch.cuda.synchronize()
+    assert topk.cand_scan_prefix.launches == before + 1
+    pv, pi = topk.cand_scan_prefix_ref(emb, q, valid, bucket=1024,
+                                       rounds=2, block_rows=4096)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_bad_operands(cuda):
+    emb = torch.zeros(4096, 512, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        topk.cand_scan_prefix(emb, torch.zeros(2, 256, device=cuda), 10,
+                              bucket=1024, rounds=2)
+    with pytest.raises(TypeError):                  # f32 mirror
+        topk.cand_scan_prefix(emb.float(), torch.zeros(2, 512, device=cuda),
+                              10, bucket=1024, rounds=2)
+    q = torch.zeros(1, 8, 512, device=cuda)
+    with pytest.raises(ValueError):
+        attention(q, q, q, num_heads=4)            # head dim 128
+    with pytest.raises(ValueError):
+        attention(q, q.cpu(), q, num_heads=8)

@@ -1,0 +1,152 @@
+"""The slice end to end: the port's engine vs the JAX engine on the same
+tiny f32 tower (weights moved with ``params_from_jax``), the same
+2 x 8192-row corpus loaded through the pickle v1.0 cache, and the same
+short and 77-token text queries — single searches, a coalesced batch of
+32 and ``search_batch`` give the same rows (same frames in the same
+order, scores within 1e-5). One real-socket round trip through the
+port's HTTP server checks the ``/api/search`` response shape.
+"""
+
+import json
+import threading
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tests.torch_parity import TINY_FULL_VOCAB, port_state_dict
+from video_quierer_tpu.engine.config import EngineConfig as JaxConfig
+from video_quierer_tpu.engine.system import VideoSearchEngine as JaxEngine
+from video_quierer_tpu.models.clip.embedder import \
+    CLIPEmbedder as JaxEmbedder
+from video_quierer_tpu_torch.api.server import create_server
+from video_quierer_tpu_torch.engine.config import EngineConfig
+from video_quierer_tpu_torch.engine.system import VideoSearchEngine
+from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
+from video_quierer_tpu_torch.models.clip.embedder import CLIPEmbedder
+
+D = 64
+WORDS = ("dog cat beach city night snow car river crowd bird forest road "
+         "sunset kitchen stage goal").split()
+ROW_KEYS = {"video_name", "timestamp", "frame_id", "score",
+            "formatted_time"}
+
+
+def _queries(rng, n, words):
+    return [" ".join(rng.choice(WORDS, size=words)) + f" {i}"
+            for i in range(n)]
+
+
+def _config(cfg_cls, videos_dir):
+    cfg = cfg_cls(videos_dir=str(videos_dir))
+    cfg.index.embed_dim = D
+    cfg.model.name = TINY_FULL_VOCAB
+    cfg.model.dtype = "float32"
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    videos = tmp_path_factory.mktemp("videos")
+    rng = np.random.default_rng(11)
+    idx = DeviceVideoIndex(dim=D, device="cpu")
+    for name in ("a.mp4", "b.mp4"):
+        rows = rng.standard_normal((8192, D)).astype(np.float32)
+        rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+        idx.add_batch(rows, name, [0.25 * t for t in range(8192)])
+    idx.save_to_disk(videos / "video_search_cache.pkl")
+
+    jax_emb = JaxEmbedder(TINY_FULL_VOCAB, dtype=jnp.float32)
+    jax_engine = JaxEngine(videos, config=_config(JaxConfig, videos),
+                           embedder=jax_emb)
+    port_emb = CLIPEmbedder(TINY_FULL_VOCAB, dtype=torch.float32,
+                            device="cpu",
+                            state_dict=port_state_dict(jax_emb.params,
+                                                       TINY_FULL_VOCAB))
+    port = VideoSearchEngine(videos, config=_config(EngineConfig, videos),
+                             embedder=port_emb, device="cpu")
+    for e in (jax_engine, port):
+        e.startup()
+        assert len(e.index) == 16384
+    yield jax_engine, port
+    port.close()
+
+
+def _same(got, want):
+    assert [(r["video_name"], r["frame_id"]) for r in got] == \
+        [(r["video_name"], r["frame_id"]) for r in want]
+    np.testing.assert_allclose([r["score"] for r in got],
+                               [r["score"] for r in want], atol=1e-5)
+    for r in got:
+        assert set(r) == ROW_KEYS
+
+
+@pytest.mark.parametrize("words", [3, 90])     # seq buckets 8 and 77
+def test_single_search_matches_jax(engines, words):
+    jax_engine, port = engines
+    q = _queries(np.random.default_rng(words), 1, words)[0]
+    got, cached = port.search_ex(q, k=10, use_cache=False)
+    want, _ = jax_engine.search_ex(q, k=10, use_cache=False)
+    assert not cached and len(got) == 10
+    _same(got, want)
+
+
+@pytest.mark.parametrize("words", [4, 90])
+def test_batch_and_coalesced_match_jax(engines, words):
+    jax_engine, port = engines
+    queries = _queries(np.random.default_rng(100 + words), 32, words)
+    want = jax_engine.search_batch(queries, k=10)
+    got = port.search_batch(queries, k=10)
+    with ThreadPoolExecutor(32) as pool:
+        coalesced = list(pool.map(
+            lambda q: port.search_coalesced_ex(q, 10, False)[0], queries))
+    for g, c, w in zip(got, coalesced, want):
+        _same(g, w)
+        _same(c, w)
+    assert port.metrics.counter("embed_fallbacks") == 0
+    assert port.metrics.counter("fused_search_fallbacks") == 0
+
+
+def test_http_round_trip(engines):
+    _, port = engines
+    server = create_server(port, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(
+            base + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        status, body = post("/api/search", {"query": "a dog on the beach",
+                                            "k": 5, "use_cache": False})
+        assert status == 200
+        # the reference's response keys (api/app.py:470-476)
+        assert set(body) == {"results", "search_time_ms", "from_cache",
+                             "query_id", "performance"}
+        assert len(body["results"]) == 5
+        assert set(body["results"][0]) == ROW_KEYS
+        assert body["performance"] == {"results_count": 5}
+        assert post("/api/search", {"query": "  "})[0] == 400
+        assert post("/api/search", {"query": "x", "k": 0})[0] == 422
+        status, body = post("/api/search/batch", {"queries": ["a", "b"]})
+        assert status == 200 and body["query_count"] == 2
+        with urllib.request.urlopen(base + "/api/health", timeout=10) as r:
+            assert json.loads(r.read())["status"] == "healthy"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    assert not thread.is_alive()

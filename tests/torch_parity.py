@@ -1,0 +1,70 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py).
+
+The same numpy-seeded inputs go through the JAX package and the PyTorch
+port; weights cross with ``params_from_jax``.
+"""
+
+import jax
+import numpy as np
+
+from video_quierer_tpu.models.clip import config as jax_cfg
+from video_quierer_tpu_torch.models.clip import config as torch_cfg
+from video_quierer_tpu_torch.models.clip.bridge import params_from_jax
+
+# tiny text tower: 2 layers, width 128, 2 heads of 64
+TINY = "torch-parity-tiny"
+# same widths with the full CLIP vocab / context (HashTokenizer ids)
+TINY_FULL_VOCAB = "torch-parity-tiny-vocab"
+
+
+def _tiny(vocab: int, context: int):
+    def factory():
+        return jax_cfg.CLIPConfig(
+            name=TINY, projection_dim=64,
+            vision=jax_cfg.CLIPVisionConfig(image_size=32, patch_size=16,
+                                            hidden_size=128, num_layers=1,
+                                            num_heads=2),
+            text=jax_cfg.CLIPTextConfig(vocab_size=vocab,
+                                        context_length=context,
+                                        hidden_size=128, num_layers=2,
+                                        num_heads=2))
+    return factory
+
+
+def _as_torch_cfg(factory):
+    def torch_factory():
+        c = factory()
+        return torch_cfg.CLIPConfig(
+            name=c.name, projection_dim=c.projection_dim,
+            text=torch_cfg.CLIPTextConfig(**vars(c.text)))
+    return torch_factory
+
+
+for _name, _vocab, _ctx in ((TINY, 1000, 77), (TINY_FULL_VOCAB, 49408, 77)):
+    jax_cfg.register_config(_name, _tiny(_vocab, _ctx))
+    torch_cfg.register_config(_name, _as_torch_cfg(_tiny(_vocab, _ctx)))
+
+
+def numpy_tree(params):
+    return jax.tree.map(np.asarray, params)
+
+
+def port_state_dict(jax_params, name: str = TINY):
+    return params_from_jax(numpy_tree(jax_params),
+                           torch_cfg.get_config(name))
+
+
+def token_ids(rng, b: int, s: int, vocab: int) -> np.ndarray:
+    """Ids with the max (EOT) at a random position per row, zero after."""
+    ids = rng.integers(1, vocab - 2, size=(b, s))
+    eot = rng.integers(s // 2, s, size=b)
+    for i in range(b):
+        ids[i, eot[i]] = vocab - 1
+        ids[i, eot[i] + 1:] = 0
+    return ids.astype(np.int32)
+
+
+def row_cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a = a / np.linalg.norm(a, axis=-1, keepdims=True)
+    b = b / np.linalg.norm(b, axis=-1, keepdims=True)
+    return np.sum(a * b, axis=-1)

@@ -1,0 +1,51 @@
+"""Serve HTTP text search from the port:
+
+    python -m video_quierer_tpu_torch.api --port 5001 --videos-dir DIR
+
+Loads the pickle cache in DIR (``video_search_cache.pkl``) through
+``engine.startup()`` and serves until interrupted. ``--device`` defaults
+to ``cuda``; without a CUDA card that raises rather than serving on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+import torch
+
+from video_quierer_tpu_torch.api.server import create_server
+from video_quierer_tpu_torch.engine.config import load_engine_config
+from video_quierer_tpu_torch.engine.system import VideoSearchEngine
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=5001)
+    ap.add_argument("--videos-dir", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = load_engine_config()
+    logging.basicConfig(level=cfg.api.log_level)
+    # exact f32 re-rank: no TF32 in f32 matmuls (cuDNN allows it by default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    engine = VideoSearchEngine(videos_dir=args.videos_dir, config=cfg,
+                               device=args.device)
+    engine.startup()
+    server = create_server(engine, args.host, args.port)
+    logging.getLogger(__name__).info("serving on %s:%d", args.host,
+                                     server.server_address[1])
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        engine.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,219 @@
+// Kernel B1: candidate scan over the live-prefix mirror.
+//
+// Replaces the TPU kernel video_quierer_tpu/ops/topk.py:
+// _pallas_cand_scan_prefix (kernel body _cand_kernel_prefix with the
+// "packb" selection of _bucket_select_cols). For every `bucket`-row range
+// of the mirror and every query it keeps the top `rounds` rows by the
+// packed int32 key
+//     key = (bits(score + 2.0) & ~lowmask) + (lowmask - pos)
+// (dead rows, position >= valid: bits term 0), lowmask = 2^ceil_log2(bucket)
+// - 1, pos = row position inside the bucket, so the lowest position wins
+// among scores equal at the packing resolution. Keys are unique inside a
+// bucket, so the top `rounds` keys are well defined and can be kept as a
+// running list while the rows stream past (the TPU kernel's second round,
+// which knocks the first winner out with INT32_MIN, selects the same key).
+// Output is the TPU kernel's block-major layout [n_blocks, w, B], w =
+// rounds * block_rows / bucket, entry r * nb + j for bucket j of a block:
+// the winner's score (key floor unpacked, minus 2.0; -inf for an all-dead
+// bucket) and its mirror position. The merge and the perm translation run
+// outside the kernel, as in JAX.
+//
+// Design: one CTA per (bucket, chunk of queries); the query chunk sits in
+// shared memory for the whole bucket, and every row's keys fold into
+// running top-`rounds` lists kept in registers; a final shared-memory pass
+// merges the lists of each query. 8 warps score 16-row strips of the bf16
+// mirror on the tensor cores (WMMA bf16 16x16x16, f32 accumulate), A
+// fragments loaded straight from the mirror in global memory (each 32-byte
+// row segment is one full sector), B fragments from the query panel in
+// shared memory; each warp parks its 16 x QB scores in shared memory and
+// its lanes fold them into their queries' lists. A batch narrower than the
+// query chunk (B=1 and small B; the chunk is 16 queries) is padded to it
+// with zero queries in the shared-memory panel, so the host allocates and
+// copies nothing for it. The mirror is bf16 only: the serving index keeps
+// no other candidate mirror (f32 mirrors take the exact scan, a later port).
+//
+// Bound on the H100: one read of the mirror per scan (2M x 512 x 2 B =
+// 2.05 GB, ~0.6 ms at 3.35 TB/s) when the query chunk is wide; at small B
+// the per-row key folding and the load latency set the time.
+#include "common.cuh"
+
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+using vqt::bf16;
+
+constexpr int MAXR = 4;    // most rounds a launch takes
+
+__device__ __forceinline__ void insert_key(int (&top)[MAXR], int key,
+                                           int rounds) {
+  // top[0..rounds) sorted descending; keys are unique. Static indices only,
+  // so the list stays in registers.
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    if (r < rounds && key > top[r]) {
+      const int t = top[r];
+      top[r] = key;
+      key = t;
+    }
+  }
+}
+
+// Writes the merged winners of query q0 + c: `lists` holds `n_lists` lists
+// of MAXR keys for each of the CTA's QB queries ([list][QB][MAXR]).
+__device__ __forceinline__ void emit(const int* lists, int n_lists, int qb,
+                                     int c, int q0, int b, size_t row0,
+                                     int g, int nb, int rounds, int lowmask,
+                                     float* vals, int* idxs) {
+  int best[MAXR];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) best[r] = INT_MIN;
+  for (int l = 0; l < n_lists; ++l)
+    for (int r = 0; r < rounds; ++r)
+      insert_key(best, lists[((size_t)l * qb + c) * MAXR + r], rounds);
+  const int blk = g / nb, jb = g % nb;
+  const size_t w = (size_t)rounds * nb;
+  for (int r = 0; r < rounds; ++r) {
+    const int wk = best[r];
+    const int vb = wk & ~lowmask;
+    const size_t o = ((size_t)blk * w + (size_t)r * nb + jb) * b + q0 + c;
+    vals[o] = vb == 0 ? -INFINITY : __int_as_float(vb) - 2.0f;
+    idxs[o] = (int)(row0 + (lowmask - (wk & lowmask)));
+  }
+}
+
+constexpr int TC_WARPS = 8;
+
+// bf16 mirror on the tensor cores; QB = 16 * NF queries per CTA
+template <int NF>
+__global__ void __launch_bounds__(TC_WARPS * 32)
+cand_kernel_tc(const bf16* __restrict__ emb, const bf16* __restrict__ q,
+               float* __restrict__ vals, int* __restrict__ idxs, int d,
+               int b, int valid, int bucket, int rounds, int nb,
+               int lowmask) {
+  constexpr int QB = 16 * NF;
+  constexpr int QT = (QB + 31) / 32;       // queries per lane
+  constexpr int LDS = QB + 4;              // score strip row stride
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int ldq = d + 8;                   // padded query row stride
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                // [QB][ldq]
+  float* sw = reinterpret_cast<float*>(
+      smem_raw + (size_t)QB * ldq * sizeof(bf16));             // [W][16][LDS]
+  int* red = reinterpret_cast<int*>(sw + TC_WARPS * 16 * LDS); // [W][QB][R]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = blockIdx.x;
+  const int q0 = blockIdx.y * QB;
+  const size_t row0 = (size_t)g * bucket;
+
+  for (int i = tid; i < QB * d; i += blockDim.x) {
+    const int c = i / d, kk = i % d;
+    const int bq = q0 + c;
+    qs[c * ldq + kk] =
+        bq < b ? q[(size_t)bq * d + kk] : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+
+  int top[QT][MAXR];
+#pragma unroll
+  for (int t = 0; t < QT; ++t)
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) top[t][r] = INT_MIN;
+
+  float* strip = sw + warp * 16 * LDS;
+  for (int t0 = warp * 16; t0 < bucket; t0 += TC_WARPS * 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+#pragma unroll
+    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
+    const bf16* arow = emb + (row0 + t0) * d;
+#pragma unroll 4
+    for (int k = 0; k < d; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, arow + k, d);
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> qf;
+        wmma::load_matrix_sync(qf, qs + j * 16 * ldq + k, ldq);
+        wmma::mma_sync(acc[j], a, qf, acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      wmma::store_matrix_sync(strip + j * 16, acc[j], LDS,
+                              wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < QT; ++t) {
+      const int c = lane + 32 * t;
+      if (c < QB) {
+        for (int r = 0; r < 16; ++r) {
+          const int pos = t0 + r;
+          const int bits = row0 + pos < (size_t)valid
+                               ? __float_as_int(strip[r * LDS + c] + 2.0f)
+                               : 0;
+          insert_key(top[t], (bits & ~lowmask) + (lowmask - pos), rounds);
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int t = 0; t < QT; ++t) {
+    const int c = lane + 32 * t;
+    if (c < QB)
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r)
+        red[((size_t)warp * QB + c) * MAXR + r] = top[t][r];
+  }
+  __syncthreads();
+  if (tid < QB && q0 + tid < b)
+    emit(red, TC_WARPS, QB, tid, q0, b, row0, g, nb, rounds, lowmask, vals,
+         idxs);
+}
+
+template <int NF>
+int launch_tc(const void* emb, const void* q, float* vals, int* idxs,
+              int n_pad, int d, int b, int valid, int bucket, int rounds,
+              int nb, int lowmask, cudaStream_t stream) {
+  constexpr int QB = 16 * NF;
+  const size_t smem = (size_t)QB * (d + 8) * sizeof(bf16) +
+                      (size_t)TC_WARPS * 16 * (QB + 4) * sizeof(float) +
+                      (size_t)TC_WARPS * QB * MAXR * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cand_kernel_tc<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(n_pad / bucket, (b + QB - 1) / QB);
+  cand_kernel_tc<NF><<<grid, TC_WARPS * 32, smem, stream>>>(
+      (const bf16*)emb, (const bf16*)q, vals, idxs, d, b, valid, bucket,
+      rounds, nb, lowmask);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int vqt_cand_scan_prefix(const void* emb, const void* queries,
+                                    void* vals, void* idxs, int n_pad, int d,
+                                    int b, int valid, int bucket, int rounds,
+                                    int block_rows, void* stream) {
+  // WMMA fragments: 32-byte aligned mirror rows of a multiple of 16
+  // elements, 16-row strips
+  if (n_pad <= 0 || b <= 0 || d % 16 || bucket % 16 || block_rows % bucket ||
+      n_pad % block_rows || rounds < 1 || rounds > MAXR || bucket < rounds ||
+      ((uintptr_t)emb & 31))
+    return (int)cudaErrorInvalidValue;
+  int pbits = 1;
+  while ((1 << pbits) < bucket) ++pbits;  // max(ceil_log2(bucket), 1)
+  const int lowmask = (1 << pbits) - 1;
+  const int nb = block_rows / bucket;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (b <= 16)  // single queries and small batches: 16-query chunks
+    return launch_tc<1>(emb, queries, (float*)vals, (int*)idxs, n_pad, d, b,
+                        valid, bucket, rounds, nb, lowmask, s);
+  return launch_tc<4>(emb, queries, (float*)vals, (int*)idxs, n_pad, d, b,
+                      valid, bucket, rounds, nb, lowmask, s);
+}

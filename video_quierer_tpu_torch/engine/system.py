@@ -1,0 +1,330 @@
+"""Engine orchestration, search half (counterpart of
+``video_quierer_tpu/engine/system.py``).
+
+One engine, one config, one index on one device:
+
+- ``startup``: load the pickle v1.0 cache, diff the videos dir by
+  md5(name, size, mtime); videos that need ingest raise
+  ``NotImplementedError`` (ingest is a later port); then bring the device
+  mirrors up to date;
+- text search: tokenize on the host → the embedder's text tower, the
+  candidate scan and the exact re-rank on the device
+  (``DeviceVideoIndex.search_batch_fused_async``) → reference rows
+  ``{video_name, timestamp, frame_id, score, formatted_time}``;
+- ``search_ex`` (one query), ``search_coalesced_ex`` (through the request
+  coalescer), ``search_batch`` (one device pass for many queries).
+
+Unlike the JAX engine, a failed encode or dispatch is not degraded to the
+keyword encoder or a two-step path: it raises. The ``embed_fallbacks``
+and ``fused_search_fallbacks`` counters stay for parity and read 0.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from video_quierer_tpu_torch.engine.cache import QueryResultCache
+from video_quierer_tpu_torch.engine.config import (
+    EngineConfig,
+    load_engine_config,
+)
+from video_quierer_tpu_torch.engine.metrics import SystemMetrics
+from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
+from video_quierer_tpu_torch.models.clip.embedder import (
+    TEXT_BUCKETS,
+    _bucket_for,
+)
+from video_quierer_tpu_torch.ops.topk import MAX_K
+from video_quierer_tpu_torch.utils.env import resolve_device
+from video_quierer_tpu_torch.utils.locks import RWLock
+from video_quierer_tpu_torch.utils.stageprof import span
+
+logger = logging.getLogger(__name__)
+
+VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv")
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def format_timestamp(ts: float) -> str:
+    """``"{m}m{s}s"`` (reference result shaping)."""
+    return f"{int(ts // 60)}m{int(ts % 60)}s"
+
+
+def video_identity_hash(video_path: Path) -> str:
+    """md5 of name+size+mtime — the cache's staleness key (copy of
+    ``video_quierer_tpu/ingest/frames.py:video_identity_hash``)."""
+    stat = Path(video_path).stat()
+    key = f"{Path(video_path).name}_{stat.st_size}_{stat.st_mtime}"
+    return hashlib.md5(key.encode()).hexdigest()
+
+
+class VideoSearchEngine:
+    def __init__(self, videos_dir: str = "videos",
+                 config: Optional[EngineConfig] = None,
+                 embedder=None,
+                 device: str | torch.device = "cuda"):
+        self.config = config or load_engine_config()
+        self.device = resolve_device(device)
+        self.videos_dir = Path(videos_dir or self.config.videos_dir)
+        self.videos_dir.mkdir(parents=True, exist_ok=True)
+        self.cache_path = self.videos_dir / "video_search_cache.pkl"
+        idx = self.config.index
+        if idx.corpus_shards > 0 or idx.kind != "exact":
+            raise NotImplementedError(
+                "corpus sharding and the IVF tier are not yet ported")
+        self.index = DeviceVideoIndex(
+            dim=idx.embed_dim, device_dtype=idx.device_dtype,
+            device=self.device, device_rerank=idx.device_rerank,
+            rerank_store_dtype=idx.rerank_store_dtype)
+        self.metrics = SystemMetrics()
+        for name in ("embed_fallbacks", "fused_search_fallbacks"):
+            self.metrics.inc(name, 0)
+        self.query_cache = QueryResultCache(
+            max_size=self.config.cache.query_cache_size,
+            ttl_seconds=self.config.cache.query_cache_ttl_s,
+            similarity_threshold=self.config.cache.similarity_threshold)
+        self._embedder = embedder        # injected (tests) or lazy CLIP
+        self._ready = False
+        self._coalescer = None
+        # searches are reads (concurrent, pipelined on the device);
+        # load/clear are exclusive
+        self.lock = RWLock()
+
+    # ------------------------------------------------------------------
+    # Embedder
+    # ------------------------------------------------------------------
+
+    @property
+    def use_clip(self) -> bool:
+        return bool(self.config.api.use_clip)
+
+    def _get_embedder(self):
+        if not self.use_clip:
+            raise NotImplementedError(
+                "use_clip=false (the keyword encoder) is not yet ported")
+        if self._embedder is None:
+            m = self.config.model
+            if m.family != "clip" or m.checkpoint_dir \
+                    or m.orbax_checkpoint or m.parallel != "none":
+                raise NotImplementedError(
+                    "only the seeded CLIP text tower is ported (no SigLIP, "
+                    "checkpoints or pipeline parallelism yet)")
+            from video_quierer_tpu_torch.models.clip.embedder import \
+                CLIPEmbedder
+            self._embedder = CLIPEmbedder(model_name=m.name,
+                                          dtype=_DTYPES[m.dtype],
+                                          device=self.device)
+        return self._embedder
+
+    # ------------------------------------------------------------------
+    # Startup
+    # ------------------------------------------------------------------
+
+    def _config_hash(self) -> str:
+        cfg = self.config.api
+        key = f"{cfg.sampling_mode}|{cfg.max_frames}|{cfg.use_clip}"
+        return hashlib.md5(key.encode()).hexdigest()
+
+    @property
+    def _config_hash_path(self) -> Path:
+        return Path(str(self.cache_path) + ".confighash")
+
+    def current_videos(self) -> List[Path]:
+        return [p for p in sorted(self.videos_dir.iterdir())
+                if p.suffix.lower() in VIDEO_EXTENSIONS and p.is_file()]
+
+    def _stale_videos(self, current: Sequence[Path]) -> List[Path]:
+        return [v for v in current
+                if self.index.video_hashes.get(v.name)
+                != video_identity_hash(v)]
+
+    def startup(self) -> None:
+        logger.info("Engine starting up...")
+        with self.lock, self.metrics.timer("startup"):
+            loaded = self.index.load_from_disk(self.cache_path)
+            if loaded and self.config.invalidate_on_config_change:
+                stored = (self._config_hash_path.read_text().strip()
+                          if self._config_hash_path.exists() else None)
+                if stored != self._config_hash():
+                    logger.info("Index-affecting config changed — full "
+                                "reprocess")
+                    self.index.clear()
+                    loaded = False
+            current = self.current_videos()
+            stale = self._stale_videos(current) if loaded else current
+            if stale:
+                raise NotImplementedError(
+                    f"ingest is not yet ported ({len(stale)} videos need "
+                    "processing)")
+            if not loaded:
+                self.index.save_to_disk(self.cache_path)
+            self._config_hash_path.write_text(self._config_hash())
+            self.index.sync_mirror()
+        self._ready = True
+        self.metrics.set_gauge("frames_indexed", len(self.index))
+        logger.info("Startup complete: %d frames indexed", len(self.index))
+
+    # ------------------------------------------------------------------
+    # Search
+    # ------------------------------------------------------------------
+
+    def _format(self, results: List[Dict]) -> List[Dict]:
+        """Reference result shaping (``formatted_time``), plus
+        ``thumbnail_url`` when ``thumbnail_base_url`` is configured."""
+        base = self.config.thumbnail_base_url
+        for r in results:
+            r["formatted_time"] = format_timestamp(r["timestamp"])
+            if base:
+                r["thumbnail_url"] = (
+                    f"{base}/{r['video_name']}/"
+                    f"thumbnail_{r['timestamp']:.2f}.jpg")
+        return results
+
+    @staticmethod
+    def _dedup_by_video(results: List[Dict], k: int) -> List[Dict]:
+        """Keep the best frame per video."""
+        seen = set()
+        out = []
+        for r in results:
+            if r["video_name"] in seen:
+                continue
+            seen.add(r["video_name"])
+            out.append(r)
+            if len(out) >= k:
+                break
+        return out
+
+    # fetching at the next k bucket and trimming keeps the reference's
+    # fetch depths (the over-fetch follows the bucketed k)
+    _K_BUCKETS = (1, 5, 10, 16, 32, 64)
+
+    @classmethod
+    def _bucket_k(cls, k: int) -> int:
+        for b in cls._K_BUCKETS:
+            if b >= k:
+                return b
+        return cls._K_BUCKETS[-1]
+
+    def search_ex(self, query: str, k: int = 5, use_cache: bool = True,
+                  dedup_videos: bool = False, offset: int = 0
+                  ) -> Tuple[List[Dict], bool]:
+        """One query: ``(results, from_cache)``. ``offset`` pages through
+        the ranking (``offset + k <= 64``; a paginated query fetches and
+        caches the full top-64 once)."""
+        offset = max(0, int(offset))
+        if offset and offset + k > MAX_K:
+            raise ValueError(f"offset + k must be <= {MAX_K}")
+        self.metrics.inc("searches")
+        cache_on = (use_cache and self.config.api.cache_search
+                    and not dedup_videos)
+        cache_k = MAX_K if offset else k
+        if cache_on:
+            hit = self.query_cache.get_text(query, cache_k)
+            if hit is not None:
+                self.metrics.inc("search_cache_hits")
+                return [dict(r) for r in hit[offset: offset + k]], True
+        if offset:
+            fetch_k = MAX_K
+        else:
+            fetch_k = min(k * 2, MAX_K) if dedup_videos else k
+        with self.lock.read(), self.metrics.timer("search_latency"):
+            emb = self._get_embedder()
+            ids = emb.prepare_text_ids(emb.tokenizer([query]))
+            results = self.index.search_batch_fused(
+                emb.text_encode_fn, emb.params, ids,
+                self._bucket_k(fetch_k))[0][:fetch_k]
+            if dedup_videos:
+                results = self._dedup_by_video(results, offset + k)
+            results = self._format(results)
+        if cache_on:
+            self.query_cache.put_text(query, cache_k,
+                                      [dict(r) for r in results])
+        return results[offset: offset + k], False
+
+    def search_batch(self, queries: Sequence[str], k: int = 5
+                     ) -> List[List[Dict]]:
+        """All queries in one device pass per text bucket."""
+        self.metrics.inc("searches", len(queries))
+        with self.lock.read(), self.metrics.timer("batch_search_latency"):
+            batches = self._dispatch_batch_fused(queries, k)()
+        return [self._format(r) for r in batches]
+
+    def _dispatch_batch_fused(self, queries: Sequence[str], k: int
+                              ) -> Callable[[], List[List[Dict]]]:
+        """Dispatch phase of batched text search: tokenize, trim to a seq
+        bucket, pad to a batch bucket (``TEXT_BUCKETS``, chunking above the
+        widest) and enqueue each chunk's device work. Returns ``resolve()
+        -> rows`` (unformatted, trimmed to ``k``). The caller holds the
+        engine read lock from this call through ``resolve()``."""
+        emb = self._get_embedder()
+        step = TEXT_BUCKETS[-1]
+        parts = []
+        for lo in range(0, len(queries), step):
+            chunk = list(queries[lo:lo + step])
+            with span("tokenize"):
+                ids = emb.prepare_text_ids(emb.tokenizer(chunk))
+            n = ids.shape[0]
+            bucket = _bucket_for(n, TEXT_BUCKETS)
+            if n < bucket:
+                ids = np.concatenate([ids, np.tile(ids[-1:],
+                                                   (bucket - n, 1))])
+            with span("dispatch"):
+                parts.append((n, self.index.search_batch_fused_async(
+                    emb.text_encode_fn, emb.params, ids,
+                    self._bucket_k(k))))
+
+        def resolve() -> List[List[Dict]]:
+            out: List[List[Dict]] = []
+            for n, part in parts:
+                out.extend(rows[:k] for rows in part()[:n])
+            return out
+        return resolve
+
+    def search_coalesced_ex(self, query: str, k: int = 5,
+                            use_cache: bool = True
+                            ) -> Tuple[List[Dict], bool]:
+        """Search through the request coalescer: concurrent callers within
+        the window share one device pass (the API's ``enhanced_mode``)."""
+        if self._coalescer is None:
+            from video_quierer_tpu_torch.engine.batching import \
+                SearchCoalescer
+            self._coalescer = SearchCoalescer(
+                self, max_batch=self.config.coalesce_width)
+        return self._coalescer.search_ex(query, k, use_cache)
+
+    def close(self) -> None:
+        """Stop the coalescer's threads."""
+        if self._coalescer is not None:
+            self._coalescer.close()
+            self._coalescer = None
+
+    @property
+    def ready(self) -> bool:
+        return self._ready
+
+    def stats(self) -> Dict:
+        emb = self._embedder
+        return {
+            "video_count": len(self.index.video_names()),
+            "total_frames_indexed": len(self.index),
+            "processor_type": "CLIP" if self.use_clip else "Visual",
+            "pretrained": bool(emb.pretrained) if emb is not None else None,
+            "cache_exists": self.cache_path.exists(),
+            "video_hashes_count": len(self.index.video_hashes),
+            "query_cache": self.query_cache.stats(),
+            "ann": {"kind": "exact"},
+            "index": {
+                "kind": self.config.index.kind,
+                "device_dtype": self.config.index.device_dtype,
+                # the bf16 mirror pre-filters; every returned row is
+                # re-ranked exactly in f32
+                "accuracy_mode": "exact-f32-rerank",
+            },
+            "metrics": self.metrics.snapshot(),
+        }

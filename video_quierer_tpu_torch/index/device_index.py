@@ -1,0 +1,626 @@
+"""Device-resident video frame index (counterpart of
+``video_quierer_tpu/index/device_index.py``, bf16 single-device mode).
+
+Host-authoritative: the f32 rows, metadata columns and the pickle v1.0
+cache live on the host, exactly as in the reference (the cache format is
+an exact-parity surface: a cache written by either package loads in the
+other). The device holds:
+
+- the bf16 **mirror** in the live-PREFIX layout: live rows fill mirror
+  positions ``[0, count)`` in a uniformly shuffled order kept by
+  incremental Fisher–Yates on append (:meth:`_extend_perm_to`, with the
+  reference's numpy seeds, so both packages build the identical ``perm``),
+  so near-duplicate adjacent frames scatter across the candidate scan's
+  selection buckets; ``perm`` (mirror position → host row) rides beside it;
+- an identity-layout **re-rank store** (f32 by default) against which the
+  candidates are re-ranked exactly on the device when ``device_rerank``
+  is active (``_device_exact_rerank``: (score desc, row asc) by two stable
+  sorts), else on the host (:meth:`_rerank_f32`).
+
+Searches: :meth:`search_batch` (query vectors) and
+:meth:`search_batch_fused_async` (token ids: text encode + candidate scan
++ re-rank enqueued on the device, resolved later) — the serving
+coalescer's dispatch/resolve contract.
+
+Other mirror dtypes (f32 exact scan, int8, int4), corpus meshes and the
+device-streamed ingest appends are later ports.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io
+import logging
+import math
+import os
+import pickle
+import threading
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from video_quierer_tpu_torch.ops.topk import (
+    APPROX_FETCH_CAP,
+    CAND_BLOCK_ROWS,
+    MAX_K,
+    _approx_fetch,
+    candidate_topk,
+)
+from video_quierer_tpu_torch.utils.env import resolve_device
+
+logger = logging.getLogger(__name__)
+
+EMBED_DIM = 512
+# Capacity granularity: the reference's (lcm of its exact-scan macro block
+# and the candidate block), so both packages pad capacity identically —
+# the Fisher–Yates seeds depend on it.
+_CHUNK = math.lcm(8 * 1024, CAND_BLOCK_ROWS)
+CACHE_VERSION = "1.0"
+_IMAX = 2**31 - 1
+_NEG_INF = float("-inf")
+
+
+def _round_capacity(n: int, granularity: int = _CHUNK) -> int:
+    return max(granularity, -(-n // granularity) * granularity)
+
+
+class _SafeUnpickler(pickle.Unpickler):
+    """Unpickler restricted to the types the v1.0 cache uses (lists,
+    dicts, str, numbers, numpy arrays)."""
+
+    _ALLOWED = {
+        ("numpy", "ndarray"),
+        ("numpy", "dtype"),
+        ("numpy.core.multiarray", "_reconstruct"),
+        ("numpy.core.multiarray", "scalar"),
+        ("numpy._core.multiarray", "_reconstruct"),
+        ("numpy._core.multiarray", "scalar"),
+    }
+
+    def find_class(self, module, name):
+        if (module, name) in self._ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"cache file requests forbidden global {module}.{name}")
+
+
+def safe_pickle_loads(payload: bytes):
+    return _SafeUnpickler(io.BytesIO(payload)).load()
+
+
+def _device_exact_rerank(rows_store: torch.Tensor, q: torch.Tensor,
+                         cand: torch.Tensor, valid: int, k: int):
+    """Exact re-rank of candidate host rows on the device — the twin of
+    :meth:`DeviceVideoIndex._rerank_f32`: dead/pad candidates and
+    duplicate rows drop, order is (score desc, host row asc). ``cand
+    [B, fetch]`` host rows; returns ``([B, k] f32, [B, k] i32)`` with
+    ``-inf``/pad entries for short rows."""
+    n_pad = rows_store.shape[0]
+    cand = cand.to(torch.int32)
+    rows = rows_store[torch.clamp(cand, 0, n_pad - 1).long()].float()
+    exact = torch.einsum("bfd,bd->bf", rows, q.float())
+    # duplicate drop: sort by row id, mask equal neighbours
+    ids_s, order = torch.sort(cand, dim=-1, stable=True)
+    sc_s = torch.gather(exact, 1, order)
+    prev = torch.cat([torch.full_like(ids_s[:, :1], -1), ids_s[:, :-1]],
+                     dim=1)
+    dead = (ids_s == prev) | (ids_s >= valid)
+    sc_s = sc_s.masked_fill(dead, _NEG_INF)
+    ids_s = ids_s.masked_fill(dead, _IMAX)
+    # ids are ascending, so a stable descending sort by score gives
+    # (score desc, row asc)
+    sc_f, order = torch.sort(sc_s, dim=-1, descending=True, stable=True)
+    return sc_f[:, :k], torch.gather(ids_s, 1, order)[:, :k]
+
+
+class DeviceVideoIndex:
+    """Frame index: host f32 rows + bf16 live-prefix device mirror."""
+
+    # appends up to this many rows scatter into the mirror; larger ones
+    # re-place it
+    _UPDATE_MAX = 4096
+
+    def __init__(self, dim: int = EMBED_DIM,
+                 device_dtype: str = "bfloat16",
+                 device: str | torch.device = "cuda",
+                 device_rerank: str = "auto",
+                 rerank_store_dtype: str = "float32"):
+        if device_dtype != "bfloat16":
+            raise NotImplementedError(
+                f"device_dtype {device_dtype!r} is not yet ported (the port "
+                "serves the bfloat16 mirror)")
+        if device_rerank not in ("auto", "on", "off"):
+            raise ValueError(f"unsupported device_rerank {device_rerank!r}")
+        if rerank_store_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unsupported rerank_store_dtype {rerank_store_dtype!r}")
+        self.dim = dim
+        self.device_dtype = device_dtype
+        self.device = resolve_device(device)
+        self.device_rerank = device_rerank
+        self.rerank_store_dtype = rerank_store_dtype
+        self.video_hashes: Dict[str, str] = {}
+        # guards the lazy device syncs: searches run concurrently under
+        # the engine's shared read lock, and the first search after an
+        # append mutates the mirror state
+        self._sync_lock = threading.Lock()
+        self._reset_storage()
+
+    # ------------------------------------------------------------------
+    # Host-side storage
+    # ------------------------------------------------------------------
+
+    def _reset_storage(self) -> None:
+        cap = _CHUNK
+        self._emb = np.zeros((cap, self.dim), dtype=np.float32)
+        self._video_ids = np.zeros(cap, dtype=np.int32)
+        self._timestamps = np.zeros(cap, dtype=np.float64)
+        self._frame_ids = np.zeros(cap, dtype=np.int64)
+        self._count = 0
+        self._video_names: List[str] = []
+        self._video_name_to_id: Dict[str, int] = {}
+        # device mirror (bf16, live-prefix layout) and its perm column
+        self._device_emb: Optional[torch.Tensor] = None
+        self._device_rows = 0
+        self._device_cap = 0
+        self._perm: Optional[np.ndarray] = None
+        self._inv_perm: Optional[np.ndarray] = None
+        self._perm_rows = 0
+        self._fy_rng: Optional[np.random.Generator] = None
+        self._perm_dev: Optional[torch.Tensor] = None
+        # identity-layout re-rank store
+        self._device_f32: Optional[torch.Tensor] = None
+        self._f32_rows = 0
+        self._f32_cap = 0
+
+    def _ensure_capacity(self, n: int) -> None:
+        cap = self._emb.shape[0]
+        if n <= cap:
+            return
+        new_cap = _round_capacity(max(n, cap * 2))
+        for name in ("_emb", "_video_ids", "_timestamps", "_frame_ids"):
+            old = getattr(self, name)
+            new = np.zeros((new_cap,) + old.shape[1:], dtype=old.dtype)
+            new[: self._count] = old[: self._count]
+            setattr(self, name, new)
+
+    def _video_id(self, video_name: str) -> int:
+        vid = self._video_name_to_id.get(video_name)
+        if vid is None:
+            vid = len(self._video_names)
+            self._video_names.append(video_name)
+            self._video_name_to_id[video_name] = vid
+        return vid
+
+    def __len__(self) -> int:
+        return self._count
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    def video_names(self) -> List[str]:
+        """Unique video names present in the index, insertion-ordered."""
+        live = set(self._video_ids[: self._count].tolist())
+        return [n for i, n in enumerate(self._video_names) if i in live]
+
+    def reserve(self, n_rows: int) -> None:
+        """Pre-size host capacity to at least ``n_rows`` (large builds
+        then never re-grow mid-build)."""
+        self._ensure_capacity(int(n_rows))
+
+    def add_batch(self, embeddings: np.ndarray, video_name: str,
+                  timestamps: Sequence[float]) -> None:
+        """Append a batch of frames of one video."""
+        embeddings = np.asarray(embeddings, dtype=np.float32)
+        if embeddings.ndim != 2 or embeddings.shape[1] != self.dim:
+            raise ValueError(
+                f"expected [n, {self.dim}] embeddings, got {embeddings.shape}")
+        n = embeddings.shape[0]
+        if n != len(timestamps):
+            raise ValueError("timestamps length mismatch")
+        if n == 0:
+            return
+        self._ensure_capacity(self._count + n)
+        lo, hi = self._count, self._count + n
+        self._emb[lo:hi] = embeddings
+        self._video_ids[lo:hi] = self._video_id(video_name)
+        self._timestamps[lo:hi] = np.asarray(timestamps, np.float64)
+        # frame_id = insertion position, as in the reference
+        self._frame_ids[lo:hi] = np.arange(lo, hi, dtype=np.int64)
+        self._count = hi
+
+    def remove_video(self, video_name: str) -> int:
+        """Drop all frames of a video, compacting rows (surviving rows keep
+        their frame_id). Returns the number of rows removed."""
+        vid = self._video_name_to_id.get(video_name)
+        if vid is None:
+            return 0
+        keep = self._video_ids[: self._count] != vid
+        removed = int((~keep).sum())
+        if removed:
+            n = int(keep.sum())
+            for name in ("_emb", "_video_ids", "_timestamps", "_frame_ids"):
+                arr = getattr(self, name)
+                arr[:n] = arr[: self._count][keep]
+            self._count = n
+            # compaction shifted every surviving row: re-place the mirror,
+            # the arrangement and the re-rank store
+            self._device_rows = 0
+            self._perm = None
+            self._perm_dev = None
+            self._device_f32 = None
+            self._f32_rows = 0
+            self._f32_cap = 0
+        self.video_hashes.pop(video_name, None)
+        return removed
+
+    def clear(self) -> None:
+        self.video_hashes = {}
+        self._reset_storage()
+
+    # ------------------------------------------------------------------
+    # Device mirror
+    # ------------------------------------------------------------------
+
+    def _extend_perm_to(self, count: int, cap: int
+                        ) -> Optional[np.ndarray]:
+        """Maintain the live-PREFIX arrangement up to ``count`` host rows
+        (the reference's incremental Fisher–Yates, same seeds and draws).
+
+        Returns the sorted mirror positions whose content changed, or
+        ``None`` when the arrangement was rebuilt from scratch (first
+        build, compaction; the caller re-places the whole mirror).
+        Capacity growth keeps the arrangement."""
+        if (self._perm is not None and self._fy_rng is not None
+                and self._perm_rows <= count
+                and cap > self._perm.shape[0]):
+            perm = np.arange(cap, dtype=np.int32)
+            perm[: self._perm_rows] = self._perm[: self._perm_rows]
+            inv = np.arange(cap, dtype=np.int32)
+            inv[perm[: self._perm_rows]] = np.arange(
+                self._perm_rows, dtype=np.int32)
+            self._perm, self._inv_perm = perm, inv
+        if (self._perm is None or self._perm.shape[0] != cap
+                or self._perm_rows > count or self._fy_rng is None):
+            rng = np.random.default_rng(0xC0FFEE ^ cap)
+            perm = np.arange(cap, dtype=np.int32)
+            perm[:count] = rng.permutation(count).astype(np.int32)
+            inv = np.empty(cap, np.int32)
+            inv[perm] = np.arange(cap, dtype=np.int32)
+            self._perm, self._inv_perm = perm, inv
+            self._perm_rows = count
+            self._fy_rng = rng
+            self._perm_dev = None
+            return None
+        if count == self._perm_rows:
+            return np.empty(0, np.int32)
+        lo, hi = self._perm_rows, count
+        perm, inv = self._perm, self._inv_perm
+        js = self._fy_rng.integers(0, np.arange(lo, hi) + 1)
+        changed = []
+        for i in range(hi - lo):
+            m = lo + i   # prefix size before this insert == new host row
+            j = int(js[i])
+            if j != m:
+                disp = int(perm[j])
+                perm[m] = disp
+                inv[disp] = m
+                perm[j] = m
+                inv[m] = j
+                changed.append(j)
+            else:
+                perm[m] = m
+                inv[m] = m
+            changed.append(m)
+        self._perm_rows = count
+        return np.unique(np.asarray(changed, np.int32))
+
+    def _full_place(self, cap: int) -> None:
+        self._perm = None            # vectorized arrangement rebuild
+        self._extend_perm_to(self._count, cap)
+        self._device_emb = torch.from_numpy(self._emb[self._perm]).to(
+            self.device, torch.bfloat16)
+        self._perm_dev = torch.from_numpy(self._perm).to(self.device)
+        self._device_cap = cap
+        self._device_rows = self._count
+
+    def _try_grow_mirror(self, cap: int) -> bool:
+        """Grow the mirror on the device on a capacity increase (dead
+        tail: zero rows, identity perm). False when a full re-place is
+        needed instead."""
+        if (self._device_emb is None or self._perm_dev is None
+                or cap <= self._device_cap
+                or self._device_rows > self._count):
+            return False
+        old = self._device_emb
+        grown = torch.zeros((cap, self.dim), dtype=old.dtype,
+                            device=self.device)
+        grown[: old.shape[0]] = old
+        self._device_emb = grown
+        self._perm_dev = torch.cat([
+            self._perm_dev,
+            torch.arange(self._perm_dev.shape[0], cap, dtype=torch.int32,
+                         device=self.device)])
+        self._device_cap = cap
+        return True
+
+    def _sync_device(self) -> torch.Tensor:
+        with self._sync_lock:
+            return self._sync_device_locked()
+
+    def _sync_device_locked(self) -> torch.Tensor:
+        """Bring the mirror up to date; returns it."""
+        cap = self._emb.shape[0]
+        if self._device_emb is None \
+                or (self._device_cap != cap
+                    and not self._try_grow_mirror(cap)) \
+                or self._device_rows > self._count:
+            self._full_place(cap)
+        elif self._device_rows < self._count:
+            if self._count - self._device_rows > self._UPDATE_MAX:
+                self._full_place(cap)
+                return self._device_emb
+            # Fisher–Yates extension: scatter the <= 2n changed positions
+            changed = self._extend_perm_to(self._count, cap)
+            if changed is None or self._perm_dev is None:
+                self._full_place(cap)
+                return self._device_emb
+            pos = torch.from_numpy(changed.astype(np.int64)).to(self.device)
+            rows = torch.from_numpy(self._emb[self._perm[changed]])
+            self._device_emb[pos] = rows.to(self.device, torch.bfloat16)
+            self._perm_dev[pos] = torch.from_numpy(
+                self._perm[changed]).to(self.device)
+            self._device_rows = self._count
+        return self._device_emb
+
+    # -- device re-rank store -------------------------------------------
+
+    def _device_rerank_active(self) -> bool:
+        """Whether searches re-rank on the device: "auto" while store +
+        mirror fit ``VQT_DEVICE_RERANK_BUDGET_GB`` (default 12)."""
+        if self.device_rerank != "auto":
+            return self.device_rerank == "on"
+        budget = float(os.environ.get("VQT_DEVICE_RERANK_BUDGET_GB",
+                                      "12")) * 1e9
+        cap = self._emb.shape[0]
+        store = 2 if self.rerank_store_dtype == "bfloat16" else 4
+        return cap * self.dim * (store + 2) <= budget
+
+    def _sync_device_f32(self) -> torch.Tensor:
+        """Bring the identity-layout re-rank store up to date (callers
+        hold ``_sync_lock``): full upload on first use, dtype change or
+        compaction; device-side growth on a capacity increase; appends
+        copy only the new rows."""
+        cap = self._emb.shape[0]
+        dt = (torch.bfloat16 if self.rerank_store_dtype == "bfloat16"
+              else torch.float32)
+        if self._device_f32 is None or self._device_f32.dtype != dt \
+                or self._f32_rows > self._count:
+            self._device_f32 = torch.from_numpy(self._emb).to(self.device,
+                                                               dt)
+            self._f32_cap = cap
+            self._f32_rows = self._count
+            return self._device_f32
+        if cap > self._f32_cap:
+            grown = torch.zeros((cap, self.dim), dtype=dt,
+                                device=self.device)
+            grown[: self._f32_cap] = self._device_f32
+            self._device_f32 = grown
+            self._f32_cap = cap
+        if self._f32_rows < self._count:
+            lo, hi = self._f32_rows, self._count
+            self._device_f32[lo:hi] = torch.from_numpy(
+                self._emb[lo:hi]).to(self.device, dt)
+            self._f32_rows = hi
+        return self._device_f32
+
+    def sync_mirror(self) -> None:
+        """Eagerly bring the mirror (and the re-rank store, when active)
+        up to date, so the first query costs what any other does."""
+        if self._count == 0:
+            return
+        with self._sync_lock:
+            self._sync_device_locked()
+            if self._device_rerank_active():
+                self._sync_device_f32()
+
+    # ------------------------------------------------------------------
+    # Search
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _rerank_fetch(k: int) -> int:
+        """Candidate over-fetch for the re-ranked bf16 mirror."""
+        return min(_approx_fetch(k), APPROX_FETCH_CAP)
+
+    @staticmethod
+    def normalize_query(query: np.ndarray) -> np.ndarray:
+        """Reference query normalization (``q / (||q|| + 1e-10)``)."""
+        q = np.asarray(query, np.float32)
+        return q / (np.linalg.norm(q) + 1e-10)
+
+    def search_batch(self, queries: np.ndarray, k: int = 5
+                     ) -> List[List[Dict]]:
+        """Batched vector search: candidate scan on the device, exact f32
+        re-rank on the host (the reference's two-step path)."""
+        if self._count == 0:
+            return [[] for _ in range(len(queries))]
+        k = max(1, min(int(k), MAX_K))
+        q = np.stack([self.normalize_query(r) for r in np.asarray(queries)])
+        emb = self._sync_device()
+        _, idxs = candidate_topk(
+            emb, torch.from_numpy(q).to(self.device), self._count,
+            k=self._rerank_fetch(k), perm=self._perm_dev, live=self._count)
+        return self._rerank_f32(q, idxs.cpu().numpy(), k)
+
+    def _rows_from(self, vals: np.ndarray, idxs: np.ndarray
+                   ) -> List[List[Dict]]:
+        """(scores, host rows) → reference result rows; non-finite scores
+        (pads) are skipped."""
+        names = self._video_names
+        finite = np.isfinite(vals)
+        out: List[List[Dict]] = []
+        for b in range(vals.shape[0]):
+            m = finite[b]
+            iv = idxs[b][m]
+            out.append([
+                {"video_name": names[v], "timestamp": t,
+                 "frame_id": f, "score": s}
+                for v, t, f, s in zip(self._video_ids[iv].tolist(),
+                                      self._timestamps[iv].tolist(),
+                                      self._frame_ids[iv].tolist(),
+                                      vals[b][m].tolist())
+            ])
+        return out
+
+    def search_batch_fused(self, encode_fn, params, ids, k: int = 5
+                           ) -> List[List[Dict]]:
+        """Text search: :meth:`search_batch_fused_async` resolved now."""
+        return self.search_batch_fused_async(encode_fn, params, ids, k)()
+
+    def search_batch_fused_async(self, encode_fn: Callable, params, ids,
+                                 k: int = 5
+                                 ) -> Callable[[], List[List[Dict]]]:
+        """Dispatch phase of text search: ``encode_fn(params, ids)`` (the
+        embedder's text tower, ``[B, D]`` unit rows), the candidate scan
+        and — when active — the exact re-rank are ENQUEUED on the device
+        stream (PyTorch returns before the device finishes); the returned
+        ``resolve()`` copies the results to the host and builds the rows.
+
+        Contract: no index mutation between dispatch and resolve (rows
+        could move under the in-flight indices); callers hold the engine's
+        shared read lock across both phases."""
+        ids = np.asarray(ids)
+        n_q = int(ids.shape[0])
+        if self._count == 0:
+            return lambda: [[] for _ in range(n_q)]
+        k = max(1, min(int(k), MAX_K))
+        fetch = self._rerank_fetch(k)
+        count = self._count
+        with self._sync_lock:
+            emb = self._sync_device_locked()
+            perm = self._perm_dev
+            store = (self._sync_device_f32()
+                     if self._device_rerank_active() else None)
+        ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
+            self.device)
+        with torch.inference_mode():
+            q = encode_fn(params, ids_t)
+            q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+                     + 1e-10)
+            vals, idxs = candidate_topk(emb, q, count, k=fetch, perm=perm,
+                                        live=count)
+            if store is not None:
+                vals, idxs = _device_exact_rerank(store, q, idxs, count, k)
+                return lambda: self._rows_from(vals.cpu().numpy(),
+                                               idxs.cpu().numpy())
+        return lambda: self._rerank_f32(q.cpu().numpy(), idxs.cpu().numpy(),
+                                        k)
+
+    def _rerank_f32(self, q: np.ndarray, idxs: np.ndarray, k: int
+                    ) -> List[List[Dict]]:
+        """Exact f32 re-rank of candidate rows against the host matrix,
+        (score desc, row asc)."""
+        out: List[List[Dict]] = []
+        for b in range(idxs.shape[0]):
+            # unique: never emit a row twice
+            cand = np.unique(idxs[b][idxs[b] < self._count])
+            scores = self._emb[cand] @ q[b]
+            order = np.lexsort((cand, -scores))[:k]
+            out.append([{
+                "video_name": self._video_names[self._video_ids[i]],
+                "timestamp": float(self._timestamps[i]),
+                "frame_id": int(self._frame_ids[i]),
+                "score": float(scores[o]),
+            } for o, i in zip(order, cand[order].tolist())])
+        return out
+
+    # ------------------------------------------------------------------
+    # Persistence — pickle v1.0 (exact parity with the reference)
+    # ------------------------------------------------------------------
+
+    def to_cache_dict(self) -> Dict:
+        """The reference pickle payload."""
+        emb_list = [self._emb[i].copy() for i in range(self._count)]
+        metadata = [{
+            "video_name": self._video_names[self._video_ids[i]],
+            "timestamp": float(self._timestamps[i]),
+            "frame_id": int(self._frame_ids[i]),
+        } for i in range(self._count)]
+        return {
+            "embeddings": emb_list,
+            "metadata": metadata,
+            "video_hashes": dict(self.video_hashes),
+            "version": CACHE_VERSION,
+        }
+
+    def load_cache_dict(self, cache_data: Dict) -> None:
+        """Replace the contents with a cache payload, validated and
+        materialised BEFORE the live index is touched."""
+        embeddings = cache_data.get("embeddings", [])
+        metadata = cache_data.get("metadata", [])
+        hashes = dict(cache_data.get("video_hashes", {}))
+        n = len(embeddings)
+        if len(metadata) != n:
+            raise ValueError("embeddings/metadata length mismatch")
+        cap = _round_capacity(max(n, 1))
+        emb = np.zeros((cap, self.dim), dtype=np.float32)
+        video_ids = np.zeros(cap, dtype=np.int32)
+        timestamps = np.zeros(cap, dtype=np.float64)
+        frame_ids = np.zeros(cap, dtype=np.int64)
+        names: List[str] = []
+        name_to_id: Dict[str, int] = {}
+        for i, (row, meta) in enumerate(zip(embeddings, metadata)):
+            emb[i] = np.asarray(row, np.float32).reshape(self.dim)
+            name = meta["video_name"]
+            vid = name_to_id.get(name)
+            if vid is None:
+                vid = len(names)
+                names.append(name)
+                name_to_id[name] = vid
+            video_ids[i] = vid
+            timestamps[i] = float(meta["timestamp"])
+            frame_ids[i] = int(meta.get("frame_id", i))
+        self._reset_storage()
+        self._emb, self._video_ids = emb, video_ids
+        self._timestamps, self._frame_ids = timestamps, frame_ids
+        self._video_names, self._video_name_to_id = names, name_to_id
+        self.video_hashes = hashes
+        self._count = n
+
+    @staticmethod
+    def _sidecar(cache_path: Path) -> Path:
+        return Path(str(cache_path) + ".sha256")
+
+    def save_to_disk(self, cache_path: Path, checksum: bool = True) -> None:
+        """Write the v1.0 pickle; with ``checksum`` also its SHA-256
+        sidecar. Errors raise (the reference logs and returns False)."""
+        payload = pickle.dumps(self.to_cache_dict())
+        Path(cache_path).write_bytes(payload)
+        if checksum:
+            self._sidecar(cache_path).write_text(
+                hashlib.sha256(payload).hexdigest())
+        logger.info("Saved %d embeddings to %s", self._count, cache_path)
+
+    def load_from_disk(self, cache_path: Path, verify: bool = True) -> bool:
+        """Load the v1.0 pickle. False when the file is absent or its
+        checksum sidecar disagrees; a malformed payload raises."""
+        cache_path = Path(cache_path)
+        if not cache_path.exists():
+            return False
+        payload = cache_path.read_bytes()
+        sidecar = self._sidecar(cache_path)
+        if verify and sidecar.exists():
+            expected = sidecar.read_text().strip()
+            actual = hashlib.sha256(payload).hexdigest()
+            if actual != expected:
+                logger.error("Cache checksum mismatch for %s (expected "
+                             "%s..., got %s...)", cache_path, expected[:12],
+                             actual[:12])
+                return False
+        self.load_cache_dict(safe_pickle_loads(payload))
+        logger.info("Loaded %d embeddings from %s", self._count, cache_path)
+        return True

@@ -1,0 +1,100 @@
+"""Weights across the two packages, and the port's own seeded init.
+
+- :func:`params_from_jax` maps the JAX package's flax parameter tree
+  (as numpy arrays) onto the port's ``CLIP`` state dict: a Dense
+  ``kernel [in, out]`` becomes ``weight [out, in]``; embeddings,
+  positions and LayerNorm vectors are copied as they are.
+- :func:`init_params` draws a fresh state dict from an explicit
+  ``torch.Generator`` in the distributions of flax's defaults (the JAX
+  package's ``init_params``): Dense kernels LeCun-normal (truncated
+  normal, variance 1/fan_in), biases zero, the token embedding normal
+  with std ``1/sqrt(hidden)``, positions normal(0.01), LayerNorm scale 1
+  and bias 0. The numbers differ from jax.random's; the parity tests move
+  weights with :func:`params_from_jax` instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from video_quierer_tpu_torch.models.clip.config import CLIPConfig
+
+_DENSE = {"attn/q_proj": "attn.q_proj", "attn/k_proj": "attn.k_proj",
+          "attn/v_proj": "attn.v_proj", "attn/out_proj": "attn.out_proj",
+          "mlp/fc1": "mlp.fc1", "mlp/fc2": "mlp.fc2"}
+_LN = ("layer_norm1", "layer_norm2")
+
+# std of a unit truncated normal on [-2, 2] (flax's lecun_normal rescale)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def params_from_jax(params: Mapping, cfg: CLIPConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """flax CLIP params (``{"text": ..., "text_projection": ...}``, leaves
+    numpy-convertible) → the port's ``CLIP`` state dict (f32)."""
+    tp = params["text"]
+    sd = {
+        "text.token_embedding.weight": _t(tp["token_embedding"]["embedding"]),
+        "text.position_embedding": _t(tp["position_embedding"]),
+        "text.final_layer_norm.weight": _t(tp["final_layer_norm"]["scale"]),
+        "text.final_layer_norm.bias": _t(tp["final_layer_norm"]["bias"]),
+        "text_projection.weight":
+            _t(params["text_projection"]["kernel"]).t().contiguous(),
+    }
+    for i in range(cfg.text.num_layers):
+        lp = tp["encoder"][f"layers_{i}"]
+        pre = f"text.layers.{i}."
+        for flax_name, name in _DENSE.items():
+            group, leaf = flax_name.split("/")
+            dense = lp[group][leaf]
+            sd[pre + name + ".weight"] = _t(dense["kernel"]).t().contiguous()
+            sd[pre + name + ".bias"] = _t(dense["bias"])
+        for ln in _LN:
+            sd[pre + ln + ".weight"] = _t(lp[ln]["scale"])
+            sd[pre + ln + ".bias"] = _t(lp[ln]["bias"])
+    return sd
+
+
+def _lecun(out_f: int, in_f: int, gen: torch.Generator) -> torch.Tensor:
+    std = math.sqrt(1.0 / in_f) / _TRUNC_STD
+    w = torch.empty(out_f, in_f)
+    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                generator=gen)
+    return w
+
+
+def init_params(cfg: CLIPConfig, generator: torch.Generator
+                ) -> Dict[str, torch.Tensor]:
+    """Seeded f32 state dict for the port's ``CLIP`` module."""
+    c = cfg.text
+    d, f = c.hidden_size, c.hidden_size * c.mlp_ratio
+    g = generator
+    sd = {
+        "text.token_embedding.weight":
+            torch.randn(c.vocab_size, d, generator=g) / math.sqrt(d),
+        "text.position_embedding":
+            torch.randn(c.context_length, d, generator=g) * 0.01,
+        "text.final_layer_norm.weight": torch.ones(d),
+        "text.final_layer_norm.bias": torch.zeros(d),
+        "text_projection.weight": _lecun(cfg.projection_dim, d, g),
+    }
+    shapes = {"attn.q_proj": (d, d), "attn.k_proj": (d, d),
+              "attn.v_proj": (d, d), "attn.out_proj": (d, d),
+              "mlp.fc1": (f, d), "mlp.fc2": (d, f)}
+    for i in range(c.num_layers):
+        pre = f"text.layers.{i}."
+        for name, (out_f, in_f) in shapes.items():
+            sd[pre + name + ".weight"] = _lecun(out_f, in_f, g)
+            sd[pre + name + ".bias"] = torch.zeros(out_f)
+        for ln in _LN:
+            sd[pre + ln + ".weight"] = torch.ones(d)
+            sd[pre + ln + ".bias"] = torch.zeros(d)
+    return sd

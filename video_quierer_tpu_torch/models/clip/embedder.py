@@ -1,0 +1,136 @@
+"""CLIP text embedder: the engine's device-facing text entry point
+(counterpart of the text side of ``video_quierer_tpu/models/clip/embedder.py``).
+
+Text queries are tokenized on the host, trimmed to a seq bucket (exact for
+the causal tower), padded to a batch bucket, and encoded on the embedder's
+device. The encode routes as the reference's ``_encode_text_fn``:
+``B·S >= MIN_TOKENS`` with S in the 8/16/32 buckets takes the fused-layer
+encode (kernel B2); everything else — single queries, small batches, the
+77 bucket — takes the module tower (attention kernel B3).
+
+Weights: a state dict handed in (e.g. from ``bridge.params_from_jax``),
+else the port's seeded init (``bridge.init_params`` from a
+``torch.Generator``). Real checkpoints and the BPE vocab are not loaded
+yet; the tokenizer is the deterministic ``HashTokenizer``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from video_quierer_tpu_torch.models.clip.bridge import init_params
+from video_quierer_tpu_torch.models.clip.config import CLIPConfig, get_config
+from video_quierer_tpu_torch.models.clip.model import CLIP
+from video_quierer_tpu_torch.models.clip.tokenizer import (
+    TokenizerBase,
+    load_tokenizer,
+)
+from video_quierer_tpu_torch.ops.fused_layer import (
+    LayerOps,
+    _layer_operands,
+    fused_batch_eligible,
+    fused_seq_eligible,
+    fused_text_encode,
+    fused_text_tower_eligible,
+)
+from video_quierer_tpu_torch.utils.env import resolve_device
+
+# Batch buckets (1 serves the latency path) and seq buckets of the causal
+# text tower — the reference's, so both packages pad identically.
+TEXT_BUCKETS = (1, 8, 32, 64, 128, 256, 512)
+TEXT_SEQ_BUCKETS = (8, 16, 32, 77)
+
+
+def trim_text_ids(ids: np.ndarray) -> np.ndarray:
+    """Trim trailing pad columns of ``[B, 77]`` token ids to a seq bucket
+    covering every row's EOT (exact for causal towers)."""
+    ids = np.asarray(ids)
+    if ids.ndim != 2 or 0 in ids.shape:
+        return ids
+    need = int(np.argmax(ids, axis=1).max()) + 1
+    for b in TEXT_SEQ_BUCKETS:
+        if need <= b <= ids.shape[1]:
+            return ids[:, :b]
+    return ids
+
+
+def _bucket_for(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+class CLIPEmbedder:
+    """CLIP text encoder with bucketed batching on one device."""
+
+    def __init__(self,
+                 model_name: str = "openai/clip-vit-base-patch32",
+                 dtype: torch.dtype = torch.bfloat16,
+                 device: str | torch.device = "cuda",
+                 seed: int = 0,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+        self.cfg: CLIPConfig = get_config(model_name)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        if state_dict is None:
+            state_dict = init_params(self.cfg,
+                                     torch.Generator().manual_seed(seed))
+        model = CLIP(self.cfg)
+        model.load_state_dict(state_dict)
+        self.params = model.to(device=self.device, dtype=dtype).eval()
+        # seeded or bridged weights — no pretrained checkpoint is loaded
+        self.pretrained = False
+        self.tokenizer: TokenizerBase = load_tokenizer(None)
+        self._fused_text = fused_text_tower_eligible(self.cfg.text)
+        self._ops: Dict[int, List[LayerOps]] = {}
+        # bound ONCE, as the reference's: callers hand it to the index
+        self.text_encode_fn = self._encode_text_fn
+
+    def _layer_ops(self, params: CLIP) -> List[LayerOps]:
+        """Fused-layer operands of ``params``, built once per module."""
+        ops = self._ops.get(id(params))
+        if ops is None:
+            ops = [_layer_operands(block, self.dtype)
+                   for block in params.text.layers]
+            self._ops = {id(params): ops}
+        return ops
+
+    def _encode_text_fn(self, params: CLIP,
+                        input_ids: torch.Tensor) -> torch.Tensor:
+        """``[B, S]`` ids on the device → ``[B, proj]`` f32 unit rows."""
+        b, s = input_ids.shape
+        with torch.inference_mode():
+            if self._fused_text and fused_seq_eligible(s) \
+                    and fused_batch_eligible(b, s):
+                return fused_text_encode(params, input_ids,
+                                         self._layer_ops(params))
+            return params.encode_text(input_ids)
+
+    # engine fused paths call this before handing ids to the encoder
+    prepare_text_ids = staticmethod(trim_text_ids)
+
+    def ids_tensor(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
+            self.device)
+
+    def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
+        """Text queries → L2-normalized ``[B, D]`` f32."""
+        texts = list(texts)
+        if len(texts) > TEXT_BUCKETS[-1]:
+            step = TEXT_BUCKETS[-1]
+            return np.concatenate([self.embed_texts(texts[i:i + step])
+                                   for i in range(0, len(texts), step)])
+        ids = trim_text_ids(self.tokenizer(texts))
+        n = ids.shape[0]
+        bucket = _bucket_for(n, TEXT_BUCKETS)
+        if n < bucket:
+            ids = np.concatenate([ids, np.tile(ids[-1:], (bucket - n, 1))])
+        feats = self.text_encode_fn(self.params, self.ids_tensor(ids))
+        return feats.cpu().numpy()[:n]
+
+    def embed_text(self, text: str) -> np.ndarray:
+        return self.embed_texts([text])[0]

@@ -1,0 +1,136 @@
+"""CLIP text tower in PyTorch (counterpart of the text side of
+``video_quierer_tpu/models/clip/model.py``).
+
+Architecture of ``openai/clip-vit-base-patch32``'s text half: token +
+learned position embedding, pre-LN causal encoder blocks with quick-GELU,
+final LayerNorm, pooling at the EOT token (the highest id), linear
+projection, f32 L2 normalise. Module and parameter names follow the flax
+tree (``models/clip/bridge.py`` maps one onto the other).
+
+The q/k/v/out and fc projections are ``nn.Linear`` (the JAX package
+leaves them to XLA outside any kernel); attention is kernel B3
+(``ops/attention.py``), as the flax tower routes it. LayerNorm keeps f32
+statistics and casts to the tower dtype, as flax's LayerNorm does. The
+vision tower is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from video_quierer_tpu_torch.models.clip.config import (
+    CLIPConfig,
+    CLIPTextConfig,
+)
+from video_quierer_tpu_torch.ops.attention import attention
+from video_quierer_tpu_torch.ops.fused_layer import _const, _ln_f32
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation: ``x * sigmoid(1.702 x)`` (not tanh-GELU)."""
+    return x * torch.sigmoid(_const(1.702, x.dtype) * x)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with f32 statistics, output in the input dtype."""
+
+    def __init__(self, d: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _ln_f32(x, self.weight, self.bias, self.eps, x.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with separate q/k/v/out projections."""
+
+    def __init__(self, d: int, num_heads: int, causal: bool):
+        super().__init__()
+        self.num_heads = num_heads
+        self.causal = causal
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = attention(self.q_proj(x), self.k_proj(x), self.v_proj(x),
+                        num_heads=self.num_heads, causal=self.causal)
+        return self.out_proj(out)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, ratio: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d, d * ratio)
+        self.fc2 = nn.Linear(d * ratio, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(quick_gelu(self.fc1(x)))
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, c: CLIPTextConfig):
+        super().__init__()
+        d = c.hidden_size
+        self.layer_norm1 = LayerNorm(d, c.layer_norm_eps)
+        self.attn = Attention(d, c.num_heads, causal=True)
+        self.layer_norm2 = LayerNorm(d, c.layer_norm_eps)
+        self.mlp = MLP(d, c.mlp_ratio)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.layer_norm1(x))
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class TextTower(nn.Module):
+    def __init__(self, c: CLIPTextConfig):
+        super().__init__()
+        self.cfg = c
+        self.token_embedding = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.position_embedding = nn.Parameter(
+            torch.zeros(c.context_length, c.hidden_size))
+        self.layers = nn.ModuleList(EncoderBlock(c)
+                                    for _ in range(c.num_layers))
+        self.final_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """``[B, S]`` ids → pooled features ``[B, hidden]`` at each
+        sequence's EOT token (highest id, first occurrence)."""
+        x = self.token_embedding(input_ids) \
+            + self.position_embedding[: input_ids.shape[1]][None]
+        for block in self.layers:
+            x = block(x)
+        x = self.final_layer_norm(x)
+        eot = torch.argmax(input_ids, dim=-1)
+        return x[torch.arange(x.shape[0], device=x.device), eot]
+
+
+def _normalize_f32(feats: torch.Tensor, normalize: bool) -> torch.Tensor:
+    """Cast to f32 BEFORE the L2 normalise (a bf16 norm leaves rows off
+    unit length)."""
+    feats = feats.float()
+    if normalize:
+        feats = feats / torch.linalg.vector_norm(feats, dim=-1,
+                                                 keepdim=True)
+    return feats
+
+
+class CLIP(nn.Module):
+    """CLIP's text side: text tower + projection head."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.text = TextTower(cfg.text)
+        self.text_projection = nn.Linear(cfg.text.hidden_size,
+                                         cfg.projection_dim, bias=False)
+
+    def encode_text(self, input_ids: torch.Tensor,
+                    normalize: bool = True) -> torch.Tensor:
+        feats = self.text_projection(self.text(input_ids))
+        return _normalize_f32(feats, normalize)

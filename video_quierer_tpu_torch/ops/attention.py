@@ -1,0 +1,92 @@
+"""Multi-head attention for the CLIP text tower (counterpart of
+``video_quierer_tpu/ops/attention.py``).
+
+:func:`attention` takes ``q, k, v`` in the towers' h-minor projection
+layout ``[B, S, H*hd]`` and returns ``[B, S, H*hd]``. On a CUDA tensor it
+launches kernel B3 (``csrc/attention.cu``); on a CPU tensor it runs the
+plain version :func:`attention_ref`. Both follow the TPU kernel's
+contract:
+
+- q is pre-scaled by ``hd**-0.5`` in f32 outside the kernel, then rounded
+  back to its dtype;
+- logits accumulate in f32; keys at positions ``>= valid_len`` are masked,
+  and keys after the query for causal (text) attention;
+- bf16: the clamped unstabilised softmax, each step rounded to bf16 —
+  ``e = exp(bf16(min(l, 60)))``, ``w = e * (1 / sum(e))``; f32: the
+  stabilised softmax;
+- output rows at ``s >= valid_len`` are garbage by contract.
+
+Serving only: no autograd (training is a later port).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from video_quierer_tpu_torch.ops import kernels
+
+HEAD_DIM = 64       # the kernel's head width (every CLIP text tower)
+MAX_SEQ = 400       # K and V of one head (f32) must fit one SM's 227 KB
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  num_heads: int, valid_len: int, causal: bool,
+                  scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch attention under the kernel's contract; ``q`` must
+    already carry the ``hd**-0.5`` pre-scale (``scale`` multiplies the f32
+    logits instead, the fused layer's form)."""
+    b, s, d = q.shape
+    hd = d // num_heads
+    fast = q.dtype == torch.bfloat16
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, hd).permute(0, 2, 1, 3).float()
+
+    logits = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
+    col = torch.arange(s, device=q.device)
+    mask = (col < valid_len)[None, :].expand(s, s)
+    if causal:
+        mask = mask & (col[:, None] >= col[None, :])
+    logits = logits.masked_fill(~mask, float("-inf"))
+    if fast:
+        e = torch.exp(torch.clamp(logits, max=60.0).to(torch.bfloat16))
+        den = e.sum(dim=-1, keepdim=True)
+        w = e * (1.0 / den)
+    else:
+        w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.matmul(w.float(), heads(v))               # [B, H, S, hd]
+    return out.permute(0, 2, 1, 3).reshape(b, s, d).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              num_heads: int, valid_len: int | None = None,
+              causal: bool = False) -> torch.Tensor:
+    """Full (non-streamed) multi-head attention, ``[B, S, D]`` in and
+    out (``fused_attention``'s interface)."""
+    b, s, d = q.shape
+    if valid_len is None:
+        valid_len = s
+    hd = d // num_heads
+    q = (q.float() * hd ** -0.5).to(q.dtype)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, num_heads=num_heads,
+                             valid_len=valid_len, causal=causal)
+    dev = kernels.require_cuda(q, k, v)
+    if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError("q, k, v must share shape and dtype")
+    if hd != HEAD_DIM or d != num_heads * hd or not 0 < s <= MAX_SEQ:
+        raise ValueError(f"attention kernel takes head_dim {HEAD_DIM} and "
+                         f"S <= {MAX_SEQ}, got D={d}, H={num_heads}, S={s}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_attention(
+            kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
+            kernels.ptr(out), b, s, num_heads, HEAD_DIM, d, d,
+            int(valid_len), int(causal), 1.0, kernels.dtype_code(q),
+            kernels.stream(dev)), "attention")
+    kernels.count_launch(attention)
+    return out
+
+
+attention.launches = 0

@@ -1,0 +1,190 @@
+"""Fused-layer CLIP text encode (counterpart of the text part of
+``video_quierer_tpu/ops/fused_layer.py``).
+
+:func:`fused_text_encode` runs token + position embedding → the encoder
+blocks through :func:`fused_layer` → EOT pooling → final LN → projection
+→ f32 L2 normalise, the drop-in for ``CLIP.encode_text`` on coalesced
+batches. :func:`fused_layer` is kernel B2 (``csrc/fused_layer.cu``) on a
+CUDA tensor and the plain version :func:`fused_layer_ref` on a CPU
+tensor; both follow the TPU kernel's math and bf16 rounding points:
+LayerNorm with f32 statistics, ``T(x @ w)`` then ``+ bias`` in T,
+per-item causal attention with the attention kernel's softmax contract,
+quick-GELU as ``x / (1 + exp(-1.702 x))`` in T, residual adds in T.
+
+Routing is the reference's (``models/clip/embedder.py``): a batch takes
+this path when ``B·S >= MIN_TOKENS`` and S is a multiple of 8 (the 8/16/32
+seq buckets); single queries, small batches and S=77 stay on the module
+tower. The TPU's split mode, vision tower, pad-token scheme and VMEM tile
+rules have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from video_quierer_tpu_torch.ops import kernels
+from video_quierer_tpu_torch.ops.attention import HEAD_DIM, attention_ref
+
+# Minimum tokens (B·S) for the fused text encode: the reference's
+# single-batch policy (fused_layer.py:MIN_TOKENS)
+MIN_TOKENS = 256
+
+LayerOps = Tuple[torch.Tensor, ...]
+
+
+def fused_text_tower_eligible(cfg_text) -> bool:
+    """Static eligibility: whole 64-wide heads (the kernel's head width)
+    and GEMM-tileable widths."""
+    d, h = cfg_text.hidden_size, cfg_text.num_heads
+    return d % h == 0 and d // h == HEAD_DIM and d % 64 == 0
+
+
+def fused_seq_eligible(s: int) -> bool:
+    """Per-call seq gate: the 8/16/32 buckets; the full-77 bucket stays on
+    the module tower."""
+    return s % 8 == 0
+
+
+def fused_batch_eligible(b: int, s: int) -> bool:
+    """Per-call batch gate: wide enough for the fused path."""
+    return b * s >= MIN_TOKENS
+
+
+def _ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float, out_dtype) -> torch.Tensor:
+    """LayerNorm over the last axis with f32 statistics."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(out_dtype)
+
+
+def _const(value: float, dtype) -> float:
+    """A scalar rounded to ``dtype``, as JAX rounds a weakly typed Python
+    constant to the array's dtype."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``T(a @ w) + b`` with an f32 matmul (``w`` is ``[in, out]``)."""
+    return (a.float() @ w.float()).to(a.dtype) + b
+
+
+def _layer_operands(block, dtype) -> LayerOps:
+    """Concatenated weight operands of one encoder block
+    (models/clip/model.py:EncoderBlock): ``(ln [4, D] f32, wqkv [D, 3D],
+    bqkv [3D], wout [D, D], bout, wfc1 [D, F], bfc1, wfc2 [F, D], bfc2)``,
+    every matrix ``[in, out]`` row-major as the TPU kernel takes them."""
+    attn, mlp = block.attn, block.mlp
+    wqkv = torch.cat([attn.q_proj.weight, attn.k_proj.weight,
+                      attn.v_proj.weight], dim=0).t()
+    bqkv = torch.cat([attn.q_proj.bias, attn.k_proj.bias,
+                      attn.v_proj.bias])
+    ln = torch.stack([block.layer_norm1.weight, block.layer_norm1.bias,
+                      block.layer_norm2.weight, block.layer_norm2.bias])
+
+    def c(t):
+        return t.detach().to(dtype).contiguous()
+
+    return (ln.detach().float().contiguous(), c(wqkv), c(bqkv),
+            c(attn.out_proj.weight.t()), c(attn.out_proj.bias),
+            c(mlp.fc1.weight.t()), c(mlp.fc1.bias),
+            c(mlp.fc2.weight.t()), c(mlp.fc2.bias))
+
+
+def fused_layer_ref(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
+                    eps: float) -> torch.Tensor:
+    """Plain PyTorch version of one fused encoder block over ``[B·S, D]``
+    tokens (item-major)."""
+    ln, wqkv, bqkv, wout, bout, wfc1, bfc1, wfc2, bfc2 = ops
+    t, d = x2.shape
+    dtype = x2.dtype
+    y = _ln_f32(x2, ln[0], ln[1], eps, dtype)
+    qkv = _dot(y, wqkv, bqkv).reshape(t // s, s, 3 * d)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    attn = attention_ref(q, k, v, num_heads=heads, valid_len=s,
+                         causal=True, scale=(d // heads) ** -0.5)
+    x3 = x2 + _dot(attn.reshape(t, d), wout, bout)
+    z = _ln_f32(x3, ln[2], ln[3], eps, dtype)
+    h1 = _dot(z, wfc1, bfc1)
+    h1 = h1 * (1.0 / (1.0 + torch.exp(_const(-1.702, dtype) * h1)))
+    return x3 + _dot(h1, wfc2, bfc2)
+
+
+def fused_layer(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
+                eps: float) -> torch.Tensor:
+    """One encoder block over flat ``[B·S, D]`` tokens: kernel B2 on a
+    CUDA tensor, :func:`fused_layer_ref` on a CPU tensor."""
+    if x2.device.type == "cpu":
+        return fused_layer_ref(x2, ops, s=s, heads=heads, eps=eps)
+    ln, wqkv, bqkv, wout, bout, wfc1, bfc1, wfc2, bfc2 = ops
+    dev = kernels.require_cuda(x2, *ops)
+    t, d = x2.shape
+    f = wfc1.shape[1]
+    if ln.dtype != torch.float32 or ln.shape != (4, d) \
+            or any(w.dtype != x2.dtype for w in ops[1:]):
+        raise ValueError("fused layer operands: ln f32 [4, D], the rest in "
+                         "the activation dtype")
+    if wqkv.shape != (d, 3 * d) or wout.shape != (d, d) \
+            or wfc1.shape != (d, f) or wfc2.shape != (f, d) \
+            or d != heads * HEAD_DIM or d % 64 or f % 64 or t % s \
+            or any(o.data_ptr() % 16 for o in (x2, *ops)):
+        raise ValueError(f"unsupported fused layer shape: T={t} D={d} "
+                         f"F={f} heads={heads} S={s} (operands must start "
+                         "16-byte aligned)")
+    out = torch.empty_like(x2)
+    qkv = torch.empty((t, 3 * d), dtype=x2.dtype, device=dev)
+    attn = torch.empty_like(x2)
+    x3 = torch.empty_like(x2)
+    h = torch.empty((t, f), dtype=x2.dtype, device=dev)
+    p = kernels.ptr
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_text_layer(
+            p(x2), p(out), p(qkv), p(attn), p(x3), p(h), p(ln), p(wqkv),
+            p(bqkv), p(wout), p(bout), p(wfc1), p(bfc1), p(wfc2), p(bfc2),
+            t, s, d, heads, f, float(eps), kernels.dtype_code(x2),
+            kernels.stream(dev)), "fused text layer")
+    kernels.count_launch(fused_layer)
+    return out
+
+
+fused_layer.launches = 0
+
+
+def _normalize_out(feats: torch.Tensor, dtype) -> torch.Tensor:
+    """Round the projection output to the tower dtype, then L2 normalise
+    in f32."""
+    feats = feats.to(dtype).float()
+    return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+
+
+def fused_text_encode(model, input_ids: torch.Tensor,
+                      layer_ops: List[LayerOps],
+                      layer=fused_layer) -> torch.Tensor:
+    """Full CLIP text encode through :func:`fused_layer`.
+
+    ``model`` is the port's ``CLIP`` module (its embeddings, final LN and
+    projection are read here); ``layer_ops`` the per-block operands from
+    :func:`_layer_operands`; ``layer`` is :func:`fused_layer_ref` where a
+    caller compares the kernel with the plain version on the card. Output
+    ``[B, proj]`` f32 unit rows."""
+    c = model.cfg.text
+    tower = model.text
+    dtype = tower.token_embedding.weight.dtype
+    b, s = input_ids.shape
+    x = tower.token_embedding.weight[input_ids] \
+        + tower.position_embedding[:s][None]
+    x2 = x.reshape(b * s, -1).contiguous()
+    for ops in layer_ops:
+        x2 = layer(x2, ops, s=s, heads=c.num_heads, eps=c.layer_norm_eps)
+    # pool BEFORE the final LN (LayerNorm is per token), as the reference
+    eot = torch.argmax(input_ids, dim=-1)
+    pooled = x2[torch.arange(b, device=x2.device) * s + eot]
+    fl = tower.final_layer_norm
+    pooled = _ln_f32(pooled, fl.weight, fl.bias, c.layer_norm_eps, dtype)
+    feats = pooled.float() @ model.text_projection.weight.float().t()
+    return _normalize_out(feats, dtype)
