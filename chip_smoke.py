@@ -11,16 +11,26 @@ script exits non-zero without its last line):
    limit as nvidia-smi gives them;
 2. build: the CUDA kernels from video_quierer_tpu_torch/csrc into
    build/kernels/<hash of the sources>/ (nvcc, sm_90a);
-3. kernels vs plain: each kernel of the text-search path against its
-   plain PyTorch version at the path's shapes, with the tolerance and
-   both times (CUDA events, the second of two timed loops);
+3. kernels vs plain: each kernel of the search paths against its plain
+   PyTorch version at the paths' shapes (2,000,000 rows for the scans),
+   with the tolerance, both times (CUDA events, the second of two timed
+   loops), the least time the card could take (bytes over 3.35 TB/s or
+   operations over the data sheet's peak for their type, whichever is
+   larger) and, where one PyTorch call computes the same function, that
+   call's time;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
-   unit rows x 512) written as the pickle v1.0 cache, the port's HTTP
-   server started through ``engine.startup()`` on a free local port, then
-   single, coalesced, 77-token and batch searches over HTTP. Every
-   response's schema is checked; single and batch rows are checked
-   against a host exact top-10 over the f32 corpus with the query vector
-   the port's encoder gives; every kernel of the path must have launched
+   unit rows x 512) written once as the pickle v1.0 cache; for each mirror
+   dtype (bfloat16, then float32, int8 and int4) an engine loads it
+   through ``engine.startup()`` behind the port's HTTP server on a free
+   local port, and single, coalesced and batch searches run over HTTP
+   (bfloat16 also 77-token ones). Every response's schema is checked;
+   single and batch rows are checked against a host exact top-10 over the
+   f32 corpus with the query vector the port's encoder gives (int4: each
+   returned score against its row's exact f32 score, and the order; its
+   recall@10 against the exact scan is printed). The launch counters are
+   set to 0 before each dtype's searches and read after the last
+   response, before the script encodes its reference vectors: every
+   kernel of that path must have launched, the other dtypes' scans not,
    and both fallback counters must read 0;
 5. a JSON line of the kernels, the nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -32,6 +42,7 @@ Uses no network beyond its own localhost server, and stops what it starts.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -45,6 +56,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from video_quierer_tpu_torch import evaluation
 from video_quierer_tpu_torch.api.server import create_server
 from video_quierer_tpu_torch.engine.config import EngineConfig
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
@@ -60,6 +72,10 @@ from video_quierer_tpu_torch.models.clip.embedder import (
 from video_quierer_tpu_torch.ops import fused_layer as fl
 from video_quierer_tpu_torch.ops import kernels, topk
 from video_quierer_tpu_torch.ops.attention import attention, attention_ref
+from video_quierer_tpu_torch.ops.quantize import (
+    quantize_rows,
+    quantize_rows_int4,
+)
 
 ROOT = Path(__file__).resolve().parent
 DIM = 512
@@ -71,6 +87,19 @@ ROW_KEYS = {"video_name", "timestamp", "frame_id", "score",
 ATTN_ATOL = 2e-2        # bf16 attention vs plain, valid rows
 MIN_COS = 0.999         # bf16 tower rows vs plain
 SCORE_ATOL = 1e-5       # returned scores vs host exact f32
+SCAN_RTOL = 1e-5        # exact-scan kernel scores vs its plain version
+# NVIDIA H100 SXM data sheet (700 W): HBM rate and dense peaks
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# each kernel's wrapper, by the name the kernels line gives it
+WRAPPERS = {"cand_scan_prefix": topk.cand_scan_prefix,
+            "fused_layer": fl.fused_layer, "attention": attention,
+            "cand_scan_int8_prefix": topk.cand_scan_int8_prefix,
+            "cand_scan_int4_prefix": topk.cand_scan_int4_prefix,
+            "block_scan": topk.block_scan}
+# the scan each mirror dtype runs; every path also encodes (B2, B3)
+SCANS = {"bfloat16": "cand_scan_prefix", "float32": "block_scan",
+         "int8": "cand_scan_int8_prefix", "int4": "cand_scan_int4_prefix"}
 
 
 def log(msg: str) -> None:
@@ -98,6 +127,15 @@ def cuda_ms(fn, iters: int) -> float:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / iters
     return ms
+
+
+def bound(bytes_moved: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak of their type, whichever is larger."""
+    t_bytes = 1e3 * bytes_moved / HBM_BYTES_S
+    t_ops = 1e3 * ops / PEAK_OPS_S[kind]
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def words(rng: np.random.Generator, n: int) -> str:
@@ -156,12 +194,28 @@ def compare_attention(dev) -> dict:
             return attention_ref(qs, k, v, num_heads=8, valid_len=s,
                                  causal=True)
 
+        # the yardstick: PyTorch's fused attention, one call on the same
+        # inputs in the [B, heads, S, 64] layout (used nowhere in the port)
+        qh, kh, vh = (t.view(b, s, 8, 64).transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, scale=64 ** -0.5)
+
         err = (kern().float() - plain().float()).abs().max().item()
         require(err <= ATTN_ATOL, f"B3 B={b} S={s}: max_abs_err {err}")
         ms, pms = cuda_ms(kern, 50), cuda_ms(plain, 50)
+        lms = cuda_ms(library, 50)
+        # q, k, v read and the output written once, bf16; QK^T and PV
+        # over the causal pairs
+        lim = bound(4 * b * s * DIM * 2, 4 * b * DIM * s * (s + 1) / 2,
+                    "bf16")
         log(f"B3 attention B={b} S={s}: max_abs_err {err:.3e} "
-            f"(atol {ATTN_ATOL}) kernel {ms:.4f} ms plain {pms:.4f} ms")
-        out[(b, s)] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+            f"(atol {ATTN_ATOL}) kernel {ms:.4f} ms plain {pms:.4f} ms "
+            f"sdpa {lms:.4f} ms bound {lim['bound_ms']:.4f} ms "
+            f"({lim['bound_by']})")
+        out[(b, s)] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                       **lim, "library_ms": lms}
     return out[(64, 77)]
 
 
@@ -190,60 +244,185 @@ def compare_fused_layer(embedder: CLIPEmbedder, seed: int) -> dict:
             require(cos.min().item() >= MIN_COS,
                     f"B2 S={s}: min row cosine {cos.min().item()}")
             ms, pms = cuda_ms(kern, 10), cuda_ms(plain, 10)
-        log(f"B2 fused text encode B=64 S={s} x{len(ops)} layers: min "
+        # per layer: 12 W^2 bf16 weights read once and 2 x 12 W^2 flops a
+        # token (q/k/v, out, fc1, fc2) plus causal attention; the stack's
+        # input and output once
+        t, layers = 64 * s, len(ops)
+        lim = bound(layers * 12 * DIM * DIM * 2 + 2 * t * DIM * 2,
+                    layers * (2 * t * 12 * DIM * DIM
+                              + 4 * 64 * DIM * s * (s + 1) / 2), "bf16")
+        log(f"B2 fused text encode B=64 S={s} x{layers} layers: min "
             f"cosine {cos.min().item():.6f} (>= {MIN_COS}) max_abs_err "
-            f"{err:.3e} kernel {ms:.3f} ms plain {pms:.3f} ms")
-        out[s] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+            f"{err:.3e} kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+            f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+        out[s] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
+                  "library_ms": None}
     return out[16]
 
 
-def compare_cand_scan(dev, n_rows: int, seed: int) -> dict:
+def corpus_on_card(dev, n_rows: int, seed: int):
+    """The scans' operands at the serving size: ``store`` (f32 unit rows,
+    zero past ``n_rows``: the exact scan's matrix and the re-rank store)
+    and ``perm`` (live-prefix mirror position -> host row)."""
     n_pad = _round_capacity(n_rows)
     g = torch.Generator(device=dev).manual_seed(seed)
-    # host rows (the re-rank store) and the live-prefix mirror: position
-    # p holds host row perm[p], live rows first
     store = torch.randn(n_pad, DIM, generator=g, device=dev)
     store /= torch.linalg.vector_norm(store, dim=-1, keepdim=True)
     store[n_rows:] = 0
     perm = torch.cat([
         torch.randperm(n_rows, generator=g, device=dev),
         torch.arange(n_rows, n_pad, device=dev)]).int()
+    return store, perm
+
+
+def unit_queries(dev, b: int, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, DIM, generator=g, device=dev)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def compare_winners(name: str, b: int, kern, plain, merge, store, perm,
+                    q, n_rows: int, fetch: int, exact: bool) -> dict:
+    """Bucket winners of a candidate-scan kernel vs its plain version, and
+    the top-K after merge + exact re-rank; times both."""
+    tops = []
+    for vals, idxs in (kern(), plain()):
+        _, cand = merge(vals, idxs, perm, fetch=fetch)
+        tops.append((vals, idxs) + _device_exact_rerank(
+            store, q, cand, n_rows, K))
+    (kv, ki, _, kr), (pv, pi, _, pr) = tops
+    require(torch.equal(kr, pr), f"{name} B={b}: top-{K} rows differ")
+    require(torch.equal(torch.isfinite(kv), torch.isfinite(pv)),
+            f"{name} B={b}: live winners differ")
+    if exact:
+        require(torch.equal(kv, pv) and torch.equal(ki, pi),
+                f"{name} B={b}: winners not bit-identical")
+    both = torch.isfinite(kv)
+    err = (kv[both] - pv[both]).abs().max().item()
+    same = (ki == pi).float().mean().item()
+    iters = 20 if b < 256 else 5
+    ms, pms = cuda_ms(kern, iters), cuda_ms(plain, iters)
+    log(f"{name} N={n_rows} B={b}: top-{K} identical after merge + "
+        f"re-rank; winners " + ("bit-identical" if exact else
+                                f"max_abs_err {err:.3e}, same positions "
+                                f"{same:.6f}")
+        + f"; kernel {ms:.3f} ms plain {pms:.3f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+
+
+def compare_cand_scan(store, perm, n_rows: int, seed: int) -> dict:
+    """B1 over the bf16 live-prefix mirror."""
     mirror = store[perm.long()].bfloat16()
     out = {}
     for b in (1, 64, 256):
-        q = torch.randn(b, DIM, generator=g, device=dev)
-        q /= torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        q = unit_queries(store.device, b, seed + b)
+        out[b] = compare_winners(
+            "B1 candidate scan", b,
+            lambda: topk.cand_scan_prefix(mirror, q, n_rows,
+                                          bucket=topk.CAND_BUCKET,
+                                          rounds=topk.CAND_ROUNDS),
+            lambda: topk.cand_scan_prefix_ref(
+                mirror, q, n_rows, bucket=topk.CAND_BUCKET,
+                rounds=topk.CAND_ROUNDS, block_rows=topk.CAND_BLOCK_ROWS),
+            topk._cand_merge_cols, store, perm, q, n_rows, 128, False)
+        out[b].update(_scan_bound(mirror.numel() * 2, b * DIM * 2, b,
+                                  "bf16", n_rows), library_ms=None)
+    del mirror
+    return out[64]
+
+
+def _scan_bound(mirror_bytes: int, query_bytes: int, b: int, kind: str,
+                n_rows: int) -> dict:
+    """Bound of a candidate scan: the mirror (and its scales) and the
+    queries read once, the winners written once; 2 D operations per row
+    and query."""
+    n_pad = _round_capacity(n_rows)
+    w = topk.CAND_ROUNDS * n_pad // topk.CAND_BUCKET
+    return bound(mirror_bytes + query_bytes + w * b * 8,
+                 2 * n_pad * DIM * b, kind)
+
+
+def compare_codes_scan(store, perm, n_rows: int, seed: int,
+                       tier: str) -> dict:
+    """B4 (int8) or B7 (int4) over the quantized live-prefix mirror:
+    winners bit-identical to the plain version."""
+    quant, kern_fn, ref_fn, name = {
+        "int8": (quantize_rows, topk.cand_scan_int8_prefix,
+                 topk.cand_scan_int8_prefix_ref, "B4 int8 candidate scan"),
+        "int4": (quantize_rows_int4, topk.cand_scan_int4_prefix,
+                 topk.cand_scan_int4_prefix_ref, "B7 int4 candidate scan"),
+    }[tier]
+    codes, scales = quant(store[perm.long()])
+    fetch = 128 if tier == "int8" else 256
+    out = {}
+    for b in (1, 64, 256):
+        q = unit_queries(store.device, b, seed + b)
+        q_codes, qscale = quantize_rows(q)
+        out[b] = compare_winners(
+            name, b,
+            lambda: kern_fn(codes, scales, q_codes, qscale, n_rows,
+                            bucket=topk.CAND_BUCKET,
+                            rounds=topk.CAND_ROUNDS),
+            lambda: ref_fn(codes, scales, q_codes, qscale, n_rows,
+                           bucket=topk.CAND_BUCKET, rounds=topk.CAND_ROUNDS,
+                           block_rows=topk.CAND_BLOCK_ROWS),
+            topk._cand_merge, store, perm, q, n_rows, fetch, True)
+        # int8 codes and f32 scales, rows and queries alike
+        out[b].update(_scan_bound(codes.numel() + scales.numel() * 4,
+                                  b * (DIM + 4), b, "int8", n_rows),
+                      library_ms=None)
+    del codes, scales
+    return out[64]
+
+
+def compare_block_scan(store, n_rows: int, seed: int) -> dict:
+    """B8, the exact f32 scan: rows identical to the plain version's
+    (except where two scores tie within the tolerance), scores within
+    SCAN_RTOL of it and of the host f32 scores."""
+    out = {}
+    for b in (1, 64):
+        q = unit_queries(store.device, b, seed + b)
 
         def kern():
-            return topk.cand_scan_prefix(mirror, q, n_rows,
-                                         bucket=topk.CAND_BUCKET,
-                                         rounds=topk.CAND_ROUNDS)
+            return topk.block_scan(store, q, n_rows, k=K)
 
         def plain():
-            return topk.cand_scan_prefix_ref(
-                mirror, q, n_rows, bucket=topk.CAND_BUCKET,
-                rounds=topk.CAND_ROUNDS, block_rows=topk.CAND_BLOCK_ROWS)
+            return topk.block_scan_ref(store, q, n_rows, k=K,
+                                       tile_rows=topk.SCAN_TILE_ROWS)
 
-        tops = []
-        for vals, idxs in (kern(), plain()):
-            _, cand = topk._cand_merge_cols(vals, idxs, perm, fetch=128)
-            tops.append((vals, idxs) + _device_exact_rerank(
-                store, q, cand, n_rows, K))
-        (kv, ki, ks, kr), (pv, pi, ps, pr) = tops
-        require(torch.equal(kr, pr), f"B1 B={b}: top-{K} rows differ")
-        both = torch.isfinite(kv) & torch.isfinite(pv)
+        (kv, ki), (pv, pi) = kern(), plain()
         require(torch.equal(torch.isfinite(kv), torch.isfinite(pv)),
-                f"B1 B={b}: live winners differ")
-        err = (kv[both] - pv[both]).abs().max().item()
-        same = (ki == pi).float().mean().item()
-        iters = 20 if b < 256 else 5
+                f"B8 B={b}: live entries differ")
+        live = torch.isfinite(pv)
+        err = (kv[live] - pv[live]).abs().max().item()
+        require(bool(((kv[live] - pv[live]).abs()
+                      <= SCAN_RTOL * pv[live].abs()).all()),
+                f"B8 B={b}: scores off by {err}")
+        gap = torch.full_like(pv, float("inf"))
+        gap[..., 1:] = pv[..., :-1] - pv[..., 1:]
+        gap[..., :-1] = torch.minimum(gap[..., :-1],
+                                      pv[..., :-1] - pv[..., 1:])
+        apart = gap > SCAN_RTOL * pv.abs()
+        require(torch.equal(ki[apart], pi[apart]), f"B8 B={b}: rows differ")
+        ties = int((~apart & live).sum())
+        # the merged top-K against host f64 scores of the same rows
+        vals, rows = topk.cosine_topk(store, q, n_rows, k=K)
+        host = (store[rows.long()].double().cpu()
+                @ q.double().cpu()[:, :, None])[..., 0]
+        herr = (vals.double().cpu() - host).abs().max().item()
+        require(herr <= SCORE_ATOL, f"B8 B={b}: host score error {herr}")
+        iters = 20 if b == 1 else 10
         ms, pms = cuda_ms(kern, iters), cuda_ms(plain, iters)
-        log(f"B1 candidate scan N={n_rows} B={b}: top-{K} identical after "
-            f"merge + re-rank; winner max_abs_err {err:.3e}, same "
-            f"positions {same:.6f}; kernel {ms:.3f} ms plain {pms:.3f} ms")
-        out[b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
-    del store, mirror
-    torch.cuda.empty_cache()
+        n_tiles = pv.shape[0]
+        lim = bound(store.numel() * 4 + b * DIM * 4 + n_tiles * b * K * 8,
+                    2 * store.shape[0] * DIM * b, "f32")
+        log(f"B8 exact scan N={n_rows} B={b} k={K}: rows identical "
+            f"({ties} tied entries), max_abs_err {err:.3e} (rtol "
+            f"{SCAN_RTOL}), top-{K} vs host f64 {herr:.2e}; kernel "
+            f"{ms:.3f} ms plain {pms:.3f} ms bound {lim['bound_ms']:.3f} "
+            f"ms ({lim['bound_by']})")
+        out[b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
+                  "library_ms": None}
     return out[64]
 
 
@@ -262,7 +441,8 @@ def video_name(v: int) -> str:
 
 
 def write_cache(corpus: np.ndarray, n_frames: int, path: Path) -> None:
-    idx = DeviceVideoIndex(dim=DIM, device="cpu")   # host store only
+    idx = DeviceVideoIndex(dim=DIM, device_dtype="bfloat16",
+                           device="cpu")            # host store only
     idx.reserve(len(corpus))
     stamps = [0.5 * t for t in range(n_frames)]
     for v in range(len(corpus) // n_frames):
@@ -333,7 +513,31 @@ def concurrent_phase(base: str, name: str, queries, k: int):
     return [body["results"] for _, body, _ in out]
 
 
+def check_scores(corpus: np.ndarray, qs: np.ndarray, rows_per_query
+                 ) -> float:
+    """Each returned score == its row's exact f32 score, rows in (score
+    desc, row asc) order; returns the max score error."""
+    check_order(rows_per_query)
+    qn = qs / (np.linalg.norm(qs, axis=1, keepdims=True) + 1e-10)
+    worst = 0.0
+    for j, rows in enumerate(rows_per_query):
+        ids = np.array([r["frame_id"] for r in rows])
+        got = np.array([r["score"] for r in rows])
+        err = np.abs(got - corpus[ids] @ qn[j]).max()
+        require(err <= SCORE_ATOL, f"score error {err}")
+        worst = max(worst, float(err))
+    return worst
+
+
+def check_order(rows_per_query) -> None:
+    for rows in rows_per_query:
+        s = [(-r["score"], r["frame_id"]) for r in rows]
+        require(s == sorted(s), "rows not in (score desc, row asc) order")
+
+
 def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> dict:
+    """Every mirror dtype behind the HTTP server, over one pickle cache;
+    returns each dtype's launch counts."""
     n = args.videos * args.frames
     t0 = time.perf_counter()
     corpus = build_corpus(args.seed, args.videos, args.frames)
@@ -342,46 +546,70 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> dict:
     scratch = ROOT / "build" / "smoke"
     scratch.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(args.seed + 1)
+    launches = {}
     with tempfile.TemporaryDirectory(dir=scratch) as videos:
         t0 = time.perf_counter()
         write_cache(corpus, args.frames,
                     Path(videos) / "video_search_cache.pkl")
         log(f"pickle v1.0 cache written in {time.perf_counter() - t0:.1f} s")
-        engine = VideoSearchEngine(videos, config=EngineConfig(),
-                                   embedder=embedder, device=device)
-        t0 = time.perf_counter()
-        engine.startup()
-        require(len(engine.index) == n, "startup row count")
-        log(f"engine.startup(): {len(engine.index)} rows, mirror + re-rank "
-            f"store on the card, in {time.perf_counter() - t0:.1f} s")
-        server = create_server(engine, "127.0.0.1", 0)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        base = f"http://127.0.0.1:{server.server_address[1]}"
-        try:
-            for wrapper in (topk.cand_scan_prefix, fl.fused_layer,
-                            attention):
-                wrapper.launches = 0
-            launches = drive(base, engine, embedder, corpus, args, rng)
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(30)
-            engine.close()
-    metrics = engine.metrics
-    for name in ("embed_fallbacks", "fused_search_fallbacks"):
-        require(metrics.counter(name) == 0, f"{name} = "
-                f"{metrics.counter(name)}")
-    log("fallback counters: embed_fallbacks 0, fused_search_fallbacks 0")
+        for dtype in SCANS:
+            launches[dtype] = serve_dtype(dtype, videos, embedder, corpus,
+                                          args, rng, device)
     return launches
 
 
-def drive(base, engine, embedder, corpus, args, rng) -> dict:
-    """The main path over HTTP; returns the kernels' launch counts."""
-    status, health, _ = http(base, "GET", "/api/health")
-    require(status == 200 and health["status"] == "healthy", "health")
-    # single queries: B=1, module tower (attention kernel B3)
-    singles = [words(rng, 4) for _ in range(16)]
+def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder,
+                corpus: np.ndarray, args, rng, device) -> dict:
+    """One engine with ``index.device_dtype = dtype`` behind the HTTP
+    server: the launch counters are set to 0 just before its searches and
+    read just after the last response, before the script's own reference
+    encodes."""
+    config = EngineConfig()
+    config.index.device_dtype = dtype
+    engine = VideoSearchEngine(videos, config=config, embedder=embedder,
+                               device=device)
+    t0 = time.perf_counter()
+    engine.startup()
+    require(len(engine.index) == len(corpus), "startup row count")
+    mode = engine.stats()["index"]["accuracy_mode"]
+    log(f"[{dtype}] engine.startup(): {len(engine.index)} rows, mirror "
+        f"{'' if mode == 'exact-f32-scan' else '+ re-rank store '}on the "
+        f"card, in {time.perf_counter() - t0:.1f} s ({mode})")
+    server = create_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        served = drive(base, dtype, rng)
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        engine.close()
+    log(f"[{dtype}] launches during the path: {launches}")
+    path = (SCANS[dtype], "fused_layer", "attention")
+    for name, count in launches.items():
+        if name in path:
+            require(count > 0, f"[{dtype}] kernel {name} was not launched")
+        else:
+            require(count == 0, f"[{dtype}] {name} launched {count} times")
+    for name in ("embed_fallbacks", "fused_search_fallbacks"):
+        count = engine.metrics.counter(name)
+        require(count == 0, f"[{dtype}] {name} = {count}")
+    log(f"[{dtype}] fallback counters: embed_fallbacks 0, "
+        "fused_search_fallbacks 0")
+    check_served(dtype, embedder, corpus, args, served, device)
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def search_singles(base, rng, n: int = 16):
+    singles = [words(rng, 4) for _ in range(n)]
     rows, lat = [], []
     for q in singles:
         status, body, t = http(base, "POST", "/api/search",
@@ -389,45 +617,86 @@ def drive(base, engine, embedder, corpus, args, rng) -> dict:
         check_search_response(status, body, K)
         rows.append(body["results"])
         lat.append(t)
-    log(f"e2e single: 16 sequential searches, p50 latency "
-        f"{1e3 * float(np.median(lat)):.2f} ms (first "
-        f"{1e3 * lat[0]:.2f} ms), {1 / float(np.median(lat)):.1f} "
-        "searches/s")
-    q_single = np.stack([embedder.embed_text(q) for q in singles])
-    err = check_exact(corpus, args.frames, q_single, rows)
-    log(f"e2e single: all 16 match the host exact top-{K} "
-        f"(max score error {err:.2e})")
-    # coalesced short queries (fused layer kernel B2 once a flush holds
-    # >= 32 of them) and 77-token queries (attention kernel at S=77)
-    for r in range(3):
-        concurrent_phase(base, f"coalesced short, round {r}",
-                         [words(rng, 4) for _ in range(64)], K)
-    concurrent_phase(base, "coalesced 77-token",
-                     [words(rng, 90) for _ in range(64)], K)
-    # one batch of 64 (fused layer kernel B2)
+    return singles, rows, lat
+
+
+def search_batch(base, rng):
+    """One ``/api/search/batch`` of 64; returns its queries and rows."""
     batch = [words(rng, 4) for _ in range(64)]
     status, body, t = http(base, "POST", "/api/search/batch",
                            {"queries": batch, "k": K})
     require(status == 200 and body["query_count"] == 64
             and body["total_results"] == 64 * K, "batch response")
-    log(f"e2e batch: 64 queries in one request, {1e3 * t:.2f} ms = "
-        f"{64 / t:.1f} searches/s")
-    ids = trim_text_ids(embedder.tokenizer(batch))
+    return batch, [r["results"] for r in body["results"]], t
+
+
+def drive(base, dtype, rng):
+    """The path of one mirror dtype over HTTP, and nothing else: 16 single
+    queries (B=1, module tower: attention kernel B3), coalesced rounds of
+    64 concurrent clients (fused layer kernel B2 once a flush holds >= 32;
+    bfloat16: three short rounds and one of 77 tokens, attention at S=77),
+    and one batch of 64 (B2). Returns the single and batch queries and
+    rows."""
+    status, health, _ = http(base, "GET", "/api/health")
+    require(status == 200 and health["status"] == "healthy", "health")
+    singles, single_rows, lat = search_singles(base, rng)
+    log(f"[{dtype}] e2e single: 16 sequential searches, p50 latency "
+        f"{1e3 * float(np.median(lat)):.2f} ms (first "
+        f"{1e3 * lat[0]:.2f} ms), {1 / float(np.median(lat)):.1f} "
+        "searches/s")
+    # the flushes' composition (and so the encode path) is not known
+    # here: the concurrent rows are held to their schema and order
+    rounds = [(f"coalesced short, round {r}", 4)
+              for r in range(3 if dtype == "bfloat16" else 1)]
+    if dtype == "bfloat16":
+        rounds.append(("coalesced 77-token", 90))
+    for name, n_words in rounds:
+        check_order(concurrent_phase(base, f"[{dtype}] {name}",
+                                     [words(rng, n_words) for _ in range(64)],
+                                     K))
+    batch, batch_rows, t = search_batch(base, rng)
+    log(f"[{dtype}] e2e batch: 64 queries in one request, {1e3 * t:.2f} ms "
+        f"= {64 / t:.1f} searches/s")
+    return singles, single_rows, batch, batch_rows
+
+
+def check_served(dtype, embedder, corpus, args, served, device) -> None:
+    """The served rows against the host exact top-K, with the query
+    vectors the port's encoders give (single: the module tower; batch: the
+    fused tower); int4's scores against its rows' exact f32 scores, and
+    the quantized tiers' recall@K against the exact scan."""
+    singles, single_rows, batch, batch_rows = served
+    q_single = np.stack([embedder.embed_text(q) for q in singles])
     with torch.inference_mode():
         q_batch = embedder.text_encode_fn(
-            embedder.params, embedder.ids_tensor(ids)).cpu().numpy()
-    sample = list(range(0, 64, 8))
-    err = check_exact(corpus, args.frames, q_batch[sample],
-                      [body["results"][i]["results"] for i in sample])
-    log(f"e2e batch: sampled {len(sample)} queries match the host exact "
-        f"top-{K} (max score error {err:.2e})")
-    launches = {"cand_scan_prefix": topk.cand_scan_prefix.launches,
-                "fused_layer": fl.fused_layer.launches,
-                "attention": attention.launches}
-    log(f"launches during the main path: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched")
-    return launches
+            embedder.params, embedder.ids_tensor(
+                trim_text_ids(embedder.tokenizer(batch)))).cpu().numpy()
+    if dtype == "bfloat16":
+        err = check_exact(corpus, args.frames, q_single, single_rows)
+        sample = list(range(0, 64, 8))
+        err = max(err, check_exact(corpus, args.frames, q_batch[sample],
+                                   [batch_rows[i] for i in sample]))
+        log(f"[{dtype}] e2e: all 16 singles and 8 sampled batch queries "
+            f"match the host exact top-{K} (max score error {err:.2e})")
+        return
+    qs = np.concatenate([q_single, q_batch])
+    rows = single_rows + batch_rows
+    if dtype == "int4":
+        err = check_scores(corpus, qs, rows)
+        log(f"[{dtype}] e2e single + batch: every score equals its row's "
+            f"exact f32 score (max error {err:.2e}), rows in order")
+    else:
+        err = check_exact(corpus, args.frames, qs, rows)
+        log(f"[{dtype}] e2e single + batch: all 80 match the host exact "
+            f"top-{K} (max score error {err:.2e})")
+    if dtype in ("int8", "int4"):
+        truth = evaluation.exact_topk_ids(corpus, qs, K, device)
+        got = np.array([[r["frame_id"] for r in rr] for rr in rows])
+        recall = evaluation.recall_at_k(truth, got)
+        log(f"[{dtype}] recall@{K} against the exact scan over "
+            f"{len(rows)} queries: {recall:.4f}")
+        if dtype == "int8":
+            require(recall == 1.0, f"int8 recall@{K} {recall}")
 
 
 def main() -> int:
@@ -448,21 +717,41 @@ def main() -> int:
                             seed=args.seed)
     b3 = compare_attention(device)
     b2 = compare_fused_layer(embedder, args.seed)
-    b1 = compare_cand_scan(device, args.videos * args.frames, args.seed)
+    n_rows = args.videos * args.frames
+    store, perm = corpus_on_card(device, n_rows, args.seed)
+    b1 = compare_cand_scan(store, perm, n_rows, args.seed)
+    b4 = compare_codes_scan(store, perm, n_rows, args.seed, "int8")
+    b7 = compare_codes_scan(store, perm, n_rows, args.seed, "int4")
+    b8 = compare_block_scan(store, n_rows, args.seed)
+    del store, perm
+    torch.cuda.empty_cache()
     launches = phase_end_to_end(embedder, args, device)
+    src = "video_quierer_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {"name": "cand_scan_prefix", "route": "cuda",
-         "source": "video_quierer_tpu_torch/csrc/cand_scan.cu",
+         "source": src + "cand_scan.cu",
          "replaces": "video_quierer_tpu/ops/topk.py:1419",
-         "launches": launches["cand_scan_prefix"], **b1},
+         "launches": launches["bfloat16"]["cand_scan_prefix"], **b1},
         {"name": "fused_text_layer", "route": "cuda",
-         "source": "video_quierer_tpu_torch/csrc/fused_layer.cu",
+         "source": src + "fused_layer.cu",
          "replaces": "video_quierer_tpu/ops/fused_layer.py:386",
-         "launches": launches["fused_layer"], **b2},
+         "launches": launches["bfloat16"]["fused_layer"], **b2},
         {"name": "attention", "route": "cuda",
-         "source": "video_quierer_tpu_torch/csrc/attention.cu",
+         "source": src + "attention.cu",
          "replaces": "video_quierer_tpu/ops/attention.py:143",
-         "launches": launches["attention"], **b3},
+         "launches": launches["bfloat16"]["attention"], **b3},
+        {"name": "cand_scan_int8_prefix", "route": "cuda",
+         "source": src + "cand_scan_codes.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:1467",
+         "launches": launches["int8"]["cand_scan_int8_prefix"], **b4},
+        {"name": "cand_scan_int4_prefix", "route": "cuda",
+         "source": src + "cand_scan_codes.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:1609",
+         "launches": launches["int4"]["cand_scan_int4_prefix"], **b7},
+        {"name": "block_scan", "route": "cuda",
+         "source": src + "block_scan.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:319",
+         "launches": launches["float32"]["block_scan"], **b8},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)

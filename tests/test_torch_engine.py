@@ -106,6 +106,30 @@ def test_startup_without_cache_or_videos_writes_empty_cache(tmp_path):
     assert stats["metrics"]["counters"]["fused_search_fallbacks"] == 0
 
 
+@pytest.mark.parametrize("dtype,mode", [("float32", "exact-f32-scan"),
+                                        ("bfloat16", "exact-f32-rerank"),
+                                        ("int8", "exact-f32-rerank"),
+                                        ("int4", "exact-f32-rerank")])
+def test_engine_serves_each_device_dtype(tmp_path, monkeypatch, dtype,
+                                         mode):
+    """``VQT_INDEX_DTYPE`` picks the mirror, as in the reference; the
+    accuracy mode follows it."""
+    monkeypatch.setenv("VQT_INDEX_DTYPE", dtype)
+    cfg = torch_config.apply_env_overrides(
+        torch_config.EngineConfig(videos_dir=str(tmp_path)))
+    want = jax_config.apply_env_overrides(jax_config.EngineConfig())
+    assert cfg.index.device_dtype == want.index.device_dtype == dtype
+    cfg.index.embed_dim = 64
+    engine = VideoSearchEngine(tmp_path, config=cfg, device="cpu")
+    assert engine.index.device_dtype == dtype
+    rows = torch.randn(300, 64).numpy()
+    engine.index.add_batch(rows, "a.mp4", [float(i) for i in range(300)])
+    engine.startup()
+    assert engine.stats()["index"]["accuracy_mode"] == mode
+    got = engine.index.search_batch(rows[[7, 200]], k=3)
+    assert [r[0]["frame_id"] for r in got] == [7, 200]
+
+
 class _BrokenEmbedder:
     """Tokenizes, then fails in the text tower."""
 

@@ -50,7 +50,7 @@ def _same_rows(got, want):
 def pair(rng):
     corpus = _rows(rng, 9000)
     jax_idx = JaxIndex(dim=D, device_dtype="bfloat16")
-    port = DeviceVideoIndex(dim=D, device="cpu")
+    port = DeviceVideoIndex(dim=D, device_dtype="bfloat16", device="cpu")
     for idx in (jax_idx, port):
         _fill(idx, corpus, (5000, 4000))
     return corpus, jax_idx, port
@@ -59,7 +59,7 @@ def pair(rng):
 def test_perm_identical_for_same_appends(rng):
     corpus = _rows(rng, 12000)
     jax_idx = JaxIndex(dim=D, device_dtype="bfloat16")
-    port = DeviceVideoIndex(dim=D, device="cpu")
+    port = DeviceVideoIndex(dim=D, device_dtype="bfloat16", device="cpu")
     lo = 0
     for size in (300, 7, 1000, 4096, 5000, 1597):   # grows past 8192
         for idx in (jax_idx, port):
@@ -84,7 +84,8 @@ def test_pickle_cache_loads_across_packages(tmp_path, pair, writer):
     path = tmp_path / "video_search_cache.pkl"
     src, dst = ((port, JaxIndex(dim=D, device_dtype="bfloat16"))
                 if writer == "port" else
-                (jax_idx, DeviceVideoIndex(dim=D, device="cpu")))
+                (jax_idx, DeviceVideoIndex(dim=D, device_dtype="bfloat16",
+                                       device="cpu")))
     src.save_to_disk(path)
     assert path.with_name(path.name + ".sha256").exists()
     assert dst.load_from_disk(path)
@@ -128,7 +129,7 @@ def test_device_rerank_matches_host_with_ties(rng):
     # values k/64: every dot product is exact, so duplicates tie exactly
     base = (rng.integers(-8, 9, (40, D)) / 64).astype(np.float32)
     corpus = np.concatenate([base, base[:10], base[5:25]])
-    idx = DeviceVideoIndex(dim=D, device="cpu")
+    idx = DeviceVideoIndex(dim=D, device_dtype="bfloat16", device="cpu")
     idx.add_batch(corpus, "a.mp4", [float(t) for t in range(len(corpus))])
     q = (rng.integers(-8, 9, (4, D)) / 64).astype(np.float32)
     cand = np.stack([rng.permutation(len(corpus))[:48] for _ in range(4)])

@@ -10,7 +10,11 @@ Kernel tests carry the ``gpu`` marker and skip where no CUDA card is
 present; the CPU tests check the wrappers' CPU routing and launch counts.
 Tolerances: B1 exact (the inputs are multiples of 1/256, so every f32 dot
 product is exact in any summation order); B2 per-row cosine >= 1 - 1e-5
-in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2.
+in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2; B4 and B7
+bit-identical (integer dot products are exact, and both versions multiply
+the scales in the same order); B8 rows identical and scores equal on
+exact inputs, rows identical and scores within rtol 1e-5 on random unit
+rows (the kernel sums in another order than cuBLAS).
 """
 
 import numpy as np
@@ -27,6 +31,10 @@ from video_quierer_tpu_torch.models.clip.model import CLIP
 from video_quierer_tpu_torch.ops import fused_layer as fl
 from video_quierer_tpu_torch.ops import topk
 from video_quierer_tpu_torch.ops.attention import attention, attention_ref
+from video_quierer_tpu_torch.ops.quantize import (
+    quantize_rows,
+    quantize_rows_int4,
+)
 from video_quierer_tpu_torch.utils.env import resolve_device
 
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -78,21 +86,34 @@ def test_resolve_device_never_falls_back_to_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def _launch_counts():
+    return (attention.launches, fl.fused_layer.launches,
+            topk.cand_scan_prefix.launches,
+            topk.cand_scan_int8_prefix.launches,
+            topk.cand_scan_int4_prefix.launches, topk.block_scan.launches)
+
+
 def test_cpu_tensors_take_the_plain_versions():
-    counts = (attention.launches, fl.fused_layer.launches,
-              topk.cand_scan_prefix.launches)
+    counts = _launch_counts()
     q = _exact(0, (2, 8, 128))
     attention(q, q, q, num_heads=2, causal=True)
     topk.cand_scan_prefix(_exact(1, (8192, 64)), _exact(2, (3, 64)), 5000,
                           bucket=1024, rounds=2)
+    codes, scales = quantize_rows(_exact(1, (8192, 128)))
+    packed, scales4 = quantize_rows_int4(_exact(1, (8192, 128)))
+    qc, qs = quantize_rows(_exact(2, (3, 128)))
+    topk.cand_scan_int8_prefix(codes, scales, qc, qs, 5000, bucket=1024,
+                               rounds=2)
+    topk.cand_scan_int4_prefix(packed, scales4, qc, qs, 5000, bucket=1024,
+                               rounds=2)
+    topk.cosine_topk(_exact(1, (3000, 64)), _exact(2, (3, 64)), 2500, k=10)
     cfg = CLIPConfig(projection_dim=64, text=CLIPTextConfig(
         vocab_size=100, hidden_size=128, num_layers=1, num_heads=2))
     model = _text_model(cfg, torch.float32, "cpu")
     ops = [fl._layer_operands(b, torch.float32) for b in model.text.layers]
     out = fl.fused_text_encode(model, _ids(32, 8, 100), ops)
     assert out.shape == (32, 64)
-    assert (attention.launches, fl.fused_layer.launches,
-            topk.cand_scan_prefix.launches) == counts
+    assert _launch_counts() == counts
 
 
 # -- kernels vs plain, on the card ---------------------------------------
@@ -151,6 +172,73 @@ def test_cand_scan_kernel(cuda, b):
     assert torch.equal(ki, pi)
 
 
+def _unit(seed, shape):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x / np.linalg.norm(x, axis=-1, keepdims=True))
+
+
+def _codes_mirror(tier, seed, n=4 * 4096, d=512):
+    """A quantized mirror with ties (rows repeated) and zero rows."""
+    rows = _unit(seed, (n, d))
+    rows[1000:1100] = rows[100:200]          # duplicates: equal keys
+    rows[5000:5010] = 0                      # zero rows: scale 0
+    return (quantize_rows if tier == "int8" else quantize_rows_int4)(rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+@pytest.mark.parametrize("b", [1, 5, 16, 17, 64, 70, 256])
+def test_cand_scan_codes_kernel(cuda, tier, b):
+    codes, scales = (t.to(cuda) for t in _codes_mirror(tier, b))
+    q_codes, qscale = quantize_rows(_unit(100 + b, (b, 512)).to(cuda))
+    valid = 2 * 4096 + 1500
+    kern, ref = {
+        "int8": (topk.cand_scan_int8_prefix, topk.cand_scan_int8_prefix_ref),
+        "int4": (topk.cand_scan_int4_prefix, topk.cand_scan_int4_prefix_ref),
+    }[tier]
+    before = kern.launches
+    kv, ki = kern(codes, scales, q_codes, qscale, valid, bucket=1024,
+                  rounds=2)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    pv, pi = ref(codes, scales, q_codes, qscale, valid, bucket=1024,
+                 rounds=2, block_rows=4096)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 64])
+@pytest.mark.parametrize("b", [1, 5, 16, 17, 64, 70, 256])
+def test_block_scan_kernel(cuda, b, k):
+    # 3000 rows: the last tile is short; valid cuts the second tile;
+    # duplicated rows tie exactly
+    emb = _exact(b, (3000, 512))
+    emb[1500:1550] = emb[200:250]
+    emb, q = emb.to(cuda), _exact(200 + b, (b, 512)).to(cuda)
+    before = topk.block_scan.launches
+    kv, ki = topk.block_scan(emb, q, 1700, k=k)
+    torch.cuda.synchronize()
+    assert topk.block_scan.launches == before + 1
+    pv, pi = topk.block_scan_ref(emb, q, 1700, k=k,
+                                 tile_rows=topk.SCAN_TILE_ROWS)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    # random unit rows: the summation order differs from cuBLAS
+    emb, q = _unit(b, (5000, 512)).to(cuda), _unit(300 + b, (b, 512)).to(cuda)
+    kv, ki = topk.cosine_topk(emb, q, 4321, k=k)
+    pv, pi = topk.block_scan_ref(emb, q, 4321, k=k, tile_rows=5000)
+    pv, pi = pv[0], pi[0]
+    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=0)
+    # rows identical except where two scores tie within the tolerance
+    gap = torch.full_like(pv, float("inf"))
+    gap[:, 1:] = pv[:, :-1] - pv[:, 1:]
+    gap[:, :-1] = torch.minimum(gap[:, :-1], pv[:, :-1] - pv[:, 1:])
+    apart = gap > 1e-5 * pv.abs()
+    assert torch.equal(ki[apart], pi[apart])
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_bad_operands(cuda):
     emb = torch.zeros(4096, 512, device=cuda, dtype=torch.bfloat16)
@@ -160,6 +248,20 @@ def test_kernels_refuse_bad_operands(cuda):
     with pytest.raises(TypeError):                  # f32 mirror
         topk.cand_scan_prefix(emb.float(), torch.zeros(2, 512, device=cuda),
                               10, bucket=1024, rounds=2)
+    codes = torch.zeros(4096, 512, device=cuda, dtype=torch.int8)
+    scales = torch.zeros(4096, 1, device=cuda)
+    qc = torch.zeros(2, 512, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError):                 # query scales [B]
+        topk.cand_scan_int8_prefix(codes, scales, qc, torch.zeros(
+            2, device=cuda), 10, bucket=1024, rounds=2)
+    with pytest.raises(TypeError):                  # f32 query codes
+        topk.cand_scan_int8_prefix(codes, scales, qc.float(), torch.zeros(
+            2, 1, device=cuda), 10, bucket=1024, rounds=2)
+    with pytest.raises(TypeError):                  # bf16 matrix
+        topk.block_scan(emb, torch.zeros(2, 512, device=cuda), 10, k=10)
+    with pytest.raises(ValueError):                 # k > MAX_K
+        topk.block_scan(emb.float(), torch.zeros(2, 512, device=cuda), 10,
+                        k=65)
     q = torch.zeros(1, 8, 512, device=cuda)
     with pytest.raises(ValueError):
         attention(q, q, q, num_heads=4)            # head dim 128

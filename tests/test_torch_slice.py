@@ -54,7 +54,7 @@ def _config(cfg_cls, videos_dir):
 def engines(tmp_path_factory):
     videos = tmp_path_factory.mktemp("videos")
     rng = np.random.default_rng(11)
-    idx = DeviceVideoIndex(dim=D, device="cpu")
+    idx = DeviceVideoIndex(dim=D, device_dtype="bfloat16", device="cpu")
     for name in ("a.mp4", "b.mp4"):
         rows = rng.standard_normal((8192, D)).astype(np.float32)
         rows /= np.linalg.norm(rows, axis=-1, keepdims=True)

@@ -68,3 +68,22 @@ def row_cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     a = a / np.linalg.norm(a, axis=-1, keepdims=True)
     b = b / np.linalg.norm(b, axis=-1, keepdims=True)
     return np.sum(a * b, axis=-1)
+
+
+def unit_rows(rng, n: int, d: int) -> np.ndarray:
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def reciprocal_case_queries(n: int, d: int, seed: int = 2) -> np.ndarray:
+    """Unit queries, every other one chosen so that its scale ``max |q| /
+    127`` as a true divide differs from the reciprocal multiply ``max |q|
+    * float32(1/127)`` that XLA compiles the quantized scans' divide to."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        q = unit_rows(rng, 1, d)[0]
+        m = np.abs(q).max()
+        if len(out) % 2 or m / np.float32(127) != m * np.float32(1 / 127):
+            out.append(q)
+    return np.stack(out)

@@ -1,0 +1,236 @@
+// Kernel B8: the exact f32 scan with per-tile top-k.
+//
+// Replaces the TPU kernel video_quierer_tpu/ops/topk.py: _pallas_block_scan
+// (kernel body _scan_kernel with the deferred macro-block selection). For
+// every `tile_rows`-row tile of the [N, D] f32 matrix and every query it
+// writes the tile's top k rows (k <= 64) by (score desc, row asc): scores
+// E @ q in f32, rows >= valid scored -inf (they still rank, lowest row
+// first, below every live row), rows >= N absent. Tiles shorter than k fill
+// up with (-inf, INT32_MAX). Output [n_tiles, B, k] in ascending tile
+// order, so a stable descending merge (ops/topk.py: merge_topk) gives the
+// global top k with the lowest row first on ties, as the TPU kernel and
+// its merge do.
+//
+// Scores are exact f32 on the CUDA cores (FMA), no TF32 and no bf16 splits:
+// the reference scans at Precision.HIGHEST. The sum runs over D in order,
+// one FMA at a time, so it rounds differently from cuBLAS and XLA (scores
+// agree to ~1e-7 relative; rows differ only on ties within that).
+//
+// Design: one CTA per (tile, chunk of QB queries). Rows stream through in
+// sub-tiles of SR rows; each sub-tile is a small SGEMM (row and query
+// panels staged in shared memory 32 deep, RPT x QPT outputs per thread)
+// whose scores are parked in shared memory. Then each warp folds the
+// sub-tile into the running top-k lists of its queries, kept sorted in
+// shared memory: a ballot finds the rows that beat the list's last entry,
+// and each is inserted in parallel across the warp (lane l holds entries
+// l and l + 32). On random data few rows qualify once a list is full.
+//
+// Bound on the H100: one read of the matrix (2M x 512 x 4 B = 4.1 GB,
+// 1.23 ms at 3.35 TB/s), or 2 N D B FLOP at 67 TFLOP/s f32 (2.0 ms at
+// B = 64): bytes-bound at small B, operations-bound from B ~ 40.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int KC = 32;       // depth of one staging step
+constexpr int KMAX = 64;     // most k a launch takes
+
+__device__ __forceinline__ bool better(float v1, int r1, float v2, int r2) {
+  return v1 > v2 || (v1 == v2 && r1 < r2);
+}
+
+// Insert (v, r) into the sorted list (lv, li)[0..k) of one query; the
+// caller has checked that it beats the last entry. All 32 lanes call.
+__device__ __forceinline__ void insert_sorted(float* lv, int* li, int k,
+                                              float v, int r, int lane) {
+  const unsigned full = 0xffffffffu;
+  const int i0 = lane, i1 = lane + 32;
+  const float a0 = i0 < k ? lv[i0] : -INFINITY;
+  const int b0 = i0 < k ? li[i0] : INT_MAX;
+  const float a1 = i1 < k ? lv[i1] : -INFINITY;
+  const int b1 = i1 < k ? li[i1] : INT_MAX;
+  const int pos =
+      __popc(__ballot_sync(full, i0 < k && better(a0, b0, v, r))) +
+      __popc(__ballot_sync(full, i1 < k && better(a1, b1, v, r)));
+  // entry i - 1 for each of the lane's entries i
+  const float p0 = __shfl_up_sync(full, a0, 1);
+  const int q0 = __shfl_up_sync(full, b0, 1);
+  float p1 = __shfl_up_sync(full, a1, 1);
+  int q1 = __shfl_up_sync(full, b1, 1);
+  const float x = __shfl_sync(full, a0, 31);
+  const int y = __shfl_sync(full, b0, 31);
+  if (lane == 0) {
+    p1 = x;
+    q1 = y;
+  }
+  __syncwarp();
+  if (i0 < k && i0 >= pos) {
+    lv[i0] = i0 == pos ? v : p0;
+    li[i0] = i0 == pos ? r : q0;
+  }
+  if (i1 < k && i1 >= pos) {
+    lv[i1] = i1 == pos ? v : p1;
+    li[i1] = i1 == pos ? r : q1;
+  }
+  __syncwarp();
+}
+
+// QB queries per CTA, QPT x RPT outputs per thread
+template <int QB, int QPT, int RPT>
+__global__ void __launch_bounds__(THREADS)
+block_scan_kernel(const float* __restrict__ emb,
+                  const float* __restrict__ q, float* __restrict__ vals,
+                  int* __restrict__ idxs, int n, int d, int b, int valid,
+                  int k, int tile_rows) {
+  constexpr int TQ = QB / QPT;          // threads along queries
+  constexpr int TR = THREADS / TQ;      // threads along rows
+  constexpr int SR = TR * RPT;          // rows per sub-tile
+  constexpr int LDK = KC + 1;
+  constexpr int LDC = QB + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* es = reinterpret_cast<float*>(smem_raw);   // [SR][LDK]
+  float* qsm = es + SR * LDK;                         // [QB][LDK]
+  float* sc = qsm + QB * LDK;                         // [SR][LDC]
+  float* lv = sc + SR * LDC;                          // [QB][k]
+  int* li = reinterpret_cast<int*>(lv + QB * k);      // [QB][k]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tq = tid % TQ, tr = tid / TQ;
+  const int tile = blockIdx.x;
+  const int q0 = blockIdx.y * QB;
+  const int r_begin = tile * tile_rows;
+  const int r_end = min(n, r_begin + tile_rows);
+
+  for (int i = tid; i < QB * k; i += THREADS) {
+    lv[i] = -INFINITY;
+    li[i] = INT_MAX;
+  }
+
+  for (int s0 = r_begin; s0 < r_end; s0 += SR) {
+    float acc[RPT][QPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < QPT; ++j) acc[i][j] = 0.f;
+    for (int kc = 0; kc < d; kc += KC) {
+      __syncthreads();
+      for (int i = tid; i < SR * (KC / 4); i += THREADS) {
+        const int r = i / (KC / 4), c = 4 * (i % (KC / 4));
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (s0 + r < r_end)
+          x = *reinterpret_cast<const float4*>(emb + (size_t)(s0 + r) * d +
+                                               kc + c);
+        float* e = es + r * LDK + c;
+        e[0] = x.x;
+        e[1] = x.y;
+        e[2] = x.z;
+        e[3] = x.w;
+      }
+      for (int i = tid; i < QB * (KC / 4); i += THREADS) {
+        const int c4 = i / (KC / 4), c = 4 * (i % (KC / 4));
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q0 + c4 < b)
+          x = *reinterpret_cast<const float4*>(q + (size_t)(q0 + c4) * d +
+                                               kc + c);
+        float* e = qsm + c4 * LDK + c;
+        e[0] = x.x;
+        e[1] = x.y;
+        e[2] = x.z;
+        e[3] = x.w;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < KC; ++kk) {
+        float a[RPT], w[QPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i] = es[(tr + i * TR) * LDK + kk];
+#pragma unroll
+        for (int j = 0; j < QPT; ++j) w[j] = qsm[(tq + j * TQ) * LDK + kk];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < QPT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      }
+    }
+    // the previous sub-tile's fold is done (every warp passed the
+    // barriers of this sub-tile's staging loop)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < QPT; ++j)
+        sc[(tr + i * TR) * LDC + tq + j * TQ] = acc[i][j];
+    __syncthreads();
+    for (int c = warp; c < QB && q0 + c < b; c += THREADS / 32) {
+      float* qv = lv + c * k;
+      int* qi = li + c * k;
+      for (int r0 = 0; r0 < SR && s0 + r0 < r_end; r0 += 32) {
+        const int row = s0 + r0 + lane;
+        const bool here = row < r_end;
+        const float v = !here ? 0.f
+                        : row < valid ? sc[(r0 + lane) * LDC + c]
+                                      : -INFINITY;
+        unsigned mask = __ballot_sync(
+            0xffffffffu, here && better(v, row, qv[k - 1], qi[k - 1]));
+        while (mask) {
+          const int src = __ffs(mask) - 1;
+          mask &= mask - 1;
+          const float cv = __shfl_sync(0xffffffffu, v, src);
+          const int cr = __shfl_sync(0xffffffffu, row, src);
+          if (better(cv, cr, qv[k - 1], qi[k - 1]))
+            insert_sorted(qv, qi, k, cv, cr, lane);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < QB * k; i += THREADS) {
+    const int c = i / k, j = i % k;
+    if (q0 + c < b) {
+      const size_t o = ((size_t)tile * b + q0 + c) * k + j;
+      vals[o] = lv[i];
+      idxs[o] = li[i];
+    }
+  }
+}
+
+template <int QB, int QPT, int RPT>
+int launch(const float* emb, const float* q, float* vals, int* idxs, int n,
+           int d, int b, int valid, int k, int tile_rows,
+           cudaStream_t stream) {
+  constexpr int SR = THREADS / (QB / QPT) * RPT;
+  const size_t smem = ((size_t)(SR + QB) * (KC + 1) +
+                       (size_t)SR * (QB + 1) + (size_t)QB * k) *
+                          sizeof(float) +
+                      (size_t)QB * k * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        block_scan_kernel<QB, QPT, RPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((n + tile_rows - 1) / tile_rows, (b + QB - 1) / QB);
+  block_scan_kernel<QB, QPT, RPT><<<grid, THREADS, smem, stream>>>(
+      emb, q, vals, idxs, n, d, b, valid, k, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int vqt_block_scan(const void* emb, const void* queries,
+                              void* vals, void* idxs, int n, int d, int b,
+                              int valid, int k, int tile_rows,
+                              void* stream) {
+  // whole 16-byte vectors of KC-deep steps; 16-byte aligned rows
+  if (n <= 0 || b <= 0 || d % KC || k < 1 || k > KMAX || tile_rows < 1 ||
+      ((uintptr_t)emb & 15) || ((uintptr_t)queries & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (b <= 8)  // single queries and small batches: 8-query chunks
+    return launch<8, 4, 2>((const float*)emb, (const float*)queries,
+                           (float*)vals, (int*)idxs, n, d, b, valid, k,
+                           tile_rows, s);
+  return launch<64, 4, 4>((const float*)emb, (const float*)queries,
+                          (float*)vals, (int*)idxs, n, d, b, valid, k,
+                          tile_rows, s);
+}

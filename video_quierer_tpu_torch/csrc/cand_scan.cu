@@ -2,21 +2,9 @@
 //
 // Replaces the TPU kernel video_quierer_tpu/ops/topk.py:
 // _pallas_cand_scan_prefix (kernel body _cand_kernel_prefix with the
-// "packb" selection of _bucket_select_cols). For every `bucket`-row range
-// of the mirror and every query it keeps the top `rounds` rows by the
-// packed int32 key
-//     key = (bits(score + 2.0) & ~lowmask) + (lowmask - pos)
-// (dead rows, position >= valid: bits term 0), lowmask = 2^ceil_log2(bucket)
-// - 1, pos = row position inside the bucket, so the lowest position wins
-// among scores equal at the packing resolution. Keys are unique inside a
-// bucket, so the top `rounds` keys are well defined and can be kept as a
-// running list while the rows stream past (the TPU kernel's second round,
-// which knocks the first winner out with INT32_MIN, selects the same key).
-// Output is the TPU kernel's block-major layout [n_blocks, w, B], w =
-// rounds * block_rows / bucket, entry r * nb + j for bucket j of a block:
-// the winner's score (key floor unpacked, minus 2.0; -inf for an all-dead
-// bucket) and its mirror position. The merge and the perm translation run
-// outside the kernel, as in JAX.
+// "packb" selection of _bucket_select_cols); the selection and the output
+// layout are those of cand_select.cuh. The merge and the perm translation
+// run outside the kernel, as in JAX.
 //
 // Design: one CTA per (bucket, chunk of queries); the query chunk sits in
 // shared memory for the whole bucket, and every row's keys fold into
@@ -29,13 +17,13 @@
 // its lanes fold them into their queries' lists. A batch narrower than the
 // query chunk (B=1 and small B; the chunk is 16 queries) is padded to it
 // with zero queries in the shared-memory panel, so the host allocates and
-// copies nothing for it. The mirror is bf16 only: the serving index keeps
-// no other candidate mirror (f32 mirrors take the exact scan, a later port).
+// copies nothing for it. The mirror is bf16 only: f32 mirrors take the
+// exact scan (block_scan.cu), int8/int4 mirrors cand_scan_codes.cu.
 //
 // Bound on the H100: one read of the mirror per scan (2M x 512 x 2 B =
 // 2.05 GB, ~0.6 ms at 3.35 TB/s) when the query chunk is wide; at small B
 // the per-row key folding and the load latency set the time.
-#include "common.cuh"
+#include "cand_select.cuh"
 
 #include <mma.h>
 
@@ -43,45 +31,10 @@ namespace {
 
 using namespace nvcuda;
 using vqt::bf16;
-
-constexpr int MAXR = 4;    // most rounds a launch takes
-
-__device__ __forceinline__ void insert_key(int (&top)[MAXR], int key,
-                                           int rounds) {
-  // top[0..rounds) sorted descending; keys are unique. Static indices only,
-  // so the list stays in registers.
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < rounds && key > top[r]) {
-      const int t = top[r];
-      top[r] = key;
-      key = t;
-    }
-  }
-}
-
-// Writes the merged winners of query q0 + c: `lists` holds `n_lists` lists
-// of MAXR keys for each of the CTA's QB queries ([list][QB][MAXR]).
-__device__ __forceinline__ void emit(const int* lists, int n_lists, int qb,
-                                     int c, int q0, int b, size_t row0,
-                                     int g, int nb, int rounds, int lowmask,
-                                     float* vals, int* idxs) {
-  int best[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) best[r] = INT_MIN;
-  for (int l = 0; l < n_lists; ++l)
-    for (int r = 0; r < rounds; ++r)
-      insert_key(best, lists[((size_t)l * qb + c) * MAXR + r], rounds);
-  const int blk = g / nb, jb = g % nb;
-  const size_t w = (size_t)rounds * nb;
-  for (int r = 0; r < rounds; ++r) {
-    const int wk = best[r];
-    const int vb = wk & ~lowmask;
-    const size_t o = ((size_t)blk * w + (size_t)r * nb + jb) * b + q0 + c;
-    vals[o] = vb == 0 ? -INFINITY : __int_as_float(vb) - 2.0f;
-    idxs[o] = (int)(row0 + (lowmask - (wk & lowmask)));
-  }
-}
+using vqt::emit;
+using vqt::insert_key;
+using vqt::MAXR;
+using vqt::row_key;
 
 constexpr int TC_WARPS = 8;
 
@@ -149,10 +102,10 @@ cand_kernel_tc(const bf16* __restrict__ emb, const bf16* __restrict__ q,
       if (c < QB) {
         for (int r = 0; r < 16; ++r) {
           const int pos = t0 + r;
-          const int bits = row0 + pos < (size_t)valid
-                               ? __float_as_int(strip[r * LDS + c] + 2.0f)
-                               : 0;
-          insert_key(top[t], (bits & ~lowmask) + (lowmask - pos), rounds);
+          insert_key(top[t],
+                     row_key(strip[r * LDS + c], row0 + pos < (size_t)valid,
+                             pos, lowmask),
+                     rounds);
         }
       }
     }
@@ -206,9 +159,7 @@ extern "C" int vqt_cand_scan_prefix(const void* emb, const void* queries,
       n_pad % block_rows || rounds < 1 || rounds > MAXR || bucket < rounds ||
       ((uintptr_t)emb & 31))
     return (int)cudaErrorInvalidValue;
-  int pbits = 1;
-  while ((1 << pbits) < bucket) ++pbits;  // max(ceil_log2(bucket), 1)
-  const int lowmask = (1 << pbits) - 1;
+  const int lowmask = vqt::bucket_lowmask(bucket);
   const int nb = block_rows / bucket;
   cudaStream_t s = (cudaStream_t)stream;
   if (b <= 16)  // single queries and small batches: 16-query chunks

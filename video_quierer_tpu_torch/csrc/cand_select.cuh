@@ -1,0 +1,79 @@
+// Bucket-winner selection shared by the candidate scans (kernels B1, B4,
+// B7): the TPU kernels' "packb" selection (video_quierer_tpu/ops/topk.py:
+// _bucket_select_cols / _bucket_select_rows) as running lists.
+//
+// For every `bucket`-row range of the mirror and every query a scan keeps
+// the top `rounds` rows by the packed int32 key
+//     key = (bits(score + 2.0) & ~lowmask) + (lowmask - pos)
+// (dead rows, position >= valid: bits term 0), lowmask = 2^ceil_log2(bucket)
+// - 1, pos = row position inside the bucket, so the lowest position wins
+// among scores equal at the packing resolution. Keys are unique inside a
+// bucket, so the top `rounds` keys are well defined and can be kept as a
+// running list while the rows stream past (the TPU kernel's second round,
+// which knocks the first winner out with INT32_MIN, selects the same key).
+// Output is the block-major layout [n_blocks, w, B], w = rounds *
+// block_rows / bucket, entry r * nb + j for bucket j of a block: the
+// winner's score (key floor unpacked, minus 2.0; -inf for an all-dead
+// bucket) and its mirror position.
+#pragma once
+
+#include "common.cuh"
+
+namespace vqt {
+
+constexpr int MAXR = 4;    // most rounds a launch takes
+
+__device__ __forceinline__ void insert_key(int (&top)[MAXR], int key,
+                                           int rounds) {
+  // top[0..rounds) sorted descending; keys are unique. Static indices only,
+  // so the list stays in registers.
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    if (r < rounds && key > top[r]) {
+      const int t = top[r];
+      top[r] = key;
+      key = t;
+    }
+  }
+}
+
+// The packed key of the row at bucket position `pos`. The bias add is
+// rounded on its own (no contraction into a preceding multiply), as XLA
+// computes it.
+__device__ __forceinline__ int row_key(float score, bool live, int pos,
+                                       int lowmask) {
+  const int bits = live ? __float_as_int(__fadd_rn(score, 2.0f)) : 0;
+  return (bits & ~lowmask) + (lowmask - pos);
+}
+
+// Writes the merged winners of query q0 + c: `lists` holds `n_lists` lists
+// of MAXR keys for each of the CTA's QB queries ([list][QB][MAXR]).
+__device__ __forceinline__ void emit(const int* lists, int n_lists, int qb,
+                                     int c, int q0, int b, size_t row0,
+                                     int g, int nb, int rounds, int lowmask,
+                                     float* vals, int* idxs) {
+  int best[MAXR];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) best[r] = INT_MIN;
+  for (int l = 0; l < n_lists; ++l)
+    for (int r = 0; r < rounds; ++r)
+      insert_key(best, lists[((size_t)l * qb + c) * MAXR + r], rounds);
+  const int blk = g / nb, jb = g % nb;
+  const size_t w = (size_t)rounds * nb;
+  for (int r = 0; r < rounds; ++r) {
+    const int wk = best[r];
+    const int vb = wk & ~lowmask;
+    const size_t o = ((size_t)blk * w + (size_t)r * nb + jb) * b + q0 + c;
+    vals[o] = vb == 0 ? -INFINITY : __int_as_float(vb) - 2.0f;
+    idxs[o] = (int)(row0 + (lowmask - (wk & lowmask)));
+  }
+}
+
+// lowmask of a bucket: 2^max(ceil_log2(bucket), 1) - 1
+inline int bucket_lowmask(int bucket) {
+  int pbits = 1;
+  while ((1 << pbits) < bucket) ++pbits;
+  return (1 << pbits) - 1;
+}
+
+}  // namespace vqt

@@ -6,9 +6,8 @@ same nine keys and defaults — as a dataclass with hand-written validation
 in place of pydantic (which the port does not depend on). Tier 2 —
 :class:`EngineConfig`: the engine's typed knobs with the same ``VQT_*``
 environment overrides. Semantics match the JAX package; fields the port
-does not act on yet (ingest, other mirror dtypes, IVF, SigLIP) keep their
-names and validation so one ``config.json``/``engine.yaml`` serves both
-packages.
+does not act on yet (ingest, IVF, SigLIP) keep their names and
+validation so one ``config.json``/``engine.yaml`` serves both packages.
 """
 
 from __future__ import annotations
@@ -94,7 +93,8 @@ class IndexConfig:
     initial_capacity: int = 0
     corpus_shards: int = 0
     corpus_slices: int = 1
-    # bf16 mirror + exact f32 re-rank: the only mirror the port serves yet
+    # "bfloat16", "int8", "int4": candidate mirror + exact f32 re-rank;
+    # "float32": the exact scan (VQT_INDEX_DTYPE overrides)
     device_dtype: str = "bfloat16"
     kind: str = "exact"
     ivf_nlist: int = 0

@@ -322,9 +322,13 @@ class VideoSearchEngine:
             "index": {
                 "kind": self.config.index.kind,
                 "device_dtype": self.config.index.device_dtype,
-                # the bf16 mirror pre-filters; every returned row is
-                # re-ranked exactly in f32
-                "accuracy_mode": "exact-f32-rerank",
+                # the f32 mirror is scanned exactly; the bf16/int8/int4
+                # mirrors pre-filter and every returned row is re-ranked
+                # exactly in f32
+                "accuracy_mode": (
+                    "exact-f32-scan"
+                    if self.config.index.device_dtype == "float32"
+                    else "exact-f32-rerank"),
             },
             "metrics": self.metrics.snapshot(),
         }

@@ -1,29 +1,34 @@
 """Device-resident video frame index (counterpart of
-``video_quierer_tpu/index/device_index.py``, bf16 single-device mode).
+``video_quierer_tpu/index/device_index.py``, single-device modes).
 
 Host-authoritative: the f32 rows, metadata columns and the pickle v1.0
 cache live on the host, exactly as in the reference (the cache format is
 an exact-parity surface: a cache written by either package loads in the
-other). The device holds:
+other). The device holds a **mirror** of the rows in ``device_dtype``:
 
-- the bf16 **mirror** in the live-PREFIX layout: live rows fill mirror
-  positions ``[0, count)`` in a uniformly shuffled order kept by
-  incremental Fisher–Yates on append (:meth:`_extend_perm_to`, with the
-  reference's numpy seeds, so both packages build the identical ``perm``),
-  so near-duplicate adjacent frames scatter across the candidate scan's
-  selection buckets; ``perm`` (mirror position → host row) rides beside it;
-- an identity-layout **re-rank store** (f32 by default) against which the
-  candidates are re-ranked exactly on the device when ``device_rerank``
+- ``"float32"`` (the default, the exact tier): the rows in the identity
+  layout; :func:`~video_quierer_tpu_torch.ops.topk.cosine_topk` scans it
+  exactly and its scores are the results;
+- ``"bfloat16"``, ``"int8"`` (codes + per-row f32 scales), ``"int4"``
+  (split-halves packed codes + scales): candidate mirrors in the
+  live-PREFIX layout: live rows fill mirror positions ``[0, count)`` in a
+  uniformly shuffled order kept by incremental Fisher–Yates on append
+  (:meth:`_extend_perm_to`, with the reference's numpy seeds, so both
+  packages build the identical ``perm``), so near-duplicate adjacent
+  frames scatter across the candidate scan's selection buckets; ``perm``
+  (mirror position → host row) rides beside it. The candidate stage
+  over-fetches host rows, re-ranked exactly against an identity-layout
+  **re-rank store** (f32 by default) on the device when ``device_rerank``
   is active (``_device_exact_rerank``: (score desc, row asc) by two stable
   sorts), else on the host (:meth:`_rerank_f32`).
 
 Searches: :meth:`search_batch` (query vectors) and
-:meth:`search_batch_fused_async` (token ids: text encode + candidate scan
-+ re-rank enqueued on the device, resolved later) — the serving
-coalescer's dispatch/resolve contract.
+:meth:`search_batch_fused_async` (token ids: text encode + scan + re-rank
+enqueued on the device, resolved later) — the serving coalescer's
+dispatch/resolve contract.
 
-Other mirror dtypes (f32 exact scan, int8, int4), corpus meshes and the
-device-streamed ingest appends are later ports.
+Corpus meshes, the video-level search and the device-streamed ingest
+appends are later ports.
 """
 
 from __future__ import annotations
@@ -41,12 +46,19 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from video_quierer_tpu_torch.ops.quantize import (
+    quantize_rows_int4_np,
+    quantize_rows_np,
+)
 from video_quierer_tpu_torch.ops.topk import (
     APPROX_FETCH_CAP,
     CAND_BLOCK_ROWS,
     MAX_K,
     _approx_fetch,
     candidate_topk,
+    candidate_topk_int4,
+    candidate_topk_int8,
+    cosine_topk,
 )
 from video_quierer_tpu_torch.utils.env import resolve_device
 
@@ -60,6 +72,7 @@ _CHUNK = math.lcm(8 * 1024, CAND_BLOCK_ROWS)
 CACHE_VERSION = "1.0"
 _IMAX = 2**31 - 1
 _NEG_INF = float("-inf")
+DEVICE_DTYPES = ("float32", "bfloat16", "int8", "int4")
 
 
 def _round_capacity(n: int, granularity: int = _CHUNK) -> int:
@@ -116,21 +129,19 @@ def _device_exact_rerank(rows_store: torch.Tensor, q: torch.Tensor,
 
 
 class DeviceVideoIndex:
-    """Frame index: host f32 rows + bf16 live-prefix device mirror."""
+    """Frame index: host f32 rows + a device mirror in ``device_dtype``."""
 
     # appends up to this many rows scatter into the mirror; larger ones
     # re-place it
     _UPDATE_MAX = 4096
 
     def __init__(self, dim: int = EMBED_DIM,
-                 device_dtype: str = "bfloat16",
+                 device_dtype: str = "float32",
                  device: str | torch.device = "cuda",
                  device_rerank: str = "auto",
                  rerank_store_dtype: str = "float32"):
-        if device_dtype != "bfloat16":
-            raise NotImplementedError(
-                f"device_dtype {device_dtype!r} is not yet ported (the port "
-                "serves the bfloat16 mirror)")
+        if device_dtype not in DEVICE_DTYPES:
+            raise ValueError(f"unsupported device_dtype {device_dtype!r}")
         if device_rerank not in ("auto", "on", "off"):
             raise ValueError(f"unsupported device_rerank {device_rerank!r}")
         if rerank_store_dtype not in ("float32", "bfloat16"):
@@ -161,8 +172,10 @@ class DeviceVideoIndex:
         self._count = 0
         self._video_names: List[str] = []
         self._video_name_to_id: Dict[str, int] = {}
-        # device mirror (bf16, live-prefix layout) and its perm column
+        # device mirror (rows or codes), the codes' per-row scales, and
+        # the perm column of the live-prefix layout
         self._device_emb: Optional[torch.Tensor] = None
+        self._device_scales: Optional[torch.Tensor] = None
         self._device_rows = 0
         self._device_cap = 0
         self._perm: Optional[np.ndarray] = None
@@ -248,7 +261,7 @@ class DeviceVideoIndex:
             self._count = n
             # compaction shifted every surviving row: re-place the mirror,
             # the arrangement and the re-rank store
-            self._device_rows = 0
+            self._device_emb = None
             self._perm = None
             self._perm_dev = None
             self._device_f32 = None
@@ -318,76 +331,148 @@ class DeviceVideoIndex:
         self._perm_rows = count
         return np.unique(np.asarray(changed, np.int32))
 
+    @property
+    def _codes(self) -> bool:
+        """Quantized-codes mirror (int8/int4): codes + per-row scales."""
+        return self.device_dtype in ("int8", "int4")
+
+    @property
+    def _codes_width(self) -> int:
+        """Mirror row width in bytes of the codes mirrors: D for int8, D/2
+        for the packed int4 split-halves layout."""
+        return self.dim // 2 if self.device_dtype == "int4" else self.dim
+
+    @property
+    def _row_dtype(self) -> torch.dtype:
+        """Element type of the float mirrors (bf16 or f32)."""
+        return (torch.bfloat16 if self.device_dtype == "bfloat16"
+                else torch.float32)
+
+    def _quantize_host(self, rows: np.ndarray):
+        """Host-side per-row quantization for the codes dtype (bit-identical
+        to the reference's): ``(codes, [n, 1] f32 scales)``."""
+        if self.device_dtype == "int4":
+            return quantize_rows_int4_np(rows)
+        return quantize_rows_np(rows)
+
+    def _mirror_layout(self) -> str:
+        """``"id"`` for the f32 exact tier, ``"prefix"`` (live-prefix
+        arrangement) for the candidate mirrors."""
+        return "id" if self.device_dtype == "float32" else "prefix"
+
+    def _put(self, rows: np.ndarray, pos: Optional[torch.Tensor] = None,
+             lo: int = 0) -> None:
+        """Write f32 host ``rows`` into the mirror in its dtype: at
+        positions ``pos``, else at ``lo:lo + n``."""
+        where = pos if pos is not None else slice(lo, lo + rows.shape[0])
+        if self._codes:
+            codes, scales = self._quantize_host(rows)
+            self._device_emb[where] = torch.from_numpy(codes).to(self.device)
+            self._device_scales[where] = torch.from_numpy(scales).to(
+                self.device)
+        else:
+            self._device_emb[where] = torch.from_numpy(rows).to(
+                self.device, self._row_dtype)
+
     def _full_place(self, cap: int) -> None:
-        self._perm = None            # vectorized arrangement rebuild
-        self._extend_perm_to(self._count, cap)
-        self._device_emb = torch.from_numpy(self._emb[self._perm]).to(
-            self.device, torch.bfloat16)
-        self._perm_dev = torch.from_numpy(self._perm).to(self.device)
+        prefix = self._mirror_layout() == "prefix"
+        if prefix:
+            self._perm = None            # vectorized arrangement rebuild
+            self._extend_perm_to(self._count, cap)
+        self._device_emb = self._device_scales = None
+        rows = self._emb[self._perm] if prefix else self._emb
+        if self._codes:
+            codes, scales = self._quantize_host(rows)
+            self._device_emb = torch.from_numpy(codes).to(self.device)
+            self._device_scales = torch.from_numpy(scales).to(self.device)
+        else:
+            self._device_emb = torch.from_numpy(rows).to(self.device,
+                                                         self._row_dtype)
+        self._perm_dev = (torch.from_numpy(self._perm).to(self.device)
+                          if prefix else None)
         self._device_cap = cap
         self._device_rows = self._count
 
     def _try_grow_mirror(self, cap: int) -> bool:
         """Grow the mirror on the device on a capacity increase (dead
-        tail: zero rows, identity perm). False when a full re-place is
-        needed instead."""
-        if (self._device_emb is None or self._perm_dev is None
-                or cap <= self._device_cap
+        tail: zero rows and scales, identity perm). False when a full
+        re-place is needed instead."""
+        if (self._device_emb is None or cap <= self._device_cap
                 or self._device_rows > self._count):
             return False
-        old = self._device_emb
-        grown = torch.zeros((cap, self.dim), dtype=old.dtype,
-                            device=self.device)
-        grown[: old.shape[0]] = old
-        self._device_emb = grown
-        self._perm_dev = torch.cat([
-            self._perm_dev,
-            torch.arange(self._perm_dev.shape[0], cap, dtype=torch.int32,
-                         device=self.device)])
+
+        def grow(old):
+            grown = torch.zeros((cap,) + old.shape[1:], dtype=old.dtype,
+                                device=self.device)
+            grown[: old.shape[0]] = old
+            return grown
+
+        self._device_emb = grow(self._device_emb)
+        if self._device_scales is not None:
+            self._device_scales = grow(self._device_scales)
+        if self._perm_dev is not None:
+            self._perm_dev = torch.cat([
+                self._perm_dev,
+                torch.arange(self._perm_dev.shape[0], cap, dtype=torch.int32,
+                             device=self.device)])
         self._device_cap = cap
         return True
 
-    def _sync_device(self) -> torch.Tensor:
+    def _sync_device(self) -> None:
         with self._sync_lock:
-            return self._sync_device_locked()
+            self._sync_device_locked()
 
-    def _sync_device_locked(self) -> torch.Tensor:
-        """Bring the mirror up to date; returns it."""
+    def _sync_device_locked(self) -> None:
+        """Bring the mirror up to date: full upload on the first use, a
+        compaction or an append of more than ``_UPDATE_MAX`` rows;
+        device-side growth on a capacity increase; otherwise the identity
+        mirror copies the new rows and a prefix mirror scatters its <= 2n
+        changed positions (rows or codes + scales, and the perm column)."""
         cap = self._emb.shape[0]
         if self._device_emb is None \
                 or (self._device_cap != cap
                     and not self._try_grow_mirror(cap)) \
-                or self._device_rows > self._count:
+                or self._device_rows > self._count \
+                or self._count - self._device_rows > self._UPDATE_MAX:
             self._full_place(cap)
-        elif self._device_rows < self._count:
-            if self._count - self._device_rows > self._UPDATE_MAX:
-                self._full_place(cap)
-                return self._device_emb
-            # Fisher–Yates extension: scatter the <= 2n changed positions
-            changed = self._extend_perm_to(self._count, cap)
-            if changed is None or self._perm_dev is None:
-                self._full_place(cap)
-                return self._device_emb
-            pos = torch.from_numpy(changed.astype(np.int64)).to(self.device)
-            rows = torch.from_numpy(self._emb[self._perm[changed]])
-            self._device_emb[pos] = rows.to(self.device, torch.bfloat16)
-            self._perm_dev[pos] = torch.from_numpy(
-                self._perm[changed]).to(self.device)
-            self._device_rows = self._count
-        return self._device_emb
+            return
+        if self._device_rows == self._count:
+            return
+        if self._mirror_layout() == "id":
+            lo, hi = self._device_rows, self._count
+            self._put(self._emb[lo:hi], lo=lo)
+            self._device_rows = hi
+            return
+        # Fisher–Yates extension: scatter the <= 2n changed positions
+        changed = self._extend_perm_to(self._count, cap)
+        if changed is None or self._perm_dev is None:
+            self._full_place(cap)
+            return
+        pos = torch.from_numpy(changed.astype(np.int64)).to(self.device)
+        self._put(self._emb[self._perm[changed]], pos=pos)
+        self._perm_dev[pos] = torch.from_numpy(
+            self._perm[changed]).to(self.device)
+        self._device_rows = self._count
 
     # -- device re-rank store -------------------------------------------
 
     def _device_rerank_active(self) -> bool:
-        """Whether searches re-rank on the device: "auto" while store +
-        mirror fit ``VQT_DEVICE_RERANK_BUDGET_GB`` (default 12)."""
-        if self.device_rerank != "auto":
-            return self.device_rerank == "on"
+        """Whether searches re-rank on the device (never for the f32
+        exact tier, whose scan is exact): ``VQT_DEVICE_RERANK`` or
+        ``device_rerank`` "on"/"off", or "auto" while store + mirror fit
+        ``VQT_DEVICE_RERANK_BUDGET_GB`` (default 12)."""
+        if self.device_dtype == "float32":
+            return False
+        mode = os.environ.get("VQT_DEVICE_RERANK", self.device_rerank)
+        if mode in ("on", "off"):
+            return mode == "on"
         budget = float(os.environ.get("VQT_DEVICE_RERANK_BUDGET_GB",
                                       "12")) * 1e9
         cap = self._emb.shape[0]
         store = 2 if self.rerank_store_dtype == "bfloat16" else 4
-        return cap * self.dim * (store + 2) <= budget
+        mirror = (cap * (self._codes_width + 4) if self._codes
+                  else cap * self.dim * 2)
+        return cap * self.dim * store + mirror <= budget
 
     def _sync_device_f32(self) -> torch.Tensor:
         """Bring the identity-layout re-rank store up to date (callers
@@ -431,10 +516,14 @@ class DeviceVideoIndex:
     # Search
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _rerank_fetch(k: int) -> int:
-        """Candidate over-fetch for the re-ranked bf16 mirror."""
-        return min(_approx_fetch(k), APPROX_FETCH_CAP)
+    def _rerank_fetch(self, k: int) -> int:
+        """Candidate over-fetch of the re-ranked candidate mirrors. int4's
+        candidate noise band is about twice int8's (step absmax/7 vs
+        /127), so its fetch doubles (capped), as in the reference."""
+        fetch = min(_approx_fetch(k), APPROX_FETCH_CAP)
+        if self.device_dtype == "int4":
+            fetch = min(2 * fetch, APPROX_FETCH_CAP)
+        return fetch
 
     @staticmethod
     def normalize_query(query: np.ndarray) -> np.ndarray:
@@ -442,24 +531,48 @@ class DeviceVideoIndex:
         q = np.asarray(query, np.float32)
         return q / (np.linalg.norm(q) + 1e-10)
 
+    def _synced_mirror(self) -> tuple:
+        """Sync the mirror (callers hold ``_sync_lock``) and return its
+        ``(rows or codes, scales or None, perm or None)``."""
+        self._sync_device_locked()
+        return self._device_emb, self._device_scales, self._perm_dev
+
+    def _scan(self, mirror: tuple, q: torch.Tensor, live: int, k: int):
+        """Enqueue the scan of ``mirror`` for the unit queries ``q``:
+        ``(scores, host rows)`` of the exact f32 scan's top ``k``, or of
+        the dtype's top ``k`` candidates for the re-rank."""
+        emb, scales, perm = mirror
+        if self.device_dtype == "float32":
+            return cosine_topk(emb, q, live, k=k)
+        if self.device_dtype == "bfloat16":
+            return candidate_topk(emb, q, live, k=k, perm=perm, live=live)
+        cand = (candidate_topk_int8 if self.device_dtype == "int8"
+                else candidate_topk_int4)
+        return cand(emb, scales, q, live, k=k, perm=perm, live=live)
+
     def search_batch(self, queries: np.ndarray, k: int = 5
                      ) -> List[List[Dict]]:
-        """Batched vector search: candidate scan on the device, exact f32
-        re-rank on the host (the reference's two-step path)."""
+        """Batched vector search: the exact f32 scan's rows, or the
+        candidate scan on the device and the exact f32 re-rank on the host
+        (the reference's two-step path)."""
         if self._count == 0:
             return [[] for _ in range(len(queries))]
         k = max(1, min(int(k), MAX_K))
         q = np.stack([self.normalize_query(r) for r in np.asarray(queries)])
-        emb = self._sync_device()
-        _, idxs = candidate_topk(
-            emb, torch.from_numpy(q).to(self.device), self._count,
-            k=self._rerank_fetch(k), perm=self._perm_dev, live=self._count)
+        count = self._count
+        with self._sync_lock:
+            mirror = self._synced_mirror()
+        q_dev = torch.from_numpy(q).to(self.device)
+        if self.device_dtype == "float32":
+            vals, idxs = self._scan(mirror, q_dev, count, k)
+            return self._rows_from(vals.cpu().numpy(), idxs.cpu().numpy())
+        _, idxs = self._scan(mirror, q_dev, count, self._rerank_fetch(k))
         return self._rerank_f32(q, idxs.cpu().numpy(), k)
 
     def _rows_from(self, vals: np.ndarray, idxs: np.ndarray
                    ) -> List[List[Dict]]:
         """(scores, host rows) → reference result rows; non-finite scores
-        (pads) are skipped."""
+        (pads, rows past the live count) are skipped."""
         names = self._video_names
         finite = np.isfinite(vals)
         out: List[List[Dict]] = []
@@ -485,10 +598,11 @@ class DeviceVideoIndex:
                                  k: int = 5
                                  ) -> Callable[[], List[List[Dict]]]:
         """Dispatch phase of text search: ``encode_fn(params, ids)`` (the
-        embedder's text tower, ``[B, D]`` unit rows), the candidate scan
-        and — when active — the exact re-rank are ENQUEUED on the device
-        stream (PyTorch returns before the device finishes); the returned
-        ``resolve()`` copies the results to the host and builds the rows.
+        embedder's text tower, ``[B, D]`` unit rows), the scan and — for
+        the candidate mirrors, when active — the exact re-rank are
+        ENQUEUED on the device stream (PyTorch returns before the device
+        finishes); the returned ``resolve()`` copies the results to the
+        host and builds the rows.
 
         Contract: no index mutation between dispatch and resolve (rows
         could move under the in-flight indices); callers hold the engine's
@@ -498,11 +612,11 @@ class DeviceVideoIndex:
         if self._count == 0:
             return lambda: [[] for _ in range(n_q)]
         k = max(1, min(int(k), MAX_K))
-        fetch = self._rerank_fetch(k)
+        exact = self.device_dtype == "float32"
+        k_dev = k if exact else self._rerank_fetch(k)
         count = self._count
         with self._sync_lock:
-            emb = self._sync_device_locked()
-            perm = self._perm_dev
+            mirror = self._synced_mirror()
             store = (self._sync_device_f32()
                      if self._device_rerank_active() else None)
         ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
@@ -511,10 +625,10 @@ class DeviceVideoIndex:
             q = encode_fn(params, ids_t)
             q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True)
                      + 1e-10)
-            vals, idxs = candidate_topk(emb, q, count, k=fetch, perm=perm,
-                                        live=count)
+            vals, idxs = self._scan(mirror, q, count, k_dev)
             if store is not None:
                 vals, idxs = _device_exact_rerank(store, q, idxs, count, k)
+            if exact or store is not None:
                 return lambda: self._rows_from(vals.cpu().numpy(),
                                                idxs.cpu().numpy())
         return lambda: self._rerank_f32(q.cpu().numpy(), idxs.cpu().numpy(),

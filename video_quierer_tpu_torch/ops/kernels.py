@@ -1,12 +1,14 @@
 """Build, load and call the port's CUDA kernels.
 
-The sources under ``csrc/`` (one ``.cu`` per kernel plus ``common.cuh``)
-compile with ``nvcc`` for ``sm_90a`` into ONE shared library with a plain
-C interface, loaded with ``ctypes``. The library lands in
+The sources under ``csrc/`` (``*.cu``, one per kernel or family of
+kernels, and the shared ``*.cuh`` headers) compile with ``nvcc`` for
+``sm_90a`` into ONE shared library with a plain C interface, loaded with
+``ctypes``. The library lands in
 ``build/kernels/<hash of the sources>/`` beside the package, so a changed
 source rebuilds and an unchanged one loads the cached build. Nothing is
-built at import time: the first call that needs a kernel builds it (about
-ten seconds on the H100 machine — the sources include no PyTorch headers).
+built at import time: the first call that needs a kernel builds it (one
+``nvcc`` process per source, in parallel, then a link; the sources include
+no PyTorch headers, so each compiles in seconds).
 
 Each C function launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -30,8 +32,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 LIB_NAME = "libvqt_kernels.so"
 
 # dtype codes of csrc/common.cuh
@@ -45,6 +48,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vqt_cand_scan_prefix": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),
+    "vqt_cand_scan_int8_prefix": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P),
+    "vqt_cand_scan_int4_prefix": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P),
+    "vqt_block_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vqt_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                       _I, _P),
     "vqt_text_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -84,25 +92,44 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the hashed build directory (no-op when
-    that build exists) and return the library path. A failed build
-    raises with the compiler's output."""
+    that build exists) and return the library path: one ``nvcc -c`` per
+    source, all started together, then one link. A failed build raises
+    with the compiler's output."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    try:
+        for src, p, out in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} with code "
+                                   f"{p.returncode}:\n{out}")
+        proc = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code "
+                               f"{proc.returncode}:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    (out_dir / "ptxas.log").write_text(log)
     os.replace(tmp, lib)         # atomic: concurrent builds race safely
     last_build.update(seconds=time.perf_counter() - t0, dir=str(out_dir),
-                      ptxas=proc.stdout + proc.stderr)
+                      ptxas=log)
     return lib
 
 
