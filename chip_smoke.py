@@ -11,27 +11,37 @@ script exits non-zero without its last line):
    limit as nvidia-smi gives them;
 2. build: the CUDA kernels from video_quierer_tpu_torch/csrc into
    build/kernels/<hash of the sources>/ (nvcc, sm_90a);
-3. kernels vs plain: each kernel of the search paths against its plain
-   PyTorch version at the paths' shapes (2,000,000 rows for the scans),
-   with the tolerance, both times (CUDA events, the second of two timed
-   loops), the least time the card could take (bytes over 3.35 TB/s or
-   operations over the data sheet's peak for their type, whichever is
-   larger) and, where one PyTorch call computes the same function, that
-   call's time;
+3. kernels vs plain: each kernel of the search and ingest paths against
+   its plain PyTorch version at the paths' shapes (2,000,000 rows for the
+   scans; one ViT-B/32 vision layer at 256 frames for the layer halves,
+   and the whole vision encode), with the tolerance, both times (CUDA
+   events, the second of two timed loops), the least time the card could
+   take (bytes over 3.35 TB/s or operations over the data sheet's peak
+   for their type, whichever is larger) and, where one PyTorch call
+   computes the same function, that call's time; then the split of one
+   ingest batch of 256 frames into its stages;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512) written once as the pickle v1.0 cache; for each mirror
    dtype (bfloat16, then float32, int8 and int4) an engine loads it
-   through ``engine.startup()`` behind the port's HTTP server on a free
-   local port, and single, coalesced and batch searches run over HTTP
-   (bfloat16 also 77-token ones). Every response's schema is checked;
-   single and batch rows are checked against a host exact top-10 over the
-   f32 corpus with the query vector the port's encoder gives (int4: each
-   returned score against its row's exact f32 score, and the order; its
-   recall@10 against the exact scan is printed). The launch counters are
-   set to 0 before each dtype's searches and read after the last
-   response, before the script encodes its reference vectors: every
-   kernel of that path must have launched, the other dtypes' scans not,
-   and both fallback counters must read 0;
+   through ``engine.startup()``, then ingests 20 videos x 200 seeded
+   uint8 frames through the decode pipeline (``batched_frames``) and the
+   engine's ingest loop (``_ingest_batches``: the vision tower on the
+   layer-half kernels, device-streamed mirror appends). The host store
+   rows must equal the embedder's output with the reference's metadata,
+   the mirror, perm column and re-rank store must equal what the host
+   path writes, bit for bit, and 16 ingested frames are searched for
+   (float32: each finds itself first). Then the engine goes behind the
+   port's HTTP server on a free local port, and single, coalesced and
+   batch searches run over HTTP (bfloat16 also 77-token ones). Every
+   response's schema is checked; single and batch rows are checked
+   against a host exact top-10 over the grown f32 corpus with the query
+   vector the port's encoder gives (int4: each returned score against its
+   row's exact f32 score, and the order; its recall@10 against the exact
+   scan is printed). The launch counters are set to 0 before each dtype's
+   ingest and again before its searches, and read after each: every
+   kernel of that path must have launched (the layer halves 12 times per
+   embed batch), the other kernels not, and both fallback counters must
+   read 0;
 5. a JSON line of the kernels, the nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -42,6 +52,7 @@ Uses no network beyond its own localhost server, and stops what it starts.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import subprocess
@@ -60,6 +71,11 @@ from video_quierer_tpu_torch import evaluation
 from video_quierer_tpu_torch.api.server import create_server
 from video_quierer_tpu_torch.engine.config import EngineConfig
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
+from video_quierer_tpu_torch.ingest.frames import (
+    sampling_interval,
+    video_identity_hash,
+)
+from video_quierer_tpu_torch.ingest.pipeline import batched_frames
 from video_quierer_tpu_torch.index.device_index import (
     DeviceVideoIndex,
     _device_exact_rerank,
@@ -72,6 +88,7 @@ from video_quierer_tpu_torch.models.clip.embedder import (
 from video_quierer_tpu_torch.ops import fused_layer as fl
 from video_quierer_tpu_torch.ops import kernels, topk
 from video_quierer_tpu_torch.ops.attention import attention, attention_ref
+from video_quierer_tpu_torch.ops.preprocess import normalize_images
 from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows,
     quantize_rows_int4,
@@ -85,7 +102,11 @@ RESPONSE_KEYS = {"results", "search_time_ms", "from_cache", "query_id",
 ROW_KEYS = {"video_name", "timestamp", "frame_id", "score",
             "formatted_time"}
 ATTN_ATOL = 2e-2        # bf16 attention vs plain, valid rows
+# bf16 layer half vs plain at ViT-B/32 widths, N(0, 1) activations: two
+# bf16 ulps in [4, 8), where the largest of these activations lie
+LAYER_ATOL = 2 * 2.0 ** -5
 MIN_COS = 0.999         # bf16 tower rows vs plain
+UNIT_ATOL = 1e-5        # f32 row norms of the towers' outputs
 SCORE_ATOL = 1e-5       # returned scores vs host exact f32
 SCAN_RTOL = 1e-5        # exact-scan kernel scores vs its plain version
 # NVIDIA H100 SXM data sheet (700 W): HBM rate and dense peaks
@@ -96,10 +117,16 @@ WRAPPERS = {"cand_scan_prefix": topk.cand_scan_prefix,
             "fused_layer": fl.fused_layer, "attention": attention,
             "cand_scan_int8_prefix": topk.cand_scan_int8_prefix,
             "cand_scan_int4_prefix": topk.cand_scan_int4_prefix,
-            "block_scan": topk.block_scan}
-# the scan each mirror dtype runs; every path also encodes (B2, B3)
+            "block_scan": topk.block_scan, "attn_half": fl.attn_half,
+            "mlp_half": fl.mlp_half}
+# the scan each mirror dtype runs; every search path also encodes (B2,
+# B3), every ingest runs the vision tower (B5, B6)
 SCANS = {"bfloat16": "cand_scan_prefix", "float32": "block_scan",
          "int8": "cand_scan_int8_prefix", "int4": "cand_scan_int4_prefix"}
+INGEST = ("attn_half", "mlp_half")
+INGEST_VIDEOS = 20
+FPS = 30.0
+IMAGE = 224
 
 
 def log(msg: str) -> None:
@@ -258,6 +285,132 @@ def compare_fused_layer(embedder: CLIPEmbedder, seed: int) -> dict:
         out[s] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
                   "library_ms": None}
     return out[16]
+
+
+def compare_layer_halves(embedder: CLIPEmbedder, seed: int,
+                         b: int = 256) -> tuple:
+    """B5 and B6 against their plain versions on one layer of the seeded
+    ViT-B/32 vision tower, bf16, at an ingest batch of ``b`` frames."""
+    c = embedder.cfg.vision
+    ops = embedder._layer_ops(embedder.params, "vision")[0]
+    d, f, s = c.hidden_size, c.hidden_size * c.mlp_ratio, c.seq_len
+    t = b * s
+    g = torch.Generator(device=embedder.device).manual_seed(seed)
+    x = torch.randn(t, d, generator=g, device=embedder.device).bfloat16()
+    kw = {"s": s, "heads": c.num_heads, "eps": c.layer_norm_eps,
+          "causal": False}
+    halves = {
+        "B5 attention half": (
+            lambda: fl.attn_half(x, ops, **kw),
+            lambda: fl.attn_half_ref(x, ops, **kw),
+            # x read, out written; wqkv, wout and the biases read (bf16),
+            # the LN rows (f32); QKV and out-proj GEMMs plus QK^T and PV
+            bound(2 * 2 * t * d + 2 * (4 * d * d + 4 * d) + 4 * 4 * d,
+                  8 * t * d * d + 4 * t * s * d, "bf16")),
+        "B6 MLP half": (
+            lambda: fl.mlp_half(x, ops, eps=c.layer_norm_eps),
+            lambda: fl.mlp_half_ref(x, ops, eps=c.layer_norm_eps),
+            bound(2 * 2 * t * d + 2 * (2 * d * f + f + d) + 4 * 4 * d,
+                  4 * t * f * d, "bf16")),
+    }
+    out = []
+    with torch.inference_mode():
+        for name, (kern, plain, lim) in halves.items():
+            err = (kern().float() - plain().float()).abs().max().item()
+            require(err <= LAYER_ATOL, f"{name} B={b}: max_abs_err {err}")
+            ms, pms = cuda_ms(kern, 10), cuda_ms(plain, 10)
+            log(f"{name} B={b} frames (T={t}, D={d}, S={s}): max_abs_err "
+                f"{err:.3e} (atol {LAYER_ATOL}) kernel {ms:.3f} ms plain "
+                f"{pms:.3f} ms bound {lim['bound_ms']:.4f} ms "
+                f"({lim['bound_by']})")
+            out.append({"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        **lim, "library_ms": None})
+    return tuple(out)
+
+
+def seeded_frames(seed: int, video: int, n: int) -> np.ndarray:
+    """``n`` uint8 RGB frames of one seeded video."""
+    return np.random.default_rng([seed, video]).integers(
+        0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+
+
+def compare_vision_encode(embedder: CLIPEmbedder, seed: int,
+                          b: int = 256) -> None:
+    """The whole vision encode on the layer-half kernels against the plain
+    pair: rows at per-row cosine >= MIN_COS, unit-norm within UNIT_ATOL."""
+    model = embedder.params
+    ops = embedder._layer_ops(model, "vision")
+    frames = torch.from_numpy(seeded_frames(seed, 10_000, b)).to(
+        embedder.device)
+    with torch.inference_mode():
+        pixels = normalize_images(frames, dtype=embedder.dtype)
+
+        def kern():
+            return fl.fused_vision_encode(model, pixels, ops)
+
+        def plain():
+            return fl.fused_vision_encode(model, pixels, ops,
+                                          attn=fl.attn_half_ref,
+                                          mlp=fl.mlp_half_ref)
+
+        a, p = kern(), plain()
+        cos = torch.nn.functional.cosine_similarity(a, p, dim=-1).min()
+        norm = (torch.linalg.vector_norm(a, dim=-1) - 1).abs().max()
+        require(cos.item() >= MIN_COS, f"vision encode: min cosine {cos}")
+        require(norm.item() <= UNIT_ATOL, f"vision encode: norm error {norm}")
+        ms, pms = cuda_ms(kern, 3), cuda_ms(plain, 3)
+    log(f"vision encode B={b} frames x{len(ops)} layers (bf16): min cosine "
+        f"{cos.item():.6f} (>= {MIN_COS}) vs the plain halves, max |norm - "
+        f"1| {norm.item():.2e} (<= {UNIT_ATOL}); kernels {ms:.3f} ms plain "
+        f"{pms:.3f} ms = {b / ms * 1e3:.0f} frames/s on the kernels")
+
+
+def ingest_split(embedder: CLIPEmbedder, seed: int, device,
+                 b: int = 256) -> None:
+    """Where one embed batch of the ingest loop goes: each stage closed
+    with a synchronise, on a scratch bf16 index (the third of three
+    repetitions counts)."""
+    model = embedder.params
+    ops = embedder._layer_ops(model, "vision")
+    c = embedder.cfg.vision
+    frames = seeded_frames(seed, 10_001, b)
+    index = DeviceVideoIndex(dim=DIM, device_dtype="bfloat16",
+                             device=device)
+    for _ in range(3):
+        t = {}
+
+        def stage(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            t[name] = 1e3 * (time.perf_counter() - t0)
+            return r
+
+        with torch.inference_mode():
+            dev = stage("upload", lambda: torch.from_numpy(frames).to(device))
+            x2 = stage("preprocess + patchify", lambda: fl.vision_embed(
+                model, normalize_images(dev, dtype=embedder.dtype)))
+
+            def layers():
+                y = x2
+                for o in ops:
+                    y = fl.attn_half(y, o, s=c.seq_len, heads=c.num_heads,
+                                     eps=c.layer_norm_eps, causal=False)
+                    y = fl.mlp_half(y, o, eps=c.layer_norm_eps)
+                return y
+
+            y = stage(f"{len(ops)} layers", layers)
+            feats = stage("epilogue", lambda: fl.vision_head(model, y, b))
+        host = stage("fetch", lambda: feats.cpu().numpy())
+        lo = len(index)
+        stage("host append", lambda: index.add_batch(
+            host, "split.mp4", [0.0] * b))
+        stage("stream append", lambda: index.stream_rows_device(
+            feats, offset=0, n=b, lo=lo))
+    log(f"ingest split, one embed batch of {b} frames (bf16 tower, bf16 "
+        "mirror, ms): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+        + f"; total {sum(t.values()):.3f}")
 
 
 def corpus_on_card(dev, n_rows: int, seed: int):
@@ -473,10 +626,11 @@ def check_search_response(status: int, body: dict, k: int) -> None:
         require(set(r) == ROW_KEYS, f"row keys {sorted(r)}")
 
 
-def check_exact(corpus: np.ndarray, n_frames: int, qs: np.ndarray,
+def check_exact(corpus: np.ndarray, name_of, qs: np.ndarray,
                 rows_per_query) -> float:
     """Returned rows == host exact top-K of the f32 corpus under the
-    index's query normalisation; returns the max score error."""
+    index's query normalisation, with the video names ``name_of(row)``;
+    returns the max score error."""
     qn = qs / (np.linalg.norm(qs, axis=1, keepdims=True) + 1e-10)
     scores = corpus @ qn.T                                 # [N, Q]
     worst = 0.0
@@ -488,8 +642,7 @@ def check_exact(corpus: np.ndarray, n_frames: int, qs: np.ndarray,
         require(got == top.tolist(),
                 f"rows {got} != host exact top-{K} {top.tolist()}")
         require([r["video_name"] for r in rows]
-                == [video_name(int(t) // n_frames) for t in top],
-                "video names")
+                == [name_of(int(t)) for t in top], "video names")
         err = np.abs(np.array([r["score"] for r in rows]) - s[top]).max()
         require(err <= SCORE_ATOL, f"score error {err}")
         worst = max(worst, float(err))
@@ -535,9 +688,10 @@ def check_order(rows_per_query) -> None:
         require(s == sorted(s), "rows not in (score desc, row asc) order")
 
 
-def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> dict:
-    """Every mirror dtype behind the HTTP server, over one pickle cache;
-    returns each dtype's launch counts."""
+def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> tuple:
+    """Every mirror dtype: ingest onto one pickle cache, then the HTTP
+    server; returns each dtype's launch counts on its search path and on
+    its ingest path."""
     n = args.videos * args.frames
     t0 = time.perf_counter()
     corpus = build_corpus(args.seed, args.videos, args.frames)
@@ -546,35 +700,46 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> dict:
     scratch = ROOT / "build" / "smoke"
     scratch.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(args.seed + 1)
-    launches = {}
+    launches, ingested = {}, {}
     with tempfile.TemporaryDirectory(dir=scratch) as videos:
         t0 = time.perf_counter()
         write_cache(corpus, args.frames,
                     Path(videos) / "video_search_cache.pkl")
         log(f"pickle v1.0 cache written in {time.perf_counter() - t0:.1f} s")
+        del corpus
         for dtype in SCANS:
-            launches[dtype] = serve_dtype(dtype, videos, embedder, corpus,
-                                          args, rng, device)
-    return launches
+            launches[dtype], ingested[dtype] = serve_dtype(
+                dtype, videos, embedder, args, rng, device)
+    return launches, ingested
 
 
-def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder,
-                corpus: np.ndarray, args, rng, device) -> dict:
-    """One engine with ``index.device_dtype = dtype`` behind the HTTP
-    server: the launch counters are set to 0 just before its searches and
-    read just after the last response, before the script's own reference
-    encodes."""
+def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
+                rng, device) -> tuple:
+    """One engine with ``index.device_dtype = dtype``: it ingests, then
+    serves behind the HTTP server. The launch counters are set to 0 just
+    before the ingest and read just after it, then set to 0 just before
+    the searches and read just after the last response, before the
+    script's own reference encodes."""
     config = EngineConfig()
     config.index.device_dtype = dtype
     engine = VideoSearchEngine(videos, config=config, embedder=embedder,
                                device=device)
     t0 = time.perf_counter()
     engine.startup()
-    require(len(engine.index) == len(corpus), "startup row count")
+    n_base = args.videos * args.frames
+    require(len(engine.index) == n_base, "startup row count")
     mode = engine.stats()["index"]["accuracy_mode"]
     log(f"[{dtype}] engine.startup(): {len(engine.index)} rows, mirror "
         f"{'' if mode == 'exact-f32-scan' else '+ re-rank store '}on the "
         f"card, in {time.perf_counter() - t0:.1f} s ({mode})")
+    ingested = ingest_tier(engine, dtype, videos, args, device)
+    corpus = engine.index._emb[: len(engine.index)]
+
+    def name_of(row: int) -> str:
+        if row < n_base:
+            return video_name(row // args.frames)
+        return ingest_name((row - n_base) // args.frames)
+
     server = create_server(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -601,11 +766,176 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder,
         require(count == 0, f"[{dtype}] {name} = {count}")
     log(f"[{dtype}] fallback counters: embed_fallbacks 0, "
         "fused_search_fallbacks 0")
-    check_served(dtype, embedder, corpus, args, served, device)
-    del engine, server
+    check_served(dtype, embedder, corpus, name_of, served, device)
+    del engine, server, corpus
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, ingested
+
+
+def ingest_name(v: int) -> str:
+    return f"ingest_{v:02d}.mp4"
+
+
+def seeded_extract(path: Path, *, seed: int, n: int, mode: str):
+    """The decode stage's stand-in (the card's machine has no OpenCV): a
+    60 s video at 30 fps, sampled by the reference's interval rule into
+    ``n`` seeded uint8 frames and their timestamps."""
+    v = int(Path(path).stem.split("_")[1])
+    step = sampling_interval(int(60 * FPS), n, mode)
+    return seeded_frames(seed, v, n), [k * step / FPS for k in range(n)]
+
+
+def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
+                device) -> dict:
+    """20 seeded videos through ``batched_frames`` and the engine's ingest
+    loop onto the loaded corpus (placeholder video files in the videos
+    dir, so the hashes are recorded; removed again afterwards), then the
+    checks: host rows and metadata, the mirror against the host path bit
+    for bit, 16 ingested frames as queries, launch and fallback counts."""
+    index, api, ing = engine.index, engine.config.api, engine.config.ingest
+    n0, n = len(index), INGEST_VIDEOS * args.frames
+    paths = [Path(videos) / ingest_name(v) for v in range(INGEST_VIDEOS)]
+    for p in paths:
+        p.write_bytes(b"seeded frames")
+    recorded, batches = [], []
+    embed = engine.embed_frames_device
+
+    def recording(frames):
+        feats_dev, feats = embed(frames)
+        recorded.append(feats)
+        return feats_dev, feats
+
+    def counted(it):
+        for batch in it:
+            batches.append(len(batch))
+            yield batch
+
+    engine.embed_frames_device = recording
+    extract = functools.partial(seeded_extract, seed=args.seed,
+                                n=args.frames, mode=api.sampling_mode)
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with engine.lock:
+            added = engine._ingest_batches(paths, counted(batched_frames(
+                paths, max_frames=args.frames,
+                sampling_mode=api.sampling_mode, batch_size=ing.batch_size,
+                num_workers=ing.num_decode_workers,
+                prefetch=ing.prefetch_videos, extract_fn=extract)))
+            for p in paths:
+                index.video_hashes[p.name] = video_identity_hash(p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del engine.embed_frames_device
+        for p in paths:
+            p.unlink()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"[{dtype}] ingest: {added} frames of {INGEST_VIDEOS} videos in "
+        f"{len(batches)} embed batches, {wall:.3f} s = {added / wall:.1f} "
+        f"frames/s (seeded frames, decode pipeline, vision tower, host "
+        f"append, streamed mirror append); launches {launches}")
+    require(added == n and len(index) == n0 + n, "ingest row count")
+    layers = engine._get_embedder().cfg.vision.num_layers
+    for name, count in launches.items():
+        want = layers * len(batches) if name in INGEST else 0
+        require(count == want, f"[{dtype}] ingest: {name} launched {count} "
+                f"times, not {want} ({layers} layers x {len(batches)} embed "
+                "batches)")
+    for name in ("embed_fallbacks", "fused_search_fallbacks"):
+        require(engine.metrics.counter(name) == 0, f"[{dtype}] {name}")
+    # 1. host rows = the embedder's output, with the reference's metadata
+    feats = np.concatenate(recorded)
+    require(np.array_equal(index._emb[n0:n0 + n], feats), "host rows")
+    step = sampling_interval(int(60 * FPS), args.frames, api.sampling_mode)
+    rows = np.arange(n)
+    require([index._video_names[v] for v in index._video_ids[n0:n0 + n]]
+            == [ingest_name(r // args.frames) for r in rows], "video names")
+    require(np.array_equal(index._timestamps[n0:n0 + n],
+                           (rows % args.frames) * step / FPS), "timestamps")
+    require(np.array_equal(index._frame_ids[n0:n0 + n], n0 + rows),
+            "frame ids")
+    require(all(index.video_hashes.get(p.name) for p in paths), "hashes")
+    check_mirror(index, dtype, device)
+    search_ingested(index, dtype, n0, n, device)
+    return {"launches": launches, "batches": len(batches),
+            "frames_s": added / wall}
+
+
+def check_mirror(index: DeviceVideoIndex, dtype: str, device) -> None:
+    """The mirror, its scales, the perm column and the re-rank store are
+    what the host sync path writes from the host store, bit for bit: for
+    every live position p, the host cast (or ``_quantize_host``) of host
+    row ``perm[p]``."""
+    t0 = time.perf_counter()
+    count = len(index)
+    require(index._device_rows == count, "mirror rows")
+    if dtype == "float32":
+        rows = index._emb[:count]
+    else:
+        perm = index._perm_dev.cpu().numpy()
+        require(np.array_equal(perm, index._perm), "perm column")
+        rows = index._emb[index._perm[:count]]
+    if index._codes:
+        step = 1 << 16
+        with ThreadPoolExecutor(8) as pool:
+            parts = list(pool.map(lambda i: index._quantize_host(
+                rows[i:i + step]), range(0, count, step)))
+        codes = torch.from_numpy(np.concatenate([c for c, _ in parts]))
+        scales = torch.from_numpy(np.concatenate([s for _, s in parts]))
+        require(torch.equal(index._device_emb[:count].cpu(), codes),
+                "mirror codes")
+        require(torch.equal(index._device_scales[:count].cpu(), scales),
+                "mirror scales")
+    else:
+        want = torch.from_numpy(rows).to(device, index._row_dtype)
+        require(torch.equal(index._device_emb[:count], want), "mirror rows")
+        del want
+    what = "mirror"
+    if dtype != "float32":
+        require(index._f32_rows == count, "re-rank store rows")
+        require(torch.equal(index._device_f32[:count], torch.from_numpy(
+            index._emb[:count]).to(device)), "re-rank store")
+        what += ", perm column and re-rank store"
+    log(f"[{dtype}] ingest: {what} over all {count} live rows equal the "
+        f"host path's, bit for bit (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def search_ingested(index: DeviceVideoIndex, dtype: str, n0: int, n: int,
+                    device) -> None:
+    """16 ingested frames as query vectors: every returned score is its
+    row's exact f32 score; float32 finds each frame itself first; recall@K
+    against the exact scan, and the spread of the ingested embeddings'
+    pairwise cosines, are printed."""
+    count = len(index)
+    pick = n0 + np.linspace(0, n - 1, 16).astype(np.int64)
+    q = index._emb[pick]
+    qn = q / (np.linalg.norm(q, axis=1, keepdims=True) + 1e-10)
+    rows = index.search_batch(q, k=K)
+    err = 0.0
+    for j, rr in enumerate(rows):
+        ids = np.array([r["frame_id"] for r in rr])
+        got = np.array([r["score"] for r in rr])
+        err = max(err, float(np.abs(got - index._emb[ids] @ qn[j]).max()))
+        if dtype == "float32":
+            require(ids[0] == pick[j], f"self-query {pick[j]} -> {ids[0]}")
+    require(err <= SCORE_ATOL, f"[{dtype}] self-query score error {err}")
+    check_order(rows)
+    truth = evaluation.exact_topk_ids(index._emb[:count], q, K, device)
+    got = np.array([[r["frame_id"] for r in rr] for rr in rows])
+    recall = evaluation.recall_at_k(truth, got)
+    e = torch.from_numpy(index._emb[n0:n0 + n]).to(device)
+    cos = (e @ e.t())[~torch.eye(n, dtype=torch.bool, device=device)]
+    lo, mid, hi = (cos.min().item(), cos.median().item(), cos.max().item())
+    log(f"[{dtype}] ingest: 16 ingested frames as queries over {count} rows:"
+        + (" each found itself first," if dtype == "float32" else "")
+        + f" scores = exact f32 (max error {err:.2e}); recall@{K} vs the "
+        f"exact scan {recall:.4f} (not gated); pairwise cosines of the "
+        f"{n} ingested rows: min {lo:.4f} median {mid:.4f} max {hi:.6f}")
 
 
 def search_singles(base, rng, n: int = 16):
@@ -660,11 +990,12 @@ def drive(base, dtype, rng):
     return singles, single_rows, batch, batch_rows
 
 
-def check_served(dtype, embedder, corpus, args, served, device) -> None:
-    """The served rows against the host exact top-K, with the query
-    vectors the port's encoders give (single: the module tower; batch: the
-    fused tower); int4's scores against its rows' exact f32 scores, and
-    the quantized tiers' recall@K against the exact scan."""
+def check_served(dtype, embedder, corpus, name_of, served, device) -> None:
+    """The served rows against the host exact top-K over the (grown)
+    corpus, with the query vectors the port's encoders give (single: the
+    module tower; batch: the fused tower); int4's scores against its rows'
+    exact f32 scores, and the quantized tiers' recall@K against the exact
+    scan."""
     singles, single_rows, batch, batch_rows = served
     q_single = np.stack([embedder.embed_text(q) for q in singles])
     with torch.inference_mode():
@@ -672,9 +1003,9 @@ def check_served(dtype, embedder, corpus, args, served, device) -> None:
             embedder.params, embedder.ids_tensor(
                 trim_text_ids(embedder.tokenizer(batch)))).cpu().numpy()
     if dtype == "bfloat16":
-        err = check_exact(corpus, args.frames, q_single, single_rows)
+        err = check_exact(corpus, name_of, q_single, single_rows)
         sample = list(range(0, 64, 8))
-        err = max(err, check_exact(corpus, args.frames, q_batch[sample],
+        err = max(err, check_exact(corpus, name_of, q_batch[sample],
                                    [batch_rows[i] for i in sample]))
         log(f"[{dtype}] e2e: all 16 singles and 8 sampled batch queries "
             f"match the host exact top-{K} (max score error {err:.2e})")
@@ -686,7 +1017,7 @@ def check_served(dtype, embedder, corpus, args, served, device) -> None:
         log(f"[{dtype}] e2e single + batch: every score equals its row's "
             f"exact f32 score (max error {err:.2e}), rows in order")
     else:
-        err = check_exact(corpus, args.frames, qs, rows)
+        err = check_exact(corpus, name_of, qs, rows)
         log(f"[{dtype}] e2e single + batch: all 80 match the host exact "
             f"top-{K} (max score error {err:.2e})")
     if dtype in ("int8", "int4"):
@@ -717,6 +1048,9 @@ def main() -> int:
                             seed=args.seed)
     b3 = compare_attention(device)
     b2 = compare_fused_layer(embedder, args.seed)
+    b5, b6 = compare_layer_halves(embedder, args.seed)
+    compare_vision_encode(embedder, args.seed)
+    ingest_split(embedder, args.seed, device)
     n_rows = args.videos * args.frames
     store, perm = corpus_on_card(device, n_rows, args.seed)
     b1 = compare_cand_scan(store, perm, n_rows, args.seed)
@@ -725,7 +1059,7 @@ def main() -> int:
     b8 = compare_block_scan(store, n_rows, args.seed)
     del store, perm
     torch.cuda.empty_cache()
-    launches = phase_end_to_end(embedder, args, device)
+    launches, ingested = phase_end_to_end(embedder, args, device)
     src = "video_quierer_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {"name": "cand_scan_prefix", "route": "cuda",
@@ -740,6 +1074,14 @@ def main() -> int:
          "source": src + "attention.cu",
          "replaces": "video_quierer_tpu/ops/attention.py:143",
          "launches": launches["bfloat16"]["attention"], **b3},
+        {"name": "attn_half", "route": "cuda",
+         "source": src + "fused_layer.cu",
+         "replaces": "video_quierer_tpu/ops/fused_layer.py:425",
+         "launches": ingested["bfloat16"]["launches"]["attn_half"], **b5},
+        {"name": "mlp_half", "route": "cuda",
+         "source": src + "fused_layer.cu",
+         "replaces": "video_quierer_tpu/ops/fused_layer.py:462",
+         "launches": ingested["bfloat16"]["launches"]["mlp_half"], **b6},
         {"name": "cand_scan_int8_prefix", "route": "cuda",
          "source": src + "cand_scan_codes.cu",
          "replaces": "video_quierer_tpu/ops/topk.py:1467",

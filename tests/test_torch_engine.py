@@ -1,8 +1,10 @@
 """Port engine surfaces vs the JAX package's: the config (same nine
 ``config.json`` keys and defaults, same engine defaults and ``VQT_*``
-mapping, same validation), startup's refusal to run without ingest or on a
-missing card, and the coalescer's failure contract (errors reach every
-waiter; nothing falls back)."""
+mapping, same validation), startup's refusal to ingest through samplers
+that are not ported or to run on a missing card, and the coalescer's
+failure contract (errors reach every waiter; nothing falls back). The
+ingest path itself is held against the JAX engine in
+``tests/test_torch_ingest.py``."""
 
 import dataclasses
 import json
@@ -88,12 +90,30 @@ def _engine(tmp_path, embedder=None):
                              device="cpu")
 
 
-def test_startup_refuses_videos_that_need_ingest(tmp_path):
+@pytest.mark.parametrize("field,value", [("sampling_strategy", "adaptive"),
+                                         ("quality_filter", True)])
+def test_startup_refuses_videos_that_need_ingest(tmp_path, field, value):
+    """Videos that need ingest through the adaptive/hybrid samplers or
+    the quality filter are refused: ``ingest/samplers.py`` is not
+    ported."""
     (tmp_path / "clip.mp4").write_bytes(b"not really a video")
     engine = _engine(tmp_path)
-    with pytest.raises(NotImplementedError, match="ingest"):
+    setattr(engine.config.ingest, field, value)
+    with pytest.raises(NotImplementedError, match="ingest/samplers.py"):
         engine.startup()
     assert not engine.ready
+    with pytest.raises(NotImplementedError, match="ingest/samplers.py"):
+        engine.config.validate()
+
+
+def test_startup_skips_an_unreadable_video(tmp_path):
+    """A video that does not decode yields no frames, as in the
+    reference; its hash is recorded so the next startup skips it."""
+    (tmp_path / "clip.mp4").write_bytes(b"not really a video")
+    engine = _engine(tmp_path)
+    engine.startup()
+    assert engine.ready and len(engine.index) == 0
+    assert "clip.mp4" in engine.index.video_hashes
 
 
 def test_startup_without_cache_or_videos_writes_empty_cache(tmp_path):

@@ -26,6 +26,8 @@ from tests.torch_parity import (TINY, port_state_dict, row_cosine,
                                 token_ids)
 from video_quierer_tpu.models.clip.config import get_config
 from video_quierer_tpu.models.clip.model import CLIP as FlaxCLIP
+from video_quierer_tpu.models.clip.model import init_params as \
+    jax_init_params
 from video_quierer_tpu.ops import fused_layer as jax_fl
 from video_quierer_tpu_torch.models.clip import embedder as emb_mod
 from video_quierer_tpu_torch.models.clip.bridge import init_params as \
@@ -48,13 +50,10 @@ def _interpret(monkeypatch):
 
 @pytest.fixture(scope="module")
 def towers():
-    """(flax model f32, params f32) of the tiny config."""
+    """(flax model f32, params f32) of the tiny config (both towers: the
+    port's CLIP module holds both)."""
     cfg = get_config(TINY)
-    model = FlaxCLIP(cfg, dtype=jnp.float32)
-    # text side only (the vision tower's init is not needed here)
-    params = model.init(jax.random.PRNGKey(0),
-                        jnp.zeros((1, cfg.text.context_length), jnp.int32),
-                        method=FlaxCLIP.encode_text)["params"]
+    params = jax_init_params(FlaxCLIP(cfg, dtype=jnp.float32), seed=0)
     return cfg, params
 
 

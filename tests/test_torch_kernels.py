@@ -10,7 +10,12 @@ Kernel tests carry the ``gpu`` marker and skip where no CUDA card is
 present; the CPU tests check the wrappers' CPU routing and launch counts.
 Tolerances: B1 exact (the inputs are multiples of 1/256, so every f32 dot
 product is exact in any summation order); B2 per-row cosine >= 1 - 1e-5
-in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2; B4 and B7
+in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2; B5 and B6
+(one layer half at ViT-B/32 widths, N(0, 1) activations) f32 atol 1e-4
+(sums of up to 3,072 products in another order), bf16 within two bf16
+ulps at the largest input magnitude (a GEMM output may round to the
+other side of a tie, and the bf16 softmax and residual carry it); the
+whole vision encode per-row cosine as B2; B4 and B7
 bit-identical (integer dot products are exact, and both versions multiply
 the scales in the same order); B8 rows identical and scores equal on
 exact inputs, rows identical and scores within rtol 1e-5 on random unit
@@ -25,6 +30,7 @@ from video_quierer_tpu_torch.models.clip.bridge import init_params
 from video_quierer_tpu_torch.models.clip.config import (
     CLIPConfig,
     CLIPTextConfig,
+    CLIPVisionConfig,
     get_config,
 )
 from video_quierer_tpu_torch.models.clip.model import CLIP
@@ -88,6 +94,7 @@ def test_resolve_device_never_falls_back_to_cpu():
 
 def _launch_counts():
     return (attention.launches, fl.fused_layer.launches,
+            fl.attn_half.launches, fl.mlp_half.launches,
             topk.cand_scan_prefix.launches,
             topk.cand_scan_int8_prefix.launches,
             topk.cand_scan_int4_prefix.launches, topk.block_scan.launches)
@@ -108,10 +115,15 @@ def test_cpu_tensors_take_the_plain_versions():
                                rounds=2)
     topk.cosine_topk(_exact(1, (3000, 64)), _exact(2, (3, 64)), 2500, k=10)
     cfg = CLIPConfig(projection_dim=64, text=CLIPTextConfig(
-        vocab_size=100, hidden_size=128, num_layers=1, num_heads=2))
+        vocab_size=100, hidden_size=128, num_layers=1, num_heads=2),
+        vision=CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=128,
+                                num_layers=1, num_heads=2))
     model = _text_model(cfg, torch.float32, "cpu")
     ops = [fl._layer_operands(b, torch.float32) for b in model.text.layers]
     out = fl.fused_text_encode(model, _ids(32, 8, 100), ops)
+    assert out.shape == (32, 64)
+    ops = [fl._layer_operands(b, torch.float32) for b in model.vision.layers]
+    out = fl.fused_vision_encode(model, _exact(3, (32, 32, 32, 3)), ops)
     assert out.shape == (32, 64)
     assert _launch_counts() == counts
 
@@ -154,6 +166,101 @@ def test_fused_layer_kernel(cuda, dtype, s):
     assert fl.fused_layer.launches == before + len(ops)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     assert cos.min().item() >= MIN_COS[dtype]
+
+
+def _vision_layer(dtype, device, b, seed=0, d=768, f=3072):
+    """N(0, 1) activations of ``b`` frames (S = 50) and one ViT-B/32
+    layer's operands: LeCun-scaled weights, small biases, LN rows near
+    (1, 0)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    ln = torch.stack([1 + rnd(d, scale=0.1), rnd(d, scale=0.1),
+                      1 + rnd(d, scale=0.1), rnd(d, scale=0.1)])
+    mats = (rnd(d, 3 * d, scale=d ** -0.5), rnd(3 * d, scale=0.02),
+            rnd(d, d, scale=d ** -0.5), rnd(d, scale=0.02),
+            rnd(d, f, scale=d ** -0.5), rnd(f, scale=0.02),
+            rnd(f, d, scale=f ** -0.5), rnd(d, scale=0.02))
+    ops = (ln.to(device),) + tuple(m.to(device, dtype) for m in mats)
+    return rnd(b * 50, d).to(device, dtype), ops
+
+
+def _half_atol(x):
+    if x.dtype == torch.float32:
+        return 1e-4
+    top = x.float().abs().max().item()
+    return 2 * 2.0 ** (np.floor(np.log2(top)) - 7)     # two bf16 ulps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [3, 32, 128, 256])
+def test_attn_half_kernel(cuda, dtype, b):
+    """B5 at every image bucket (T = 1,600 / 6,400 / 12,800) and a tail
+    tile (B = 3: T = 150, items straddling the 64-row tiles)."""
+    x, ops = _vision_layer(dtype, cuda, b)
+    before = fl.attn_half.launches
+    got = fl.attn_half(x, ops, s=50, heads=12, eps=1e-5, causal=False)
+    torch.cuda.synchronize()
+    assert fl.attn_half.launches == before + 1
+    want = fl.attn_half_ref(x, ops, s=50, heads=12, eps=1e-5, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_half_atol(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [3, 32, 128, 256])
+def test_mlp_half_kernel(cuda, dtype, b):
+    """B6 at every image bucket and a tail tile."""
+    x, ops = _vision_layer(dtype, cuda, b, seed=1)
+    before = fl.mlp_half.launches
+    got = fl.mlp_half(x, ops, eps=1e-5)
+    torch.cuda.synchronize()
+    assert fl.mlp_half.launches == before + 1
+    want = fl.mlp_half_ref(x, ops, eps=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_half_atol(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_vision_encode_kernels(cuda, dtype):
+    cfg = CLIPConfig(vision=CLIPVisionConfig(num_layers=2),
+                     text=CLIPTextConfig(num_layers=1))
+    model = _text_model(cfg, dtype, cuda)
+    ops = [fl._layer_operands(b, dtype) for b in model.vision.layers]
+    pixels = torch.randn(32, 224, 224, 3, generator=torch.Generator()
+                         .manual_seed(5)).to(cuda, dtype)
+    before = fl.attn_half.launches, fl.mlp_half.launches
+    with torch.inference_mode():
+        got = fl.fused_vision_encode(model, pixels, ops)
+        want = fl.fused_vision_encode(model, pixels, ops,
+                                      attn=fl.attn_half_ref,
+                                      mlp=fl.mlp_half_ref)
+    torch.cuda.synchronize()
+    assert (fl.attn_half.launches, fl.mlp_half.launches) == \
+        (before[0] + 2, before[1] + 2)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert cos.min().item() >= MIN_COS[dtype]
+    norms = torch.linalg.vector_norm(got, dim=-1)
+    assert (norms - 1).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_layer_halves_refuse_bad_operands(cuda):
+    x, ops = _vision_layer(torch.bfloat16, cuda, 2)
+    with pytest.raises(ValueError):                 # 50 does not divide 70
+        fl.attn_half(x[:70], ops, s=50, heads=12, eps=1e-5, causal=False)
+    with pytest.raises(ValueError):                 # head width 96
+        fl.attn_half(x, ops, s=50, heads=8, eps=1e-5, causal=False)
+    with pytest.raises(ValueError):                 # f32 weights, bf16 x
+        fl.mlp_half(x, (ops[0],) + tuple(o.float() for o in ops[1:]),
+                    eps=1e-5)
+    with pytest.raises(ValueError):                 # operands on the CPU
+        fl.mlp_half(x, tuple(o.cpu() for o in ops), eps=1e-5)
 
 
 @pytest.mark.gpu

@@ -11,18 +11,22 @@ from video_quierer_tpu.models.clip import config as jax_cfg
 from video_quierer_tpu_torch.models.clip import config as torch_cfg
 from video_quierer_tpu_torch.models.clip.bridge import params_from_jax
 
-# tiny text tower: 2 layers, width 128, 2 heads of 64
+# tiny towers: text 2 layers, width 128, 2 heads of 64; vision 32 px
+# frames in 8 px patches (S = 17), width 128, 2 heads of 64, 2 layers
 TINY = "torch-parity-tiny"
 # same widths with the full CLIP vocab / context (HashTokenizer ids)
 TINY_FULL_VOCAB = "torch-parity-tiny-vocab"
+# same widths on the ingest pipeline's 224 px frames: 56 px patches, S = 17
+TINY_224 = "torch-parity-tiny-224"
 
 
-def _tiny(vocab: int, context: int):
+def _tiny(vocab: int, context: int, image: int = 32, patch: int = 8):
     def factory():
         return jax_cfg.CLIPConfig(
             name=TINY, projection_dim=64,
-            vision=jax_cfg.CLIPVisionConfig(image_size=32, patch_size=16,
-                                            hidden_size=128, num_layers=1,
+            vision=jax_cfg.CLIPVisionConfig(image_size=image,
+                                            patch_size=patch,
+                                            hidden_size=128, num_layers=2,
                                             num_heads=2),
             text=jax_cfg.CLIPTextConfig(vocab_size=vocab,
                                         context_length=context,
@@ -36,13 +40,16 @@ def _as_torch_cfg(factory):
         c = factory()
         return torch_cfg.CLIPConfig(
             name=c.name, projection_dim=c.projection_dim,
+            vision=torch_cfg.CLIPVisionConfig(**vars(c.vision)),
             text=torch_cfg.CLIPTextConfig(**vars(c.text)))
     return torch_factory
 
 
-for _name, _vocab, _ctx in ((TINY, 1000, 77), (TINY_FULL_VOCAB, 49408, 77)):
-    jax_cfg.register_config(_name, _tiny(_vocab, _ctx))
-    torch_cfg.register_config(_name, _as_torch_cfg(_tiny(_vocab, _ctx)))
+for _name, _factory in ((TINY, _tiny(1000, 77)),
+                       (TINY_FULL_VOCAB, _tiny(49408, 77)),
+                       (TINY_224, _tiny(1000, 77, image=224, patch=56))):
+    jax_cfg.register_config(_name, _factory)
+    torch_cfg.register_config(_name, _as_torch_cfg(_factory))
 
 
 def numpy_tree(params):

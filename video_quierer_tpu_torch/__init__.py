@@ -8,10 +8,12 @@ path are hand-written CUDA C++ kernels under ``csrc/``, built with
 ``nvcc`` on first use (``ops/kernels.py``).
 
 Importing the package imports torch and numpy only — never jax, flax,
-aiohttp, pydantic or cv2 — and builds nothing.
+aiohttp, pydantic or cv2 (OpenCV is imported by the functions that decode
+a video) — and builds nothing.
 
 Entry point: ``python -m video_quierer_tpu_torch.api --port 5001
---videos-dir DIR`` (HTTP text search, api/server.py).
+--videos-dir DIR`` (ingest of the videos in DIR, then HTTP text search,
+api/server.py).
 """
 
 __version__ = "0.1.0"

@@ -2,10 +2,11 @@
 
     python -m video_quierer_tpu_torch.api --port 5001 --videos-dir DIR
 
-Loads the pickle cache in DIR (``video_search_cache.pkl``) through
-``engine.startup()`` and serves until interrupted. ``--device`` defaults
-to ``cuda``; without a CUDA card that raises rather than serving on the
-CPU.
+``engine.startup()`` loads the pickle cache in DIR
+(``video_search_cache.pkl``), ingests the videos in DIR that are new or
+changed (decoding needs OpenCV) and saves the cache; then the server
+runs until interrupted. ``--device`` defaults to ``cuda``; without a CUDA
+card that raises rather than serving on the CPU.
 """
 
 from __future__ import annotations

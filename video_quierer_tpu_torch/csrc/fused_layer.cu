@@ -1,24 +1,30 @@
-// Kernel B2: one whole pre-LN CLIP text encoder block.
+// Kernels B2, B5 and B6: pre-LN CLIP encoder blocks.
 //
-// Replaces the TPU kernel video_quierer_tpu/ops/fused_layer.py:
-// _fused_layer_call (kernel body _layer_kernel = _attn_math + _mlp_math):
-// LN1 (f32 stats) -> QKV + bias -> per-item causal attention -> out-proj +
-// bias -> residual -> LN2 -> fc1 + bias -> quick-GELU -> fc2 + bias ->
-// residual, on the flat [B*S, D] token matrix.
+// Replace the TPU kernels of video_quierer_tpu/ops/fused_layer.py:
+// - B5 _attn_half_call (kernel _attn_half_kernel = _attn_math): LN1 (f32
+//   stats) -> QKV + bias -> per-item attention (causal for text,
+//   non-causal for the ViT-B/32 vision tower at S=50) -> out-proj + bias ->
+//   residual;
+// - B6 _mlp_half_call (kernel _mlp_half_kernel = _mlp_math): LN2 -> fc1 +
+//   bias -> quick-GELU -> fc2 + bias -> residual;
+// - B2 _fused_layer_call (kernel _layer_kernel = both): the causal text
+//   block, here B5 followed by B6 in one C call (vqt_text_layer);
+// all on the flat [B*S, D] token matrix.
 //
-// The TPU kernel keeps the whole layer's weights (6.3 MB bf16 at width 512)
-// resident in VMEM for one pallas_call. One SM's 227 KB of shared memory
-// cannot hold them, so here the block is five launches on the host side of
-// one C call (vqt_text_layer):
-//   1. GEMM with LayerNorm-1 fused as its prologue, bias epilogue  -> qkv
-//   2. per-item causal attention on the q/k/v column blocks of qkv
-//      (attention.cu; the TPU kernel's cross-item mask over a shared tile
-//      is TPU redundancy, not semantics)                           -> attn
-//   3. GEMM, bias + residual epilogue                              -> x3
-//   4. GEMM with LayerNorm-2 prologue, bias + quick-GELU epilogue  -> h
-//   5. GEMM, bias + residual epilogue                              -> out
+// The TPU kernels keep a layer's (or a half's) weights resident in VMEM for
+// one pallas_call. One SM's 227 KB of shared memory cannot hold them, so
+// here a block is five launches on the host side of the C calls:
+//   B5 1. GEMM with LayerNorm-1 fused as its prologue, bias epilogue -> qkv
+//      2. per-item attention on the q/k/v column blocks of qkv
+//         (attention.cu; the TPU kernel's cross-item mask over a shared
+//         tile is TPU redundancy, not semantics)                     -> attn
+//      3. GEMM, bias + residual epilogue                             -> x3
+//   B6 4. GEMM with LayerNorm-2 prologue, bias + quick-GELU epilogue -> h
+//      5. GEMM, bias + residual epilogue                             -> out
 // The weights keep _layer_operands' layout: [in, out] row-major with q/k/v
-// concatenated along out (wqkv [D, 3D]).
+// concatenated along out (wqkv [D, 3D]). Item boundaries (S = 50 for the
+// vision tower) fall anywhere inside a 64-row GEMM tile: the GEMMs are
+// per token, only the attention step sees items.
 //
 // The GEMM keeps the reference's bf16 rounding points in its prologue
 // (LN output rounded to T) and epilogue (T(acc), + bias in T, quick-GELU
@@ -29,9 +35,13 @@
 //   (the LN prologue is applied while staging A);
 // - f32: a shared-memory tiled FMA loop on the CUDA cores (64x64 tile,
 //   4x4 outputs per thread).
-// Bound on the H100: at serving batches (1,024 tokens x 512 wide) the
+// Bound on the H100: at text serving batches (1,024 tokens x 512 wide) the
 // GEMMs are small (0.5-2 GFLOP each), so the 60 launches per 12-layer
 // encode and the per-CTA staging, not the tensor-core peak, set the time.
+// At the vision tower's ingest batch (12,800 tokens x 768 wide, 62 + 121
+// GFLOP a layer) the tensor-core peak bounds both halves; the 64x64 WMMA
+// tile with its per-step shared-memory staging sits far below it (wgmma
+// and TMA staging are the next step).
 #include "common.cuh"
 
 #include <mma.h>
@@ -281,29 +291,37 @@ int gemm(const void* a, const void* w, const void* bias, const float* gamma,
   return (int)cudaGetLastError();
 }
 
+// B5: LN1 -> QKV -> per-item attention -> out-proj + residual (launches 1-3)
 template <typename T>
-int text_layer(const void* x, void* out, void* qkv, void* attn, void* x3,
-               void* h, const float* ln, const void* wqkv, const void* bqkv,
-               const void* wout, const void* bout, const void* wfc1,
-               const void* bfc1, const void* wfc2, const void* bfc2,
-               int tokens, int seq, int d, int heads, int f, float eps,
-               int dtype, cudaStream_t s) {
+int attn_half(const void* x, void* out, void* qkv, void* attn,
+              const float* ln, const void* wqkv, const void* bqkv,
+              const void* wout, const void* bout, int tokens, int seq, int d,
+              int heads, float eps, int causal, int dtype, cudaStream_t s) {
   int e;
   // 1. LN1 -> QKV
   if ((e = gemm<T>(x, wqkv, bqkv, ln, ln + d, nullptr, qkv, tokens, 3 * d, d,
                    eps, 0, s)))
     return e;
-  // 2. per-item causal attention over q/k/v column blocks (row stride 3D)
+  // 2. per-item attention over the q/k/v column blocks (row stride 3D);
+  //    q is not pre-scaled: the f32 logits take hd^-0.5 (_attn_math)
   const char* base = (const char*)qkv;
   const size_t col = (size_t)d * sizeof(T);
   if ((e = vqt_attention(base, base + col, base + 2 * col, attn,
                          tokens / seq, seq, heads, d / heads, 3 * d, d, seq,
-                         1, 1.f / sqrtf((float)(d / heads)), dtype, s)))
+                         causal, 1.f / sqrtf((float)(d / heads)), dtype, s)))
     return e;
   // 3. out-proj + residual
-  if ((e = gemm<T>(attn, wout, bout, nullptr, nullptr, x, x3, tokens, d, d,
-                   eps, 0, s)))
-    return e;
+  return gemm<T>(attn, wout, bout, nullptr, nullptr, x, out, tokens, d, d,
+                 eps, 0, s);
+}
+
+// B6: LN2 (ln rows 2-3) -> fc1 -> quick-GELU -> fc2 + residual (launches 4-5)
+template <typename T>
+int mlp_half(const void* x3, void* out, void* h, const float* ln,
+             const void* wfc1, const void* bfc1, const void* wfc2,
+             const void* bfc2, int tokens, int d, int f, float eps,
+             cudaStream_t s) {
+  int e;
   // 4. LN2 -> fc1 -> quick-GELU
   if ((e = gemm<T>(x3, wfc1, bfc1, ln + 2 * d, ln + 3 * d, nullptr, h,
                    tokens, f, d, eps, 1, s)))
@@ -313,8 +331,48 @@ int text_layer(const void* x, void* out, void* qkv, void* attn, void* x3,
                  eps, 0, s);
 }
 
+bool bad_shape(int tokens, int seq, int d, int heads) {
+  return tokens <= 0 || seq <= 0 || tokens % seq || heads <= 0 || d % heads;
+}
+
 }  // namespace
 
+extern "C" int vqt_attn_half(const void* x, void* out, void* qkv, void* attn,
+                             const void* ln, const void* wqkv,
+                             const void* bqkv, const void* wout,
+                             const void* bout, int tokens, int seq, int d,
+                             int heads, float eps, int causal, int dtype,
+                             void* stream) {
+  if (bad_shape(tokens, seq, d, heads)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* lnf = (const float*)ln;
+  if (dtype == vqt::DT_BF16)
+    return attn_half<bf16>(x, out, qkv, attn, lnf, wqkv, bqkv, wout, bout,
+                           tokens, seq, d, heads, eps, causal, dtype, s);
+  if (dtype == vqt::DT_F32)
+    return attn_half<float>(x, out, qkv, attn, lnf, wqkv, bqkv, wout, bout,
+                            tokens, seq, d, heads, eps, causal, dtype, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int vqt_mlp_half(const void* x3, void* out, void* h,
+                            const void* ln, const void* wfc1,
+                            const void* bfc1, const void* wfc2,
+                            const void* bfc2, int tokens, int d, int f,
+                            float eps, int dtype, void* stream) {
+  if (tokens <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* lnf = (const float*)ln;
+  if (dtype == vqt::DT_BF16)
+    return mlp_half<bf16>(x3, out, h, lnf, wfc1, bfc1, wfc2, bfc2, tokens, d,
+                          f, eps, s);
+  if (dtype == vqt::DT_F32)
+    return mlp_half<float>(x3, out, h, lnf, wfc1, bfc1, wfc2, bfc2, tokens,
+                           d, f, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B2: the whole causal text block = B5 (causal) then B6
 extern "C" int vqt_text_layer(const void* x, void* out, void* qkv,
                               void* attn, void* x3, void* h, const void* ln,
                               const void* wqkv, const void* bqkv,
@@ -323,17 +381,10 @@ extern "C" int vqt_text_layer(const void* x, void* out, void* qkv,
                               const void* wfc2, const void* bfc2, int tokens,
                               int seq, int d, int heads, int f, float eps,
                               int dtype, void* stream) {
-  if (tokens <= 0 || seq <= 0 || tokens % seq || heads <= 0 || d % heads)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* lnf = (const float*)ln;
-  if (dtype == vqt::DT_BF16)
-    return text_layer<bf16>(x, out, qkv, attn, x3, h, lnf, wqkv, bqkv, wout,
-                            bout, wfc1, bfc1, wfc2, bfc2, tokens, seq, d,
-                            heads, f, eps, dtype, s);
-  if (dtype == vqt::DT_F32)
-    return text_layer<float>(x, out, qkv, attn, x3, h, lnf, wqkv, bqkv,
-                             wout, bout, wfc1, bfc1, wfc2, bfc2, tokens, seq,
-                             d, heads, f, eps, dtype, s);
-  return (int)cudaErrorInvalidValue;
+  int e;
+  if ((e = vqt_attn_half(x, x3, qkv, attn, ln, wqkv, bqkv, wout, bout,
+                         tokens, seq, d, heads, eps, 1, dtype, stream)))
+    return e;
+  return vqt_mlp_half(x3, out, h, ln, wfc1, bfc1, wfc2, bfc2, tokens, d, f,
+                      eps, dtype, stream);
 }

@@ -8,6 +8,9 @@ in place of pydantic (which the port does not depend on). Tier 2 —
 environment overrides. Semantics match the JAX package; fields the port
 does not act on yet (ingest, IVF, SigLIP) keep their names and
 validation so one ``config.json``/``engine.yaml`` serves both packages.
+Ingest samples by the reference's interval rule only: the adaptive and
+hybrid samplers and the quality filter (``ingest/samplers.py``) are not
+ported, and asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -150,6 +153,7 @@ class EngineConfig:
         if self.ingest.sampling_strategy not in SAMPLING_STRATEGIES:
             raise ValueError(
                 f"sampling_strategy must be one of {SAMPLING_STRATEGIES}")
+        check_sampling_ported(self.ingest)
         if self.index.kind not in ("exact", "ivf"):
             raise ValueError("index.kind must be 'exact' or 'ivf'")
         if self.index.device_dtype not in ("float32", "bfloat16",
@@ -181,6 +185,15 @@ class EngineConfig:
             raise ValueError("pipeline_microbatches must be positive")
         if self.coalesce_width <= 0:
             raise ValueError("coalesce_width must be positive")
+
+
+def check_sampling_ported(ingest: IngestConfig) -> None:
+    """Refuse the ingest options whose module is not ported yet."""
+    if ingest.sampling_strategy != "interval" or ingest.quality_filter:
+        raise NotImplementedError(
+            "ingest.sampling_strategy other than 'interval' and "
+            "ingest.quality_filter need ingest/samplers.py, which is not "
+            "yet ported")
 
 
 def _flag(v: str) -> bool:

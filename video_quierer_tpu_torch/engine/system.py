@@ -1,12 +1,18 @@
-"""Engine orchestration, search half (counterpart of
+"""Engine orchestration: startup, hash-diff ingest, search (counterpart of
 ``video_quierer_tpu/engine/system.py``).
 
 One engine, one config, one index on one device:
 
 - ``startup``: load the pickle v1.0 cache, diff the videos dir by
-  md5(name, size, mtime); videos that need ingest raise
-  ``NotImplementedError`` (ingest is a later port); then bring the device
-  mirrors up to date;
+  md5(name, size, mtime), ingest the new and changed videos (all of them
+  without a cache) and save the cache; then bring the device mirrors up
+  to date;
+- ingest (``_ingest``, ``process_video``): the threaded decode pipeline
+  (``ingest/pipeline.py``) yields cross-video batches of 256 frames; each
+  is embedded on the device (the fused vision encode, kernels B5 + B6),
+  appended to the host store per video, and streamed into the device
+  mirrors from the embedder's device output in one step per batch
+  (``DeviceVideoIndex.stream_rows_device``);
 - text search: tokenize on the host → the embedder's text tower, the
   candidate scan and the exact re-rank on the device
   (``DeviceVideoIndex.search_batch_fused_async``) → reference rows
@@ -15,8 +21,9 @@ One engine, one config, one index on one device:
   coalescer), ``search_batch`` (one device pass for many queries).
 
 Unlike the JAX engine, a failed encode or dispatch is not degraded to the
-keyword encoder or a two-step path: it raises. The ``embed_fallbacks``
-and ``fused_search_fallbacks`` counters stay for parity and read 0.
+keyword encoder, the visual-statistics embedder or a two-step path: it
+raises. The ``embed_fallbacks`` and ``fused_search_fallbacks`` counters
+stay for parity and read 0.
 """
 
 from __future__ import annotations
@@ -24,18 +31,26 @@ from __future__ import annotations
 import hashlib
 import logging
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from video_quierer_tpu_torch.engine.cache import QueryResultCache
 from video_quierer_tpu_torch.engine.config import (
+    ApiConfig,
     EngineConfig,
+    check_sampling_ported,
     load_engine_config,
 )
 from video_quierer_tpu_torch.engine.metrics import SystemMetrics
 from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
+from video_quierer_tpu_torch.ingest.frames import video_identity_hash
+from video_quierer_tpu_torch.ingest.pipeline import (
+    FrameBatch,
+    batched_frames,
+    group_by_video,
+)
 from video_quierer_tpu_torch.models.clip.embedder import (
     TEXT_BUCKETS,
     _bucket_for,
@@ -54,14 +69,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def format_timestamp(ts: float) -> str:
     """``"{m}m{s}s"`` (reference result shaping)."""
     return f"{int(ts // 60)}m{int(ts % 60)}s"
-
-
-def video_identity_hash(video_path: Path) -> str:
-    """md5 of name+size+mtime — the cache's staleness key (copy of
-    ``video_quierer_tpu/ingest/frames.py:video_identity_hash``)."""
-    stat = Path(video_path).stat()
-    key = f"{Path(video_path).name}_{stat.st_size}_{stat.st_mtime}"
-    return hashlib.md5(key.encode()).hexdigest()
 
 
 class VideoSearchEngine:
@@ -93,7 +100,7 @@ class VideoSearchEngine:
         self._ready = False
         self._coalescer = None
         # searches are reads (concurrent, pipelined on the device);
-        # load/clear are exclusive
+        # load, ingest and removal are exclusive
         self.lock = RWLock()
 
     # ------------------------------------------------------------------
@@ -113,7 +120,7 @@ class VideoSearchEngine:
             if m.family != "clip" or m.checkpoint_dir \
                     or m.orbax_checkpoint or m.parallel != "none":
                 raise NotImplementedError(
-                    "only the seeded CLIP text tower is ported (no SigLIP, "
+                    "only the seeded CLIP towers are ported (no SigLIP, "
                     "checkpoints or pipeline parallelism yet)")
             from video_quierer_tpu_torch.models.clip.embedder import \
                 CLIPEmbedder
@@ -122,8 +129,17 @@ class VideoSearchEngine:
                                           device=self.device)
         return self._embedder
 
+    def embed_frames(self, frames_u8: np.ndarray) -> np.ndarray:
+        """Frames → ``[N, D]`` f32 unit rows (raises on failure)."""
+        return self._get_embedder().embed_frames(frames_u8)
+
+    def embed_frames_device(self, frames_u8: np.ndarray):
+        """``(feats_dev, feats_np)``: the device-resident features and
+        their host copy (one fetch); raises on failure."""
+        return self._get_embedder().embed_frames_device(frames_u8)
+
     # ------------------------------------------------------------------
-    # Startup
+    # Startup / ingest
     # ------------------------------------------------------------------
 
     def _config_hash(self) -> str:
@@ -159,16 +175,87 @@ class VideoSearchEngine:
             current = self.current_videos()
             stale = self._stale_videos(current) if loaded else current
             if stale:
-                raise NotImplementedError(
-                    f"ingest is not yet ported ({len(stale)} videos need "
-                    "processing)")
-            if not loaded:
+                logger.info("%d videos new/changed — processing",
+                            len(stale))
+                self._ingest(stale)
+            if stale or not loaded:
                 self.index.save_to_disk(self.cache_path)
             self._config_hash_path.write_text(self._config_hash())
             self.index.sync_mirror()
         self._ready = True
         self.metrics.set_gauge("frames_indexed", len(self.index))
         logger.info("Startup complete: %d frames indexed", len(self.index))
+
+    def _ingest(self, videos: Sequence[Path],
+                api_cfg: Optional[ApiConfig] = None) -> int:
+        """Batched cross-video ingest; returns the frames added.
+        Re-ingesting a video replaces its rows."""
+        if not videos:
+            return 0
+        cfg = api_cfg or self.config.api
+        ing = self.config.ingest
+        check_sampling_ported(ing)
+        with self.lock, self.metrics.timer("ingest"):
+            for video in videos:
+                self.index.remove_video(Path(video).name)
+            added = self._ingest_batches(videos, batched_frames(
+                list(videos), max_frames=cfg.max_frames,
+                sampling_mode=cfg.sampling_mode, batch_size=ing.batch_size,
+                num_workers=ing.num_decode_workers,
+                prefetch=ing.prefetch_videos,
+                num_procs=ing.num_decode_procs))
+            for video in videos:
+                if Path(video).exists():
+                    self.index.video_hashes[Path(video).name] = \
+                        video_identity_hash(video)
+        self.query_cache.invalidate_all()
+        self.metrics.set_gauge("frames_indexed", len(self.index))
+        return added
+
+    def _ingest_batches(self, videos: Sequence[Path],
+                        batches: Iterable[FrameBatch]) -> int:
+        """The per-batch ingest loop (callers hold the write lock): embed
+        each batch on the device, append its per-video runs to the host
+        store, then stream the batch into the device mirrors from the
+        embedder's output in one step (``ingest.stream_mirror``, the
+        default) — or leave the mirrors to sync at the next search.
+        Returns the frames added."""
+        stream = self.config.ingest.stream_mirror
+        added = 0
+        for batch in batches:
+            feats_dev = None
+            with self.metrics.timer("embed_batch"):
+                if stream:
+                    feats_dev, feats = self.embed_frames_device(batch.frames)
+                else:
+                    feats = self.embed_frames(batch.frames)
+            pos = 0
+            lo = len(self.index)
+            for vidx, frames, stamps in group_by_video(batch):
+                n = frames.shape[0]
+                self.index.add_batch(feats[pos: pos + n],
+                                     Path(videos[vidx]).name, stamps)
+                pos += n
+            if feats_dev is not None:
+                self.index.stream_rows_device(feats_dev, offset=0, n=pos,
+                                              lo=lo)
+            added += len(batch)
+            self.metrics.inc("frames_embedded", len(batch))
+        return added
+
+    def process_video(self, video_path: Path,
+                      api_cfg: Optional[ApiConfig] = None) -> int:
+        """Ingest one video (the upload path)."""
+        return self._ingest([Path(video_path)], api_cfg)
+
+    def remove_video(self, video_name: str) -> int:
+        """Drop a video's rows under the write lock; returns the count."""
+        with self.lock:
+            removed = self.index.remove_video(video_name)
+        if removed:
+            self.query_cache.invalidate_all()
+            self.metrics.set_gauge("frames_indexed", len(self.index))
+        return removed
 
     # ------------------------------------------------------------------
     # Search

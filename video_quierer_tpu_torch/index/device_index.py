@@ -27,8 +27,17 @@ Searches: :meth:`search_batch` (query vectors) and
 enqueued on the device, resolved later) — the serving coalescer's
 dispatch/resolve contract.
 
-Corpus meshes, the video-level search and the device-streamed ingest
-appends are later ports.
+Ingest appends stream from the device (:meth:`add_batch_device`,
+:meth:`stream_rows_device`): the host store takes the embedder's fetched
+rows, and the mirrors are updated from the embedder's device output by
+torch index operations — relocate the rows the Fisher–Yates inserts
+displaced, cast or quantize the new rows, update the perm column, append
+to the re-rank store — with no host→device copy of the features. The
+result is bit-identical to the host sync path's. The index's device
+tensors are always made and updated outside ``torch.inference_mode``, so
+an append may come from inside it or not.
+
+Corpus meshes and the video-level search are later ports.
 """
 
 from __future__ import annotations
@@ -47,6 +56,8 @@ import numpy as np
 import torch
 
 from video_quierer_tpu_torch.ops.quantize import (
+    quantize_rows,
+    quantize_rows_int4,
     quantize_rows_int4_np,
     quantize_rows_np,
 )
@@ -182,6 +193,9 @@ class DeviceVideoIndex:
         self._inv_perm: Optional[np.ndarray] = None
         self._perm_rows = 0
         self._fy_rng: Optional[np.random.Generator] = None
+        # pre-append mirror position of each old row the last extension
+        # displaced (host row -> position), for the device-streamed append
+        self._fy_origin: Dict[int, int] = {}
         self._perm_dev: Optional[torch.Tensor] = None
         # identity-layout re-rank store
         self._device_f32: Optional[torch.Tensor] = None
@@ -307,18 +321,25 @@ class DeviceVideoIndex:
             self._perm_rows = count
             self._fy_rng = rng
             self._perm_dev = None
+            self._fy_origin = {}
             return None
+        self._fy_origin = {}
         if count == self._perm_rows:
             return np.empty(0, np.int32)
         lo, hi = self._perm_rows, count
         perm, inv = self._perm, self._inv_perm
         js = self._fy_rng.integers(0, np.arange(lo, hi) + 1)
         changed = []
+        # an old row (< lo) displaced twice keeps its first, pre-append
+        # position: the streamed append gathers it from there
+        origin = self._fy_origin
         for i in range(hi - lo):
             m = lo + i   # prefix size before this insert == new host row
             j = int(js[i])
             if j != m:
                 disp = int(perm[j])
+                if disp < lo and disp not in origin:
+                    origin[disp] = j
                 perm[m] = disp
                 inv[disp] = m
                 perm[j] = m
@@ -422,6 +443,7 @@ class DeviceVideoIndex:
         with self._sync_lock:
             self._sync_device_locked()
 
+    @torch.inference_mode(False)
     def _sync_device_locked(self) -> None:
         """Bring the mirror up to date: full upload on the first use, a
         compaction or an append of more than ``_UPDATE_MAX`` rows;
@@ -474,6 +496,7 @@ class DeviceVideoIndex:
                   else cap * self.dim * 2)
         return cap * self.dim * store + mirror <= budget
 
+    @torch.inference_mode(False)
     def _sync_device_f32(self) -> torch.Tensor:
         """Bring the identity-layout re-rank store up to date (callers
         hold ``_sync_lock``): full upload on first use, dtype change or
@@ -511,6 +534,148 @@ class DeviceVideoIndex:
             self._sync_device_locked()
             if self._device_rerank_active():
                 self._sync_device_f32()
+
+    # -- device-streamed append (the features never leave the device) --
+
+    def _place_empty(self, cap: int) -> None:
+        """Fresh mirrors on the device for a build from zero rows: zero
+        rows (and scales), the identity perm column, and the arrangement
+        started at zero rows (the host path's first placement at count 0,
+        without its upload)."""
+        if self._mirror_layout() == "prefix":
+            self._perm = None
+            self._extend_perm_to(0, cap)
+            self._perm_dev = torch.arange(cap, dtype=torch.int32,
+                                          device=self.device)
+        width = self._codes_width if self._codes else self.dim
+        self._device_emb = torch.zeros(
+            (cap, width), device=self.device,
+            dtype=torch.int8 if self._codes else self._row_dtype)
+        self._device_scales = (torch.zeros((cap, 1), device=self.device)
+                               if self._codes else None)
+        self._device_cap = cap
+        self._device_rows = 0
+
+    def _cast_rows(self, rows: torch.Tensor):
+        """Device rows → the mirror's ``(rows or codes, scales or None)``:
+        the cast, or the quantizer bit-identical to :meth:`_quantize_host`
+        (reciprocal-multiply scale, true divide, round half to even)."""
+        if self.device_dtype == "int8":
+            return quantize_rows(rows)
+        if self.device_dtype == "int4":
+            return quantize_rows_int4(rows)
+        return rows.to(self._row_dtype), None
+
+    def add_batch_device(self, feats: torch.Tensor, video_name: str,
+                         timestamps: Sequence[float], *, offset: int = 0,
+                         feats_np: Optional[np.ndarray] = None) -> None:
+        """Append rows whose embeddings already live on the device:
+        ``feats[offset : offset + len(timestamps)]``. The host store takes
+        ``feats_np`` (the full batch fetched once; fetched here when
+        omitted), the mirrors the device rows."""
+        n = len(timestamps)
+        if n == 0:
+            return
+        rows = (feats[offset: offset + n].float().cpu().numpy()
+                if feats_np is None else feats_np[offset: offset + n])
+        lo = self._count
+        self.add_batch(rows, video_name, timestamps)
+        self.stream_rows_device(feats, offset=offset, n=n, lo=lo)
+
+    def stream_rows_device(self, feats: torch.Tensor, *, offset: int,
+                           n: int, lo: int) -> None:
+        """Stream host rows ``[lo, lo + n)`` — already appended to the
+        host store — into the device mirrors from the device tensor
+        ``feats`` (rows ``offset .. offset + n``). The engine appends an
+        embed batch's per-video segments on the host first and streams
+        once per batch."""
+        if n == 0:
+            return
+        with self._sync_lock:
+            self._stream_append_device_locked(feats, offset, n, lo)
+
+    @torch.inference_mode(False)
+    def _stream_append_device_locked(self, feats: torch.Tensor, offset: int,
+                                     n: int, lo: int) -> None:
+        """Bring the mirror and the active re-rank store up to date from
+        device rows. Where the streaming invariant does not hold (an
+        append over ``_UPDATE_MAX`` rows, a mirror not synced to ``lo``)
+        the host sync path runs instead: the same result."""
+        cap = self._emb.shape[0]
+        rows = feats[offset: offset + n]
+        if rows.device != self.device:
+            raise ValueError(f"streamed rows on {rows.device}, index on "
+                             f"{self.device}")
+        if n <= self._UPDATE_MAX and self._device_emb is None and lo == 0:
+            self._place_empty(cap)
+        if (n > self._UPDATE_MAX or self._device_emb is None
+                or (self._device_cap != cap
+                    and not self._try_grow_mirror(cap))
+                or self._device_rows != lo):
+            self._sync_device_locked()
+        elif self._mirror_layout() == "id":
+            self._device_emb[lo: lo + n] = rows.to(self._row_dtype)
+            self._device_rows = lo + n
+        elif self._extend_perm_to(lo + n, cap) is None \
+                or self._perm_dev is None:
+            self._full_place(cap)
+        else:
+            self._stream_prefix(rows, lo, n)
+        if self._device_rerank_active():
+            self._stream_store(rows, lo, n, cap)
+
+    def _stream_prefix(self, rows: torch.Tensor, lo: int, n: int) -> None:
+        """The live-prefix append after ``_extend_perm_to``: the displaced
+        old rows move from their pre-append positions (all gathered before
+        any write), the new rows land cast or quantized at theirs, and the
+        perm column follows."""
+        origin = self._fy_origin
+        old_ids = np.fromiter(origin.keys(), np.int64, count=len(origin))
+        old_src = np.fromiter(origin.values(), np.int64, count=len(origin))
+        new_ids = np.arange(lo, lo + n, dtype=np.int64)
+        idx = torch.from_numpy(np.concatenate([
+            old_src, self._inv_perm[old_ids], old_ids,
+            self._inv_perm[new_ids], new_ids])).to(self.device)
+        m = len(origin)
+        src, old_dst, old_val = idx[:m], idx[m:2 * m], idx[2 * m:3 * m]
+        new_dst, new_val = idx[3 * m:3 * m + n], idx[3 * m + n:]
+        emb, scales = self._device_emb, self._device_scales
+        if m:
+            moved = emb[src]
+            emb[old_dst] = moved
+            if scales is not None:
+                moved_scales = scales[src]
+                scales[old_dst] = moved_scales
+        codes, new_scales = self._cast_rows(rows)
+        emb[new_dst] = codes
+        if scales is not None:
+            scales[new_dst] = new_scales
+        self._perm_dev[old_dst] = old_val.to(torch.int32)
+        self._perm_dev[new_dst] = new_val.to(torch.int32)
+        self._device_rows = lo + n
+
+    def _stream_store(self, rows: torch.Tensor, lo: int, n: int,
+                      cap: int) -> None:
+        """Append the device rows to the identity-layout re-rank store
+        (created empty on a build from zero rows, grown on the device),
+        or sync it from the host where it is not at ``lo``."""
+        dt = (torch.bfloat16 if self.rerank_store_dtype == "bfloat16"
+              else torch.float32)
+        if self._device_f32 is None and lo == 0:
+            self._device_f32 = torch.zeros((cap, self.dim), dtype=dt,
+                                           device=self.device)
+            self._f32_cap, self._f32_rows = cap, 0
+        if (self._device_f32 is None or self._device_f32.dtype != dt
+                or self._f32_rows != lo or n > self._UPDATE_MAX):
+            self._sync_device_f32()
+            return
+        if cap > self._f32_cap:
+            grown = torch.zeros((cap, self.dim), dtype=dt,
+                                device=self.device)
+            grown[: self._f32_cap] = self._device_f32
+            self._device_f32, self._f32_cap = grown, cap
+        self._device_f32[lo: lo + n] = rows.to(dt)
+        self._f32_rows = lo + n
 
     # ------------------------------------------------------------------
     # Search

@@ -2,15 +2,19 @@
 
 - :func:`params_from_jax` maps the JAX package's flax parameter tree
   (as numpy arrays) onto the port's ``CLIP`` state dict: a Dense
-  ``kernel [in, out]`` becomes ``weight [out, in]``; embeddings,
-  positions and LayerNorm vectors are copied as they are.
+  ``kernel [in, out]`` becomes ``weight [out, in]``; the patch conv's
+  HWIO ``kernel [p, p, 3, D]`` becomes ``weight [D, p*p*3]`` over patches
+  flattened in (row, column, channel) order; embeddings, positions and
+  LayerNorm vectors are copied as they are.
 - :func:`init_params` draws a fresh state dict from an explicit
   ``torch.Generator`` in the distributions of flax's defaults (the JAX
-  package's ``init_params``): Dense kernels LeCun-normal (truncated
-  normal, variance 1/fan_in), biases zero, the token embedding normal
-  with std ``1/sqrt(hidden)``, positions normal(0.01), LayerNorm scale 1
-  and bias 0. The numbers differ from jax.random's; the parity tests move
-  weights with :func:`params_from_jax` instead.
+  package's ``init_params``): Dense and conv kernels LeCun-normal
+  (truncated normal, variance 1/fan_in), biases zero, the token embedding
+  normal with std ``1/sqrt(hidden)``, text positions normal(0.01), the
+  class embedding and vision positions normal(0.02), LayerNorm scale 1
+  and bias 0. The text tower is drawn first, then the vision tower. The
+  numbers differ from jax.random's; the parity tests move weights with
+  :func:`params_from_jax` instead.
 """
 
 from __future__ import annotations
@@ -36,22 +40,12 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def params_from_jax(params: Mapping, cfg: CLIPConfig
-                    ) -> Dict[str, torch.Tensor]:
-    """flax CLIP params (``{"text": ..., "text_projection": ...}``, leaves
-    numpy-convertible) → the port's ``CLIP`` state dict (f32)."""
-    tp = params["text"]
-    sd = {
-        "text.token_embedding.weight": _t(tp["token_embedding"]["embedding"]),
-        "text.position_embedding": _t(tp["position_embedding"]),
-        "text.final_layer_norm.weight": _t(tp["final_layer_norm"]["scale"]),
-        "text.final_layer_norm.bias": _t(tp["final_layer_norm"]["bias"]),
-        "text_projection.weight":
-            _t(params["text_projection"]["kernel"]).t().contiguous(),
-    }
-    for i in range(cfg.text.num_layers):
-        lp = tp["encoder"][f"layers_{i}"]
-        pre = f"text.layers.{i}."
+def _blocks_from_jax(encoder: Mapping, prefix: str, num_layers: int
+                     ) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for i in range(num_layers):
+        lp = encoder[f"layers_{i}"]
+        pre = f"{prefix}.layers.{i}."
         for flax_name, name in _DENSE.items():
             group, leaf = flax_name.split("/")
             dense = lp[group][leaf]
@@ -63,12 +57,60 @@ def params_from_jax(params: Mapping, cfg: CLIPConfig
     return sd
 
 
+def params_from_jax(params: Mapping, cfg: CLIPConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """flax CLIP params (``{"vision", "text", "visual_projection",
+    "text_projection", ...}``, leaves numpy-convertible) → the port's
+    ``CLIP`` state dict (f32)."""
+    tp, vp = params["text"], params["vision"]
+    d = cfg.vision.hidden_size
+    sd = {
+        "text.token_embedding.weight": _t(tp["token_embedding"]["embedding"]),
+        "text.position_embedding": _t(tp["position_embedding"]),
+        "text.final_layer_norm.weight": _t(tp["final_layer_norm"]["scale"]),
+        "text.final_layer_norm.bias": _t(tp["final_layer_norm"]["bias"]),
+        "text_projection.weight":
+            _t(params["text_projection"]["kernel"]).t().contiguous(),
+        "vision.patch_embedding.weight":
+            _t(vp["patch_embedding"]["kernel"]).reshape(-1, d).t()
+            .contiguous(),
+        "vision.class_embedding": _t(vp["class_embedding"]),
+        "vision.position_embedding": _t(vp["position_embedding"]),
+        "visual_projection.weight":
+            _t(params["visual_projection"]["kernel"]).t().contiguous(),
+    }
+    for tower in ("pre_layernorm", "post_layernorm"):
+        sd[f"vision.{tower}.weight"] = _t(vp[tower]["scale"])
+        sd[f"vision.{tower}.bias"] = _t(vp[tower]["bias"])
+    sd.update(_blocks_from_jax(tp["encoder"], "text", cfg.text.num_layers))
+    sd.update(_blocks_from_jax(vp["encoder"], "vision",
+                               cfg.vision.num_layers))
+    return sd
+
+
 def _lecun(out_f: int, in_f: int, gen: torch.Generator) -> torch.Tensor:
     std = math.sqrt(1.0 / in_f) / _TRUNC_STD
     w = torch.empty(out_f, in_f)
     torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                 generator=gen)
     return w
+
+
+def _init_blocks(prefix: str, num_layers: int, d: int, f: int,
+                 g: torch.Generator) -> Dict[str, torch.Tensor]:
+    sd = {}
+    shapes = {"attn.q_proj": (d, d), "attn.k_proj": (d, d),
+              "attn.v_proj": (d, d), "attn.out_proj": (d, d),
+              "mlp.fc1": (f, d), "mlp.fc2": (d, f)}
+    for i in range(num_layers):
+        pre = f"{prefix}.layers.{i}."
+        for name, (out_f, in_f) in shapes.items():
+            sd[pre + name + ".weight"] = _lecun(out_f, in_f, g)
+            sd[pre + name + ".bias"] = torch.zeros(out_f)
+        for ln in _LN:
+            sd[pre + ln + ".weight"] = torch.ones(d)
+            sd[pre + ln + ".bias"] = torch.zeros(d)
+    return sd
 
 
 def init_params(cfg: CLIPConfig, generator: torch.Generator
@@ -86,15 +128,18 @@ def init_params(cfg: CLIPConfig, generator: torch.Generator
         "text.final_layer_norm.bias": torch.zeros(d),
         "text_projection.weight": _lecun(cfg.projection_dim, d, g),
     }
-    shapes = {"attn.q_proj": (d, d), "attn.k_proj": (d, d),
-              "attn.v_proj": (d, d), "attn.out_proj": (d, d),
-              "mlp.fc1": (f, d), "mlp.fc2": (d, f)}
-    for i in range(c.num_layers):
-        pre = f"text.layers.{i}."
-        for name, (out_f, in_f) in shapes.items():
-            sd[pre + name + ".weight"] = _lecun(out_f, in_f, g)
-            sd[pre + name + ".bias"] = torch.zeros(out_f)
-        for ln in _LN:
-            sd[pre + ln + ".weight"] = torch.ones(d)
-            sd[pre + ln + ".bias"] = torch.zeros(d)
+    sd.update(_init_blocks("text", c.num_layers, d, f, g))
+    v = cfg.vision
+    dv, p = v.hidden_size, v.patch_size
+    sd.update({
+        "vision.patch_embedding.weight": _lecun(dv, p * p * 3, g),
+        "vision.class_embedding": torch.randn(dv, generator=g) * 0.02,
+        "vision.position_embedding":
+            torch.randn(v.seq_len, dv, generator=g) * 0.02,
+    })
+    for tower in ("pre_layernorm", "post_layernorm"):
+        sd[f"vision.{tower}.weight"] = torch.ones(dv)
+        sd[f"vision.{tower}.bias"] = torch.zeros(dv)
+    sd.update(_init_blocks("vision", v.num_layers, dv, dv * v.mlp_ratio, g))
+    sd["visual_projection.weight"] = _lecun(cfg.projection_dim, dv, g)
     return sd

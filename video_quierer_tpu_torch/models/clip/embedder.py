@@ -1,12 +1,19 @@
-"""CLIP text embedder: the engine's device-facing text entry point
-(counterpart of the text side of ``video_quierer_tpu/models/clip/embedder.py``).
+"""CLIP embedder: the engine's device-facing entry point for frames and
+text (counterpart of ``video_quierer_tpu/models/clip/embedder.py``).
 
-Text queries are tokenized on the host, trimmed to a seq bucket (exact for
-the causal tower), padded to a batch bucket, and encoded on the embedder's
-device. The encode routes as the reference's ``_encode_text_fn``:
-``B·S >= MIN_TOKENS`` with S in the 8/16/32 buckets takes the fused-layer
-encode (kernel B2); everything else — single queries, small batches, the
-77 bucket — takes the module tower (attention kernel B3).
+- Frames: uint8 ``[N, 224, 224, 3]`` RGB batches are cut into chunks of at
+  most 256, each padded to an image bucket (32, 128, 256), moved to the
+  device once, normalised there (``ops/preprocess.py``) and encoded: the
+  fused vision encode (kernels B5 + B6, ``ops/fused_layer.py``) whenever
+  the tower is eligible and ``B·S >= MIN_TOKENS`` — every image bucket of
+  a dense CLIP tower — else the module tower. Every chunk is enqueued
+  before any result is fetched.
+- Text: queries are tokenized on the host, trimmed to a seq bucket (exact
+  for the causal tower), padded to a batch bucket, and encoded on the
+  embedder's device. ``B·S >= MIN_TOKENS`` with S in the 8/16/32 buckets
+  takes the fused-layer encode (kernel B2); everything else — single
+  queries, small batches, the 77 bucket — takes the module tower
+  (attention kernel B3).
 
 Weights: a state dict handed in (e.g. from ``bridge.params_from_jax``),
 else the port's seeded init (``bridge.init_params`` from a
@@ -35,9 +42,14 @@ from video_quierer_tpu_torch.ops.fused_layer import (
     fused_seq_eligible,
     fused_text_encode,
     fused_text_tower_eligible,
+    fused_vision_encode,
+    fused_vision_tower_eligible,
 )
+from video_quierer_tpu_torch.ops.preprocess import normalize_images
 from video_quierer_tpu_torch.utils.env import resolve_device
 
+# Frame-batch buckets: frames pad to the next one (the reference's).
+IMAGE_BUCKETS = (32, 128, 256)
 # Batch buckets (1 serves the latency path) and seq buckets of the causal
 # text tower — the reference's, so both packages pad identically.
 TEXT_BUCKETS = (1, 8, 32, 64, 128, 256, 512)
@@ -65,7 +77,8 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
 
 
 class CLIPEmbedder:
-    """CLIP text encoder with bucketed batching on one device."""
+    """CLIP image and text encoder with bucketed batching on one
+    device."""
 
     def __init__(self,
                  model_name: str = "openai/clip-vit-base-patch32",
@@ -86,18 +99,74 @@ class CLIPEmbedder:
         self.pretrained = False
         self.tokenizer: TokenizerBase = load_tokenizer(None)
         self._fused_text = fused_text_tower_eligible(self.cfg.text)
-        self._ops: Dict[int, List[LayerOps]] = {}
+        self._fused_vision = fused_vision_tower_eligible(self.cfg.vision)
+        self._ops: Dict[tuple, List[LayerOps]] = {}
         # bound ONCE, as the reference's: callers hand it to the index
         self.text_encode_fn = self._encode_text_fn
 
-    def _layer_ops(self, params: CLIP) -> List[LayerOps]:
-        """Fused-layer operands of ``params``, built once per module."""
-        ops = self._ops.get(id(params))
+    def _layer_ops(self, params: CLIP, tower: str = "text"
+                   ) -> List[LayerOps]:
+        """Fused-layer operands of ``params``' ``tower`` ("text" or
+        "vision"), built once per module."""
+        key = (id(params), tower)
+        ops = self._ops.get(key)
         if ops is None:
-            ops = [_layer_operands(block, self.dtype)
-                   for block in params.text.layers]
-            self._ops = {id(params): ops}
+            if any(k[0] != id(params) for k in self._ops):
+                self._ops = {}
+            ops = self._ops[key] = [_layer_operands(block, self.dtype)
+                                    for block in getattr(params,
+                                                         tower).layers]
         return ops
+
+    @property
+    def embed_dim(self) -> int:
+        return self.cfg.projection_dim
+
+    def _encode_image_fn(self, params: CLIP,
+                         frames_u8: torch.Tensor) -> torch.Tensor:
+        """``[B, H, W, 3]`` uint8 on the device → ``[B, proj]`` f32 unit
+        rows."""
+        with torch.inference_mode():
+            pixels = normalize_images(frames_u8, dtype=self.dtype)
+            if self._fused_vision and fused_batch_eligible(
+                    frames_u8.shape[0], self.cfg.vision.seq_len):
+                return fused_vision_encode(params, pixels,
+                                           self._layer_ops(params, "vision"))
+            return params.encode_image(pixels)
+
+    def embed_frames(self, frames_u8: np.ndarray) -> np.ndarray:
+        """``[N, 224, 224, 3] uint8 RGB`` → L2-normalised ``[N, D]`` f32."""
+        return self.embed_frames_device(frames_u8)[1]
+
+    def embed_frames_device(self, frames_u8: np.ndarray):
+        """:meth:`embed_frames` that also hands back the device-resident
+        features: ``(feats_dev [>= N, D], feats_np [N, D] f32)``.
+
+        The ingest path feeds the index's device mirrors straight from
+        ``feats_dev`` (``DeviceVideoIndex.stream_rows_device``): the
+        embeddings the device just produced are never uploaded again.
+        ``feats_dev`` is padded to the chunk-bucket total; rows past N
+        are dead (the append's offsets never read them)."""
+        frames_u8 = np.asarray(frames_u8, np.uint8)
+        n = frames_u8.shape[0]
+        if n == 0:
+            return None, np.zeros((0, self.embed_dim), np.float32)
+        # every chunk (at most the widest bucket, padded to its bucket)
+        # moved and its encode enqueued before any result is fetched;
+        # interior chunks are full, so device row r is frame r
+        parts = []
+        step = IMAGE_BUCKETS[-1]
+        for pos in range(0, n, step):
+            chunk = frames_u8[pos: pos + step]
+            bucket = _bucket_for(chunk.shape[0], IMAGE_BUCKETS)
+            if chunk.shape[0] < bucket:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (bucket - chunk.shape[0],) + chunk.shape[1:], np.uint8)])
+            batch = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                self.device)
+            parts.append(self._encode_image_fn(self.params, batch))
+        feats_dev = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return feats_dev, feats_dev[:n].cpu().numpy()
 
     def _encode_text_fn(self, params: CLIP,
                         input_ids: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,23 @@
-"""CLIP text tower in PyTorch (counterpart of the text side of
-``video_quierer_tpu/models/clip/model.py``).
+"""CLIP in PyTorch (counterpart of ``video_quierer_tpu/models/clip/model.py``).
 
-Architecture of ``openai/clip-vit-base-patch32``'s text half: token +
-learned position embedding, pre-LN causal encoder blocks with quick-GELU,
-final LayerNorm, pooling at the EOT token (the highest id), linear
-projection, f32 L2 normalise. Module and parameter names follow the flax
-tree (``models/clip/bridge.py`` maps one onto the other).
+Architecture of ``openai/clip-vit-base-patch32``, both towers:
 
-The q/k/v/out and fc projections are ``nn.Linear`` (the JAX package
-leaves them to XLA outside any kernel); attention is kernel B3
-(``ops/attention.py``), as the flax tower routes it. LayerNorm keeps f32
-statistics and casts to the tower dtype, as flax's LayerNorm does. The
-vision tower is not ported yet.
+- vision: patchify (the flax conv as a matmul over NHWC patches, no bias),
+  class token, learned positions, pre-LN, non-causal pre-LN encoder
+  blocks with quick-GELU, post-LN on the CLS token, linear projection;
+- text: token + learned position embedding, causal encoder blocks, final
+  LayerNorm, pooling at the EOT token (the highest id), linear
+  projection;
+- both outputs are L2 normalised in f32.
+
+Module and parameter names follow the flax tree (``models/clip/bridge.py``
+maps one onto the other). The q/k/v/out, fc and patch projections are
+``nn.Linear`` (the JAX package leaves them to XLA outside any kernel);
+attention is kernel B3 (``ops/attention.py``), as the flax towers route
+it. LayerNorm keeps f32 statistics and casts to the tower dtype, as
+flax's LayerNorm does. Inputs are NHWC images already normalised
+(``ops/preprocess.py``), as in the JAX package. MoE vision towers are not
+ported.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 from video_quierer_tpu_torch.models.clip.config import (
     CLIPConfig,
     CLIPTextConfig,
+    CLIPVisionConfig,
 )
 from video_quierer_tpu_torch.ops.attention import attention
 from video_quierer_tpu_torch.ops.fused_layer import _const, _ln_f32
@@ -74,11 +81,14 @@ class MLP(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, c: CLIPTextConfig):
+    """Pre-LN block; ``causal`` comes from its tower (text True, vision
+    False)."""
+
+    def __init__(self, c: CLIPTextConfig | CLIPVisionConfig, causal: bool):
         super().__init__()
         d = c.hidden_size
         self.layer_norm1 = LayerNorm(d, c.layer_norm_eps)
-        self.attn = Attention(d, c.num_heads, causal=True)
+        self.attn = Attention(d, c.num_heads, causal=causal)
         self.layer_norm2 = LayerNorm(d, c.layer_norm_eps)
         self.mlp = MLP(d, c.mlp_ratio)
 
@@ -94,7 +104,7 @@ class TextTower(nn.Module):
         self.token_embedding = nn.Embedding(c.vocab_size, c.hidden_size)
         self.position_embedding = nn.Parameter(
             torch.zeros(c.context_length, c.hidden_size))
-        self.layers = nn.ModuleList(EncoderBlock(c)
+        self.layers = nn.ModuleList(EncoderBlock(c, causal=True)
                                     for _ in range(c.num_layers))
         self.final_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps)
 
@@ -110,6 +120,44 @@ class TextTower(nn.Module):
         return x[torch.arange(x.shape[0], device=x.device), eot]
 
 
+class VisionTower(nn.Module):
+    def __init__(self, c: CLIPVisionConfig):
+        super().__init__()
+        if c.moe_experts:
+            raise NotImplementedError("MoE vision towers are not ported")
+        self.cfg = c
+        d, p = c.hidden_size, c.patch_size
+        # the flax conv kernel [p, p, 3, D] (HWIO) as a [D, p*p*3] matrix
+        # over patches flattened in (row, column, channel) order
+        self.patch_embedding = nn.Linear(p * p * 3, d, bias=False)
+        self.class_embedding = nn.Parameter(torch.zeros(d))
+        self.position_embedding = nn.Parameter(torch.zeros(c.seq_len, d))
+        self.pre_layernorm = LayerNorm(d, c.layer_norm_eps)
+        self.layers = nn.ModuleList(EncoderBlock(c, causal=False)
+                                    for _ in range(c.num_layers))
+        self.post_layernorm = LayerNorm(d, c.layer_norm_eps)
+
+    def embed(self, pixels: torch.Tensor) -> torch.Tensor:
+        """NHWC ``[B, H, W, 3]`` normalised pixels → pre-LN tokens
+        ``[B, S, D]``: patchify, class token, positions, pre-LN."""
+        c = self.cfg
+        b = pixels.shape[0]
+        p, g = c.patch_size, c.image_size // c.patch_size
+        dtype = self.class_embedding.dtype
+        patches = (pixels.to(dtype).reshape(b, g, p, g, p, 3)
+                   .permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3))
+        x = torch.cat([self.class_embedding.expand(b, 1, -1),
+                       self.patch_embedding(patches)], dim=1)
+        return self.pre_layernorm(x + self.position_embedding[None])
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """Pooled pre-projection features ``[B, hidden]`` (post-LN CLS)."""
+        x = self.embed(pixels)
+        for block in self.layers:
+            x = block(x)
+        return self.post_layernorm(x[:, 0])
+
+
 def _normalize_f32(feats: torch.Tensor, normalize: bool) -> torch.Tensor:
     """Cast to f32 BEFORE the L2 normalise (a bf16 norm leaves rows off
     unit length)."""
@@ -121,14 +169,23 @@ def _normalize_f32(feats: torch.Tensor, normalize: bool) -> torch.Tensor:
 
 
 class CLIP(nn.Module):
-    """CLIP's text side: text tower + projection head."""
+    """Dual-tower CLIP with projection heads (serving only: no logit
+    scale)."""
 
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
+        self.vision = VisionTower(cfg.vision)
         self.text = TextTower(cfg.text)
+        self.visual_projection = nn.Linear(cfg.vision.hidden_size,
+                                           cfg.projection_dim, bias=False)
         self.text_projection = nn.Linear(cfg.text.hidden_size,
                                          cfg.projection_dim, bias=False)
+
+    def encode_image(self, pixels: torch.Tensor,
+                     normalize: bool = True) -> torch.Tensor:
+        feats = self.visual_projection(self.vision(pixels))
+        return _normalize_f32(feats, normalize)
 
     def encode_text(self, input_ids: torch.Tensor,
                     normalize: bool = True) -> torch.Tensor:

@@ -1,21 +1,35 @@
-"""Fused-layer CLIP text encode (counterpart of the text part of
+"""Fused-layer CLIP encodes (counterpart of
 ``video_quierer_tpu/ops/fused_layer.py``).
 
-:func:`fused_text_encode` runs token + position embedding → the encoder
-blocks through :func:`fused_layer` → EOT pooling → final LN → projection
-→ f32 L2 normalise, the drop-in for ``CLIP.encode_text`` on coalesced
-batches. :func:`fused_layer` is kernel B2 (``csrc/fused_layer.cu``) on a
-CUDA tensor and the plain version :func:`fused_layer_ref` on a CPU
-tensor; both follow the TPU kernel's math and bf16 rounding points:
-LayerNorm with f32 statistics, ``T(x @ w)`` then ``+ bias`` in T,
-per-item causal attention with the attention kernel's softmax contract,
-quick-GELU as ``x / (1 + exp(-1.702 x))`` in T, residual adds in T.
+One encoder block runs as two halves, each a kernel on a CUDA tensor and
+its plain version on a CPU tensor:
 
-Routing is the reference's (``models/clip/embedder.py``): a batch takes
-this path when ``B·S >= MIN_TOKENS`` and S is a multiple of 8 (the 8/16/32
-seq buckets); single queries, small batches and S=77 stay on the module
-tower. The TPU's split mode, vision tower, pad-token scheme and VMEM tile
-rules have no counterpart here.
+- :func:`attn_half` (kernel B5, ``csrc/fused_layer.cu``; plain
+  :func:`attn_half_ref`): LN1 → QKV → per-item attention (causal for
+  text, non-causal for the vision tower) → out-proj → residual;
+- :func:`mlp_half` (kernel B6; plain :func:`mlp_half_ref`): LN2 → fc1 →
+  quick-GELU → fc2 → residual;
+- :func:`fused_layer` (kernel B2; plain :func:`fused_layer_ref`): the
+  causal text block, B5 then B6 inside one C call.
+
+All follow the TPU kernels' math and bf16 rounding points: LayerNorm with
+f32 statistics, ``T(x @ w)`` then ``+ bias`` in T, attention with the
+attention kernel's softmax contract and the ``hd**-0.5`` scale on the f32
+logits, quick-GELU as ``x / (1 + exp(-1.702 x))`` in T, residual adds in
+T.
+
+:func:`fused_text_encode` is the drop-in for ``CLIP.encode_text`` on
+coalesced batches (token + position embedding → blocks → EOT pooling →
+final LN → projection → f32 L2 normalise); :func:`fused_vision_encode` the
+drop-in for ``CLIP.encode_image`` (patchify → class token + positions →
+pre-LN → blocks → CLS pooling → post-LN → projection → f32 L2 normalise).
+
+Routing is the port's own, not the TPU's VMEM budgets: a tower whose heads
+are 64 wide and whose width divides by 64 takes the fused encode when
+``B·S >= MIN_TOKENS`` (the reference's single-batch policy); text also
+needs S in the 8/16/32 buckets. Single queries, small batches and S=77
+stay on the module tower. The TPU's split/full modes, tile sizes and
+pad-token scheme have no counterpart here.
 """
 
 from __future__ import annotations
@@ -34,11 +48,24 @@ MIN_TOKENS = 256
 LayerOps = Tuple[torch.Tensor, ...]
 
 
+def _width_eligible(d: int, heads: int) -> bool:
+    """Whole 64-wide heads (the kernels' head width) and GEMM-tileable
+    widths."""
+    return d % heads == 0 and d // heads == HEAD_DIM and d % 64 == 0
+
+
 def fused_text_tower_eligible(cfg_text) -> bool:
-    """Static eligibility: whole 64-wide heads (the kernel's head width)
-    and GEMM-tileable widths."""
-    d, h = cfg_text.hidden_size, cfg_text.num_heads
-    return d % h == 0 and d // h == HEAD_DIM and d % 64 == 0
+    """Static eligibility of the fused text tower."""
+    return _width_eligible(cfg_text.hidden_size, cfg_text.num_heads)
+
+
+def fused_vision_tower_eligible(cfg_vision) -> bool:
+    """Static eligibility of the fused vision tower (every dense CLIP
+    vision tower: B/32, B/16 and L/14 have 64-wide heads). MoE towers are
+    not ported."""
+    if getattr(cfg_vision, "moe_experts", 0):
+        return False
+    return _width_eligible(cfg_vision.hidden_size, cfg_vision.num_heads)
 
 
 def fused_seq_eligible(s: int) -> bool:
@@ -48,7 +75,8 @@ def fused_seq_eligible(s: int) -> bool:
 
 
 def fused_batch_eligible(b: int, s: int) -> bool:
-    """Per-call batch gate: wide enough for the fused path."""
+    """Per-call batch gate shared by both towers: wide enough for the
+    fused path."""
     return b * s >= MIN_TOKENS
 
 
@@ -96,31 +124,44 @@ def _layer_operands(block, dtype) -> LayerOps:
             c(mlp.fc2.weight.t()), c(mlp.fc2.bias))
 
 
-def fused_layer_ref(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
-                    eps: float) -> torch.Tensor:
-    """Plain PyTorch version of one fused encoder block over ``[B·S, D]``
-    tokens (item-major)."""
-    ln, wqkv, bqkv, wout, bout, wfc1, bfc1, wfc2, bfc2 = ops
+def attn_half_ref(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
+                  eps: float, causal: bool) -> torch.Tensor:
+    """Plain PyTorch version of B5 over ``[B·S, D]`` tokens (item-major):
+    LN1 → QKV → per-item attention → out-proj → residual."""
+    ln, wqkv, bqkv, wout, bout = ops[:5]
     t, d = x2.shape
-    dtype = x2.dtype
-    y = _ln_f32(x2, ln[0], ln[1], eps, dtype)
+    y = _ln_f32(x2, ln[0], ln[1], eps, x2.dtype)
     qkv = _dot(y, wqkv, bqkv).reshape(t // s, s, 3 * d)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     attn = attention_ref(q, k, v, num_heads=heads, valid_len=s,
-                         causal=True, scale=(d // heads) ** -0.5)
-    x3 = x2 + _dot(attn.reshape(t, d), wout, bout)
-    z = _ln_f32(x3, ln[2], ln[3], eps, dtype)
+                         causal=causal, scale=(d // heads) ** -0.5)
+    return x2 + _dot(attn.reshape(t, d), wout, bout)
+
+
+def mlp_half_ref(x3: torch.Tensor, ops: LayerOps, *, eps: float
+                 ) -> torch.Tensor:
+    """Plain PyTorch version of B6: LN2 → fc1 → quick-GELU → fc2 →
+    residual."""
+    ln, wfc1, bfc1, wfc2, bfc2 = ops[0], *ops[5:]
+    z = _ln_f32(x3, ln[2], ln[3], eps, x3.dtype)
     h1 = _dot(z, wfc1, bfc1)
-    h1 = h1 * (1.0 / (1.0 + torch.exp(_const(-1.702, dtype) * h1)))
+    h1 = h1 * (1.0 / (1.0 + torch.exp(_const(-1.702, x3.dtype) * h1)))
     return x3 + _dot(h1, wfc2, bfc2)
 
 
-def fused_layer(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
-                eps: float) -> torch.Tensor:
-    """One encoder block over flat ``[B·S, D]`` tokens: kernel B2 on a
-    CUDA tensor, :func:`fused_layer_ref` on a CPU tensor."""
-    if x2.device.type == "cpu":
-        return fused_layer_ref(x2, ops, s=s, heads=heads, eps=eps)
+def fused_layer_ref(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
+                    eps: float) -> torch.Tensor:
+    """Plain PyTorch version of B2: one causal text block."""
+    x3 = attn_half_ref(x2, ops, s=s, heads=heads, eps=eps, causal=True)
+    return mlp_half_ref(x3, ops, eps=eps)
+
+
+def _check_operands(x2: torch.Tensor, ops: LayerOps, *, s: int = 1,
+                    heads: int = 0) -> torch.device:
+    """The kernels' operand rules: one CUDA device, contiguous, ln f32
+    [4, D], the rest in the activation dtype, tileable widths, whole
+    items, 16-byte aligned starts; ``heads`` 0 skips the attention
+    checks. Returns the device."""
     ln, wqkv, bqkv, wout, bout, wfc1, bfc1, wfc2, bfc2 = ops
     dev = kernels.require_cuda(x2, *ops)
     t, d = x2.shape
@@ -131,11 +172,76 @@ def fused_layer(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
                          "the activation dtype")
     if wqkv.shape != (d, 3 * d) or wout.shape != (d, d) \
             or wfc1.shape != (d, f) or wfc2.shape != (f, d) \
-            or d != heads * HEAD_DIM or d % 64 or f % 64 or t % s \
-            or any(o.data_ptr() % 16 for o in (x2, *ops)):
+            or (heads and d != heads * HEAD_DIM) or d % 64 or f % 64 \
+            or t % s or any(o.data_ptr() % 16 for o in (x2, *ops)):
         raise ValueError(f"unsupported fused layer shape: T={t} D={d} "
                          f"F={f} heads={heads} S={s} (operands must start "
                          "16-byte aligned)")
+    return dev
+
+
+def attn_half(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
+              eps: float, causal: bool) -> torch.Tensor:
+    """First half of an encoder block over flat ``[B·S, D]`` tokens:
+    kernel B5 on a CUDA tensor, :func:`attn_half_ref` on a CPU tensor."""
+    if x2.device.type == "cpu":
+        return attn_half_ref(x2, ops, s=s, heads=heads, eps=eps,
+                             causal=causal)
+    dev = _check_operands(x2, ops, s=s, heads=heads)
+    ln, wqkv, bqkv, wout, bout = ops[:5]
+    t, d = x2.shape
+    out = torch.empty_like(x2)
+    qkv = torch.empty((t, 3 * d), dtype=x2.dtype, device=dev)
+    attn = torch.empty_like(x2)
+    p = kernels.ptr
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_attn_half(
+            p(x2), p(out), p(qkv), p(attn), p(ln), p(wqkv), p(bqkv),
+            p(wout), p(bout), t, s, d, heads, float(eps), int(causal),
+            kernels.dtype_code(x2), kernels.stream(dev)), "attention half")
+    kernels.count_launch(attn_half)
+    return out
+
+
+attn_half.launches = 0
+
+
+def mlp_half(x3: torch.Tensor, ops: LayerOps, *, eps: float
+             ) -> torch.Tensor:
+    """Second half of an encoder block: kernel B6 on a CUDA tensor,
+    :func:`mlp_half_ref` on a CPU tensor."""
+    if x3.device.type == "cpu":
+        return mlp_half_ref(x3, ops, eps=eps)
+    dev = _check_operands(x3, ops)
+    ln, wfc1, bfc1, wfc2, bfc2 = ops[0], *ops[5:]
+    t, d = x3.shape
+    f = wfc1.shape[1]
+    out = torch.empty_like(x3)
+    h = torch.empty((t, f), dtype=x3.dtype, device=dev)
+    p = kernels.ptr
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_mlp_half(
+            p(x3), p(out), p(h), p(ln), p(wfc1), p(bfc1), p(wfc2), p(bfc2),
+            t, d, f, float(eps), kernels.dtype_code(x3),
+            kernels.stream(dev)), "MLP half")
+    kernels.count_launch(mlp_half)
+    return out
+
+
+mlp_half.launches = 0
+
+
+def fused_layer(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
+                eps: float) -> torch.Tensor:
+    """One causal text block over flat ``[B·S, D]`` tokens: kernel B2 (B5
+    then B6 in one C call) on a CUDA tensor, :func:`fused_layer_ref` on a
+    CPU tensor."""
+    if x2.device.type == "cpu":
+        return fused_layer_ref(x2, ops, s=s, heads=heads, eps=eps)
+    dev = _check_operands(x2, ops, s=s, heads=heads)
+    ln, wqkv, bqkv, wout, bout, wfc1, bfc1, wfc2, bfc2 = ops
+    t, d = x2.shape
+    f = wfc1.shape[1]
     out = torch.empty_like(x2)
     qkv = torch.empty((t, 3 * d), dtype=x2.dtype, device=dev)
     attn = torch.empty_like(x2)
@@ -188,3 +294,45 @@ def fused_text_encode(model, input_ids: torch.Tensor,
     pooled = _ln_f32(pooled, fl.weight, fl.bias, c.layer_norm_eps, dtype)
     feats = pooled.float() @ model.text_projection.weight.float().t()
     return _normalize_out(feats, dtype)
+
+
+def vision_embed(model, pixels: torch.Tensor) -> torch.Tensor:
+    """The fused vision encode's prologue: normalised NHWC pixels →
+    pre-LN tokens, flat ``[B·S, D]`` (the module tower's own embedding:
+    patchify, class token, positions, pre-LN)."""
+    x = model.vision.embed(pixels)
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def vision_head(model, x2: torch.Tensor, b: int) -> torch.Tensor:
+    """The fused vision encode's epilogue: CLS pooling → post-LN →
+    projection → f32 L2 normalise, ``[B, proj]``."""
+    c = model.cfg.vision
+    post = model.vision.post_layernorm
+    dtype = x2.dtype
+    pooled = x2.reshape(b, -1, x2.shape[-1])[:, 0]
+    pooled = _ln_f32(pooled, post.weight, post.bias, c.layer_norm_eps, dtype)
+    feats = pooled.float() @ model.visual_projection.weight.float().t()
+    return _normalize_out(feats, dtype)
+
+
+def fused_vision_encode(model, pixels: torch.Tensor,
+                        layer_ops: List[LayerOps], attn=attn_half,
+                        mlp=mlp_half) -> torch.Tensor:
+    """Full CLIP image encode through :func:`attn_half` and
+    :func:`mlp_half` (non-causal, S = the tower's patches + 1).
+
+    ``model`` is the port's ``CLIP`` module; ``pixels`` normalised NHWC
+    ``[B, H, W, 3]`` in the tower dtype; ``layer_ops`` the per-block
+    operands of ``model.vision.layers`` from :func:`_layer_operands`;
+    ``attn``/``mlp`` are :func:`attn_half_ref`/:func:`mlp_half_ref` where a
+    caller compares the kernels with the plain versions on the card.
+    Output ``[B, proj]`` f32 unit rows."""
+    c = model.cfg.vision
+    b = pixels.shape[0]
+    x2 = vision_embed(model, pixels)
+    for ops in layer_ops:
+        x2 = attn(x2, ops, s=c.seq_len, heads=c.num_heads,
+                  eps=c.layer_norm_eps, causal=False)
+        x2 = mlp(x2, ops, eps=c.layer_norm_eps)
+    return vision_head(model, x2, b)

@@ -57,6 +57,10 @@ _SIGNATURES = {
                       _I, _P),
     "vqt_text_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "vqt_attn_half": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _F, _I, _I, _P),
+    "vqt_mlp_half": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                     _P),
 }
 
 _lock = threading.Lock()
