@@ -19,10 +19,17 @@ script exits non-zero without its last line):
    take (bytes over 3.35 TB/s or operations over the data sheet's peak
    for their type, whichever is larger) and, where one PyTorch call
    computes the same function, that call's time; then the split of one
-   ingest batch of 256 frames into its stages;
+   ingest batch of 256 frames into its stages; then the IVF tier on a
+   seeded clustered corpus (2,000,000 rows around 1,024 unit centres,
+   spread 0.02 per coordinate): its build (nlist auto = 1,024, split into
+   upload, k-means, rebalance and pack), the probe scan B12 against its
+   plain version pair by pair for 64 and for 1 noisy corpus-row queries,
+   and the tier's recall@10 against the exact scan (B8), gated at 0.8;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512) written once as the pickle v1.0 cache; for each mirror
-   dtype (bfloat16, then float32, int8 and int4) an engine loads it
+   dtype (bfloat16, then float32, int8 and int4), and then for the IVF
+   tier (``index.kind = "ivf"`` over the bf16 mirror, nprobe 8, nlist
+   auto, built by ``startup``), an engine loads it
    through ``engine.startup()``, then ingests 20 videos x 200 seeded
    uint8 frames through the decode pipeline (``batched_frames``) and the
    engine's ingest loop (``_ingest_batches``: the vision tower on the
@@ -30,15 +37,21 @@ script exits non-zero without its last line):
    rows must equal the embedder's output with the reference's metadata,
    the mirror, perm column and re-rank store must equal what the host
    path writes, bit for bit, and 16 ingested frames are searched for
-   (float32: each finds itself first). Then the engine goes behind the
+   (float32: each finds itself first; IVF: the 4,000 rows sit in the
+   tier's fresh buffer, and each frame, as a vector query through the
+   engine, finds itself first). Then the engine goes behind the
    port's HTTP server on a free local port, and single, coalesced and
    batch searches run over HTTP (bfloat16 also 77-token ones). Every
    response's schema is checked; single and batch rows are checked
    against a host exact top-10 over the grown f32 corpus with the query
    vector the port's encoder gives (int4: each returned score against its
    row's exact f32 score, and the order; its recall@10 against the exact
-   scan is printed). The launch counters are set to 0 before each dtype's
-   ingest and again before its searches, and read after each: every
+   scan is printed; IVF: the rows and scores equal the host's exact top-10
+   over the rows the tier probes — the same clusters by the same numpy
+   rule, the same tile budget, plus the fresh rows — and ``/api/stats``
+   reports "approximate-ivf"; then the IVF split of one single search and
+   of one batch of 64). The launch counters are set to 0 before each
+   tier's ingest and again before its searches, and read after each: every
    kernel of that path must have launched (the layer halves 12 times per
    embed batch), the other kernels not, and both fallback counters must
    read 0;
@@ -76,6 +89,7 @@ from video_quierer_tpu_torch.ingest.frames import (
     video_identity_hash,
 )
 from video_quierer_tpu_torch.ingest.pipeline import batched_frames
+from video_quierer_tpu_torch.index import ivf
 from video_quierer_tpu_torch.index.device_index import (
     DeviceVideoIndex,
     _device_exact_rerank,
@@ -118,11 +132,20 @@ WRAPPERS = {"cand_scan_prefix": topk.cand_scan_prefix,
             "cand_scan_int8_prefix": topk.cand_scan_int8_prefix,
             "cand_scan_int4_prefix": topk.cand_scan_int4_prefix,
             "block_scan": topk.block_scan, "attn_half": fl.attn_half,
-            "mlp_half": fl.mlp_half}
-# the scan each mirror dtype runs; every search path also encodes (B2,
-# B3), every ingest runs the vision tower (B5, B6)
+            "mlp_half": fl.mlp_half, "probe_scan": ivf.probe_scan}
+# the scan each serving tier runs: the four mirror dtypes, then the IVF
+# tier over the bf16 mirror; every search path also encodes (B2, B3),
+# every ingest runs the vision tower (B5, B6)
 SCANS = {"bfloat16": "cand_scan_prefix", "float32": "block_scan",
-         "int8": "cand_scan_int8_prefix", "int4": "cand_scan_int4_prefix"}
+         "int8": "cand_scan_int8_prefix", "int4": "cand_scan_int4_prefix",
+         "ivf": "probe_scan"}
+MODES = {"float32": "exact-f32-scan", "ivf": "approximate-ivf"}
+# the IVF phase's clustered corpus: unit centres, Gaussian spread per
+# coordinate (narrow enough that every query's exact top-10 stays in its
+# own cluster at 2M rows)
+IVF_CENTRES = 1024
+IVF_SPREAD = 0.02
+IVF_RECALL = 0.8        # the reference's bar (tests/test_ivf.py)
 INGEST = ("attn_half", "mlp_half")
 INGEST_VIDEOS = 20
 FPS = 30.0
@@ -579,6 +602,126 @@ def compare_block_scan(store, n_rows: int, seed: int) -> dict:
     return out[64]
 
 
+def clustered_corpus(dev, n_rows: int, seed: int):
+    """``n_rows`` unit rows around ``IVF_CENTRES`` random unit centres (row
+    i around centre i mod IVF_CENTRES, Gaussian spread ``IVF_SPREAD`` per
+    coordinate, renormalized), and each row's centre."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centres = torch.randn(IVF_CENTRES, DIM, generator=g, device=dev)
+    centres /= torch.linalg.vector_norm(centres, dim=-1, keepdim=True)
+    label = torch.arange(n_rows, device=dev) % IVF_CENTRES
+    rows = torch.randn(n_rows, DIM, generator=g, device=dev)
+    rows.mul_(IVF_SPREAD).add_(centres[label])
+    rows /= torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+    return rows, label
+
+
+def log_build(what: str, split: dict) -> None:
+    log(f"{what} build split (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items() if k != "evicted")
+        + f"; total {sum(v for k, v in split.items() if k != 'evicted'):.3f}"
+        f"; rows evicted by the rebalance {split['evicted']}")
+
+
+def probe_bound(index: ivf.IVFIndex, tile_list: np.ndarray, b: int
+                ) -> tuple:
+    """B12's bound for this pair list: each probed tile's live rows and its
+    ids read once, the pair list and the queries read once, the lists
+    written once; 2 D operations per live row of every pair. Also the
+    bytes if every live pair read its own tile."""
+    live_rows = (index._row_ids >= 0).sum(axis=1)       # per tile
+    pairs = tile_list[tile_list != index._pad_tile]
+    tiles = np.unique(pairs)
+    p = tile_list.shape[0]
+    moved = (live_rows[tiles].sum() * DIM * 4 + tiles.size * ivf.BLOCK_ROWS
+             * 4 + p * 8 + b * DIM * 4 + p * K * 8)
+    per_pair = live_rows[pairs].sum() * DIM * 4 + pairs.size * (
+        ivf.BLOCK_ROWS * 4)
+    return (bound(moved, 2 * DIM * live_rows[pairs].sum(), "f32"),
+            pairs.size, tiles.size, per_pair)
+
+
+def compare_probe_scan(dev, n_rows: int, seed: int) -> dict:
+    """The IVF tier on a clustered corpus: build it (nlist auto, nprobe 8),
+    hold B12 against its plain version pair by pair at B = 64 and B = 1 —
+    pads in the same places, rows identical except where two scores tie
+    within SCAN_RTOL, scores within SCAN_RTOL — time both, and gate the
+    tier's recall@10 against the exact scan (B8) over the same rows."""
+    corpus, label = clustered_corpus(dev, n_rows, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    pick = torch.randint(n_rows, (64,), generator=g, device=dev)
+    q = corpus[pick] + IVF_SPREAD * torch.randn(64, DIM, generator=g,
+                                                device=dev)
+    q /= torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    _, exact = topk.cosine_topk(corpus, q, n_rows, k=K)
+    own = (label[exact.long()] == label[pick][:, None]).float().mean().item()
+    require(own >= 0.9, f"IVF corpus: only {own:.3f} of the exact top-{K} "
+            "in the query's own cluster")
+    log(f"IVF corpus: {n_rows} rows around {IVF_CENTRES} centres (spread "
+        f"{IVF_SPREAD}); {own:.4f} of the 64 queries' exact top-{K} lie in "
+        "their own cluster")
+    index = ivf.IVFIndex(nprobe=8, device=dev)
+    index.build(corpus.cpu().numpy())
+    stats = index.stats()
+    log(f"IVF build: nlist {stats['nlist']}, {stats['tiles']} tiles (max "
+        f"{stats['max_tiles_per_cluster']} per cluster, padding "
+        f"{stats['padding_pct']}%), tile budget {index.tile_budget()}")
+    log_build("IVF", index.last_build)
+    out = {}
+    for b in (64, 1):
+        qb = q[:b]
+        tile_list, qidx = index._probe_pairs(qb.cpu().numpy(), index.nprobe)
+        tl, qi = (torch.from_numpy(x).to(dev) for x in (tile_list, qidx))
+
+        def kern():
+            return ivf.probe_scan(index._tiled, index._row_ids_dev, tl, qi,
+                                  qb, k=K)
+
+        def plain():
+            return ivf.probe_scan_ref(index._tiled, index._row_ids_dev, tl,
+                                      qi, qb, k=K)
+
+        before = ivf.probe_scan.launches
+        (kv, ki), (pv, pi) = kern(), plain()
+        torch.cuda.synchronize()
+        require(ivf.probe_scan.launches == before + 1, "B12 launch count")
+        pad = ~torch.isfinite(pv)
+        require(torch.equal(~torch.isfinite(kv), pad)
+                and bool((ki[pad] == -1).all())
+                and bool((pi[pad] == -1).all()), f"B12 B={b}: pads differ")
+        err = (kv[~pad] - pv[~pad]).abs().max().item()
+        require(bool(((kv[~pad] - pv[~pad]).abs()
+                      <= SCAN_RTOL * pv[~pad].abs()).all()),
+                f"B12 B={b}: scores off by {err}")
+        gap = torch.full_like(pv, float("inf"))
+        gap[:, 1:] = pv[:, :-1] - pv[:, 1:]
+        gap[:, :-1] = torch.minimum(gap[:, :-1], pv[:, :-1] - pv[:, 1:])
+        apart = (gap > SCAN_RTOL * pv.abs()) & ~pad
+        require(torch.equal(ki[apart], pi[apart]), f"B12 B={b}: rows differ")
+        ties = int((~apart & ~pad).sum())
+        ms = cuda_ms(kern, 20)
+        pms = cuda_ms(plain, 3 if b > 1 else 10)
+        lim, live, distinct, per_pair = probe_bound(index, tile_list, b)
+        log(f"B12 probe scan N={n_rows} B={b} k={K}: {tile_list.size} pairs "
+            f"({live} live, {distinct} distinct tiles); rows identical "
+            f"({ties} tied entries), pads identical, max_abs_err {err:.3e} "
+            f"(rtol {SCAN_RTOL}); kernel {ms:.4f} ms plain {pms:.4f} ms "
+            f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}; "
+            f"{per_pair / HBM_BYTES_S * 1e3:.4f} ms if every live pair "
+            f"read its own tile); {ivf.probe_scan.launches - before} "
+            "launches in this comparison")
+        out[b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
+                  "library_ms": None}
+    _, idxs = index.search(q.cpu().numpy(), k=K)
+    recall = evaluation.recall_at_k(exact.cpu().numpy(), idxs)
+    log(f"IVF recall@{K} (nprobe 8 of {stats['nlist']}) against the exact "
+        f"scan over the same rows, 64 queries: {recall:.4f} (>= "
+        f"{IVF_RECALL})")
+    require(recall >= IVF_RECALL, f"IVF recall@{K} {recall}")
+    del index, corpus
+    return out[64]
+
+
 # -- phase 4: end to end --------------------------------------------------------
 
 def build_corpus(seed: int, n_videos: int, n_frames: int) -> np.ndarray:
@@ -707,21 +850,24 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> tuple:
                     Path(videos) / "video_search_cache.pkl")
         log(f"pickle v1.0 cache written in {time.perf_counter() - t0:.1f} s")
         del corpus
-        for dtype in SCANS:
-            launches[dtype], ingested[dtype] = serve_dtype(
-                dtype, videos, embedder, args, rng, device)
+        for tier in SCANS:
+            launches[tier], ingested[tier] = serve_dtype(
+                tier, videos, embedder, args, rng, device)
     return launches, ingested
 
 
 def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
                 rng, device) -> tuple:
-    """One engine with ``index.device_dtype = dtype``: it ingests, then
-    serves behind the HTTP server. The launch counters are set to 0 just
-    before the ingest and read just after it, then set to 0 just before
-    the searches and read just after the last response, before the
-    script's own reference encodes."""
+    """One engine with ``index.device_dtype = dtype`` (``"ivf"``: the IVF
+    tier over the bf16 mirror): it ingests, then serves behind the HTTP
+    server. The launch counters are set to 0 just before the ingest and
+    read just after it, then set to 0 just before the searches and read
+    just after the last response, before the script's own reference
+    encodes."""
     config = EngineConfig()
-    config.index.device_dtype = dtype
+    config.index.device_dtype = "bfloat16" if dtype == "ivf" else dtype
+    if dtype == "ivf":
+        config.index.kind = "ivf"
     engine = VideoSearchEngine(videos, config=config, embedder=embedder,
                                device=device)
     t0 = time.perf_counter()
@@ -729,9 +875,22 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
     n_base = args.videos * args.frames
     require(len(engine.index) == n_base, "startup row count")
     mode = engine.stats()["index"]["accuracy_mode"]
+    require(mode == MODES.get(dtype, "exact-f32-rerank"), f"mode {mode}")
     log(f"[{dtype}] engine.startup(): {len(engine.index)} rows, mirror "
-        f"{'' if mode == 'exact-f32-scan' else '+ re-rank store '}on the "
-        f"card, in {time.perf_counter() - t0:.1f} s ({mode})")
+        f"{'' if mode == 'exact-f32-scan' else '+ re-rank store '}"
+        f"{'+ IVF tiles ' if dtype == 'ivf' else ''}on the card, in "
+        f"{time.perf_counter() - t0:.1f} s ({mode})")
+    if dtype == "ivf":
+        ann = engine.ann_stats()
+        require(ann["active"] and ann["rows"] == n_base
+                and ann["fresh_rows"] == 0, f"IVF tier {ann}")
+        log(f"[ivf] tier: nlist {ann['nlist']}, nprobe {ann['nprobe']}, "
+            f"{ann['tiles']} tiles (max {ann['max_tiles_per_cluster']} per "
+            f"cluster, padding {ann['padding_pct']}%), tile budget "
+            f"{engine._ivf.tile_budget()}; ivf_build "
+            f"{engine.metrics.histogram_stats('ivf_build_ms')['max']:.1f} "
+            "ms")
+        log_build("[ivf] startup IVF", engine._ivf.last_build)
     ingested = ingest_tier(engine, dtype, videos, args, device)
     corpus = engine.index._emb[: len(engine.index)]
 
@@ -749,6 +908,8 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
             wrapper.launches = 0
         served = drive(base, dtype, rng)
         launches = {name: w.launches for name, w in WRAPPERS.items()}
+        if dtype == "ivf":
+            ivf_split(engine, rng, device)
     finally:
         server.shutdown()
         server.server_close()
@@ -766,7 +927,10 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
         require(count == 0, f"[{dtype}] {name} = {count}")
     log(f"[{dtype}] fallback counters: embed_fallbacks 0, "
         "fused_search_fallbacks 0")
-    check_served(dtype, embedder, corpus, name_of, served, device)
+    if dtype == "ivf":
+        check_probed(engine, embedder, corpus, name_of, served, device)
+    else:
+        check_served(dtype, embedder, corpus, name_of, served, device)
     del engine, server, corpus
     gc.collect()
     torch.cuda.empty_cache()
@@ -825,6 +989,7 @@ def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
                 sampling_mode=api.sampling_mode, batch_size=ing.batch_size,
                 num_workers=ing.num_decode_workers,
                 prefetch=ing.prefetch_videos, extract_fn=extract)))
+            engine._ivf_after_ingest(0)       # as _ingest: IVF fresh rows
             for p in paths:
                 index.video_hashes[p.name] = video_identity_hash(p)
         torch.cuda.synchronize()
@@ -860,7 +1025,10 @@ def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
             "frame ids")
     require(all(index.video_hashes.get(p.name) for p in paths), "hashes")
     check_mirror(index, dtype, device)
-    search_ingested(index, dtype, n0, n, device)
+    if dtype == "ivf":
+        search_ingested_ivf(engine, n0, n)
+    else:
+        search_ingested(index, dtype, n0, n, device)
     return {"launches": launches, "batches": len(batches),
             "frames_s": added / wall}
 
@@ -969,6 +1137,11 @@ def drive(base, dtype, rng):
     rows."""
     status, health, _ = http(base, "GET", "/api/health")
     require(status == 200 and health["status"] == "healthy", "health")
+    status, stats, _ = http(base, "GET", "/api/stats")
+    mode = stats["index_performance"]["accuracy_mode"]
+    require(status == 200 and mode == MODES.get(dtype, "exact-f32-rerank"),
+            f"/api/stats accuracy_mode {mode}")
+    log(f"[{dtype}] /api/stats: accuracy_mode {mode}")
     singles, single_rows, lat = search_singles(base, rng)
     log(f"[{dtype}] e2e single: 16 sequential searches, p50 latency "
         f"{1e3 * float(np.median(lat)):.2f} ms (first "
@@ -990,6 +1163,132 @@ def drive(base, dtype, rng):
     return singles, single_rows, batch, batch_rows
 
 
+def served_vectors(embedder: CLIPEmbedder, singles, batch) -> tuple:
+    """The query vectors the port's encoders give the served queries:
+    singles through the module tower, the batch of 64 through the fused
+    one."""
+    q_single = np.stack([embedder.embed_text(q) for q in singles])
+    with torch.inference_mode():
+        q_batch = embedder.text_encode_fn(
+            embedder.params, embedder.ids_tensor(
+                trim_text_ids(embedder.tokenizer(batch)))).cpu().numpy()
+    return q_single, q_batch
+
+
+def check_probed(engine: VideoSearchEngine, embedder: CLIPEmbedder,
+                 corpus: np.ndarray, name_of, served, device) -> None:
+    """The IVF tier's served rows against the host's exact top-K over the
+    rows it probes: the query vector the port's encoder gives, normalized
+    as the engine does; the same clusters by the same numpy rule (each
+    single alone and the batch at once, as the engine scores them); the
+    same tile budget over the built row ids, read back from the card once;
+    plus the fresh rows. Rows identical, scores within SCORE_ATOL; recall@K
+    against the full exact scan is printed, not gated."""
+    singles, single_rows, batch, batch_rows = served
+    q_single, q_batch = served_vectors(embedder, singles, batch)
+    tier = engine._ivf
+    row_ids = tier._row_ids_dev.cpu().numpy()
+    counts = tier._tile_counts_np
+    budget = min(int(counts.max()), max(1, 4 * int(np.median(counts))))
+    nprobe = min(tier.nprobe, tier.nlist)
+    fresh = np.arange(tier._n_built, corpus.shape[0])
+    worst = 0.0
+    groups = [(q[None], [rows]) for q, rows in zip(q_single, single_rows)]
+    for qs, rows_per_query in groups + [(q_batch, batch_rows)]:
+        qn = np.stack([q / (np.linalg.norm(q) + 1e-10) for q in qs])
+        csims = qn @ tier._centroids_np.T
+        for j, rows in enumerate(rows_per_query):
+            clusters = np.argpartition(-csims[j], nprobe - 1)[:nprobe]
+            cand = np.concatenate([
+                row_ids[s: s + min(c, budget)].ravel() for s, c in zip(
+                    tier._tile_start_np[clusters], counts[clusters])]
+                + [fresh])
+            cand = cand[cand >= 0]
+            sc = corpus[cand] @ qn[j]
+            top = np.lexsort((cand, -sc))[:K]
+            got = [r["frame_id"] for r in rows]
+            require(got == cand[top].tolist(), f"[ivf] rows {got} != the "
+                    f"host's probed-exact top-{K} {cand[top].tolist()}")
+            require([r["video_name"] for r in rows]
+                    == [name_of(int(t)) for t in cand[top]], "video names")
+            err = np.abs(np.array([r["score"] for r in rows]) - sc[top]).max()
+            require(err <= SCORE_ATOL, f"[ivf] score error {err}")
+            worst = max(worst, float(err))
+    qs = np.concatenate([q_single, q_batch])
+    truth = evaluation.exact_topk_ids(corpus, qs, K, device)
+    got = np.array([[r["frame_id"] for r in rr]
+                    for rr in single_rows + batch_rows])
+    log(f"[ivf] e2e single + batch: all {len(qs)} match the host's "
+        f"probed-exact top-{K} (nprobe {nprobe}, tile budget {budget}, "
+        f"{fresh.size} fresh rows; max score error {worst:.2e}); recall@{K} "
+        f"against the full exact scan {evaluation.recall_at_k(truth, got):.4f}"
+        " (not gated: the corpus is random noise)")
+
+
+def search_ingested_ivf(engine: VideoSearchEngine, n0: int, n: int) -> None:
+    """The ingested rows sit in the IVF tier's fresh buffer (no rebuild:
+    4,000 < 0.25 x 2M); 16 ingested frames as vector queries through the
+    engine each find themselves first, with exact f32 scores."""
+    ann = engine.ann_stats()
+    require(ann["rows"] == n0 and ann["fresh_rows"] == n
+            and engine.metrics.counter("ivf_builds") == 1,
+            f"[ivf] ingest: tier {ann}")
+    index = engine.index
+    pick = n0 + np.linspace(0, n - 1, 16).astype(np.int64)
+    err = 0.0
+    for row in pick:
+        rows, _ = engine.search_by_vector_ex(index._emb[row], k=K,
+                                             use_cache=False)
+        ids = np.array([r["frame_id"] for r in rows])
+        require(ids[0] == row, f"[ivf] self-query {row} -> {ids[0]}")
+        q = index.normalize_query(index._emb[row])
+        err = max(err, float(np.abs(np.array([r["score"] for r in rows])
+                                    - index._emb[ids] @ q).max()))
+        check_order([rows])
+    require(err <= SCORE_ATOL, f"[ivf] self-query score error {err}")
+    log(f"[ivf] ingest: {n} rows in the tier's fresh buffer over {n0} built "
+        f"rows (no rebuild); 16 ingested frames as vector queries through "
+        f"the engine each found themselves first, scores = exact f32 (max "
+        f"error {err:.2e})")
+
+
+def ivf_split(engine: VideoSearchEngine, rng, device) -> None:
+    """Where one IVF search goes, for a single query and a batch of 64:
+    each stage closed with a synchronise (the third of three repetitions
+    counts)."""
+    emb, index, tier = engine._get_embedder(), engine.index, engine._ivf
+    for b in (1, 64):
+        queries = [words(rng, 4) for _ in range(b)]
+        for _ in range(3):
+            t = {}
+
+            def stage(name, fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn()
+                torch.cuda.synchronize()
+                t[name] = 1e3 * (time.perf_counter() - t0)
+                return r
+
+            q = stage("encode", lambda: emb.embed_texts(queries))
+            qn = np.stack([index.normalize_query(r) for r in q])
+            tl, qi = stage("host probe",
+                           lambda: tier._probe_pairs(qn, tier.nprobe))
+            ops = stage("upload", lambda: [torch.from_numpy(x).to(device)
+                                           for x in (tl, qi, qn)])
+            vals, idxs = stage("B12", lambda: ivf.probe_scan(
+                tier._tiled, tier._row_ids_dev, *ops, k=K))
+            v, i = stage("fetch", lambda: (vals.cpu().numpy(),
+                                           idxs.cpu().numpy()))
+            v, i = stage("host merge", lambda: ivf._merge_pairs(v, i, b, K))
+            v, i = stage("fresh merge",
+                         lambda: tier._merge_fresh(qn, v, i, K))
+            stage("rows", lambda: index._rows_from(v, i))
+        log(f"[ivf] IVF split, B={b} ({tl.size} pairs, ms): "
+            + ", ".join(f"{k} {x:.3f}" for k, x in t.items())
+            + f"; total {sum(t.values()):.3f}")
+
+
 def check_served(dtype, embedder, corpus, name_of, served, device) -> None:
     """The served rows against the host exact top-K over the (grown)
     corpus, with the query vectors the port's encoders give (single: the
@@ -997,11 +1296,7 @@ def check_served(dtype, embedder, corpus, name_of, served, device) -> None:
     exact f32 scores, and the quantized tiers' recall@K against the exact
     scan."""
     singles, single_rows, batch, batch_rows = served
-    q_single = np.stack([embedder.embed_text(q) for q in singles])
-    with torch.inference_mode():
-        q_batch = embedder.text_encode_fn(
-            embedder.params, embedder.ids_tensor(
-                trim_text_ids(embedder.tokenizer(batch)))).cpu().numpy()
+    q_single, q_batch = served_vectors(embedder, singles, batch)
     if dtype == "bfloat16":
         err = check_exact(corpus, name_of, q_single, single_rows)
         sample = list(range(0, 64, 8))
@@ -1059,6 +1354,9 @@ def main() -> int:
     b8 = compare_block_scan(store, n_rows, args.seed)
     del store, perm
     torch.cuda.empty_cache()
+    b12 = compare_probe_scan(device, n_rows, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches, ingested = phase_end_to_end(embedder, args, device)
     src = "video_quierer_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -1094,6 +1392,10 @@ def main() -> int:
          "source": src + "block_scan.cu",
          "replaces": "video_quierer_tpu/ops/topk.py:319",
          "launches": launches["float32"]["block_scan"], **b8},
+        {"name": "probe_scan", "route": "cuda",
+         "source": src + "probe_scan.cu",
+         "replaces": "video_quierer_tpu/index/ivf.py:94",
+         "launches": launches["ivf"]["probe_scan"], **b12},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)

@@ -19,13 +19,16 @@ whole vision encode per-row cosine as B2; B4 and B7
 bit-identical (integer dot products are exact, and both versions multiply
 the scales in the same order); B8 rows identical and scores equal on
 exact inputs, rows identical and scores within rtol 1e-5 on random unit
-rows (the kernel sums in another order than cuBLAS).
+rows (the kernel sums in another order than cuBLAS); B12 as B8, pads
+(-inf, -1) in the same places, also for a pair on tile 4,096 and beyond
+(64-bit tile offsets: 8.6 GB of tiles on the card).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from video_quierer_tpu_torch.index import ivf
 from video_quierer_tpu_torch.models.clip.bridge import init_params
 from video_quierer_tpu_torch.models.clip.config import (
     CLIPConfig,
@@ -97,7 +100,8 @@ def _launch_counts():
             fl.attn_half.launches, fl.mlp_half.launches,
             topk.cand_scan_prefix.launches,
             topk.cand_scan_int8_prefix.launches,
-            topk.cand_scan_int4_prefix.launches, topk.block_scan.launches)
+            topk.cand_scan_int4_prefix.launches, topk.block_scan.launches,
+            ivf.probe_scan.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -114,6 +118,11 @@ def test_cpu_tensors_take_the_plain_versions():
     topk.cand_scan_int4_prefix(packed, scales4, qc, qs, 5000, bucket=1024,
                                rounds=2)
     topk.cosine_topk(_exact(1, (3000, 64)), _exact(2, (3, 64)), 2500, k=10)
+    ivf.probe_scan(_exact(1, (2, 1024, 64)), torch.zeros(2, 1024,
+                                                         dtype=torch.int32),
+                   torch.tensor([0, 1], dtype=torch.int32),
+                   torch.tensor([1, 0], dtype=torch.int32),
+                   _exact(2, (2, 64)), k=5)
     cfg = CLIPConfig(projection_dim=64, text=CLIPTextConfig(
         vocab_size=100, hidden_size=128, num_layers=1, num_heads=2),
         vision=CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=128,
@@ -346,6 +355,73 @@ def test_block_scan_kernel(cuda, b, k):
     assert torch.equal(ki[apart], pi[apart])
 
 
+def _probe_operands(seed, n_tiles, b, exact, d=512, used=None):
+    """Tiles (ids a permutation; tile 1 with 5 live rows, tile 2 with 700,
+    tile 3 all padding, tile 4 every row twice), ``b`` queries, and every
+    query paired with every used tile in a shuffled order."""
+    rng = np.random.default_rng(seed)
+    used = list(range(n_tiles)) if used is None else used
+    tiles = torch.empty(n_tiles, 1024, d)
+    ids = torch.full((n_tiles, 1024), -1, dtype=torch.int32)
+    for j, t in enumerate(used):
+        tiles[t] = (_exact(seed + t, (1024, d)) if exact
+                    else _unit(seed + t, (1024, d)))
+        ids[t] = torch.from_numpy(rng.permutation(1 << 22)[:1024].astype(
+            np.int32))
+    ids[used[1], 5:] = -1
+    ids[used[2], 700:] = -1
+    ids[used[3]] = -1
+    tiles[used[4], 512:] = tiles[used[4], :512]
+    q = _exact(seed, (b, d)) if exact else _unit(seed, (b, d))
+    pairs = rng.permutation([(t, i) for t in used for i in range(b)])
+    return (tiles, ids, torch.from_numpy(pairs[:, 0].astype(np.int32)),
+            torch.from_numpy(pairs[:, 1].astype(np.int32)), q)
+
+
+def _check_probe(kern, plain, exact):
+    (kv, ki), (pv, pi) = kern, plain
+    assert torch.equal(torch.isfinite(kv), torch.isfinite(pv))
+    pad = ~torch.isfinite(pv)
+    assert (ki[pad] == -1).all() and (pi[pad] == -1).all()
+    if exact:
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        return
+    torch.testing.assert_close(kv[~pad], pv[~pad], rtol=1e-5, atol=0)
+    gap = torch.full_like(pv, float("inf"))
+    gap[:, 1:] = pv[:, :-1] - pv[:, 1:]
+    gap[:, :-1] = torch.minimum(gap[:, :-1], pv[:, :-1] - pv[:, 1:])
+    apart = (gap > 1e-5 * pv.abs()) & ~pad
+    assert torch.equal(ki[apart], pi[apart])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_probe_scan_kernel(cuda, k, exact):
+    tiles, ids, tl, qi, q = (t.to(cuda) for t in _probe_operands(
+        k, 8, 5, exact))
+    before = ivf.probe_scan.launches
+    got = ivf.probe_scan(tiles, ids, tl, qi, q, k=k)
+    torch.cuda.synchronize()
+    assert ivf.probe_scan.launches == before + 1
+    assert got[0].shape == got[1].shape == (tl.shape[0], k)
+    _check_probe(got, ivf.probe_scan_ref(tiles, ids, tl, qi, q, k=k), exact)
+    if k > 5:      # the 5-live-row tile's pairs pad from slot 5 on
+        assert (got[1][tl == 1][:, 5:] == -1).all()
+
+
+@pytest.mark.gpu
+def test_probe_scan_kernel_64bit_tile_offsets(cuda):
+    """Pairs on tiles 4,096-4,099: their element offsets pass 2^31."""
+    used = [0, 4097, 2048, 4096, 4099, 3]
+    tiles, ids, tl, qi, q = _probe_operands(1, 4100, 3, False, used=used)
+    tiles, ids, tl, qi, q = (t.to(cuda) for t in (tiles, ids, tl, qi, q))
+    got = ivf.probe_scan(tiles, ids, tl, qi, q, k=10)
+    torch.cuda.synchronize()
+    _check_probe(got, ivf.probe_scan_ref(tiles, ids, tl, qi, q, k=10),
+                 False)
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_bad_operands(cuda):
     emb = torch.zeros(4096, 512, device=cuda, dtype=torch.bfloat16)
@@ -369,6 +445,19 @@ def test_kernels_refuse_bad_operands(cuda):
     with pytest.raises(ValueError):                 # k > MAX_K
         topk.block_scan(emb.float(), torch.zeros(2, 512, device=cuda), 10,
                         k=65)
+    tiles = torch.zeros(2, 1024, 512, device=cuda)
+    ids = torch.zeros(2, 1024, dtype=torch.int32, device=cuda)
+    pairs = torch.zeros(3, dtype=torch.int32, device=cuda)
+    qs = torch.zeros(2, 512, device=cuda)
+    with pytest.raises(ValueError):                 # k > MAX_K
+        ivf.probe_scan(tiles, ids, pairs, pairs, qs, k=65)
+    with pytest.raises(ValueError):                 # D = 510
+        ivf.probe_scan(tiles[..., :510].contiguous(), ids, pairs, pairs,
+                       qs[:, :510].contiguous(), k=5)
+    with pytest.raises(TypeError):                  # int64 tile list
+        ivf.probe_scan(tiles, ids, pairs.long(), pairs, qs, k=5)
+    with pytest.raises(ValueError):                 # tile list on the CPU
+        ivf.probe_scan(tiles, ids, pairs.cpu(), pairs, qs, k=5)
     q = torch.zeros(1, 8, 512, device=cuda)
     with pytest.raises(ValueError):
         attention(q, q, q, num_heads=4)            # head dim 128

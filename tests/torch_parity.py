@@ -18,6 +18,8 @@ TINY = "torch-parity-tiny"
 TINY_FULL_VOCAB = "torch-parity-tiny-vocab"
 # same widths on the ingest pipeline's 224 px frames: 56 px patches, S = 17
 TINY_224 = "torch-parity-tiny-224"
+# TINY_224 with the full CLIP vocab: ingest and text search in one engine
+TINY_224_FULL_VOCAB = "torch-parity-tiny-224-vocab"
 
 
 def _tiny(vocab: int, context: int, image: int = 32, patch: int = 8):
@@ -47,7 +49,9 @@ def _as_torch_cfg(factory):
 
 for _name, _factory in ((TINY, _tiny(1000, 77)),
                        (TINY_FULL_VOCAB, _tiny(49408, 77)),
-                       (TINY_224, _tiny(1000, 77, image=224, patch=56))):
+                       (TINY_224, _tiny(1000, 77, image=224, patch=56)),
+                       (TINY_224_FULL_VOCAB,
+                        _tiny(49408, 77, image=224, patch=56))):
     jax_cfg.register_config(_name, _factory)
     torch_cfg.register_config(_name, _as_torch_cfg(_factory))
 
@@ -94,3 +98,23 @@ def reciprocal_case_queries(n: int, d: int, seed: int = 2) -> np.ndarray:
         if len(out) % 2 or m / np.float32(127) != m * np.float32(1 / 127):
             out.append(q)
     return np.stack(out)
+
+
+def jax_kmeans_init(n: int, n_clusters: int, seed: int = 0) -> np.ndarray:
+    """The seed rows the JAX package's ``_kmeans`` draws
+    (``video_quierer_tpu/index/ivf.py:208-209``), for the port's
+    ``_kmeans`` and ``init_indices``."""
+    return np.array(jax.random.choice(jax.random.PRNGKey(seed), n,
+                                      (n_clusters,), replace=False))
+
+
+def ivf_state(ivf) -> dict:
+    """A built JAX ``IVFIndex`` as the numpy arguments of the port's
+    ``IVFIndex.load_built``."""
+    return {"centroids": np.asarray(ivf._centroids_np),
+            "tiled": np.asarray(ivf._tiled),
+            "row_ids": np.asarray(ivf._row_ids),
+            "tile_start": np.asarray(ivf._tile_start_np),
+            "tile_counts": np.asarray(ivf._tile_counts_np),
+            "n_built": ivf._n_built, "nlist": ivf.nlist,
+            "nprobe": ivf.nprobe, "fresh": ivf._fresh}

@@ -29,52 +29,13 @@
 // 1.23 ms at 3.35 TB/s), or 2 N D B FLOP at 67 TFLOP/s f32 (2.0 ms at
 // B = 64): bytes-bound at small B, operations-bound from B ~ 40.
 #include "common.cuh"
+#include "topk_list.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int KC = 32;       // depth of one staging step
-constexpr int KMAX = 64;     // most k a launch takes
-
-__device__ __forceinline__ bool better(float v1, int r1, float v2, int r2) {
-  return v1 > v2 || (v1 == v2 && r1 < r2);
-}
-
-// Insert (v, r) into the sorted list (lv, li)[0..k) of one query; the
-// caller has checked that it beats the last entry. All 32 lanes call.
-__device__ __forceinline__ void insert_sorted(float* lv, int* li, int k,
-                                              float v, int r, int lane) {
-  const unsigned full = 0xffffffffu;
-  const int i0 = lane, i1 = lane + 32;
-  const float a0 = i0 < k ? lv[i0] : -INFINITY;
-  const int b0 = i0 < k ? li[i0] : INT_MAX;
-  const float a1 = i1 < k ? lv[i1] : -INFINITY;
-  const int b1 = i1 < k ? li[i1] : INT_MAX;
-  const int pos =
-      __popc(__ballot_sync(full, i0 < k && better(a0, b0, v, r))) +
-      __popc(__ballot_sync(full, i1 < k && better(a1, b1, v, r)));
-  // entry i - 1 for each of the lane's entries i
-  const float p0 = __shfl_up_sync(full, a0, 1);
-  const int q0 = __shfl_up_sync(full, b0, 1);
-  float p1 = __shfl_up_sync(full, a1, 1);
-  int q1 = __shfl_up_sync(full, b1, 1);
-  const float x = __shfl_sync(full, a0, 31);
-  const int y = __shfl_sync(full, b0, 31);
-  if (lane == 0) {
-    p1 = x;
-    q1 = y;
-  }
-  __syncwarp();
-  if (i0 < k && i0 >= pos) {
-    lv[i0] = i0 == pos ? v : p0;
-    li[i0] = i0 == pos ? r : q0;
-  }
-  if (i1 < k && i1 >= pos) {
-    lv[i1] = i1 == pos ? v : p1;
-    li[i1] = i1 == pos ? r : q1;
-  }
-  __syncwarp();
-}
+constexpr int KMAX = vqt::LIST_KMAX;  // most k a launch takes
 
 // QB queries per CTA, QPT x RPT outputs per thread
 template <int QB, int QPT, int RPT>
@@ -170,16 +131,7 @@ block_scan_kernel(const float* __restrict__ emb,
         const float v = !here ? 0.f
                         : row < valid ? sc[(r0 + lane) * LDC + c]
                                       : -INFINITY;
-        unsigned mask = __ballot_sync(
-            0xffffffffu, here && better(v, row, qv[k - 1], qi[k - 1]));
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float cv = __shfl_sync(0xffffffffu, v, src);
-          const int cr = __shfl_sync(0xffffffffu, row, src);
-          if (better(cv, cr, qv[k - 1], qi[k - 1]))
-            insert_sorted(qv, qi, k, cv, cr, lane);
-        }
+        vqt::fold_warp(qv, qi, k, here, v, row, lane);
       }
     }
   }

@@ -3,7 +3,10 @@
 
 A worker thread blocks on a queue; on wake it drains up to ``max_batch``
 requests for up to ``max_wait_ms``, groups them by ``k`` and answers each
-group with one fused device dispatch. The flush is PIPELINED (depth
+group with one dispatch on the engine's serving route
+(``engine._dispatch_batch``: the IVF tier's batch search while that tier is
+live, else the fused text encode + scan of the mirror; the route is chosen
+before the dispatch, never after a failure). The flush is PIPELINED (depth
 ``VQT_COALESCE_PIPELINE``, default 2): the worker tokenizes and dispatches
 batch N+1 while a resolver thread copies batch N's results to the host
 and builds its rows. The two phases hand the engine's shared read lock
@@ -133,7 +136,7 @@ class SearchCoalescer:
             with stageprof.span("lock_wait"):
                 engine.lock.acquire_read()
             try:
-                resolve = engine._dispatch_batch_fused(queries, k)
+                resolve = engine._dispatch_batch(queries, k)
             except Exception as e:  # boundary: fail the waiters, keep serving
                 engine.lock.release_read()
                 logger.exception("coalesced dispatch failed")

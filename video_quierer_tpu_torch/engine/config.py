@@ -5,9 +5,12 @@ Tier 1 — :class:`ApiConfig`: the reference's flat ``config.json`` — the
 same nine keys and defaults — as a dataclass with hand-written validation
 in place of pydantic (which the port does not depend on). Tier 2 —
 :class:`EngineConfig`: the engine's typed knobs with the same ``VQT_*``
-environment overrides. Semantics match the JAX package; fields the port
-does not act on yet (ingest, IVF, SigLIP) keep their names and
-validation so one ``config.json``/``engine.yaml`` serves both packages.
+environment overrides. Semantics match the JAX package, the IVF tier's
+fields included (``index.kind = "ivf"``, ``ivf_nlist``, ``ivf_nprobe``,
+``ivf_min_rows``: the engine serves through ``index/ivf.py``); fields the
+port does not act on yet (corpus shards, SigLIP, pipeline parallelism)
+keep their names and validation so one ``config.json``/``engine.yaml``
+serves both packages.
 Ingest samples by the reference's interval rule only: the adaptive and
 hybrid samplers and the quality filter (``ingest/samplers.py``) are not
 ported, and asking for them raises ``NotImplementedError``.

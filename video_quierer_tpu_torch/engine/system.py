@@ -18,7 +18,15 @@ One engine, one config, one index on one device:
   (``DeviceVideoIndex.search_batch_fused_async``) → reference rows
   ``{video_name, timestamp, frame_id, score, formatted_time}``;
 - ``search_ex`` (one query), ``search_coalesced_ex`` (through the request
-  coalescer), ``search_batch`` (one device pass for many queries).
+  coalescer), ``search_batch`` (one device pass for many queries),
+  ``search_by_vector_ex`` (a query vector);
+- the IVF tier (``index.kind = "ivf"``, ``index/ivf.py``): built at the
+  end of ``startup`` once the corpus holds ``ivf_min_rows`` rows, rebuilt
+  after a removal, fed appended rows through its fresh buffer (rebuilt
+  once that outgrows ``rebuild_fraction``); while it is live every search
+  routes through it — the text tower, then the probe scan (kernel B12) —
+  instead of the mirror's scan. The coalescer's flushes take that route
+  too: it is chosen before dispatch (``_dispatch_batch``).
 
 Unlike the JAX engine, a failed encode or dispatch is not degraded to the
 keyword encoder, the visual-statistics embedder or a two-step path: it
@@ -45,6 +53,7 @@ from video_quierer_tpu_torch.engine.config import (
 )
 from video_quierer_tpu_torch.engine.metrics import SystemMetrics
 from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
+from video_quierer_tpu_torch.index.ivf import IVFIndex
 from video_quierer_tpu_torch.ingest.frames import video_identity_hash
 from video_quierer_tpu_torch.ingest.pipeline import (
     FrameBatch,
@@ -82,9 +91,8 @@ class VideoSearchEngine:
         self.videos_dir.mkdir(parents=True, exist_ok=True)
         self.cache_path = self.videos_dir / "video_search_cache.pkl"
         idx = self.config.index
-        if idx.corpus_shards > 0 or idx.kind != "exact":
-            raise NotImplementedError(
-                "corpus sharding and the IVF tier are not yet ported")
+        if idx.corpus_shards > 0:
+            raise NotImplementedError("corpus sharding is not yet ported")
         self.index = DeviceVideoIndex(
             dim=idx.embed_dim, device_dtype=idx.device_dtype,
             device=self.device, device_rerank=idx.device_rerank,
@@ -99,6 +107,10 @@ class VideoSearchEngine:
         self._embedder = embedder        # injected (tests) or lazy CLIP
         self._ready = False
         self._coalescer = None
+        # the ANN tier (index.kind == "ivf"): built on the mutation paths
+        # under the write lock, read by searches; None: the mirror serves
+        self._ivf: Optional[IVFIndex] = None
+        self._ivf_rows = 0
         # searches are reads (concurrent, pipelined on the device);
         # load, ingest and removal are exclusive
         self.lock = RWLock()
@@ -182,6 +194,8 @@ class VideoSearchEngine:
                 self.index.save_to_disk(self.cache_path)
             self._config_hash_path.write_text(self._config_hash())
             self.index.sync_mirror()
+            if self._ivf is None:
+                self._maybe_build_ivf()
         self._ready = True
         self.metrics.set_gauge("frames_indexed", len(self.index))
         logger.info("Startup complete: %d frames indexed", len(self.index))
@@ -196,8 +210,9 @@ class VideoSearchEngine:
         ing = self.config.ingest
         check_sampling_ported(ing)
         with self.lock, self.metrics.timer("ingest"):
+            removed = 0
             for video in videos:
-                self.index.remove_video(Path(video).name)
+                removed += self.index.remove_video(Path(video).name)
             added = self._ingest_batches(videos, batched_frames(
                 list(videos), max_frames=cfg.max_frames,
                 sampling_mode=cfg.sampling_mode, batch_size=ing.batch_size,
@@ -208,6 +223,7 @@ class VideoSearchEngine:
                 if Path(video).exists():
                     self.index.video_hashes[Path(video).name] = \
                         video_identity_hash(video)
+            self._ivf_after_ingest(removed)
         self.query_cache.invalidate_all()
         self.metrics.set_gauge("frames_indexed", len(self.index))
         return added
@@ -252,10 +268,82 @@ class VideoSearchEngine:
         """Drop a video's rows under the write lock; returns the count."""
         with self.lock:
             removed = self.index.remove_video(video_name)
+            if removed and self.config.index.kind == "ivf":
+                self._maybe_build_ivf()
         if removed:
             self.query_cache.invalidate_all()
             self.metrics.set_gauge("frames_indexed", len(self.index))
         return removed
+
+    # ------------------------------------------------------------------
+    # The IVF tier (index.kind == "ivf"): built on the mutation paths
+    # (write lock held), only read by searches
+    # ------------------------------------------------------------------
+
+    def _maybe_build_ivf(self) -> None:
+        """(Re)build the tier from the current corpus, or drop it when
+        ``index.kind`` is not "ivf" or the corpus holds fewer than
+        ``ivf_min_rows`` rows. Callers hold the write lock."""
+        cfg = self.config.index
+        self._ivf = None            # the old tiles go before the new come
+        self._ivf_rows = 0
+        if cfg.kind != "ivf" or self.index.count < cfg.ivf_min_rows:
+            return
+        ivf = IVFIndex(nlist=cfg.ivf_nlist or None, nprobe=cfg.ivf_nprobe,
+                       device=self.device)
+        with self.metrics.timer("ivf_build"):
+            ivf.build(self.index._emb[: self.index.count])
+        self._ivf = ivf
+        self._ivf_rows = self.index.count
+        self.metrics.inc("ivf_builds")
+
+    def _ivf_absorb_appends(self) -> None:
+        """Hand the rows appended since the last build to the fresh
+        buffer (exactly scanned by every search); rebuild once it
+        outgrows ``rebuild_fraction``. Write lock held."""
+        if self._ivf is None:
+            self._maybe_build_ivf()
+            return
+        n = self.index.count
+        if n > self._ivf_rows:
+            self._ivf.add(self.index._emb[self._ivf_rows: n])
+            self._ivf_rows = n
+        if self._ivf.needs_rebuild:
+            self._maybe_build_ivf()
+
+    def _ivf_after_ingest(self, removed: int) -> None:
+        """The tier after an ingest (write lock held): rebuilt when the
+        ingest removed rows (compaction shifted the ids), else fed the
+        appended rows."""
+        if self.config.index.kind != "ivf":
+            return
+        if removed:
+            self._maybe_build_ivf()
+        else:
+            self._ivf_absorb_appends()
+
+    def ann_stats(self) -> Dict:
+        if self.config.index.kind != "ivf":
+            return {"kind": "exact"}
+        ivf = self._ivf
+        if ivf is None:
+            return {"kind": "ivf", "active": False,
+                    "reason": f"below ivf_min_rows="
+                              f"{self.config.index.ivf_min_rows}"}
+        return {"kind": "ivf", "active": True, **ivf.stats()}
+
+    def accuracy_mode(self) -> str:
+        """The serving index's accuracy contract: ``approximate-ivf``
+        while the IVF tier is live (``nprobe`` trades recall for
+        traffic), else ``exact-f32-scan`` (the f32 mirror's exact scan)
+        or ``exact-f32-rerank`` (a quantized mirror's candidates, every
+        returned row re-ranked exactly in f32)."""
+        ann = self.ann_stats()
+        if ann.get("kind") == "ivf" and ann.get("active"):
+            return "approximate-ivf"
+        if self.config.index.device_dtype == "float32":
+            return "exact-f32-scan"
+        return "exact-f32-rerank"
 
     # ------------------------------------------------------------------
     # Search
@@ -322,10 +410,16 @@ class VideoSearchEngine:
             fetch_k = min(k * 2, MAX_K) if dedup_videos else k
         with self.lock.read(), self.metrics.timer("search_latency"):
             emb = self._get_embedder()
-            ids = emb.prepare_text_ids(emb.tokenizer([query]))
-            results = self.index.search_batch_fused(
-                emb.text_encode_fn, emb.params, ids,
-                self._bucket_k(fetch_k))[0][:fetch_k]
+            if self._ivf is not None:
+                with self.metrics.timer("text_encode"):
+                    q = emb.embed_text(query)
+                with self.metrics.timer("index_scan"):
+                    results = self._search_ann(q, fetch_k)
+            else:
+                ids = emb.prepare_text_ids(emb.tokenizer([query]))
+                results = self.index.search_batch_fused(
+                    emb.text_encode_fn, emb.params, ids,
+                    self._bucket_k(fetch_k))[0][:fetch_k]
             if dedup_videos:
                 results = self._dedup_by_video(results, offset + k)
             results = self._format(results)
@@ -334,13 +428,46 @@ class VideoSearchEngine:
                                       [dict(r) for r in results])
         return results[offset: offset + k], False
 
+    def _search_ann(self, q: np.ndarray, k: int) -> List[Dict]:
+        """One query vector through the IVF tier; rows through the
+        index's metadata, as the mirror's scan gives them."""
+        self.metrics.inc("ann_searches")
+        vals, idxs = self._ivf.search(self.index.normalize_query(q), k=k)
+        return self.index._rows_from(vals[None], idxs[None])[0]
+
     def search_batch(self, queries: Sequence[str], k: int = 5
                      ) -> List[List[Dict]]:
         """All queries in one device pass per text bucket."""
         self.metrics.inc("searches", len(queries))
         with self.lock.read(), self.metrics.timer("batch_search_latency"):
-            batches = self._dispatch_batch_fused(queries, k)()
+            batches = self._dispatch_batch(queries, k)()
         return [self._format(r) for r in batches]
+
+    def _dispatch_batch(self, queries: Sequence[str], k: int
+                        ) -> Callable[[], List[List[Dict]]]:
+        """Dispatch phase of batched text search on the serving route —
+        the IVF tier while it is live, else the mirror's fused scan —
+        returning ``resolve() -> rows`` (unformatted, trimmed to ``k``).
+        The caller holds the engine read lock from this call through
+        ``resolve()``."""
+        if self._ivf is not None:
+            return self._dispatch_batch_ivf(queries, k)
+        return self._dispatch_batch_fused(queries, k)
+
+    def _dispatch_batch_ivf(self, queries: Sequence[str], k: int
+                            ) -> Callable[[], List[List[Dict]]]:
+        """The IVF route: the text tower now (``embed_texts``: host
+        vectors); ``resolve()`` normalizes them, probes the tier and
+        builds the rows."""
+        q = self._get_embedder().embed_texts(list(queries))
+        ivf = self._ivf
+
+        def resolve() -> List[List[Dict]]:
+            qn = np.stack([self.index.normalize_query(r) for r in q])
+            self.metrics.inc("ann_searches", len(queries))
+            vals, idxs = ivf.search(qn, k=k)
+            return self.index._rows_from(vals, idxs)
+        return resolve
 
     def _dispatch_batch_fused(self, queries: Sequence[str], k: int
                               ) -> Callable[[], List[List[Dict]]]:
@@ -372,6 +499,35 @@ class VideoSearchEngine:
                 out.extend(rows[:k] for rows in part()[:n])
             return out
         return resolve
+
+    def search_by_vector_ex(self, vector: np.ndarray, k: int = 5,
+                            use_cache: bool = True
+                            ) -> Tuple[List[Dict], bool]:
+        """A query vector (an image's embedding, a frame's row):
+        ``(results, from_cache)`` — through the IVF tier while it is
+        live, else the mirror's scan."""
+        self.metrics.inc("searches")
+        vector = np.asarray(vector, np.float32)
+        cache_on = use_cache and self.config.api.cache_search
+        if cache_on:
+            hit = self.query_cache.get_vector(vector, k)
+            if hit is not None:
+                self.metrics.inc("search_cache_hits")
+                return [dict(r) for r in hit], True
+        with self.lock.read(), self.metrics.timer("search_latency"):
+            if self._ivf is not None:
+                results = self._search_ann(vector, k)
+            else:
+                results = self.index.search_batch(vector[None], k)[0]
+            results = self._format(results)
+        if cache_on:
+            self.query_cache.put_vector(vector, k,
+                                        [dict(r) for r in results])
+        return results, False
+
+    def search_by_vector(self, vector: np.ndarray, k: int = 5,
+                         use_cache: bool = True) -> List[Dict]:
+        return self.search_by_vector_ex(vector, k, use_cache)[0]
 
     def search_coalesced_ex(self, query: str, k: int = 5,
                             use_cache: bool = True
@@ -405,17 +561,11 @@ class VideoSearchEngine:
             "cache_exists": self.cache_path.exists(),
             "video_hashes_count": len(self.index.video_hashes),
             "query_cache": self.query_cache.stats(),
-            "ann": {"kind": "exact"},
+            "ann": self.ann_stats(),
             "index": {
                 "kind": self.config.index.kind,
                 "device_dtype": self.config.index.device_dtype,
-                # the f32 mirror is scanned exactly; the bf16/int8/int4
-                # mirrors pre-filter and every returned row is re-ranked
-                # exactly in f32
-                "accuracy_mode": (
-                    "exact-f32-scan"
-                    if self.config.index.device_dtype == "float32"
-                    else "exact-f32-rerank"),
+                "accuracy_mode": self.accuracy_mode(),
             },
             "metrics": self.metrics.snapshot(),
         }

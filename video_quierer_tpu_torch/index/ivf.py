@@ -1,0 +1,495 @@
+"""IVF-Flat approximate index: k-means on the device and the cluster-tile
+probe scan (counterpart of ``video_quierer_tpu/index/ivf.py``, one device).
+
+The system's approximate nearest-neighbour tier, which the engine serves
+when ``index.kind = "ivf"``:
+
+- **Build** (:meth:`IVFIndex.build`): spherical k-means on the index's
+  device (:func:`_kmeans`: chunked f32 products, first-maximum argmax,
+  ``index_add_`` sums and counts, empty clusters keep their centroid);
+  cluster sizes capped at ``balance_factor * N / nlist`` on the host
+  (:func:`_rebalance`); the rows packed cluster by cluster into
+  ``BLOCK_ROWS``-row tiles ``[T + 1, BLOCK_ROWS, D]`` f32 on the device
+  with their global row ids (-1 for padding; the last tile is all
+  padding). The host steps are numpy copies of the reference's: which
+  rows are evicted, and so the tiles, depend on ``np.argpartition``'s and
+  ``np.argsort(kind="stable")``'s orders.
+- **Search** (:meth:`IVFIndex.search`): on the host each query is scored
+  against the centroids and takes the first tiles of its ``nprobe`` best
+  clusters (:meth:`IVFIndex._probe_pairs`); one launch of
+  :func:`probe_scan` (kernel B12 on CUDA tensors) takes the top k of every
+  (query, tile) pair; the host merges each query's candidates
+  (:func:`_merge_pairs`) and the exact scan of the fresh buffer, the rows
+  appended since the build (:meth:`IVFIndex._merge_fresh`).
+
+Results are exact within the probed clusters (true f32 cosines); recall
+follows ``nprobe / nlist``.
+
+Not carried over: the XLA gather path ``_probe_and_scan`` (on the CPU the
+plain version :func:`probe_scan_ref` takes its place), the query padding
+to ``_QUERY_BUCKETS`` (an XLA compile-cache device: padded queries probe
+only the padding tile) and the ``_pallas_mode()`` routing. Corpus meshes
+(``mesh``) are a later port.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from video_quierer_tpu_torch.ops import kernels
+from video_quierer_tpu_torch.ops.topk import MAX_K, NEG_INF
+from video_quierer_tpu_torch.utils.env import resolve_device
+
+logger = logging.getLogger(__name__)
+
+BLOCK_ROWS = 1024          # rows of one cluster tile (kernel B12's tile)
+_ASSIGN_CHUNK = 65536      # rows per k-means assignment product
+_PACK_CHUNK = 1 << 18      # rows per scatter of the device packing
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+# -- kernel B12 and its plain version -----------------------------------------
+
+def probe_scan_ref(tiles: torch.Tensor, ids: torch.Tensor,
+                   tile_list: torch.Tensor, qidx: torch.Tensor,
+                   queries: torch.Tensor, *, k: int) -> Pair:
+    """Plain PyTorch version of kernel B12: for pair ``p``, the f32 scores
+    of tile ``tile_list[p]``'s rows against query ``qidx[p]``, rows whose
+    id is < 0 scored ``-inf``, and the top ``k`` by (score desc, id asc);
+    ``([P, k] f32, [P, k] i32)``, pads ``(-inf, -1)``."""
+    tl = tile_list.long()
+    rid = ids[tl]                                           # [P, R]
+    sc = torch.bmm(tiles[tl], queries[qidx.long()][:, :, None])[..., 0]
+    sc = sc.masked_fill(rid < 0, NEG_INF)
+    # ties break by global id: order the rows by id, then sort stably
+    rid, order = torch.sort(rid, dim=-1, stable=True)
+    sc = torch.gather(sc, 1, order)
+    vals, pos = torch.sort(sc, dim=-1, descending=True, stable=True)
+    vals = vals[:, :k]
+    idxs = torch.gather(rid, 1, pos[:, :k]).masked_fill(vals == NEG_INF, -1)
+    return vals.contiguous(), idxs.to(torch.int32).contiguous()
+
+
+def probe_scan(tiles: torch.Tensor, ids: torch.Tensor,
+               tile_list: torch.Tensor, qidx: torch.Tensor,
+               queries: torch.Tensor, *, k: int) -> Pair:
+    """Top ``k`` (``<= MAX_K``) of every (query, tile) pair in one launch:
+    tiles ``[T, BLOCK_ROWS, D]`` f32, ids ``[T, BLOCK_ROWS]`` i32 (-1 for
+    padding), ``tile_list``/``qidx`` ``[P]`` i32 (entries in ``[0, T)`` and
+    ``[0, B)``), queries ``[B, D]`` f32 → ``([P, k] f32, [P, k] i32)``.
+    Kernel B12 on CUDA tensors, the plain version on CPU ones."""
+    if tiles.device.type == "cpu":
+        return probe_scan_ref(tiles, ids, tile_list, qidx, queries, k=k)
+    dev = kernels.require_cuda(tiles, ids, tile_list, qidx, queries)
+    if tiles.dtype != torch.float32 or queries.dtype != torch.float32 \
+            or ids.dtype != torch.int32 or tile_list.dtype != torch.int32 \
+            or qidx.dtype != torch.int32:
+        raise TypeError("the probe scan takes f32 tiles and queries and "
+                        "int32 ids, tile list and query index")
+    d = tiles.shape[-1]
+    if tiles.ndim != 3 or tiles.shape[1] != BLOCK_ROWS \
+            or ids.shape != tiles.shape[:2] or tile_list.ndim != 1 \
+            or qidx.shape != tile_list.shape or queries.ndim != 2 \
+            or queries.shape[1] != d or d % 4 or not 1 <= k <= MAX_K \
+            or tiles.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError(f"unsupported probe scan: tiles {tuple(tiles.shape)}"
+                         f" ids {tuple(ids.shape)} pairs "
+                         f"{tuple(tile_list.shape)} queries "
+                         f"{tuple(queries.shape)} k={k} (D a multiple of 4, "
+                         f"16-byte aligned tiles and queries, k <= {MAX_K})")
+    p = tile_list.shape[0]
+    vals = torch.empty((p, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((p, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_probe_scan(
+            kernels.ptr(tiles), kernels.ptr(ids), kernels.ptr(tile_list),
+            kernels.ptr(qidx), kernels.ptr(queries), kernels.ptr(vals),
+            kernels.ptr(idxs), p, d, queries.shape[0], k,
+            kernels.stream(dev)), "probe scan")
+    kernels.count_launch(probe_scan)
+    return vals, idxs
+
+
+probe_scan.launches = 0
+
+
+# -- build --------------------------------------------------------------------
+
+def init_indices(n: int, n_clusters: int, seed: int) -> np.ndarray:
+    """The k-means seeds: ``n_clusters`` distinct rows of ``n``, drawn from
+    a seeded ``torch.Generator``. (The reference draws them with
+    ``jax.random.choice``, whose bits the port cannot reproduce; its tests
+    hand the reference's indices to :func:`_kmeans`.)"""
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.randperm(n, generator=g)[:n_clusters].numpy()
+
+
+def _assign(emb: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest centroid of every row by f32 product, ``_ASSIGN_CHUNK``
+    rows at a time; the first maximum wins, as ``jnp.argmax``."""
+    return torch.cat([
+        torch.argmax(emb[lo: lo + _ASSIGN_CHUNK] @ centroids.t(), dim=-1)
+        for lo in range(0, emb.shape[0], _ASSIGN_CHUNK)])
+
+
+def _kmeans(emb: torch.Tensor, init_idx: torch.Tensor, *, iters: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spherical k-means of the unit rows ``emb [N, D]`` f32 from the seed
+    rows ``init_idx [C]`` → ``(centroids [C, D], assignments [N] i64)``.
+    The products are full f32 (TF32 off, the default of
+    ``torch.backends.cuda.matmul.allow_tf32``); ``index_add_`` sums in no
+    fixed order on CUDA, so centroids may differ in the last bits from
+    build to build."""
+    n_clusters = init_idx.shape[0]
+    centroids = emb[init_idx]
+    ones = torch.ones(emb.shape[0], dtype=emb.dtype, device=emb.device)
+    for _ in range(iters):
+        assign = _assign(emb, centroids)
+        sums = torch.zeros_like(centroids).index_add_(0, assign, emb)
+        counts = torch.zeros(n_clusters, dtype=emb.dtype,
+                             device=emb.device).index_add_(0, assign, ones)
+        norms = torch.linalg.vector_norm(sums, dim=-1, keepdim=True)
+        fresh = sums / torch.clamp(norms, min=1e-10)
+        # empty clusters keep their previous centroid
+        centroids = torch.where(counts[:, None] > 0, fresh, centroids)
+    return centroids, _assign(emb, centroids)
+
+
+def _rebalance(emb: np.ndarray, centroids: np.ndarray,
+               assign: np.ndarray, cap: int) -> np.ndarray:
+    """Cap cluster sizes: over-full clusters keep their ``cap`` closest
+    rows; evicted rows move to their best non-full cluster. Bounds
+    ``max_tiles`` so the probe's tile budget never truncates live rows."""
+    assign = assign.copy()
+    nlist = centroids.shape[0]
+    counts = np.bincount(assign, minlength=nlist)
+    evicted = []
+    for c in np.nonzero(counts > cap)[0]:
+        rows = np.nonzero(assign == c)[0]
+        sims = emb[rows] @ centroids[c]
+        keep = np.argpartition(-sims, cap - 1)[:cap]
+        mask = np.ones(rows.size, bool)
+        mask[keep] = False
+        evicted.extend(rows[mask].tolist())
+        counts[c] = cap
+    if not evicted:
+        return assign
+    evicted = np.asarray(evicted)
+    sims = emb[evicted] @ centroids.T                      # [E, C]
+    order = np.argsort(-sims, axis=1)
+    for i, row in enumerate(evicted):
+        for c in order[i]:
+            if counts[c] < cap:
+                assign[row] = c
+                counts[c] += 1
+                break
+    return assign
+
+
+def _pack(assign: np.ndarray, nlist: int):
+    """Cluster-contiguous tile positions of every row: ``(order,
+    tile_start [C + 1], tiles_per_cluster [C], tile, offset)`` — row
+    ``order[i]`` goes to ``(tile[i], offset[i])``, each cluster's rows in
+    ascending id order."""
+    order = np.argsort(assign, kind="stable")
+    counts = np.bincount(assign, minlength=nlist)
+    tiles_per_cluster = np.maximum(1, -(-counts // BLOCK_ROWS))
+    tile_start = np.concatenate([[0], np.cumsum(tiles_per_cluster)])
+    sorted_assign = assign[order]
+    cluster_first = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    ranks = np.arange(assign.shape[0]) - cluster_first[sorted_assign]
+    tile = tile_start[sorted_assign] + ranks // BLOCK_ROWS
+    return order, tile_start, tiles_per_cluster, tile, ranks % BLOCK_ROWS
+
+
+class _Laps:
+    """Seconds per build stage (the device synchronised at each lap)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.split: Dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.split[name] = now - self._t
+        self._t = now
+
+
+# -- search helpers -----------------------------------------------------------
+
+def _merge_pairs(cand_v: np.ndarray, cand_i: np.ndarray, b: int, k: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per query, its pairs' live candidates (ids >= 0) in pair order,
+    then a stable descending top ``k``; ``(-inf, -1)`` fills short rows."""
+    cand_v = cand_v.reshape(b, -1)
+    cand_i = cand_i.reshape(b, -1)
+    out_vals = np.full((b, k), NEG_INF, np.float32)
+    out_idxs = np.full((b, k), -1, np.int64)
+    for qi in range(b):
+        live = cand_i[qi] >= 0
+        flat_v, flat_i = cand_v[qi][live], cand_i[qi][live]
+        order = np.argsort(-flat_v, kind="stable")[:k]
+        out_vals[qi, : order.size] = flat_v[order]
+        out_idxs[qi, : order.size] = flat_i[order]
+    return out_vals, out_idxs
+
+
+class IVFIndex:
+    """Cluster-pruned approximate index over a fixed embedding matrix.
+
+    Built once from a corpus snapshot; appended rows go to an exactly
+    scanned fresh buffer until it outgrows ``rebuild_fraction`` of the
+    built rows (:meth:`rebuild` then folds them in). ``balance_factor``
+    caps clusters at ``factor * N / nlist`` rows (0 disables balancing).
+    The tiles, their ids and the centroids live on ``device``; the
+    centroids, ids and tile ranges also on the host, where the probe is
+    chosen.
+    """
+
+    def __init__(self, nlist: Optional[int] = None, nprobe: int = 8,
+                 kmeans_iters: int = 10, seed: int = 0,
+                 balance_factor: float = 2.0,
+                 rebuild_fraction: float = 0.25,
+                 mesh=None, device: str | torch.device = "cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the corpus-mesh IVF tier is not yet ported")
+        self.nlist = nlist
+        self.nprobe = nprobe
+        self.kmeans_iters = kmeans_iters
+        self.seed = seed
+        self.balance_factor = balance_factor
+        self.rebuild_fraction = rebuild_fraction
+        self.device = resolve_device(device)
+        self._built = False
+        self._fresh: Optional[np.ndarray] = None
+        self._n_built = 0
+        # seconds per stage of the last build, and the rows it evicted
+        self.last_build: Dict[str, float] = {}
+
+    def build(self, emb: np.ndarray) -> None:
+        """``emb [N, D]`` float32 (unit rows recommended)."""
+        emb = np.asarray(emb, np.float32)
+        n, d = emb.shape
+        nlist = self.nlist or max(16, 1 << int(np.log2(max(16, n ** 0.5))))
+        nlist = min(nlist, max(16, n // 4))
+        logger.info("IVF build: N=%d nlist=%d", n, nlist)
+        laps = _Laps(self.device)
+        emb_dev = torch.from_numpy(emb).to(self.device)
+        laps.lap("upload")
+        init = torch.from_numpy(init_indices(n, nlist, self.seed)).to(
+            self.device)
+        centroids, assign = _kmeans(emb_dev, init, iters=self.kmeans_iters)
+        centroids_np = centroids.cpu().numpy()
+        assign = assign.cpu().numpy()
+        laps.lap("kmeans")
+        evicted = 0
+        if self.balance_factor > 0:
+            cap = max(1, int(np.ceil(n / nlist * self.balance_factor)))
+            balanced = _rebalance(emb, centroids_np, assign, cap)
+            evicted = int((balanced != assign).sum())
+            assign = balanced
+        laps.lap("rebalance")
+        order, tile_start, tiles_per_cluster, tile, offset = _pack(assign,
+                                                                    nlist)
+        total_tiles = int(tile_start[-1])
+        # the last tile is all padding: unused probe slots point there
+        tiled = torch.zeros((total_tiles + 1, BLOCK_ROWS, d),
+                            dtype=torch.float32, device=self.device)
+        for lo in range(0, n, _PACK_CHUNK):
+            part = slice(lo, lo + _PACK_CHUNK)
+            t, o, src = (torch.from_numpy(x[part]).to(self.device)
+                         for x in (tile, offset, order))
+            tiled[t, o] = emb_dev[src]
+        del emb_dev
+        row_ids = np.full((total_tiles + 1, BLOCK_ROWS), -1, np.int32)
+        row_ids[tile, offset] = order
+        self.nlist = nlist
+        self._set_built(centroids_np, tiled, row_ids, tile_start[:-1],
+                        tiles_per_cluster, n)
+        laps.lap("pack")
+        self.last_build = {**laps.split, "evicted": evicted}
+        logger.info("IVF built: %d tiles (%.1f%% padding), %d rows evicted; "
+                    "%s", total_tiles,
+                    100 * (1 - n / (total_tiles * BLOCK_ROWS)), evicted,
+                    ", ".join(f"{k} {v:.3f} s" for k, v in laps.split.items()))
+
+    def _set_built(self, centroids: np.ndarray, tiled: torch.Tensor,
+                   row_ids: np.ndarray, tile_start: np.ndarray,
+                   tiles_per_cluster: np.ndarray, n_built: int) -> None:
+        self._centroids_np = np.array(centroids, np.float32)
+        self._centroids = torch.from_numpy(self._centroids_np).to(self.device)
+        self._tiled = tiled
+        self._row_ids = np.ascontiguousarray(row_ids, np.int32)
+        self._row_ids_dev = torch.from_numpy(self._row_ids).to(self.device)
+        self._pad_tile = tiled.shape[0] - 1
+        self._tile_start_np = np.asarray(tile_start, np.int64)
+        self._tile_counts_np = np.asarray(tiles_per_cluster, np.int64)
+        self._max_tiles = int(self._tile_counts_np.max())
+        self._median_tiles = int(np.median(self._tile_counts_np))
+        self._n_built = int(n_built)
+        self._fresh = None
+        self._built = True
+
+    @classmethod
+    def load_built(cls, centroids: np.ndarray, tiled: np.ndarray,
+                   row_ids: np.ndarray, tile_start: np.ndarray,
+                   tile_counts: np.ndarray, n_built: int, nlist: int,
+                   nprobe: int, fresh: Optional[np.ndarray] = None,
+                   device: str | torch.device = "cuda") -> "IVFIndex":
+        """An index over a built state: centroids ``[C, D]``, tiles ``[T +
+        1, BLOCK_ROWS, D]`` (the last all padding) and their row ids,
+        each cluster's first tile and tile count, the built row count and
+        the fresh buffer — the reference index's attributes as numpy
+        arrays. It searches exactly what that index searches."""
+        ivf = cls(nlist=nlist, nprobe=nprobe, device=device)
+        tiled = torch.from_numpy(np.array(tiled, np.float32))
+        ivf._set_built(centroids, tiled.to(ivf.device),
+                       np.array(row_ids, np.int32).reshape(tiled.shape[:2]),
+                       tile_start, tile_counts, n_built)
+        if fresh is not None:
+            ivf._fresh = np.array(fresh, np.float32)
+        return ivf
+
+    def stats(self) -> dict:
+        """Operator-facing tier stats (``/api/stats`` through the
+        engine)."""
+        if not self._built:
+            return {"built": False}
+        total_tiles = int(self._tile_counts_np.sum())
+        return {
+            "built": True,
+            "nlist": int(self.nlist),
+            "nprobe": int(self.nprobe),
+            "rows": int(self._n_built),
+            "fresh_rows": 0 if self._fresh is None
+            else int(self._fresh.shape[0]),
+            "tiles": total_tiles,
+            "max_tiles_per_cluster": int(self._max_tiles),
+            "padding_pct": round(
+                100 * (1 - self._n_built
+                       / max(1, total_tiles * BLOCK_ROWS)), 2),
+            "scanned_fraction": round(
+                min(1.0, self.nprobe / max(1, self.nlist)), 4),
+        }
+
+    def add(self, emb_new: np.ndarray) -> None:
+        """Append rows without rebuilding: they land in the fresh buffer,
+        with global ids continuing after the built corpus. The rows are
+        copied: callers pass live slices of the index's host store, which
+        ``remove_video`` compacts in place."""
+        if not self._built:
+            raise RuntimeError("IVFIndex.build() first")
+        emb_new = np.array(emb_new, np.float32)
+        self._fresh = emb_new if self._fresh is None else \
+            np.concatenate([self._fresh, emb_new])
+
+    @property
+    def needs_rebuild(self) -> bool:
+        return self._fresh is not None and \
+            self._fresh.shape[0] > self.rebuild_fraction * self._n_built
+
+    def _reconstruct_corpus(self) -> np.ndarray:
+        """The built corpus, recovered from the tiles (no separate copy is
+        kept)."""
+        mask = self._row_ids_dev >= 0
+        emb = torch.empty((self._n_built, self._tiled.shape[-1]),
+                          dtype=torch.float32, device=self.device)
+        emb[self._row_ids_dev[mask].long()] = self._tiled[mask]
+        return emb.cpu().numpy()
+
+    def rebuild(self) -> None:
+        """Fold the fresh buffer into the clustered tiles."""
+        if self._fresh is None:
+            return
+        merged = np.concatenate([self._reconstruct_corpus(), self._fresh])
+        self.build(merged)
+
+    def tile_budget(self) -> int:
+        """Tiles a probed cluster contributes at most: 4x the median
+        cluster, so skewed k-means clusters keep the scan bounded."""
+        return min(self._max_tiles, max(1, 4 * self._median_tiles))
+
+    def search(self, queries: np.ndarray, k: int = 5,
+               nprobe: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Normalized queries ``[B, D]`` or ``[D]`` → (scores, row ids);
+        missing slots (fewer than k candidates probed) hold -inf / -1."""
+        if not self._built:
+            raise RuntimeError("IVFIndex.build() first")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k must be in [1, {MAX_K}]")
+        nprobe = min(nprobe or self.nprobe, self.nlist)
+        queries = np.asarray(queries, np.float32)
+        squeeze = queries.ndim == 1
+        if squeeze:
+            queries = queries[None]
+        vals, idxs = self._search_probe(queries, k, nprobe)
+        if self._fresh is not None and self._fresh.shape[0] > 0:
+            vals, idxs = self._merge_fresh(queries, vals, idxs, k)
+        if squeeze:
+            return vals[0], idxs[0]
+        return vals, idxs
+
+    def _probe_pairs(self, queries: np.ndarray, nprobe: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """The flat (tile, query) pair list: query ``qi`` owns slots ``[qi
+        · S, (qi + 1) · S)``, ``S = nprobe · tile_budget()``, filled with
+        the first tiles of its ``nprobe`` best clusters (in
+        ``np.argpartition`` order); unused slots point at the padding
+        tile."""
+        b = queries.shape[0]
+        budget = self.tile_budget()
+        slots = nprobe * budget
+        csims = queries @ self._centroids_np.T                  # [B, C]
+        tile_list = np.full(b * slots, self._pad_tile, np.int32)
+        qidx = np.repeat(np.arange(b, dtype=np.int32), slots)
+        for qi in range(b):
+            clusters = np.argpartition(-csims[qi], nprobe - 1)[:nprobe]
+            starts = self._tile_start_np[clusters]
+            counts = np.minimum(self._tile_counts_np[clusters], budget)
+            pos = qi * slots
+            for s, c in zip(starts, counts):
+                tile_list[pos: pos + c] = np.arange(s, s + c)
+                pos += c
+        return tile_list, qidx
+
+    def _search_probe(self, queries: np.ndarray, k: int, nprobe: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """The probed clusters' top ``k`` per query: the pair list on the
+        host, one :func:`probe_scan` over it, the merge on the host."""
+        tile_list, qidx = self._probe_pairs(queries, nprobe)
+        vals, idxs = probe_scan(
+            self._tiled, self._row_ids_dev,
+            *(torch.from_numpy(x).to(self.device)
+              for x in (tile_list, qidx, queries)), k=k)
+        return _merge_pairs(vals.cpu().numpy(), idxs.cpu().numpy(),
+                            queries.shape[0], k)
+
+    def _merge_fresh(self, queries: np.ndarray, vals: np.ndarray,
+                     idxs: np.ndarray, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact-scan the fresh buffer and merge it into the probed
+        results (stable: probed candidates first on equal scores)."""
+        fresh_scores = queries @ self._fresh.T                # [B, F]
+        f = self._fresh.shape[0]
+        fresh_ids = self._n_built + np.arange(f)
+        out_v = np.full_like(vals, NEG_INF)
+        out_i = np.full_like(idxs, -1)
+        for b in range(vals.shape[0]):
+            live = idxs[b] >= 0
+            cand_v = np.concatenate([vals[b][live], fresh_scores[b]])
+            cand_i = np.concatenate([idxs[b][live], fresh_ids])
+            order = np.argsort(-cand_v, kind="stable")[:k]
+            out_v[b, : order.size] = cand_v[order]
+            out_i[b, : order.size] = cand_i[order]
+        return out_v, out_i
