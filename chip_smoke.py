@@ -25,6 +25,12 @@ script exits non-zero without its last line):
    upload, k-means, rebalance and pack), the probe scan B12 against its
    plain version pair by pair for 64 and for 1 noisy corpus-row queries,
    and the tier's recall@10 against the exact scan (B8), gated at 0.8;
+   then the corpus-mesh and hatch kernels at the serving size: B10 and
+   B11 (the perm-layout candidate scans) at B = 64, fetch 128, over shard
+   0 of the perm layout a 4-shard mesh places (503,808 rows) and over the
+   whole corpus as one shard; B9 (the exact int8 scan) at B = 1 and 64
+   and B8 over bf16 rows at B = 1 and 64, k = 40 (the hatch's fetch at
+   k = 10), over the 2M-row identity mirror;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512) written once as the pickle v1.0 cache; for each mirror
    dtype (bfloat16, then float32, int8 and int4), and then for the IVF
@@ -55,19 +61,35 @@ script exits non-zero without its last line):
    kernel of that path must have launched (the layer halves 12 times per
    embed batch), the other kernels not, and both fallback counters must
    read 0;
-5. a JSON line of the kernels, the nvidia-smi line, and the result line
+5. corpus meshes and the exact-candidate hatch, each an engine over the
+   same cache served through its own entry points (``search_ex`` for 8
+   single queries, ``search_batch`` for one batch of 64), the launch
+   counters set to 0 before the searches and read after: a 4-shard mesh
+   on the one card (``corpus_mesh=CorpusMesh([cuda:0] * 4)``) in
+   bfloat16 (first ingesting 2 videos x 200 seeded frames, which the mesh
+   takes by re-placing its mirror: checked bit for bit), int8, float32
+   and the IVF tier over the mesh (its clusters spread over the 4 shards);
+   then ``VQT_CANDIDATE_TOPK=pallas`` on one card, int8 (B9) and bfloat16
+   (B8 on bf16 rows); then ``index.corpus_shards = 1`` through the config
+   (B10 over the whole corpus). Served rows equal the host exact top-10
+   (IVF: the host's probed-exact top-10); each path's scan kernel launched
+   and the single-card candidate kernels (B1, B4) not;
+6. a JSON line of the kernels, the nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-Needs one CUDA card; without one it exits non-zero and prints no result.
+Every phase prints its time. Needs one CUDA card; without one it exits
+non-zero and prints no result.
 Uses no network beyond its own localhost server, and stops what it starts.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -107,6 +129,7 @@ from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows,
     quantize_rows_int4,
 )
+from video_quierer_tpu_torch.parallel.mesh import CorpusMesh
 
 ROOT = Path(__file__).resolve().parent
 DIM = 512
@@ -132,7 +155,11 @@ WRAPPERS = {"cand_scan_prefix": topk.cand_scan_prefix,
             "cand_scan_int8_prefix": topk.cand_scan_int8_prefix,
             "cand_scan_int4_prefix": topk.cand_scan_int4_prefix,
             "block_scan": topk.block_scan, "attn_half": fl.attn_half,
-            "mlp_half": fl.mlp_half, "probe_scan": ivf.probe_scan}
+            "mlp_half": fl.mlp_half, "probe_scan": ivf.probe_scan,
+            "cand_scan": topk.cand_scan,
+            "cand_scan_int8": topk.cand_scan_int8,
+            "block_scan_int8": topk.block_scan_int8,
+            "block_scan_bf16": topk.block_scan_bf16}
 # the scan each serving tier runs: the four mirror dtypes, then the IVF
 # tier over the bf16 mirror; every search path also encodes (B2, B3),
 # every ingest runs the vision tower (B5, B6)
@@ -148,12 +175,35 @@ IVF_SPREAD = 0.02
 IVF_RECALL = 0.8        # the reference's bar (tests/test_ivf.py)
 INGEST = ("attn_half", "mlp_half")
 INGEST_VIDEOS = 20
+MESH_SHARDS = 4
+MESH_INGEST_VIDEOS = 2
+# the exact-candidate hatch's fetch at k = K (DeviceVideoIndex._rerank_fetch)
+HATCH_K = min(max(4 * K, K + 16), topk.MAX_K)
+# the engines of phase 5: (name, device_dtype, kind, mesh shards (0: none;
+# -1: index.corpus_shards = 1 through the config), hatch, the scan kernel)
+EXTRA = (("mesh bfloat16", "bfloat16", "exact", MESH_SHARDS, False,
+          "cand_scan"),
+         ("mesh int8", "int8", "exact", MESH_SHARDS, False, "cand_scan_int8"),
+         ("mesh float32", "float32", "exact", MESH_SHARDS, False,
+          "block_scan"),
+         ("mesh ivf", "bfloat16", "ivf", MESH_SHARDS, False, "probe_scan"),
+         ("hatch int8", "int8", "exact", 0, True, "block_scan_int8"),
+         ("hatch bfloat16", "bfloat16", "exact", 0, True, "block_scan_bf16"),
+         ("config corpus_shards=1", "bfloat16", "exact", -1, False,
+          "cand_scan"))
 FPS = 30.0
 IMAGE = 224
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def timed(phase: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
 
 
 def require(cond: bool, what: str) -> None:
@@ -551,6 +601,26 @@ def compare_codes_scan(store, perm, n_rows: int, seed: int,
     return out[64]
 
 
+def check_tile_lists(name: str, kern, plain) -> tuple:
+    """Per-tile lists of an exact-scan kernel against its plain version:
+    live entries alike, scores within SCAN_RTOL, rows identical except
+    where two scores tie within it. Returns (max_abs_err, tied entries)."""
+    (kv, ki), (pv, pi) = kern(), plain()
+    require(torch.equal(torch.isfinite(kv), torch.isfinite(pv)),
+            f"{name}: live entries differ")
+    live = torch.isfinite(pv)
+    err = (kv[live] - pv[live]).abs().max().item()
+    require(bool(((kv[live] - pv[live]).abs()
+                  <= SCAN_RTOL * pv[live].abs()).all()),
+            f"{name}: scores off by {err}")
+    gap = torch.full_like(pv, float("inf"))
+    gap[..., 1:] = pv[..., :-1] - pv[..., 1:]
+    gap[..., :-1] = torch.minimum(gap[..., :-1], pv[..., :-1] - pv[..., 1:])
+    apart = gap > SCAN_RTOL * pv.abs()
+    require(torch.equal(ki[apart], pi[apart]), f"{name}: rows differ")
+    return err, int((~apart & live).sum())
+
+
 def compare_block_scan(store, n_rows: int, seed: int) -> dict:
     """B8, the exact f32 scan: rows identical to the plain version's
     (except where two scores tie within the tolerance), scores within
@@ -566,21 +636,7 @@ def compare_block_scan(store, n_rows: int, seed: int) -> dict:
             return topk.block_scan_ref(store, q, n_rows, k=K,
                                        tile_rows=topk.SCAN_TILE_ROWS)
 
-        (kv, ki), (pv, pi) = kern(), plain()
-        require(torch.equal(torch.isfinite(kv), torch.isfinite(pv)),
-                f"B8 B={b}: live entries differ")
-        live = torch.isfinite(pv)
-        err = (kv[live] - pv[live]).abs().max().item()
-        require(bool(((kv[live] - pv[live]).abs()
-                      <= SCAN_RTOL * pv[live].abs()).all()),
-                f"B8 B={b}: scores off by {err}")
-        gap = torch.full_like(pv, float("inf"))
-        gap[..., 1:] = pv[..., :-1] - pv[..., 1:]
-        gap[..., :-1] = torch.minimum(gap[..., :-1],
-                                      pv[..., :-1] - pv[..., 1:])
-        apart = gap > SCAN_RTOL * pv.abs()
-        require(torch.equal(ki[apart], pi[apart]), f"B8 B={b}: rows differ")
-        ties = int((~apart & live).sum())
+        err, ties = check_tile_lists(f"B8 B={b}", kern, plain)
         # the merged top-K against host f64 scores of the same rows
         vals, rows = topk.cosine_topk(store, q, n_rows, k=K)
         host = (store[rows.long()].double().cpu()
@@ -589,7 +645,7 @@ def compare_block_scan(store, n_rows: int, seed: int) -> dict:
         require(herr <= SCORE_ATOL, f"B8 B={b}: host score error {herr}")
         iters = 20 if b == 1 else 10
         ms, pms = cuda_ms(kern, iters), cuda_ms(plain, iters)
-        n_tiles = pv.shape[0]
+        n_tiles = -(-store.shape[0] // topk.SCAN_TILE_ROWS)
         lim = bound(store.numel() * 4 + b * DIM * 4 + n_tiles * b * K * 8,
                     2 * store.shape[0] * DIM * b, "f32")
         log(f"B8 exact scan N={n_rows} B={b} k={K}: rows identical "
@@ -600,6 +656,126 @@ def compare_block_scan(store, n_rows: int, seed: int) -> dict:
         out[b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
                   "library_ms": None}
     return out[64]
+
+
+def mesh_perm(n_rows: int, shards: int) -> tuple:
+    """The perm layout a corpus mesh of ``shards`` shards places for
+    ``n_rows`` rows — DeviceVideoIndex's capacity rule and its fixed
+    permutation: ``(capacity, perm [capacity] i32)``."""
+    index = DeviceVideoIndex(dim=DIM, device_dtype="bfloat16", device="cpu",
+                             mesh=CorpusMesh(["cpu"] * shards))
+    cap = _round_capacity(n_rows, index._granularity)
+    index._require_perm(cap)
+    return cap, index._perm
+
+
+def _perm_bound(mirror_bytes: int, query_bytes: int, kind: str,
+                rows: int, b: int) -> dict:
+    """Bound of a perm-layout candidate scan over ``rows`` rows: the mirror
+    (and scales), the perm column and the queries read once, the winners
+    written once; 2 D operations per row and query."""
+    w = topk.CAND_ROUNDS * rows // topk.CAND_BUCKET
+    return bound(mirror_bytes + rows * 4 + query_bytes + w * b * 8,
+                 2 * rows * DIM * b, kind)
+
+
+def compare_perm_scans(store, n_rows: int, seed: int) -> tuple:
+    """B10 (bf16) and B11 (int8) at B = 64, fetch 128, over shard 0 of the
+    perm layout of a MESH_SHARDS-shard mesh and over the whole corpus as
+    one shard (liveness ``perm < n_rows``, the global count): the top-K
+    after merge + exact re-rank identical to the plain version's, B11's
+    winners bit-identical. Returns the one-shard (B10, B11) results."""
+    dev, b = store.device, 64
+    q = unit_queries(dev, b, seed + b)
+    q_codes, qscale = quantize_rows(q)
+    out = {}
+    for shards in (MESH_SHARDS, 1):
+        cap, perm_np = mesh_perm(n_rows, shards)
+        rows = cap // shards
+        perm = torch.from_numpy(perm_np[:rows]).to(dev)
+        # positions holding rows past the store are dead (perm >= n_rows)
+        src = torch.clamp(perm, max=store.shape[0] - 1).long()
+        what = (f"shard 0 of {shards}, {rows} rows" if shards > 1
+                else f"one shard, {rows} rows")
+        mirror = store[src].bfloat16()
+        b10 = compare_winners(
+            f"B10 perm candidate scan ({what})", b,
+            lambda: topk.cand_scan(mirror, perm, q, n_rows,
+                                   bucket=topk.CAND_BUCKET,
+                                   rounds=topk.CAND_ROUNDS),
+            lambda: topk.cand_scan_ref(
+                mirror, perm, q, n_rows, bucket=topk.CAND_BUCKET,
+                rounds=topk.CAND_ROUNDS, block_rows=topk.CAND_BLOCK_ROWS),
+            topk._cand_merge, store, perm, q, n_rows, 128, False)
+        b10.update(_perm_bound(rows * DIM * 2, b * DIM * 2, "bf16", rows, b),
+                   library_ms=None)
+        del mirror
+        codes, scales = quantize_rows(store[src])
+        b11 = compare_winners(
+            f"B11 int8 perm candidate scan ({what})", b,
+            lambda: topk.cand_scan_int8(codes, scales, perm, q_codes, qscale,
+                                        n_rows, bucket=topk.CAND_BUCKET,
+                                        rounds=topk.CAND_ROUNDS),
+            lambda: topk.cand_scan_int8_ref(
+                codes, scales, perm, q_codes, qscale, n_rows,
+                bucket=topk.CAND_BUCKET, rounds=topk.CAND_ROUNDS,
+                block_rows=topk.CAND_BLOCK_ROWS),
+            topk._cand_merge, store, perm, q, n_rows, 128, True)
+        b11.update(_perm_bound(rows * (DIM + 4), b * (DIM + 4), "int8", rows,
+                               b), library_ms=None)
+        del codes, scales
+        for name, r in (("B10", b10), ("B11", b11)):
+            log(f"{name} ({what}) B={b}: bound {r['bound_ms']:.3f} ms "
+                f"({r['bound_by']})")
+        out[shards] = (b10, b11)
+    return out[1]
+
+
+def compare_exact_scans(store, n_rows: int, seed: int) -> tuple:
+    """The hatch's exact scans over the identity mirror, k = HATCH_K: B9
+    over int8 codes (B = 1: the f32-query contract; B = 64: the
+    bf16-query one) and B8 over bf16 rows; per-tile lists against the
+    plain versions as B8's. Returns the B = 64 (B9, B8 bf16) results."""
+    n = store.shape[0]
+    n_tiles = -(-n // topk.SCAN_TILE_ROWS)
+    codes, scales = quantize_rows(store)
+    rows16 = store.bfloat16()
+    scans = {
+        "B9 exact int8 scan": (
+            lambda q: topk.block_scan_int8(codes, scales, q, n_rows,
+                                           k=HATCH_K),
+            lambda q: topk.block_scan_int8_ref(
+                codes, scales, topk._int8_scan_queries(q, n), n_rows,
+                k=HATCH_K, tile_rows=topk.SCAN_TILE_ROWS),
+            n * (DIM + 4)),
+        "B8 exact scan over bf16 rows": (
+            lambda q: topk.block_scan_bf16(rows16, q, n_rows, k=HATCH_K),
+            lambda q: topk.block_scan_ref(
+                rows16, q.bfloat16().float(), n_rows, k=HATCH_K,
+                tile_rows=topk.SCAN_TILE_ROWS),
+            n * DIM * 2),
+    }
+    out = {}
+    for name, (kern_fn, plain_fn, matrix_bytes) in scans.items():
+        for b in (1, 64):
+            q = unit_queries(store.device, b, seed + b)
+            err, ties = check_tile_lists(f"{name} B={b}", lambda: kern_fn(q),
+                                         lambda: plain_fn(q))
+            ms = cuda_ms(lambda: kern_fn(q), 20 if b == 1 else 10)
+            pms = cuda_ms(lambda: plain_fn(q), 5)
+            # B9 at B = 1 multiplies f32 queries (the f32 peak); the bf16
+            # contracts' products are exact bf16 ones
+            kind = "f32" if name.startswith("B9") and b == 1 else "bf16"
+            lim = bound(matrix_bytes + b * DIM * 4 + n_tiles * b * HATCH_K * 8,
+                        2 * n * DIM * b, kind)
+            log(f"{name} N={n_rows} B={b} k={HATCH_K}: rows identical "
+                f"({ties} tied entries), max_abs_err {err:.3e} (rtol "
+                f"{SCAN_RTOL}); kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+                f"{lim['bound_ms']:.3f} ms ({lim['bound_by']})")
+            out[name, b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                            **lim, "library_ms": None}
+    del codes, scales, rows16
+    return tuple(out[name, 64] for name in scans)
 
 
 def clustered_corpus(dev, n_rows: int, seed: int):
@@ -722,7 +898,7 @@ def compare_probe_scan(dev, n_rows: int, seed: int) -> dict:
     return out[64]
 
 
-# -- phase 4: end to end --------------------------------------------------------
+# -- phases 4 and 5: end to end -----------------------------------------------
 
 def build_corpus(seed: int, n_videos: int, n_frames: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
@@ -833,8 +1009,9 @@ def check_order(rows_per_query) -> None:
 
 def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> tuple:
     """Every mirror dtype: ingest onto one pickle cache, then the HTTP
-    server; returns each dtype's launch counts on its search path and on
-    its ingest path."""
+    server; then the corpus-mesh and hatch engines (phase 5) over the same
+    cache. Returns each dtype's launch counts on its search path and on
+    its ingest path, and each phase-5 engine's search-path counts."""
     n = args.videos * args.frames
     t0 = time.perf_counter()
     corpus = build_corpus(args.seed, args.videos, args.frames)
@@ -851,9 +1028,15 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> tuple:
         log(f"pickle v1.0 cache written in {time.perf_counter() - t0:.1f} s")
         del corpus
         for tier in SCANS:
-            launches[tier], ingested[tier] = serve_dtype(
-                tier, videos, embedder, args, rng, device)
-    return launches, ingested
+            with timed(f"4, {tier} engine"):
+                launches[tier], ingested[tier] = serve_dtype(
+                    tier, videos, embedder, args, rng, device)
+        extra = {}
+        for spec in EXTRA:
+            with timed(f"5, {spec[0]} engine"):
+                extra[spec[0]] = serve_extra(spec, videos, embedder, args,
+                                             rng, device)
+    return launches, ingested, extra
 
 
 def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
@@ -915,18 +1098,7 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
         server.server_close()
         thread.join(30)
         engine.close()
-    log(f"[{dtype}] launches during the path: {launches}")
-    path = (SCANS[dtype], "fused_layer", "attention")
-    for name, count in launches.items():
-        if name in path:
-            require(count > 0, f"[{dtype}] kernel {name} was not launched")
-        else:
-            require(count == 0, f"[{dtype}] {name} launched {count} times")
-    for name in ("embed_fallbacks", "fused_search_fallbacks"):
-        count = engine.metrics.counter(name)
-        require(count == 0, f"[{dtype}] {name} = {count}")
-    log(f"[{dtype}] fallback counters: embed_fallbacks 0, "
-        "fused_search_fallbacks 0")
+    check_launches(dtype, engine, launches, SCANS[dtype])
     if dtype == "ivf":
         check_probed(engine, embedder, corpus, name_of, served, device)
     else:
@@ -935,6 +1107,117 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
     gc.collect()
     torch.cuda.empty_cache()
     return launches, ingested
+
+
+def check_launches(tag: str, engine: VideoSearchEngine, launches: dict,
+                   scan: str) -> None:
+    """The search path launched its scan kernel and the text kernels (B2,
+    B3), and no other kernel; both fallback counters read 0."""
+    log(f"[{tag}] launches during the path: {launches}")
+    path = (scan, "fused_layer", "attention")
+    for name, count in launches.items():
+        if name in path:
+            require(count > 0, f"[{tag}] kernel {name} was not launched")
+        else:
+            require(count == 0, f"[{tag}] {name} launched {count} times")
+    for name in ("embed_fallbacks", "fused_search_fallbacks"):
+        count = engine.metrics.counter(name)
+        require(count == 0, f"[{tag}] {name} = {count}")
+    log(f"[{tag}] fallback counters: embed_fallbacks 0, "
+        "fused_search_fallbacks 0")
+
+
+def serve_extra(spec: tuple, videos: str, embedder: CLIPEmbedder, args,
+                rng, device) -> dict:
+    """One phase-5 engine over the cache (see EXTRA): startup, for the
+    bf16 mesh first an ingest of MESH_INGEST_VIDEOS seeded videos, then 8
+    single searches and one batch of 64 through the engine's own entry
+    points, the launch counters set to 0 just before and read just after;
+    the rows against the host's exact (IVF: probed-exact) top-K. Returns
+    the search path's launch counts."""
+    tag, dtype, kind, shards, hatch, scan = spec
+    config = EngineConfig()
+    config.index.device_dtype = dtype
+    config.index.kind = kind
+    mesh = None
+    if shards > 0:
+        mesh = CorpusMesh([device] * shards)
+    elif shards < 0:
+        config.index.corpus_shards = 1       # the mesh the config builds
+    if hatch:
+        os.environ["VQT_CANDIDATE_TOPK"] = "pallas"
+    try:
+        engine = VideoSearchEngine(videos, config=config, embedder=embedder,
+                                   device=device, corpus_mesh=mesh)
+        t0 = time.perf_counter()
+        engine.startup()
+        index, n_base = engine.index, args.videos * args.frames
+        require(len(index) == n_base, f"[{tag}] startup row count")
+        mode = engine.accuracy_mode()
+        require(mode == MODES.get(kind, MODES.get(dtype, "exact-f32-rerank")),
+                f"[{tag}] mode {mode}")
+        log(f"[{tag}] engine.startup(): {len(index)} rows, mesh "
+            f"{index.mesh}, mirror layout {index._mirror_layout_cur}, "
+            f"capacity {index._emb.shape[0]}, in "
+            f"{time.perf_counter() - t0:.1f} s ({mode})")
+        if kind == "ivf":
+            ann = engine.ann_stats()
+            require(ann["active"] and ann["devices"] == shards,
+                    f"[{tag}] IVF tier {ann}")
+            log(f"[{tag}] tier: nlist {ann['nlist']}, {ann['tiles']} tiles "
+                f"over {ann['devices']} shards, tiles_per_device "
+                f"{ann['tiles_per_device']}")
+        if tag == "mesh bfloat16":
+            ingest_tier(engine, dtype, videos, args, device,
+                        n_videos=MESH_INGEST_VIDEOS, tag=tag)
+        corpus = index._emb[: len(index)]
+
+        def name_of(row: int) -> str:
+            if row < n_base:
+                return video_name(row // args.frames)
+            return ingest_name((row - n_base) // args.frames)
+
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        served = drive_engine(engine, tag, rng)
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        check_launches(tag, engine, launches, scan)
+        if kind == "ivf":
+            check_probed(engine, embedder, corpus, name_of, served, device,
+                         tag)
+        else:
+            check_served(dtype, embedder, corpus, name_of, served, device,
+                         tag)
+        engine.close()
+        del engine, index, corpus
+    finally:
+        os.environ.pop("VQT_CANDIDATE_TOPK", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_engine(engine: VideoSearchEngine, tag: str, rng) -> tuple:
+    """8 single queries (``search_ex``: the module tower, B3) and one batch
+    of 64 (``search_batch``: the fused tower, B2); returns the queries and
+    rows as ``drive`` does."""
+    singles, single_rows, lat = [words(rng, 4) for _ in range(8)], [], []
+    for q in singles:
+        t0 = time.perf_counter()
+        rows, cached = engine.search_ex(q, k=K, use_cache=False)
+        lat.append(time.perf_counter() - t0)
+        require(not cached and len(rows) == K, f"[{tag}] single search")
+        single_rows.append(rows)
+    batch = [words(rng, 4) for _ in range(64)]
+    t0 = time.perf_counter()
+    batch_rows = engine.search_batch(batch, k=K)
+    t = time.perf_counter() - t0
+    require(len(batch_rows) == 64 and all(len(r) == K for r in batch_rows),
+            f"[{tag}] batch search")
+    log(f"[{tag}] 8 single searches, p50 {1e3 * float(np.median(lat)):.2f} "
+        f"ms (first {1e3 * lat[0]:.2f} ms); batch of 64 {1e3 * t:.2f} ms")
+    return singles, single_rows, batch, batch_rows
 
 
 def ingest_name(v: int) -> str:
@@ -951,15 +1234,17 @@ def seeded_extract(path: Path, *, seed: int, n: int, mode: str):
 
 
 def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
-                device) -> dict:
-    """20 seeded videos through ``batched_frames`` and the engine's ingest
-    loop onto the loaded corpus (placeholder video files in the videos
-    dir, so the hashes are recorded; removed again afterwards), then the
-    checks: host rows and metadata, the mirror against the host path bit
-    for bit, 16 ingested frames as queries, launch and fallback counts."""
+                device, n_videos: int = INGEST_VIDEOS, tag: str = "") -> dict:
+    """``n_videos`` seeded videos through ``batched_frames`` and the
+    engine's ingest loop onto the loaded corpus (placeholder video files
+    in the videos dir, so the hashes are recorded; removed again
+    afterwards), then the checks: host rows and metadata, the mirror
+    against the host path bit for bit, 16 ingested frames as queries,
+    launch and fallback counts. ``tag`` names the engine in the log."""
+    tag = tag or dtype
     index, api, ing = engine.index, engine.config.api, engine.config.ingest
-    n0, n = len(index), INGEST_VIDEOS * args.frames
-    paths = [Path(videos) / ingest_name(v) for v in range(INGEST_VIDEOS)]
+    n0, n = len(index), n_videos * args.frames
+    paths = [Path(videos) / ingest_name(v) for v in range(n_videos)]
     for p in paths:
         p.write_bytes(b"seeded frames")
     recorded, batches = [], []
@@ -999,7 +1284,7 @@ def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
         for p in paths:
             p.unlink()
     launches = {name: w.launches for name, w in WRAPPERS.items()}
-    log(f"[{dtype}] ingest: {added} frames of {INGEST_VIDEOS} videos in "
+    log(f"[{tag}] ingest: {added} frames of {n_videos} videos in "
         f"{len(batches)} embed batches, {wall:.3f} s = {added / wall:.1f} "
         f"frames/s (seeded frames, decode pipeline, vision tower, host "
         f"append, streamed mirror append); launches {launches}")
@@ -1007,11 +1292,11 @@ def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
     layers = engine._get_embedder().cfg.vision.num_layers
     for name, count in launches.items():
         want = layers * len(batches) if name in INGEST else 0
-        require(count == want, f"[{dtype}] ingest: {name} launched {count} "
+        require(count == want, f"[{tag}] ingest: {name} launched {count} "
                 f"times, not {want} ({layers} layers x {len(batches)} embed "
                 "batches)")
     for name in ("embed_fallbacks", "fused_search_fallbacks"):
-        require(engine.metrics.counter(name) == 0, f"[{dtype}] {name}")
+        require(engine.metrics.counter(name) == 0, f"[{tag}] {name}")
     # 1. host rows = the embedder's output, with the reference's metadata
     feats = np.concatenate(recorded)
     require(np.array_equal(index._emb[n0:n0 + n], feats), "host rows")
@@ -1024,22 +1309,42 @@ def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
     require(np.array_equal(index._frame_ids[n0:n0 + n], n0 + rows),
             "frame ids")
     require(all(index.video_hashes.get(p.name) for p in paths), "hashes")
-    check_mirror(index, dtype, device)
+    check_mirror(index, dtype, device, tag)
     if dtype == "ivf":
         search_ingested_ivf(engine, n0, n)
     else:
-        search_ingested(index, dtype, n0, n, device)
+        search_ingested(index, dtype, n0, n, device, tag)
     return {"launches": launches, "batches": len(batches),
             "frames_s": added / wall}
 
 
-def check_mirror(index: DeviceVideoIndex, dtype: str, device) -> None:
+def check_mirror(index: DeviceVideoIndex, dtype: str, device,
+                 tag: str = "") -> None:
     """The mirror, its scales, the perm column and the re-rank store are
     what the host sync path writes from the host store, bit for bit: for
     every live position p, the host cast (or ``_quantize_host``) of host
-    row ``perm[p]``."""
+    row ``perm[p]``. A mesh's mirror (no streaming: re-placed from the
+    host store at the next sync) is checked whole, shard by shard against
+    the fixed permutation."""
+    tag = tag or dtype
     t0 = time.perf_counter()
     count = len(index)
+    if index.mesh is not None:
+        require(index._device_rows < count, f"[{tag}] the mesh streamed")
+        index.sync_mirror()
+        perm = torch.cat([p.to(device) for p in index._perm_dev])
+        require(np.array_equal(perm.cpu().numpy(), index._perm),
+                f"[{tag}] perm column")
+        want = torch.from_numpy(index._emb[index._perm]).to(
+            device, index._row_dtype)
+        require(torch.equal(torch.cat([e.to(device)
+                                       for e in index._device_emb]), want),
+                f"[{tag}] mirror rows")
+        log(f"[{tag}] ingest: the re-placed mirror ({len(index._device_emb)}"
+            f" shards of {want.shape[0] // len(index._device_emb)} rows) and "
+            f"its perm column equal the host store's, bit for bit (checked "
+            f"in {time.perf_counter() - t0:.1f} s)")
+        return
     require(index._device_rows == count, "mirror rows")
     if dtype == "float32":
         rows = index._emb[:count]
@@ -1068,13 +1373,13 @@ def check_mirror(index: DeviceVideoIndex, dtype: str, device) -> None:
         require(torch.equal(index._device_f32[:count], torch.from_numpy(
             index._emb[:count]).to(device)), "re-rank store")
         what += ", perm column and re-rank store"
-    log(f"[{dtype}] ingest: {what} over all {count} live rows equal the "
+    log(f"[{tag}] ingest: {what} over all {count} live rows equal the "
         f"host path's, bit for bit (checked in "
         f"{time.perf_counter() - t0:.1f} s)")
 
 
 def search_ingested(index: DeviceVideoIndex, dtype: str, n0: int, n: int,
-                    device) -> None:
+                    device, tag: str = "") -> None:
     """16 ingested frames as query vectors: every returned score is its
     row's exact f32 score; float32 finds each frame itself first; recall@K
     against the exact scan, and the spread of the ingested embeddings'
@@ -1091,7 +1396,8 @@ def search_ingested(index: DeviceVideoIndex, dtype: str, n0: int, n: int,
         err = max(err, float(np.abs(got - index._emb[ids] @ qn[j]).max()))
         if dtype == "float32":
             require(ids[0] == pick[j], f"self-query {pick[j]} -> {ids[0]}")
-    require(err <= SCORE_ATOL, f"[{dtype}] self-query score error {err}")
+    tag = tag or dtype
+    require(err <= SCORE_ATOL, f"[{tag}] self-query score error {err}")
     check_order(rows)
     truth = evaluation.exact_topk_ids(index._emb[:count], q, K, device)
     got = np.array([[r["frame_id"] for r in rr] for rr in rows])
@@ -1099,7 +1405,7 @@ def search_ingested(index: DeviceVideoIndex, dtype: str, n0: int, n: int,
     e = torch.from_numpy(index._emb[n0:n0 + n]).to(device)
     cos = (e @ e.t())[~torch.eye(n, dtype=torch.bool, device=device)]
     lo, mid, hi = (cos.min().item(), cos.median().item(), cos.max().item())
-    log(f"[{dtype}] ingest: 16 ingested frames as queries over {count} rows:"
+    log(f"[{tag}] ingest: 16 ingested frames as queries over {count} rows:"
         + (" each found itself first," if dtype == "float32" else "")
         + f" scores = exact f32 (max error {err:.2e}); recall@{K} vs the "
         f"exact scan {recall:.4f} (not gated); pairwise cosines of the "
@@ -1176,7 +1482,8 @@ def served_vectors(embedder: CLIPEmbedder, singles, batch) -> tuple:
 
 
 def check_probed(engine: VideoSearchEngine, embedder: CLIPEmbedder,
-                 corpus: np.ndarray, name_of, served, device) -> None:
+                 corpus: np.ndarray, name_of, served, device,
+                 tag: str = "ivf") -> None:
     """The IVF tier's served rows against the host's exact top-K over the
     rows it probes: the query vector the port's encoder gives, normalized
     as the engine does; the same clusters by the same numpy rule (each
@@ -1187,7 +1494,7 @@ def check_probed(engine: VideoSearchEngine, embedder: CLIPEmbedder,
     singles, single_rows, batch, batch_rows = served
     q_single, q_batch = served_vectors(embedder, singles, batch)
     tier = engine._ivf
-    row_ids = tier._row_ids_dev.cpu().numpy()
+    row_ids = tier._row_ids
     counts = tier._tile_counts_np
     budget = min(int(counts.max()), max(1, 4 * int(np.median(counts))))
     nprobe = min(tier.nprobe, tier.nlist)
@@ -1207,18 +1514,18 @@ def check_probed(engine: VideoSearchEngine, embedder: CLIPEmbedder,
             sc = corpus[cand] @ qn[j]
             top = np.lexsort((cand, -sc))[:K]
             got = [r["frame_id"] for r in rows]
-            require(got == cand[top].tolist(), f"[ivf] rows {got} != the "
+            require(got == cand[top].tolist(), f"[{tag}] rows {got} != the "
                     f"host's probed-exact top-{K} {cand[top].tolist()}")
             require([r["video_name"] for r in rows]
                     == [name_of(int(t)) for t in cand[top]], "video names")
             err = np.abs(np.array([r["score"] for r in rows]) - sc[top]).max()
-            require(err <= SCORE_ATOL, f"[ivf] score error {err}")
+            require(err <= SCORE_ATOL, f"[{tag}] score error {err}")
             worst = max(worst, float(err))
     qs = np.concatenate([q_single, q_batch])
     truth = evaluation.exact_topk_ids(corpus, qs, K, device)
     got = np.array([[r["frame_id"] for r in rr]
                     for rr in single_rows + batch_rows])
-    log(f"[ivf] e2e single + batch: all {len(qs)} match the host's "
+    log(f"[{tag}] e2e single + batch: all {len(qs)} match the host's "
         f"probed-exact top-{K} (nprobe {nprobe}, tile budget {budget}, "
         f"{fresh.size} fresh rows; max score error {worst:.2e}); recall@{K} "
         f"against the full exact scan {evaluation.recall_at_k(truth, got):.4f}"
@@ -1289,12 +1596,14 @@ def ivf_split(engine: VideoSearchEngine, rng, device) -> None:
             + f"; total {sum(t.values()):.3f}")
 
 
-def check_served(dtype, embedder, corpus, name_of, served, device) -> None:
+def check_served(dtype, embedder, corpus, name_of, served, device,
+                 tag: str = "") -> None:
     """The served rows against the host exact top-K over the (grown)
     corpus, with the query vectors the port's encoders give (single: the
     module tower; batch: the fused tower); int4's scores against its rows'
     exact f32 scores, and the quantized tiers' recall@K against the exact
     scan."""
+    tag = tag or dtype
     singles, single_rows, batch, batch_rows = served
     q_single, q_batch = served_vectors(embedder, singles, batch)
     if dtype == "bfloat16":
@@ -1302,24 +1611,25 @@ def check_served(dtype, embedder, corpus, name_of, served, device) -> None:
         sample = list(range(0, 64, 8))
         err = max(err, check_exact(corpus, name_of, q_batch[sample],
                                    [batch_rows[i] for i in sample]))
-        log(f"[{dtype}] e2e: all 16 singles and 8 sampled batch queries "
-            f"match the host exact top-{K} (max score error {err:.2e})")
+        log(f"[{tag}] e2e: all {len(singles)} singles and 8 sampled batch "
+            f"queries match the host exact top-{K} (max score error "
+            f"{err:.2e})")
         return
     qs = np.concatenate([q_single, q_batch])
     rows = single_rows + batch_rows
     if dtype == "int4":
         err = check_scores(corpus, qs, rows)
-        log(f"[{dtype}] e2e single + batch: every score equals its row's "
+        log(f"[{tag}] e2e single + batch: every score equals its row's "
             f"exact f32 score (max error {err:.2e}), rows in order")
     else:
         err = check_exact(corpus, name_of, qs, rows)
-        log(f"[{dtype}] e2e single + batch: all 80 match the host exact "
-            f"top-{K} (max score error {err:.2e})")
+        log(f"[{tag}] e2e single + batch: all {len(rows)} match the host "
+            f"exact top-{K} (max score error {err:.2e})")
     if dtype in ("int8", "int4"):
         truth = evaluation.exact_topk_ids(corpus, qs, K, device)
         got = np.array([[r["frame_id"] for r in rr] for rr in rows])
         recall = evaluation.recall_at_k(truth, got)
-        log(f"[{dtype}] recall@{K} against the exact scan over "
+        log(f"[{tag}] recall@{K} against the exact scan over "
             f"{len(rows)} queries: {recall:.4f}")
         if dtype == "int8":
             require(recall == 1.0, f"int8 recall@{K} {recall}")
@@ -1337,27 +1647,36 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    smi = phase_environment()
-    phase_build()
-    embedder = CLIPEmbedder(dtype=torch.bfloat16, device=device,
-                            seed=args.seed)
-    b3 = compare_attention(device)
-    b2 = compare_fused_layer(embedder, args.seed)
-    b5, b6 = compare_layer_halves(embedder, args.seed)
-    compare_vision_encode(embedder, args.seed)
-    ingest_split(embedder, args.seed, device)
+    with timed("1, environment"):
+        smi = phase_environment()
+    with timed("2, build"):
+        phase_build()
+    with timed("3, text and vision kernels"):
+        embedder = CLIPEmbedder(dtype=torch.bfloat16, device=device,
+                                seed=args.seed)
+        b3 = compare_attention(device)
+        b2 = compare_fused_layer(embedder, args.seed)
+        b5, b6 = compare_layer_halves(embedder, args.seed)
+        compare_vision_encode(embedder, args.seed)
+        ingest_split(embedder, args.seed, device)
     n_rows = args.videos * args.frames
-    store, perm = corpus_on_card(device, n_rows, args.seed)
-    b1 = compare_cand_scan(store, perm, n_rows, args.seed)
-    b4 = compare_codes_scan(store, perm, n_rows, args.seed, "int8")
-    b7 = compare_codes_scan(store, perm, n_rows, args.seed, "int4")
-    b8 = compare_block_scan(store, n_rows, args.seed)
-    del store, perm
-    torch.cuda.empty_cache()
-    b12 = compare_probe_scan(device, n_rows, args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches, ingested = phase_end_to_end(embedder, args, device)
+    with timed("3, scan kernels"):
+        store, perm = corpus_on_card(device, n_rows, args.seed)
+        b1 = compare_cand_scan(store, perm, n_rows, args.seed)
+        b4 = compare_codes_scan(store, perm, n_rows, args.seed, "int8")
+        b7 = compare_codes_scan(store, perm, n_rows, args.seed, "int4")
+        b8 = compare_block_scan(store, n_rows, args.seed)
+        del perm
+    with timed("3, mesh and hatch scan kernels"):
+        b10, b11 = compare_perm_scans(store, n_rows, args.seed)
+        b9, b8h = compare_exact_scans(store, n_rows, args.seed)
+        del store
+        torch.cuda.empty_cache()
+    with timed("3, IVF tier"):
+        b12 = compare_probe_scan(device, n_rows, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches, ingested, extra = phase_end_to_end(embedder, args, device)
     src = "video_quierer_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {"name": "cand_scan_prefix", "route": "cuda",
@@ -1396,6 +1715,22 @@ def main() -> int:
          "source": src + "probe_scan.cu",
          "replaces": "video_quierer_tpu/index/ivf.py:94",
          "launches": launches["ivf"]["probe_scan"], **b12},
+        {"name": "block_scan_int8", "route": "cuda",
+         "source": src + "block_scan.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:388",
+         "launches": extra["hatch int8"]["block_scan_int8"], **b9},
+        {"name": "cand_scan", "route": "cuda",
+         "source": src + "cand_scan.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:1294",
+         "launches": extra["mesh bfloat16"]["cand_scan"], **b10},
+        {"name": "cand_scan_int8", "route": "cuda",
+         "source": src + "cand_scan_codes.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:1340",
+         "launches": extra["mesh int8"]["cand_scan_int8"], **b11},
+        {"name": "block_scan_bf16", "route": "cuda",
+         "source": src + "block_scan.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:319",
+         "launches": extra["hatch bfloat16"]["block_scan_bf16"], **b8h},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)

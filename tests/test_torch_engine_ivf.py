@@ -12,7 +12,8 @@ started from the JAX package's seed rows.
 - appended rows go to the fresh buffer, a removal rebuilds the tier;
 - startup end to end (synthetic videos → ingest → the tier built);
 - the coalescer's flushes take the IVF route, chosen before dispatch;
-- ``corpus_shards > 0`` still raises.
+- ``corpus_shards > 0`` builds its mesh from the CUDA devices (raises
+  without a card).
 """
 
 import json
@@ -42,6 +43,7 @@ from video_quierer_tpu_torch.engine import config as torch_config
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
 from video_quierer_tpu_torch.index import ivf as port_ivf
 from video_quierer_tpu_torch.models.clip.embedder import CLIPEmbedder
+from video_quierer_tpu_torch.parallel.mesh import corpus_mesh
 
 D = 64
 QUERIES = ["a dog in the park", "the same deterministic query",
@@ -274,8 +276,15 @@ def test_api_stats_reports_the_ivf_tier(tmp_path, towers):
 
 @pytest.mark.parametrize("kind", ["exact", "ivf"])
 def test_corpus_shards_still_raise(tmp_path, kind):
+    """``index.corpus_shards`` builds its mesh from the CUDA devices, so
+    without a card it still raises (never a silent CPU mesh); an explicit
+    ``corpus_mesh`` shards the index."""
     cfg = torch_config.EngineConfig(videos_dir=str(tmp_path))
     cfg.index.kind = kind
     cfg.index.corpus_shards = 2
-    with pytest.raises(NotImplementedError, match="corpus sharding"):
-        VideoSearchEngine(str(tmp_path), config=cfg, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            VideoSearchEngine(str(tmp_path), config=cfg, device="cpu")
+    engine = VideoSearchEngine(str(tmp_path), config=cfg, device="cpu",
+                               corpus_mesh=corpus_mesh(2, devices=["cpu"] * 2))
+    assert engine.index.mesh.n_shards == 2

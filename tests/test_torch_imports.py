@@ -1,6 +1,8 @@
 """The port imports torch and numpy only: in a fresh interpreter, importing
-every module of video_quierer_tpu_torch leaves jax, flax, aiohttp,
-pydantic and cv2 out of ``sys.modules``, and builds no kernel."""
+every module of video_quierer_tpu_torch (the corpus-mesh modules
+``parallel/mesh.py`` and ``index/sharded.py`` among them) leaves jax,
+flax, aiohttp, pydantic and cv2 out of ``sys.modules``, and builds no
+kernel."""
 
 import json
 import subprocess
@@ -42,3 +44,29 @@ def test_imports_no_jax_or_server_frameworks(report):
 
 def test_import_builds_no_kernel(report):
     assert report["built"] is False
+
+
+def test_mesh_modules_are_walked(report):
+    for name in ("parallel", "parallel.mesh", "index.sharded",
+                 "index.device_index", "index.ivf"):
+        assert f"video_quierer_tpu_torch.{name}" in report["modules"]
+
+
+def test_mesh_entry_points_default_to_the_card(monkeypatch):
+    """The corpus mesh takes the CUDA devices unless given others: without
+    a card it raises, never falling back to the CPU."""
+    from video_quierer_tpu_torch.parallel import mesh
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            mesh.corpus_mesh(4)
+        with pytest.raises(RuntimeError, match="cuda"):
+            mesh.multislice_corpus_mesh(2, 4)
+    cpu = mesh.corpus_mesh(2, devices=["cpu"] * 3)
+    assert cpu.n_shards == 2 and cpu.shape == {mesh.CORPUS_AXIS: 2}
+    with pytest.raises(ValueError, match="slices"):
+        mesh.multislice_corpus_mesh(3, 4, devices=["cpu"] * 4)
+    monkeypatch.delenv("VQT_COORDINATOR", raising=False)
+    assert mesh.initialize_distributed() is False
+    monkeypatch.setenv("VQT_COORDINATOR", "localhost:1234")
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        mesh.initialize_distributed()

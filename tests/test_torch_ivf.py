@@ -32,6 +32,7 @@ from video_quierer_tpu.ops.topk import cosine_topk as jax_cosine_topk
 from video_quierer_tpu_torch.index import ivf as port_ivf
 from video_quierer_tpu_torch.index.ivf import BLOCK_ROWS, IVFIndex
 from video_quierer_tpu_torch.ops.topk import cosine_topk
+from video_quierer_tpu_torch.parallel.mesh import corpus_mesh
 
 D = 64
 
@@ -353,8 +354,9 @@ def test_errors():
     _, _, port = _built_pair(np.random.default_rng(18))
     with pytest.raises(ValueError):
         port.search(np.zeros(D, np.float32), k=65)
-    with pytest.raises(NotImplementedError):
-        IVFIndex(mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="build"):
+        IVFIndex(mesh=corpus_mesh(2, devices=["cpu"] * 2)).search(
+            np.zeros(D, np.float32))
 
 
 def test_default_device_is_the_card():

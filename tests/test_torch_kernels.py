@@ -21,7 +21,12 @@ the scales in the same order); B8 rows identical and scores equal on
 exact inputs, rows identical and scores within rtol 1e-5 on random unit
 rows (the kernel sums in another order than cuBLAS); B12 as B8, pads
 (-inf, -1) in the same places, also for a pair on tile 4,096 and beyond
-(64-bit tile offsets: 8.6 GB of tiles on the card).
+(64-bit tile offsets: 8.6 GB of tiles on the card); B9 and B8 over bf16
+rows as B8 (rows and scores identical on exact inputs); B10 exact and
+B11 bit-identical, as B1 and B4. With two or more cards, a corpus mesh
+over the cards returns the rows and scores of the same mesh with every
+shard on the first card, bit for bit (the same kernels on the same
+shards; only the copies between cards differ).
 """
 
 import numpy as np
@@ -29,6 +34,7 @@ import pytest
 import torch
 
 from video_quierer_tpu_torch.index import ivf
+from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
 from video_quierer_tpu_torch.models.clip.bridge import init_params
 from video_quierer_tpu_torch.models.clip.config import (
     CLIPConfig,
@@ -44,6 +50,7 @@ from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows,
     quantize_rows_int4,
 )
+from video_quierer_tpu_torch.parallel.mesh import CorpusMesh, corpus_mesh
 from video_quierer_tpu_torch.utils.env import resolve_device
 
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -101,7 +108,9 @@ def _launch_counts():
             topk.cand_scan_prefix.launches,
             topk.cand_scan_int8_prefix.launches,
             topk.cand_scan_int4_prefix.launches, topk.block_scan.launches,
-            ivf.probe_scan.launches)
+            ivf.probe_scan.launches, topk.cand_scan.launches,
+            topk.cand_scan_int8.launches, topk.block_scan_bf16.launches,
+            topk.block_scan_int8.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -118,6 +127,15 @@ def test_cpu_tensors_take_the_plain_versions():
     topk.cand_scan_int4_prefix(packed, scales4, qc, qs, 5000, bucket=1024,
                                rounds=2)
     topk.cosine_topk(_exact(1, (3000, 64)), _exact(2, (3, 64)), 2500, k=10)
+    perm = torch.randperm(8192, generator=torch.Generator().manual_seed(0))
+    perm = perm.int()
+    topk.cand_scan(_exact(1, (8192, 64)), perm, _exact(2, (3, 64)), 5000,
+                   bucket=1024, rounds=2)
+    topk.cand_scan_int8(codes, scales, perm, qc, qs, 5000, bucket=1024,
+                        rounds=2)
+    topk.cosine_topk(_exact(1, (3000, 64)).bfloat16(), _exact(2, (3, 64)),
+                     2500, k=10)
+    topk.cosine_topk_int8(codes, scales, _exact(2, (3, 128)), 5000, k=10)
     ivf.probe_scan(_exact(1, (2, 1024, 64)), torch.zeros(2, 1024,
                                                          dtype=torch.int32),
                    torch.tensor([0, 1], dtype=torch.int32),
@@ -355,6 +373,177 @@ def test_block_scan_kernel(cuda, b, k):
     assert torch.equal(ki[apart], pi[apart])
 
 
+def _shard_perm(seed, n, valid, live=True):
+    """A corpus shard's perm column: ``n`` distinct host rows drawn from
+    ``[0, 2n)`` around the global ``valid``, so rows >= valid sit inside
+    live buckets; ``live=False``: every row of the shard is dead."""
+    rng = np.random.default_rng(seed)
+    if live:
+        rows = rng.permutation(2 * n)[:n]
+    else:
+        rows = valid + rng.permutation(n)
+    return torch.from_numpy(rows.astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [True, False])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_cand_scan_perm_kernel(cuda, b, live):
+    """B10: perm liveness against the global valid; winners exact."""
+    n = 4 * 4096
+    emb = _exact(b, (n, 512))
+    emb[1000:1100] = emb[100:200]            # duplicates: equal keys
+    emb = emb.to(cuda, torch.bfloat16)
+    q = _exact(100 + b, (b, 512)).to(cuda)
+    valid = n + 777                          # global: more than one shard
+    perm = _shard_perm(b, n, valid, live).to(cuda)
+    before = topk.cand_scan.launches
+    kv, ki = topk.cand_scan(emb, perm, q, valid, bucket=1024, rounds=2)
+    torch.cuda.synchronize()
+    assert topk.cand_scan.launches == before + 1
+    pv, pi = topk.cand_scan_ref(emb, perm, q, valid, bucket=1024, rounds=2,
+                                block_rows=4096)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    assert bool(torch.isfinite(kv).any()) == live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [True, False])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_cand_scan_int8_perm_kernel(cuda, b, live):
+    """B11: winners bit-identical to the plain version."""
+    n = 4 * 4096
+    codes, scales = (t.to(cuda) for t in _codes_mirror("int8", b, n=n))
+    q_codes, qscale = quantize_rows(_unit(100 + b, (b, 512)).to(cuda))
+    valid = n + 777
+    perm = _shard_perm(b, n, valid, live).to(cuda)
+    before = topk.cand_scan_int8.launches
+    kv, ki = topk.cand_scan_int8(codes, scales, perm, q_codes, qscale,
+                                 valid, bucket=1024, rounds=2)
+    torch.cuda.synchronize()
+    assert topk.cand_scan_int8.launches == before + 1
+    pv, pi = topk.cand_scan_int8_ref(codes, scales, perm, q_codes, qscale,
+                                     valid, bucket=1024, rounds=2,
+                                     block_rows=4096)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    assert bool(torch.isfinite(kv).any()) == live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_block_scan_int8_kernel(cuda, b, k):
+    """B9 over int8 codes (3,000 rows: a short last tile, valid cutting the
+    second): exact queries (multiples of 1/256) make every sum exact, so
+    lists are identical; on random unit queries the scores agree within
+    rtol 1e-5 and rows differ only on ties within it."""
+    codes, scales = _codes_mirror("int8", b, n=3000)
+    codes, scales = codes.to(cuda), scales.to(cuda)
+    q = _exact(200 + b, (b, 512)).to(cuda)
+    before = topk.block_scan_int8.launches
+    kv, ki = topk.block_scan_int8(codes, scales, q, 1700, k=k)
+    torch.cuda.synchronize()
+    assert topk.block_scan_int8.launches == before + 1
+    pv, pi = topk.block_scan_int8_ref(codes, scales,
+                                      topk._int8_scan_queries(q, 3000),
+                                      1700, k=k,
+                                      tile_rows=topk.SCAN_TILE_ROWS)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    codes, scales = (t.to(cuda) for t in _codes_mirror("int8", b, n=8192))
+    q = _unit(300 + b, (b, 512)).to(cuda)
+    kv, ki = topk.cosine_topk_int8(codes, scales, q, 8000, k=k)
+    pv, pi = topk.block_scan_int8_ref(codes, scales,
+                                      topk._int8_scan_queries(q, 8192),
+                                      8000, k=k, tile_rows=8192)
+    _check_close_rows(kv, ki, pv[0], pi[0])
+
+
+def _check_close_rows(kv, ki, pv, pi):
+    """Scores within rtol 1e-5; rows identical except where two scores tie
+    within it."""
+    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=0)
+    gap = torch.full_like(pv, float("inf"))
+    gap[:, 1:] = pv[:, :-1] - pv[:, 1:]
+    gap[:, :-1] = torch.minimum(gap[:, :-1], pv[:, :-1] - pv[:, 1:])
+    apart = gap > 1e-5 * pv.abs()
+    assert torch.equal(ki[apart], pi[apart])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_block_scan_bf16_kernel(cuda, b, k):
+    """B8 over bf16 rows (the hatch's scan of a bf16 mirror), queries
+    rounded to bf16 as the reference rounds them."""
+    emb = _exact(b, (3000, 512))
+    emb[1500:1550] = emb[200:250]
+    emb = emb.to(cuda, torch.bfloat16)
+    q = _exact(400 + b, (b, 512)).to(cuda)
+    before = topk.block_scan_bf16.launches, topk.block_scan.launches
+    kv, ki = topk.block_scan_bf16(emb, q, 1700, k=k)
+    torch.cuda.synchronize()
+    assert (topk.block_scan_bf16.launches, topk.block_scan.launches) == \
+        (before[0] + 1, before[1])
+    pv, pi = topk.block_scan_ref(emb, q, 1700, k=k,
+                                 tile_rows=topk.SCAN_TILE_ROWS)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    emb = _unit(b, (8192, 512)).to(cuda, torch.bfloat16)
+    q = _unit(500 + b, (b, 512)).to(cuda)
+    kv, ki = topk.cosine_topk(emb, q, 8000, k=k)
+    pv, pi = topk.block_scan_ref(emb, q.bfloat16().float(), 8000, k=k,
+                                 tile_rows=8192)
+    _check_close_rows(kv, ki, pv[0], pi[0])
+
+
+@pytest.mark.gpu
+def test_new_scans_refuse_bad_operands(cuda):
+    emb = torch.zeros(4096, 512, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(2, 512, device=cuda)
+    perm = torch.arange(4096, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                 # int64 perm
+        topk.cand_scan(emb, perm.long(), q, 10, bucket=1024, rounds=2)
+    with pytest.raises(ValueError):                 # perm of another length
+        topk.cand_scan(emb, perm[:4095], q, 10, bucket=1024, rounds=2)
+    with pytest.raises(ValueError):                 # perm on the CPU
+        topk.cand_scan(emb, perm.cpu(), q, 10, bucket=1024, rounds=2)
+    with pytest.raises(TypeError):                  # f32 mirror
+        topk.cand_scan(emb.float(), perm, q, 10, bucket=1024, rounds=2)
+    flat = torch.zeros(4096 * 512 + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                 # mirror 16-byte aligned
+        topk.cand_scan(flat[8:].view(4096, 512), perm, q, 10, bucket=1024,
+                       rounds=2)
+    codes = torch.zeros(4096, 512, device=cuda, dtype=torch.int8)
+    scales = torch.zeros(4096, 1, device=cuda)
+    qc = torch.zeros(2, 512, device=cuda, dtype=torch.int8)
+    qs = torch.zeros(2, 1, device=cuda)
+    with pytest.raises(ValueError):                 # int64 perm
+        topk.cand_scan_int8(codes, scales, perm.long(), qc, qs, 10,
+                            bucket=1024, rounds=2)
+    with pytest.raises(TypeError):                  # f32 query codes
+        topk.cand_scan_int8(codes, scales, perm, qc.float(), qs, 10,
+                            bucket=1024, rounds=2)
+    with pytest.raises(TypeError):                  # bf16 codes
+        topk.block_scan_int8(emb, scales, q, 10, k=10)
+    with pytest.raises(ValueError):                 # scales [N]
+        topk.block_scan_int8(codes, scales[:, 0], q, 10, k=10)
+    with pytest.raises(ValueError):                 # f64 scales
+        topk.block_scan_int8(codes, scales.double(), q, 10, k=10)
+    flat8 = torch.zeros(4096 * 512 + 4, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError):                 # codes 4 bytes off
+        topk.block_scan_int8(flat8[4:].view(4096, 512), scales, q, 10, k=10)
+    with pytest.raises(ValueError):                 # k > MAX_K
+        topk.block_scan_int8(codes, scales, q, 10, k=65)
+    with pytest.raises(TypeError):                  # f32 rows
+        topk.block_scan_bf16(emb.float(), q, 10, k=10)
+    with pytest.raises(ValueError):                 # bf16 rows 8 bytes off
+        topk.block_scan_bf16(flat[4:4 + 4096 * 512].view(4096, 512), q, 10,
+                             k=10)
+
+
 def _probe_operands(seed, n_tiles, b, exact, d=512, used=None):
     """Tiles (ids a permutation; tile 1 with 5 live rows, tile 2 with 700,
     tile 3 all padding, tile 4 every row twice), ``b`` queries, and every
@@ -463,3 +652,63 @@ def test_kernels_refuse_bad_operands(cuda):
         attention(q, q, q, num_heads=4)            # head dim 128
     with pytest.raises(ValueError):
         attention(q, q.cpu(), q, num_heads=8)
+
+
+def _mesh_pair(dtype, corpus):
+    """One index sharded over the cards (up to four) and one with as many
+    shards all on the first card, both over ``corpus``."""
+    cards = min(torch.cuda.device_count(), 4)
+    out = []
+    for mesh in (corpus_mesh(cards), CorpusMesh(["cuda:0"] * cards)):
+        index = DeviceVideoIndex(dim=corpus.shape[1], device_dtype=dtype,
+                                 mesh=mesh)
+        index.add_batch(corpus, "v.mp4", [0.5 * t for t in range(len(corpus))])
+        out.append(index)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hatch", [("bfloat16", False),
+                                         ("int8", False),
+                                         ("float32", False),
+                                         ("bfloat16", True), ("int8", True)])
+def test_mesh_across_cards(cuda, monkeypatch, dtype, hatch):
+    """The perm-layout scans (B10, B11), B8, and under the hatch B8 on bf16
+    rows and B9, per shard across the cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    if hatch:
+        monkeypatch.setenv("VQT_CANDIDATE_TOPK", "pallas")
+    corpus = _unit(0, (200_000, 512)).numpy()
+    cards, one = _mesh_pair(dtype, corpus)
+    q = _unit(1, (64, 512)).numpy()
+    for b in (1, 64):
+        got, want = cards.search_batch(q[:b], k=10), one.search_batch(q[:b],
+                                                                   k=10)
+        assert got == want
+    assert len({e.device for e in cards._device_emb}) == len(cards.mesh.devices)
+
+
+@pytest.mark.gpu
+def test_mesh_ivf_across_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    cards = min(torch.cuda.device_count(), 4)
+    corpus = _unit(2, (100_000, 512)).numpy()
+    built = ivf.IVFIndex(nlist=64, nprobe=8, device="cuda:0")
+    built.build(corpus)
+    state = dict(centroids=built._centroids_np,
+                 tiled=built._tiled.cpu().numpy(), row_ids=built._row_ids,
+                 tile_start=built._tile_start_np,
+                 tile_counts=built._tile_counts_np, n_built=built._n_built,
+                 nlist=built.nlist, nprobe=built.nprobe)
+    tiers = [ivf.IVFIndex.load_built(**state, mesh=mesh) for mesh in (
+        corpus_mesh(cards), CorpusMesh(["cuda:0"] * cards))]
+    assert tiers[0].stats() == tiers[1].stats()
+    assert len({t.device for t in tiers[0]._sh_tiled}) == cards
+    q = _unit(3, (64, 512)).numpy()
+    for b in (1, 64):
+        (v0, i0), (v1, i1) = (t.search(q[:b], k=10) for t in tiers)
+        assert np.array_equal(i0, i1) and np.array_equal(v0, v1)
+        _, i2 = built.search(q[:b], k=10)
+        assert np.array_equal(np.sort(i0, axis=1), np.sort(i2, axis=1))

@@ -1,10 +1,16 @@
-// Kernel B1: candidate scan over the live-prefix mirror.
+// Kernels B1 and B10: bf16 candidate scans.
 //
-// Replaces the TPU kernel video_quierer_tpu/ops/topk.py:
-// _pallas_cand_scan_prefix (kernel body _cand_kernel_prefix with the
-// "packb" selection of _bucket_select_cols); the selection and the output
-// layout are those of cand_select.cuh. The merge and the perm translation
-// run outside the kernel, as in JAX.
+// Replace the TPU kernels video_quierer_tpu/ops/topk.py:
+// _pallas_cand_scan_prefix (B1, kernel body _cand_kernel_prefix with the
+// "packb" selection of _bucket_select_cols: the live-prefix mirror of one
+// card, row `pos` live when pos < valid) and _pallas_cand_scan (B10,
+// _cand_kernel with _bucket_select_rows: the perm-layout mirror of a corpus
+// shard, row `pos` live when perm[pos] < valid, valid being the GLOBAL live
+// count). One kernel template serves both (PERM false and `perm` null for
+// B1, so its instantiations carry no perm code). The selection and
+// the output layout are those of cand_select.cuh; the merge and the perm
+// translation run outside the kernel, as in JAX (B1's winners in the
+// col-orient order, B10's in the row-orient one: ops/topk.py).
 //
 // Design: one CTA per (bucket, chunk of queries); the query chunk sits in
 // shared memory for the whole bucket, and every row's keys fold into
@@ -21,8 +27,9 @@
 // exact scan (block_scan.cu), int8/int4 mirrors cand_scan_codes.cu.
 //
 // Bound on the H100: one read of the mirror per scan (2M x 512 x 2 B =
-// 2.05 GB, ~0.6 ms at 3.35 TB/s) when the query chunk is wide; at small B
-// the per-row key folding and the load latency set the time.
+// 2.05 GB, ~0.6 ms at 3.35 TB/s; B10 also reads 4 B of perm per row) when
+// the query chunk is wide; at small B the per-row key folding and the load
+// latency set the time.
 #include "cand_select.cuh"
 
 #include <mma.h>
@@ -39,12 +46,12 @@ using vqt::row_key;
 constexpr int TC_WARPS = 8;
 
 // bf16 mirror on the tensor cores; QB = 16 * NF queries per CTA
-template <int NF>
+template <int NF, bool PERM>
 __global__ void __launch_bounds__(TC_WARPS * 32)
-cand_kernel_tc(const bf16* __restrict__ emb, const bf16* __restrict__ q,
-               float* __restrict__ vals, int* __restrict__ idxs, int d,
-               int b, int valid, int bucket, int rounds, int nb,
-               int lowmask) {
+cand_kernel_tc(const bf16* __restrict__ emb, const int* __restrict__ perm,
+               const bf16* __restrict__ q, float* __restrict__ vals,
+               int* __restrict__ idxs, int d, int b, int valid, int bucket,
+               int rounds, int nb, int lowmask) {
   constexpr int QB = 16 * NF;
   constexpr int QT = (QB + 31) / 32;       // queries per lane
   constexpr int LDS = QB + 4;              // score strip row stride
@@ -102,9 +109,9 @@ cand_kernel_tc(const bf16* __restrict__ emb, const bf16* __restrict__ q,
       if (c < QB) {
         for (int r = 0; r < 16; ++r) {
           const int pos = t0 + r;
-          insert_key(top[t],
-                     row_key(strip[r * LDS + c], row0 + pos < (size_t)valid,
-                             pos, lowmask),
+          const bool live = PERM ? __ldg(perm + row0 + pos) < valid
+                                 : row0 + pos < (size_t)valid;
+          insert_key(top[t], row_key(strip[r * LDS + c], live, pos, lowmask),
                      rounds);
         }
       }
@@ -126,33 +133,32 @@ cand_kernel_tc(const bf16* __restrict__ emb, const bf16* __restrict__ q,
          idxs);
 }
 
-template <int NF>
-int launch_tc(const void* emb, const void* q, float* vals, int* idxs,
-              int n_pad, int d, int b, int valid, int bucket, int rounds,
-              int nb, int lowmask, cudaStream_t stream) {
+template <int NF, bool PERM>
+int launch_tc(const void* emb, const int* perm, const void* q, float* vals,
+              int* idxs, int n_pad, int d, int b, int valid, int bucket,
+              int rounds, int nb, int lowmask, cudaStream_t stream) {
   constexpr int QB = 16 * NF;
   const size_t smem = (size_t)QB * (d + 8) * sizeof(bf16) +
                       (size_t)TC_WARPS * 16 * (QB + 4) * sizeof(float) +
                       (size_t)TC_WARPS * QB * MAXR * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        cand_kernel_tc<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cand_kernel_tc<NF, PERM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(n_pad / bucket, (b + QB - 1) / QB);
-  cand_kernel_tc<NF><<<grid, TC_WARPS * 32, smem, stream>>>(
-      (const bf16*)emb, (const bf16*)q, vals, idxs, d, b, valid, bucket,
-      rounds, nb, lowmask);
+  cand_kernel_tc<NF, PERM><<<grid, TC_WARPS * 32, smem, stream>>>(
+      (const bf16*)emb, perm, (const bf16*)q, vals, idxs, d, b, valid,
+      bucket, rounds, nb, lowmask);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int vqt_cand_scan_prefix(const void* emb, const void* queries,
-                                    void* vals, void* idxs, int n_pad, int d,
-                                    int b, int valid, int bucket, int rounds,
-                                    int block_rows, void* stream) {
+template <bool PERM>
+int cand_scan(const void* emb, const int* perm, const void* queries,
+              void* vals, void* idxs, int n_pad, int d, int b, int valid,
+              int bucket, int rounds, int block_rows, void* stream) {
   // WMMA fragments: 32-byte aligned mirror rows of a multiple of 16
   // elements, 16-row strips
   if (n_pad <= 0 || b <= 0 || d % 16 || bucket % 16 || block_rows % bucket ||
@@ -163,8 +169,29 @@ extern "C" int vqt_cand_scan_prefix(const void* emb, const void* queries,
   const int nb = block_rows / bucket;
   cudaStream_t s = (cudaStream_t)stream;
   if (b <= 16)  // single queries and small batches: 16-query chunks
-    return launch_tc<1>(emb, queries, (float*)vals, (int*)idxs, n_pad, d, b,
-                        valid, bucket, rounds, nb, lowmask, s);
-  return launch_tc<4>(emb, queries, (float*)vals, (int*)idxs, n_pad, d, b,
-                      valid, bucket, rounds, nb, lowmask, s);
+    return launch_tc<1, PERM>(emb, perm, queries, (float*)vals, (int*)idxs,
+                              n_pad, d, b, valid, bucket, rounds, nb,
+                              lowmask, s);
+  return launch_tc<4, PERM>(emb, perm, queries, (float*)vals, (int*)idxs,
+                            n_pad, d, b, valid, bucket, rounds, nb, lowmask,
+                            s);
+}
+
+}  // namespace
+
+extern "C" int vqt_cand_scan_prefix(const void* emb, const void* queries,
+                                    void* vals, void* idxs, int n_pad, int d,
+                                    int b, int valid, int bucket, int rounds,
+                                    int block_rows, void* stream) {
+  return cand_scan<false>(emb, nullptr, queries, vals, idxs, n_pad, d, b,
+                          valid, bucket, rounds, block_rows, stream);
+}
+
+extern "C" int vqt_cand_scan(const void* emb, const void* perm,
+                             const void* queries, void* vals, void* idxs,
+                             int n_pad, int d, int b, int valid, int bucket,
+                             int rounds, int block_rows, void* stream) {
+  if (perm == nullptr) return (int)cudaErrorInvalidValue;
+  return cand_scan<true>(emb, (const int*)perm, queries, vals, idxs, n_pad,
+                         d, b, valid, bucket, rounds, block_rows, stream);
 }

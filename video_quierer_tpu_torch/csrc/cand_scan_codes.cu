@@ -1,11 +1,15 @@
-// Kernels B4 and B7: candidate scans over the quantized live-prefix
-// mirrors (int8 codes, and int4 codes packed two to a byte).
+// Kernels B4, B7 and B11: candidate scans over the quantized mirrors (int8
+// codes, and int4 codes packed two to a byte).
 //
 // Replace the TPU kernels video_quierer_tpu/ops/topk.py:
 // _pallas_cand_scan_int8_prefix (B4, kernel body _cand_kernel_int8_prefix)
-// and _pallas_cand_scan_int4_prefix (B7, _cand_kernel_int4_prefix), both in
-// their native form (int8 query codes, s8 x s8 -> s32 products). A row's
-// score is
+// and _pallas_cand_scan_int4_prefix (B7, _cand_kernel_int4_prefix) over the
+// live-prefix mirrors of one card (row `pos` live when pos < valid), and
+// _pallas_cand_scan_int8 (B11, _cand_kernel_int8) over the perm-layout int8
+// mirror of a corpus shard (row `pos` live when perm[pos] < valid, the
+// GLOBAL live count; PERM false and `perm` null for B4 and B7, so their
+// instantiations carry no perm code), all in their native form (int8 query
+// codes, s8 x s8 -> s32 products). A row's score is
 //     float(raw) * row_scale * query_scale
 // rounded after each multiply, in that order, as the TPU kernels compute
 // it; raw, the integer dot product, is exact, so the winners, their values
@@ -84,10 +88,11 @@ __device__ __forceinline__ int4 high_nibbles(int4 p) {
 
 // QB queries per CTA (NT = QB / 8 n-tiles of the mma); INT4 packed rows of
 // d / 2 bytes, else int8 rows of d bytes
-template <int QB, bool INT4>
+template <int QB, bool INT4, bool PERM>
 __global__ void __launch_bounds__(WARPS * 32)
 cand_kernel_codes(const int8_t* __restrict__ codes,
                   const float* __restrict__ scales,
+                  const int* __restrict__ perm,
                   const int8_t* __restrict__ q,
                   const float* __restrict__ qscale, float* __restrict__ vals,
                   int* __restrict__ idxs, int d, int b, int valid,
@@ -180,8 +185,9 @@ cand_kernel_codes(const int8_t* __restrict__ codes,
           const float sc = __fmul_rn(
               __fmul_rn((float)strip[r * LDS + c], __ldg(scales + row)),
               qsv);
-          insert_key(top[t], row_key(sc, row < (size_t)valid, pos, lowmask),
-                     rounds);
+          const bool live = PERM ? __ldg(perm + row) < valid
+                                 : row < (size_t)valid;
+          insert_key(top[t], row_key(sc, live, pos, lowmask), rounds);
         }
       }
     }
@@ -202,10 +208,10 @@ cand_kernel_codes(const int8_t* __restrict__ codes,
          idxs);
 }
 
-template <int QB, bool INT4>
-int launch_codes(const void* codes, const void* scales, const void* q,
-                 const void* qscale, void* vals, void* idxs, int n_pad,
-                 int d, int b, int valid, int bucket, int rounds,
+template <int QB, bool INT4, bool PERM>
+int launch_codes(const void* codes, const void* scales, const int* perm,
+                 const void* q, const void* qscale, void* vals, void* idxs,
+                 int n_pad, int d, int b, int valid, int bucket, int rounds,
                  int block_rows, cudaStream_t stream) {
   const size_t smem = (size_t)QB * (d + QPAD) +
                       (size_t)WARPS * 16 * (QB + 4) * sizeof(int) +
@@ -213,23 +219,23 @@ int launch_codes(const void* codes, const void* scales, const void* q,
                       (size_t)QB * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        cand_kernel_codes<QB, INT4>,
+        cand_kernel_codes<QB, INT4, PERM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(n_pad / bucket, (b + QB - 1) / QB);
-  cand_kernel_codes<QB, INT4><<<grid, WARPS * 32, smem, stream>>>(
-      (const int8_t*)codes, (const float*)scales, (const int8_t*)q,
+  cand_kernel_codes<QB, INT4, PERM><<<grid, WARPS * 32, smem, stream>>>(
+      (const int8_t*)codes, (const float*)scales, perm, (const int8_t*)q,
       (const float*)qscale, (float*)vals, (int*)idxs, d, b, valid, bucket,
       rounds, block_rows / bucket, vqt::bucket_lowmask(bucket));
   return (int)cudaGetLastError();
 }
 
-template <bool INT4>
-int scan_codes(const void* codes, const void* scales, const void* q,
-               const void* qscale, void* vals, void* idxs, int n_pad, int d,
-               int b, int valid, int bucket, int rounds, int block_rows,
-               void* stream) {
+template <bool INT4, bool PERM>
+int scan_codes(const void* codes, const void* scales, const int* perm,
+               const void* q, const void* qscale, void* vals, void* idxs,
+               int n_pad, int d, int b, int valid, int bucket, int rounds,
+               int block_rows, void* stream) {
   // 16-byte vectors of whole 64-byte chunks of each mirror row and query;
   // 16-row strips
   const int row_bytes = INT4 ? d / 2 : d;
@@ -240,11 +246,12 @@ int scan_codes(const void* codes, const void* scales, const void* q,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (b <= 16)  // single queries and small batches: 16-query chunks
-    return launch_codes<16, INT4>(codes, scales, q, qscale, vals, idxs,
-                                  n_pad, d, b, valid, bucket, rounds,
-                                  block_rows, s);
-  return launch_codes<64, INT4>(codes, scales, q, qscale, vals, idxs, n_pad,
-                                d, b, valid, bucket, rounds, block_rows, s);
+    return launch_codes<16, INT4, PERM>(codes, scales, perm, q, qscale, vals,
+                                        idxs, n_pad, d, b, valid, bucket,
+                                        rounds, block_rows, s);
+  return launch_codes<64, INT4, PERM>(codes, scales, perm, q, qscale, vals,
+                                      idxs, n_pad, d, b, valid, bucket,
+                                      rounds, block_rows, s);
 }
 
 }  // namespace
@@ -256,8 +263,9 @@ extern "C" int vqt_cand_scan_int8_prefix(const void* codes,
                                          void* idxs, int n_pad, int d, int b,
                                          int valid, int bucket, int rounds,
                                          int block_rows, void* stream) {
-  return scan_codes<false>(codes, scales, q_codes, qscale, vals, idxs, n_pad,
-                           d, b, valid, bucket, rounds, block_rows, stream);
+  return scan_codes<false, false>(codes, scales, nullptr, q_codes, qscale,
+                                  vals, idxs, n_pad, d, b, valid, bucket,
+                                  rounds, block_rows, stream);
 }
 
 extern "C" int vqt_cand_scan_int4_prefix(const void* packed,
@@ -267,6 +275,19 @@ extern "C" int vqt_cand_scan_int4_prefix(const void* packed,
                                          void* idxs, int n_pad, int d, int b,
                                          int valid, int bucket, int rounds,
                                          int block_rows, void* stream) {
-  return scan_codes<true>(packed, scales, q_codes, qscale, vals, idxs, n_pad,
-                          d, b, valid, bucket, rounds, block_rows, stream);
+  return scan_codes<true, false>(packed, scales, nullptr, q_codes, qscale,
+                                 vals, idxs, n_pad, d, b, valid, bucket,
+                                 rounds, block_rows, stream);
+}
+
+extern "C" int vqt_cand_scan_int8(const void* codes, const void* scales,
+                                  const void* perm, const void* q_codes,
+                                  const void* qscale, void* vals, void* idxs,
+                                  int n_pad, int d, int b, int valid,
+                                  int bucket, int rounds, int block_rows,
+                                  void* stream) {
+  if (perm == nullptr) return (int)cudaErrorInvalidValue;
+  return scan_codes<false, true>(codes, scales, (const int*)perm, q_codes,
+                                 qscale, vals, idxs, n_pad, d, b, valid,
+                                 bucket, rounds, block_rows, stream);
 }

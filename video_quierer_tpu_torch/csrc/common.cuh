@@ -46,7 +46,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // dtype codes shared with ops/kernels.py
-enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
 
 }  // namespace vqt
 

@@ -7,10 +7,12 @@ in place of pydantic (which the port does not depend on). Tier 2 —
 :class:`EngineConfig`: the engine's typed knobs with the same ``VQT_*``
 environment overrides. Semantics match the JAX package, the IVF tier's
 fields included (``index.kind = "ivf"``, ``ivf_nlist``, ``ivf_nprobe``,
-``ivf_min_rows``: the engine serves through ``index/ivf.py``); fields the
-port does not act on yet (corpus shards, SigLIP, pipeline parallelism)
-keep their names and validation so one ``config.json``/``engine.yaml``
-serves both packages.
+``ivf_min_rows``: the engine serves through ``index/ivf.py``) and the
+corpus mesh's (``index.corpus_shards``, ``index.corpus_slices``,
+``VQT_CORPUS_SHARDS``/``VQT_CORPUS_SLICES``: the engine shards its index,
+``parallel/mesh.py``); fields the port does not act on yet (SigLIP,
+pipeline parallelism) keep their names and validation so one
+``config.json``/``engine.yaml`` serves both packages.
 Ingest samples by the reference's interval rule only: the adaptive and
 hybrid samplers and the quality filter (``ingest/samplers.py``) are not
 ported, and asking for them raises ``NotImplementedError``.

@@ -1,7 +1,11 @@
 """Engine orchestration: startup, hash-diff ingest, search (counterpart of
 ``video_quierer_tpu/engine/system.py``).
 
-One engine, one config, one index on one device:
+One engine, one config, one index — on one device, or with its mirror
+sharded over a corpus mesh (``corpus_mesh=``, or ``index.corpus_shards``
+and ``index.corpus_slices``: ``parallel/mesh.py``, ``index/sharded.py``;
+the IVF tier then spreads its clusters over the mesh, except on a
+multi-slice one, where it keeps one replica on the first device):
 
 - ``startup``: load the pickle v1.0 cache, diff the videos dir by
   md5(name, size, mtime), ingest the new and changed videos (all of them
@@ -65,6 +69,12 @@ from video_quierer_tpu_torch.models.clip.embedder import (
     _bucket_for,
 )
 from video_quierer_tpu_torch.ops.topk import MAX_K
+from video_quierer_tpu_torch.parallel.mesh import (
+    CorpusMesh,
+    corpus_mesh as make_corpus_mesh,
+    initialize_distributed,
+    multislice_corpus_mesh,
+)
 from video_quierer_tpu_torch.utils.env import resolve_device
 from video_quierer_tpu_torch.utils.locks import RWLock
 from video_quierer_tpu_torch.utils.stageprof import span
@@ -84,19 +94,29 @@ class VideoSearchEngine:
     def __init__(self, videos_dir: str = "videos",
                  config: Optional[EngineConfig] = None,
                  embedder=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 corpus_mesh: Optional[CorpusMesh] = None):
+        """``device``: the towers' (and an unsharded index's) device.
+        ``corpus_mesh``: shard the index over it; None builds one from
+        ``index.corpus_shards`` (> 0: the first that many CUDA devices,
+        split into ``index.corpus_slices`` slices when > 1)."""
         self.config = config or load_engine_config()
         self.device = resolve_device(device)
         self.videos_dir = Path(videos_dir or self.config.videos_dir)
         self.videos_dir.mkdir(parents=True, exist_ok=True)
         self.cache_path = self.videos_dir / "video_search_cache.pkl"
         idx = self.config.index
-        if idx.corpus_shards > 0:
-            raise NotImplementedError("corpus sharding is not yet ported")
+        if corpus_mesh is None and idx.corpus_shards > 0:
+            if idx.corpus_slices > 1:
+                initialize_distributed()
+                corpus_mesh = multislice_corpus_mesh(
+                    idx.corpus_slices, n_devices=idx.corpus_shards)
+            else:
+                corpus_mesh = make_corpus_mesh(idx.corpus_shards)
         self.index = DeviceVideoIndex(
             dim=idx.embed_dim, device_dtype=idx.device_dtype,
             device=self.device, device_rerank=idx.device_rerank,
-            rerank_store_dtype=idx.rerank_store_dtype)
+            rerank_store_dtype=idx.rerank_store_dtype, mesh=corpus_mesh)
         self.metrics = SystemMetrics()
         for name in ("embed_fallbacks", "fused_search_fallbacks"):
             self.metrics.inc(name, 0)
@@ -289,8 +309,11 @@ class VideoSearchEngine:
         self._ivf_rows = 0
         if cfg.kind != "ivf" or self.index.count < cfg.ivf_min_rows:
             return
+        mesh = self.index.mesh
+        if mesh is not None and mesh.multislice:
+            mesh = None         # one replica on the index's first device
         ivf = IVFIndex(nlist=cfg.ivf_nlist or None, nprobe=cfg.ivf_nprobe,
-                       device=self.device)
+                       mesh=mesh, device=self.index.device)
         with self.metrics.timer("ivf_build"):
             ivf.build(self.index._emb[: self.index.count])
         self._ivf = ivf

@@ -1,5 +1,5 @@
 """Device-resident video frame index (counterpart of
-``video_quierer_tpu/index/device_index.py``, single-device modes).
+``video_quierer_tpu/index/device_index.py``).
 
 Host-authoritative: the f32 rows, metadata columns and the pickle v1.0
 cache live on the host, exactly as in the reference (the cache format is
@@ -10,8 +10,8 @@ other). The device holds a **mirror** of the rows in ``device_dtype``:
   layout; :func:`~video_quierer_tpu_torch.ops.topk.cosine_topk` scans it
   exactly and its scores are the results;
 - ``"bfloat16"``, ``"int8"`` (codes + per-row f32 scales), ``"int4"``
-  (split-halves packed codes + scales): candidate mirrors in the
-  live-PREFIX layout: live rows fill mirror positions ``[0, count)`` in a
+  (split-halves packed codes + scales): candidate mirrors, on one card in
+  the live-PREFIX layout: live rows fill mirror positions ``[0, count)`` in a
   uniformly shuffled order kept by incremental Fisher–Yates on append
   (:meth:`_extend_perm_to`, with the reference's numpy seeds, so both
   packages build the identical ``perm``), so near-duplicate adjacent
@@ -21,6 +21,24 @@ other). The device holds a **mirror** of the rows in ``device_dtype``:
   **re-rank store** (f32 by default) on the device when ``device_rerank``
   is active (``_device_exact_rerank``: (score desc, row asc) by two stable
   sorts), else on the host (:meth:`_rerank_f32`).
+
+Three mirror layouts (:meth:`_mirror_layout`), as in the reference:
+``"id"`` (the f32 tier; the bf16 and int8 mirrors under the
+exact-candidate hatch ``VQT_CANDIDATE_TOPK=pallas``, whose exact scans
+need it), ``"prefix"`` (the candidate mirrors on one card) and ``"perm"``
+(the candidate mirrors on a corpus mesh: a fixed full-capacity
+permutation, :meth:`_require_perm`, so live rows spread evenly over the
+shards at any fill level). A layout change between searches (the hatch
+flipped) re-places the mirror.
+
+**Corpus meshes** (``mesh``, a
+:class:`~video_quierer_tpu_torch.parallel.mesh.CorpusMesh`; not int4):
+capacity is a multiple of the shard count times the kernels' blocks, the
+mirror (rows or codes, scales, perm column) is split row-wise over the
+shards' devices (``index/sharded.py``), and every search runs the
+per-shard scans and the merge on the first device; candidates re-rank on
+the host. Any change re-places the whole mirror at the next search
+(appends do not stream into it), as in the reference.
 
 Searches: :meth:`search_batch` (query vectors) and
 :meth:`search_batch_fused_async` (token ids: text encode + scan + re-rank
@@ -37,7 +55,7 @@ result is bit-identical to the host sync path's. The index's device
 tensors are always made and updated outside ``torch.inference_mode``, so
 an append may come from inside it or not.
 
-Corpus meshes and the video-level search are later ports.
+The video-level search is a later port.
 """
 
 from __future__ import annotations
@@ -55,6 +73,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from video_quierer_tpu_torch.index.sharded import (
+    is_multislice,
+    multislice_cosine_topk,
+    multislice_cosine_topk_int8,
+    shard_corpus,
+    sharded_cosine_topk,
+    sharded_cosine_topk_int8,
+)
 from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows,
     quantize_rows_int4,
@@ -65,12 +91,15 @@ from video_quierer_tpu_torch.ops.topk import (
     APPROX_FETCH_CAP,
     CAND_BLOCK_ROWS,
     MAX_K,
+    SCAN_TILE_ROWS,
     _approx_fetch,
+    _candidate_mode,
     candidate_topk,
     candidate_topk_int4,
     candidate_topk_int8,
     cosine_topk,
 )
+from video_quierer_tpu_torch.parallel.mesh import CorpusMesh
 from video_quierer_tpu_torch.utils.env import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -150,9 +179,16 @@ class DeviceVideoIndex:
                  device_dtype: str = "float32",
                  device: str | torch.device = "cuda",
                  device_rerank: str = "auto",
-                 rerank_store_dtype: str = "float32"):
+                 rerank_store_dtype: str = "float32",
+                 mesh: Optional[CorpusMesh] = None):
+        """``mesh``: shard the mirror over a corpus mesh; queries, merges
+        and results then live on its first device (``device`` is not
+        read)."""
         if device_dtype not in DEVICE_DTYPES:
             raise ValueError(f"unsupported device_dtype {device_dtype!r}")
+        if device_dtype == "int4" and mesh is not None:
+            raise ValueError("device_dtype='int4' does not support a "
+                             "corpus mesh — use 'int8' or 'bfloat16'")
         if device_rerank not in ("auto", "on", "off"):
             raise ValueError(f"unsupported device_rerank {device_rerank!r}")
         if rerank_store_dtype not in ("float32", "bfloat16"):
@@ -160,7 +196,10 @@ class DeviceVideoIndex:
                 f"unsupported rerank_store_dtype {rerank_store_dtype!r}")
         self.dim = dim
         self.device_dtype = device_dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._n_shards = 1 if mesh is None else mesh.n_shards
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
         self.device_rerank = device_rerank
         self.rerank_store_dtype = rerank_store_dtype
         self.video_hashes: Dict[str, str] = {}
@@ -174,8 +213,16 @@ class DeviceVideoIndex:
     # Host-side storage
     # ------------------------------------------------------------------
 
+    @property
+    def _granularity(self) -> int:
+        """Capacity granularity: each shard's rows a whole number of the
+        exact scan's tiles and the candidate kernels' blocks (the
+        reference's rule, so both packages pad capacity alike)."""
+        return max(_CHUNK, self._n_shards * math.lcm(SCAN_TILE_ROWS,
+                                                     CAND_BLOCK_ROWS))
+
     def _reset_storage(self) -> None:
-        cap = _CHUNK
+        cap = self._granularity
         self._emb = np.zeros((cap, self.dim), dtype=np.float32)
         self._video_ids = np.zeros(cap, dtype=np.int32)
         self._timestamps = np.zeros(cap, dtype=np.float64)
@@ -184,7 +231,9 @@ class DeviceVideoIndex:
         self._video_names: List[str] = []
         self._video_name_to_id: Dict[str, int] = {}
         # device mirror (rows or codes), the codes' per-row scales, and
-        # the perm column of the live-prefix layout
+        # the perm column of the prefix and perm layouts (on a mesh: lists
+        # of per-shard tensors); the layout they were placed in
+        self._mirror_layout_cur = "id"
         self._device_emb: Optional[torch.Tensor] = None
         self._device_scales: Optional[torch.Tensor] = None
         self._device_rows = 0
@@ -206,7 +255,7 @@ class DeviceVideoIndex:
         cap = self._emb.shape[0]
         if n <= cap:
             return
-        new_cap = _round_capacity(max(n, cap * 2))
+        new_cap = _round_capacity(max(n, cap * 2), self._granularity)
         for name in ("_emb", "_video_ids", "_timestamps", "_frame_ids"):
             old = getattr(self, name)
             new = np.zeros((new_cap,) + old.shape[1:], dtype=old.dtype)
@@ -376,10 +425,46 @@ class DeviceVideoIndex:
             return quantize_rows_int4_np(rows)
         return quantize_rows_np(rows)
 
+    def _mirror_permuted(self) -> bool:
+        """Whether the mirror lives under a row permutation: the candidate
+        mirrors, except bf16 and int8 under the exact-candidate hatch
+        (``VQT_CANDIDATE_TOPK=pallas``), whose exact scans need the
+        identity layout (int4 has no exact scan and stays permuted)."""
+        if self.device_dtype == "int4":
+            return True
+        return self.device_dtype != "float32" and _candidate_mode() != "pallas"
+
     def _mirror_layout(self) -> str:
-        """``"id"`` for the f32 exact tier, ``"prefix"`` (live-prefix
-        arrangement) for the candidate mirrors."""
-        return "id" if self.device_dtype == "float32" else "prefix"
+        """Target layout: ``"id"`` (f32, the hatch), ``"prefix"`` (the
+        permuted mirrors of one card) or ``"perm"`` (on a corpus mesh)."""
+        if not self._mirror_permuted():
+            return "id"
+        return "perm" if self.mesh is not None else "prefix"
+
+    def _require_perm(self, cap: int) -> None:
+        """(Re)build the fixed full-capacity permutation of the ``"perm"``
+        layout, from the reference's seed (so both packages draw the same
+        one)."""
+        if self._perm is None or self._perm.shape[0] != cap \
+                or self._perm_rows:
+            rng = np.random.default_rng(0xC0FFEE + cap)
+            self._perm = rng.permutation(cap).astype(np.int32)
+            self._inv_perm = np.empty(cap, np.int32)
+            self._inv_perm[self._perm] = np.arange(cap, dtype=np.int32)
+            self._perm_rows = 0
+            self._fy_rng = None
+
+    def _perm_arg(self):
+        """The perm operand of the candidate scans (per shard on a mesh);
+        None for an identity-layout mirror."""
+        return (self._perm_dev
+                if self._mirror_layout_cur in ("perm", "prefix") else None)
+
+    def _place(self, t: torch.Tensor, dtype: Optional[torch.dtype] = None):
+        """A host tensor on the index's device, or split over the mesh."""
+        if self.mesh is None:
+            return t.to(self.device, dtype)
+        return shard_corpus(t, self.mesh, dtype)
 
     def _put(self, rows: np.ndarray, pos: Optional[torch.Tensor] = None,
              lo: int = 0) -> None:
@@ -396,21 +481,24 @@ class DeviceVideoIndex:
                 self.device, self._row_dtype)
 
     def _full_place(self, cap: int) -> None:
-        prefix = self._mirror_layout() == "prefix"
-        if prefix:
+        layout = self._mirror_layout()
+        if layout == "prefix":
             self._perm = None            # vectorized arrangement rebuild
             self._extend_perm_to(self._count, cap)
-        self._device_emb = self._device_scales = None
-        rows = self._emb[self._perm] if prefix else self._emb
+        elif layout == "perm":
+            self._require_perm(cap)
+        self._device_emb = self._device_scales = self._perm_dev = None
+        rows = self._emb if layout == "id" else self._emb[self._perm]
         if self._codes:
             codes, scales = self._quantize_host(rows)
-            self._device_emb = torch.from_numpy(codes).to(self.device)
-            self._device_scales = torch.from_numpy(scales).to(self.device)
+            self._device_emb = self._place(torch.from_numpy(codes))
+            self._device_scales = self._place(torch.from_numpy(scales))
         else:
-            self._device_emb = torch.from_numpy(rows).to(self.device,
-                                                         self._row_dtype)
-        self._perm_dev = (torch.from_numpy(self._perm).to(self.device)
-                          if prefix else None)
+            self._device_emb = self._place(torch.from_numpy(rows),
+                                           self._row_dtype)
+        if layout != "id":
+            self._perm_dev = self._place(torch.from_numpy(self._perm))
+        self._mirror_layout_cur = layout
         self._device_cap = cap
         self._device_rows = self._count
 
@@ -446,21 +534,27 @@ class DeviceVideoIndex:
     @torch.inference_mode(False)
     def _sync_device_locked(self) -> None:
         """Bring the mirror up to date: full upload on the first use, a
-        compaction or an append of more than ``_UPDATE_MAX`` rows;
-        device-side growth on a capacity increase; otherwise the identity
-        mirror copies the new rows and a prefix mirror scatters its <= 2n
-        changed positions (rows or codes + scales, and the perm column)."""
+        layout change, a compaction or an append of more than
+        ``_UPDATE_MAX`` rows, and on a mesh at any change; device-side
+        growth on a capacity increase; otherwise the identity mirror
+        copies the new rows and a prefix mirror scatters its <= 2n changed
+        positions (rows or codes + scales, and the perm column)."""
         cap = self._emb.shape[0]
-        if self._device_emb is None \
-                or (self._device_cap != cap
-                    and not self._try_grow_mirror(cap)) \
-                or self._device_rows > self._count \
-                or self._count - self._device_rows > self._UPDATE_MAX:
+        layout = self._mirror_layout()
+        stale = (self._device_emb is None
+                 or self._mirror_layout_cur != layout
+                 or self._device_rows > self._count
+                 or self._count - self._device_rows > self._UPDATE_MAX)
+        if self.mesh is not None:
+            stale = stale or self._device_cap != cap \
+                or self._device_rows != self._count
+        if stale or (self._device_cap != cap
+                     and not self._try_grow_mirror(cap)):
             self._full_place(cap)
             return
         if self._device_rows == self._count:
             return
-        if self._mirror_layout() == "id":
+        if layout == "id":
             lo, hi = self._device_rows, self._count
             self._put(self._emb[lo:hi], lo=lo)
             self._device_rows = hi
@@ -480,10 +574,11 @@ class DeviceVideoIndex:
 
     def _device_rerank_active(self) -> bool:
         """Whether searches re-rank on the device (never for the f32
-        exact tier, whose scan is exact): ``VQT_DEVICE_RERANK`` or
-        ``device_rerank`` "on"/"off", or "auto" while store + mirror fit
+        exact tier, whose scan is exact, nor on a mesh, whose candidates
+        re-rank on the host): ``VQT_DEVICE_RERANK`` or ``device_rerank``
+        "on"/"off", or "auto" while store + mirror fit
         ``VQT_DEVICE_RERANK_BUDGET_GB`` (default 12)."""
-        if self.device_dtype == "float32":
+        if self.device_dtype == "float32" or self.mesh is not None:
             return False
         mode = os.environ.get("VQT_DEVICE_RERANK", self.device_rerank)
         if mode in ("on", "off"):
@@ -542,11 +637,13 @@ class DeviceVideoIndex:
         rows (and scales), the identity perm column, and the arrangement
         started at zero rows (the host path's first placement at count 0,
         without its upload)."""
-        if self._mirror_layout() == "prefix":
+        layout = self._mirror_layout()
+        if layout == "prefix":
             self._perm = None
             self._extend_perm_to(0, cap)
             self._perm_dev = torch.arange(cap, dtype=torch.int32,
                                           device=self.device)
+        self._mirror_layout_cur = layout
         width = self._codes_width if self._codes else self.dim
         self._device_emb = torch.zeros(
             (cap, width), device=self.device,
@@ -599,21 +696,30 @@ class DeviceVideoIndex:
                                      n: int, lo: int) -> None:
         """Bring the mirror and the active re-rank store up to date from
         device rows. Where the streaming invariant does not hold (an
-        append over ``_UPDATE_MAX`` rows, a mirror not synced to ``lo``)
-        the host sync path runs instead: the same result."""
+        append over ``_UPDATE_MAX`` rows, a mirror not synced to ``lo`` or
+        in another layout) the host sync path runs instead: the same
+        result. So does the int8 mirror under the exact-candidate hatch
+        (identity layout), whose host sync quantizes the rows. A mesh's
+        mirror is re-placed at the next search instead."""
+        if self.mesh is not None:
+            return
         cap = self._emb.shape[0]
         rows = feats[offset: offset + n]
         if rows.device != self.device:
             raise ValueError(f"streamed rows on {rows.device}, index on "
                              f"{self.device}")
-        if n <= self._UPDATE_MAX and self._device_emb is None and lo == 0:
+        layout = self._mirror_layout()
+        codes_id = self._codes and layout == "id"
+        if n <= self._UPDATE_MAX and self._device_emb is None and lo == 0 \
+                and not codes_id:
             self._place_empty(cap)
-        if (n > self._UPDATE_MAX or self._device_emb is None
+        if (codes_id or n > self._UPDATE_MAX or self._device_emb is None
+                or self._mirror_layout_cur != layout
                 or (self._device_cap != cap
                     and not self._try_grow_mirror(cap))
                 or self._device_rows != lo):
             self._sync_device_locked()
-        elif self._mirror_layout() == "id":
+        elif layout == "id":
             self._device_emb[lo: lo + n] = rows.to(self._row_dtype)
             self._device_rows = lo + n
         elif self._extend_perm_to(lo + n, cap) is None \
@@ -681,10 +787,20 @@ class DeviceVideoIndex:
     # Search
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _candidate_impl() -> str:
+        """The candidate stage's scan: ``"exact"`` under the hatch
+        (``VQT_CANDIDATE_TOPK=pallas``), else ``"cand"``."""
+        return "exact" if _candidate_mode() == "pallas" else "cand"
+
     def _rerank_fetch(self, k: int) -> int:
         """Candidate over-fetch of the re-ranked candidate mirrors. int4's
         candidate noise band is about twice int8's (step absmax/7 vs
-        /127), so its fetch doubles (capped), as in the reference."""
+        /127), so its fetch doubles (capped), as in the reference. The
+        hatch's exact scans fetch shallow, ``min(max(4k, k + 16),
+        MAX_K)``."""
+        if self._candidate_impl() == "exact":
+            return min(max(4 * k, k + 16), MAX_K)
         fetch = min(_approx_fetch(k), APPROX_FETCH_CAP)
         if self.device_dtype == "int4":
             fetch = min(2 * fetch, APPROX_FETCH_CAP)
@@ -698,22 +814,45 @@ class DeviceVideoIndex:
 
     def _synced_mirror(self) -> tuple:
         """Sync the mirror (callers hold ``_sync_lock``) and return its
-        ``(rows or codes, scales or None, perm or None)``."""
+        ``(rows or codes, scales or None, perm or None)`` (per-shard lists
+        on a mesh)."""
         self._sync_device_locked()
-        return self._device_emb, self._device_scales, self._perm_dev
+        return self._device_emb, self._device_scales, self._perm_arg()
 
     def _scan(self, mirror: tuple, q: torch.Tensor, live: int, k: int):
         """Enqueue the scan of ``mirror`` for the unit queries ``q``:
         ``(scores, host rows)`` of the exact f32 scan's top ``k``, or of
         the dtype's top ``k`` candidates for the re-rank."""
         emb, scales, perm = mirror
+        if self.mesh is not None:
+            return self._sharded_scan(mirror, q, live, k)
         if self.device_dtype == "float32":
             return cosine_topk(emb, q, live, k=k)
+        prefix = self._mirror_layout_cur == "prefix"
         if self.device_dtype == "bfloat16":
-            return candidate_topk(emb, q, live, k=k, perm=perm, live=live)
+            return candidate_topk(emb, q, live, k=k, perm=perm,
+                                  prefix=prefix, live=live)
         cand = (candidate_topk_int8 if self.device_dtype == "int8"
                 else candidate_topk_int4)
-        return cand(emb, scales, q, live, k=k, perm=perm, live=live)
+        return cand(emb, scales, q, live, k=k, perm=perm, prefix=prefix,
+                    live=live)
+
+    def _sharded_scan(self, mirror: tuple, q: torch.Tensor, live: int,
+                      k: int):
+        """The mesh's scan (``index/sharded.py``): the exact f32 scan, or
+        the candidate impl of the bf16 and int8 mirrors — the perm-layout
+        stages, or the exact scans under the hatch."""
+        emb, scales, perm = mirror
+        impl = ("exact" if self.device_dtype == "float32"
+                else self._candidate_impl())
+        ms = is_multislice(self.mesh)
+        if self._codes:
+            scan = (multislice_cosine_topk_int8 if ms
+                    else sharded_cosine_topk_int8)
+            return scan(emb, scales, q, live, k=k, mesh=self.mesh,
+                        impl=impl, perm=perm)
+        scan = multislice_cosine_topk if ms else sharded_cosine_topk
+        return scan(emb, q, live, k=k, mesh=self.mesh, impl=impl, perm=perm)
 
     def search_batch(self, queries: np.ndarray, k: int = 5
                      ) -> List[List[Dict]]:
@@ -845,7 +984,7 @@ class DeviceVideoIndex:
         n = len(embeddings)
         if len(metadata) != n:
             raise ValueError("embeddings/metadata length mismatch")
-        cap = _round_capacity(max(n, 1))
+        cap = _round_capacity(max(n, 1), self._granularity)
         emb = np.zeros((cap, self.dim), dtype=np.float32)
         video_ids = np.zeros(cap, dtype=np.int32)
         timestamps = np.zeros(cap, dtype=np.float64)

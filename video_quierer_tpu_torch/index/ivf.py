@@ -1,5 +1,5 @@
 """IVF-Flat approximate index: k-means on the device and the cluster-tile
-probe scan (counterpart of ``video_quierer_tpu/index/ivf.py``, one device).
+probe scan (counterpart of ``video_quierer_tpu/index/ivf.py``).
 
 The system's approximate nearest-neighbour tier, which the engine serves
 when ``index.kind = "ivf"``:
@@ -25,11 +25,23 @@ when ``index.kind = "ivf"``:
 Results are exact within the probed clusters (true f32 cosines); recall
 follows ``nprobe / nlist``.
 
+On a corpus mesh (``mesh``, the engine's index mesh; on a multi-slice
+mesh the devices of its first slice) the tier is distributed as in the
+reference: clusters go greedily, largest first, to the least-loaded
+device (:meth:`IVFIndex._pack_sharded`, a numpy copy: its tie orders decide
+the tiles); each device holds its clusters' tiles plus one padding tile,
+with global row ids; a search routes each probed cluster to its device's
+slot list, sized to the exact worst case so no probe is dropped
+(:meth:`IVFIndex._search_sharded`), runs B12 on every device and merges
+the per-device lists on the first one in device order
+(``index/sharded.py:_gather_merge``).
+
 Not carried over: the XLA gather path ``_probe_and_scan`` (on the CPU the
-plain version :func:`probe_scan_ref` takes its place), the query padding
-to ``_QUERY_BUCKETS`` (an XLA compile-cache device: padded queries probe
-only the padding tile) and the ``_pallas_mode()`` routing. Corpus meshes
-(``mesh``) are a later port.
+plain version :func:`probe_scan_ref` takes its place), and two XLA
+compile-cache devices: the query padding to ``_QUERY_BUCKETS`` (padded
+queries probe only the padding tile) and the mesh's rounding of the slot
+count to a power of two (extra slots hold the padding tile); neither
+changes a result. Nor the ``_pallas_mode()`` routing.
 """
 
 from __future__ import annotations
@@ -41,8 +53,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from video_quierer_tpu_torch.index.sharded import _gather_merge
 from video_quierer_tpu_torch.ops import kernels
 from video_quierer_tpu_torch.ops.topk import MAX_K, NEG_INF
+from video_quierer_tpu_torch.parallel.mesh import CorpusMesh
 from video_quierer_tpu_torch.utils.env import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -250,7 +264,8 @@ class IVFIndex:
     scanned fresh buffer until it outgrows ``rebuild_fraction`` of the
     built rows (:meth:`rebuild` then folds them in). ``balance_factor``
     caps clusters at ``factor * N / nlist`` rows (0 disables balancing).
-    The tiles, their ids and the centroids live on ``device``; the
+    The tiles, their ids and the centroids live on ``device`` (on a mesh:
+    the tiles and ids split over its devices, the rest on the first); the
     centroids, ids and tile ranges also on the host, where the probe is
     chosen.
     """
@@ -259,17 +274,19 @@ class IVFIndex:
                  kmeans_iters: int = 10, seed: int = 0,
                  balance_factor: float = 2.0,
                  rebuild_fraction: float = 0.25,
-                 mesh=None, device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the corpus-mesh IVF tier is not yet ported")
+                 mesh: Optional[CorpusMesh] = None,
+                 device: str | torch.device = "cuda"):
+        self.mesh = mesh
+        # a multi-slice mesh's first slice
+        self._devices = None if mesh is None else mesh.devices[:mesh.per_slice]
         self.nlist = nlist
         self.nprobe = nprobe
         self.kmeans_iters = kmeans_iters
         self.seed = seed
         self.balance_factor = balance_factor
         self.rebuild_fraction = rebuild_fraction
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
         self._built = False
         self._fresh: Optional[np.ndarray] = None
         self._n_built = 0
@@ -326,34 +343,77 @@ class IVFIndex:
     def _set_built(self, centroids: np.ndarray, tiled: torch.Tensor,
                    row_ids: np.ndarray, tile_start: np.ndarray,
                    tiles_per_cluster: np.ndarray, n_built: int) -> None:
+        """Take a built state; ``tiled`` on any device (on a mesh it is
+        split over the devices and not kept)."""
         self._centroids_np = np.array(centroids, np.float32)
         self._centroids = torch.from_numpy(self._centroids_np).to(self.device)
-        self._tiled = tiled
         self._row_ids = np.ascontiguousarray(row_ids, np.int32)
-        self._row_ids_dev = torch.from_numpy(self._row_ids).to(self.device)
         self._pad_tile = tiled.shape[0] - 1
         self._tile_start_np = np.asarray(tile_start, np.int64)
         self._tile_counts_np = np.asarray(tiles_per_cluster, np.int64)
         self._max_tiles = int(self._tile_counts_np.max())
         self._median_tiles = int(np.median(self._tile_counts_np))
+        if self.mesh is None:
+            self._tiled = tiled.to(self.device)
+            self._row_ids_dev = torch.from_numpy(self._row_ids).to(
+                self.device)
+        else:
+            self._tiled = self._row_ids_dev = None
+            self._pack_sharded(tiled)
         self._n_built = int(n_built)
         self._fresh = None
         self._built = True
+
+    def _pack_sharded(self, tiled: torch.Tensor) -> None:
+        """Distribute the cluster tiles over the mesh's devices: clusters
+        by stable descending tile count, each onto the least-loaded device
+        (the lowest on ties); every device's tiles padded to one count plus
+        a padding tile (zeros, ids -1), which its unused slots point at.
+        Row ids stay global."""
+        n_dev = len(self._devices)
+        counts = self._tile_counts_np
+        nlist = counts.shape[0]
+        dev_of = np.zeros(nlist, np.int32)
+        local_start = np.zeros(nlist, np.int64)
+        load = np.zeros(n_dev, np.int64)
+        for c in np.argsort(-counts, kind="stable"):
+            d = int(np.argmin(load))
+            dev_of[c] = d
+            local_start[c] = load[d]
+            load[d] += counts[c]
+        t_local = max(1, int(load.max()))
+        # each device's local tile -> global tile (the global padding tile
+        # for unused slots and the local padding tile)
+        src = np.full((n_dev, t_local + 1), self._pad_tile, np.int64)
+        for c in range(nlist):
+            s, g, n_t = local_start[c], self._tile_start_np[c], counts[c]
+            src[dev_of[c], s: s + n_t] = np.arange(g, g + n_t)
+        self._sh_tiled = [
+            tiled[torch.from_numpy(src[d]).to(tiled.device)].to(dev)
+            for d, dev in enumerate(self._devices)]
+        self._sh_ids = [torch.from_numpy(self._row_ids[src[d]]).to(dev)
+                        for d, dev in enumerate(self._devices)]
+        self._cluster_dev = dev_of
+        self._cluster_local_start = local_start
+        self._local_pad_tile = t_local
+        self._dev_load = load
 
     @classmethod
     def load_built(cls, centroids: np.ndarray, tiled: np.ndarray,
                    row_ids: np.ndarray, tile_start: np.ndarray,
                    tile_counts: np.ndarray, n_built: int, nlist: int,
                    nprobe: int, fresh: Optional[np.ndarray] = None,
+                   mesh: Optional[CorpusMesh] = None,
                    device: str | torch.device = "cuda") -> "IVFIndex":
         """An index over a built state: centroids ``[C, D]``, tiles ``[T +
         1, BLOCK_ROWS, D]`` (the last all padding) and their row ids,
         each cluster's first tile and tile count, the built row count and
         the fresh buffer — the reference index's attributes as numpy
-        arrays. It searches exactly what that index searches."""
-        ivf = cls(nlist=nlist, nprobe=nprobe, device=device)
+        arrays (on a mesh, packed onto its devices from them). It
+        searches exactly what that index searches."""
+        ivf = cls(nlist=nlist, nprobe=nprobe, mesh=mesh, device=device)
         tiled = torch.from_numpy(np.array(tiled, np.float32))
-        ivf._set_built(centroids, tiled.to(ivf.device),
+        ivf._set_built(centroids, tiled,
                        np.array(row_ids, np.int32).reshape(tiled.shape[:2]),
                        tile_start, tile_counts, n_built)
         if fresh is not None:
@@ -380,6 +440,9 @@ class IVFIndex:
                        / max(1, total_tiles * BLOCK_ROWS)), 2),
             "scanned_fraction": round(
                 min(1.0, self.nprobe / max(1, self.nlist)), 4),
+            **({"devices": len(self._devices),
+                "tiles_per_device": self._dev_load.tolist()}
+               if self.mesh is not None else {}),
         }
 
     def add(self, emb_new: np.ndarray) -> None:
@@ -401,10 +464,14 @@ class IVFIndex:
     def _reconstruct_corpus(self) -> np.ndarray:
         """The built corpus, recovered from the tiles (no separate copy is
         kept)."""
-        mask = self._row_ids_dev >= 0
-        emb = torch.empty((self._n_built, self._tiled.shape[-1]),
+        parts = ([(self._tiled, self._row_ids_dev)] if self.mesh is None
+                 else zip(self._sh_tiled, self._sh_ids))
+        emb = torch.empty((self._n_built, self._centroids.shape[-1]),
                           dtype=torch.float32, device=self.device)
-        emb[self._row_ids_dev[mask].long()] = self._tiled[mask]
+        for tiled, ids in parts:
+            mask = ids >= 0
+            emb[ids[mask].long().to(self.device)] = tiled[mask].to(
+                self.device)
         return emb.cpu().numpy()
 
     def rebuild(self) -> None:
@@ -433,7 +500,9 @@ class IVFIndex:
         squeeze = queries.ndim == 1
         if squeeze:
             queries = queries[None]
-        vals, idxs = self._search_probe(queries, k, nprobe)
+        search = (self._search_probe if self.mesh is None
+                  else self._search_sharded)
+        vals, idxs = search(queries, k, nprobe)
         if self._fresh is not None and self._fresh.shape[0] > 0:
             vals, idxs = self._merge_fresh(queries, vals, idxs, k)
         if squeeze:
@@ -474,6 +543,51 @@ class IVFIndex:
               for x in (tile_list, qidx, queries)), k=k)
         return _merge_pairs(vals.cpu().numpy(), idxs.cpu().numpy(),
                             queries.shape[0], k)
+
+    def _search_sharded(self, queries: np.ndarray, k: int, nprobe: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """The mesh's probe: each query's clusters (best first) routed to
+        their devices' slot lists — ``S`` slots per query and device, ``S``
+        the exact worst case over the batch, so no probed cluster is
+        dropped, unused slots on the local padding tile —; B12 on every
+        device; the per-device ``[B, S·k]`` lists merged on the first
+        device in device order; pads ``(-inf, -1)``."""
+        b, n_dev = queries.shape[0], len(self._devices)
+        budget = self.tile_budget()
+        csims = queries @ self._centroids_np.T                  # [B, C]
+        probes, slots = [], 1
+        for qi in range(b):
+            cl = np.argpartition(-csims[qi], nprobe - 1)[:nprobe]
+            cl = cl[np.argsort(-csims[qi][cl], kind="stable")]
+            probes.append(cl)
+            per_dev = np.zeros(n_dev, np.int64)
+            np.add.at(per_dev, self._cluster_dev[cl],
+                      np.minimum(self._tile_counts_np[cl], budget))
+            slots = max(slots, int(per_dev.max()))
+        tile_lists = np.full((n_dev, b * slots), self._local_pad_tile,
+                             np.int32)
+        for qi, cl in enumerate(probes):
+            cursor = np.full(n_dev, qi * slots, np.int64)
+            for c in cl:
+                d, s = self._cluster_dev[c], self._cluster_local_start[c]
+                cnt = int(min(self._tile_counts_np[c], budget))
+                tile_lists[d, cursor[d]: cursor[d] + cnt] = np.arange(
+                    s, s + cnt)
+                cursor[d] += cnt
+        qidx = np.repeat(np.arange(b, dtype=np.int32), slots)
+        parts = []
+        for d, dev in enumerate(self._devices):
+            v, i = probe_scan(self._sh_tiled[d], self._sh_ids[d],
+                              *(torch.from_numpy(x).to(dev) for x in (
+                                  tile_lists[d], qidx, queries)), k=k)
+            parts.append((v.view(b, slots * k), i.view(b, slots * k)))
+        vals, idxs = _gather_merge(parts, k)
+        out_v = vals.cpu().numpy()
+        out_i = idxs.cpu().numpy().astype(np.int64)
+        dead = ~np.isfinite(out_v)
+        out_i[dead] = -1
+        out_v[dead] = NEG_INF
+        return out_v, out_i
 
     def _merge_fresh(self, queries: np.ndarray, vals: np.ndarray,
                      idxs: np.ndarray, k: int

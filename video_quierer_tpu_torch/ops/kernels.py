@@ -38,7 +38,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 LIB_NAME = "libvqt_kernels.so"
 
 # dtype codes of csrc/common.cuh
-DT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,11 +48,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vqt_cand_scan_prefix": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),
+    "vqt_cand_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "vqt_cand_scan_int8_prefix": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
+    "vqt_cand_scan_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P),
     "vqt_cand_scan_int4_prefix": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
-    "vqt_block_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "vqt_block_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "vqt_probe_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vqt_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                       _I, _P),

@@ -1,5 +1,5 @@
 """Similarity top-k over the device mirrors (counterpart of the pieces of
-``video_quierer_tpu/ops/topk.py`` that single-device search reads).
+``video_quierer_tpu/ops/topk.py`` that search reads).
 
 Four mirror dtypes, as in the reference:
 
@@ -13,30 +13,41 @@ Four mirror dtypes, as in the reference:
   in the reference:
 
   - the fused scan: per ``CAND_BUCKET``-row bucket of the mirror, the top
-    ``CAND_ROUNDS`` rows by packed key (:func:`cand_scan_prefix`, kernel
-    B1, over bf16 rows; :func:`cand_scan_int8_prefix`, B4, over int8
-    codes; :func:`cand_scan_int4_prefix`, B7, over packed int4 codes),
-    then an exact top-``fetch`` merge over the winner list and the
-    mirror-position → host-row translation through ``perm``;
+    ``CAND_ROUNDS`` rows by packed key, then an exact top-``fetch`` merge
+    over the winner list and the mirror-position → host-row translation
+    through ``perm``. Two mirror layouts: the live PREFIX of one card
+    (``prefix=True``, liveness ``position < valid``: :func:`cand_scan_prefix`,
+    kernel B1, over bf16 rows; :func:`cand_scan_int8_prefix`, B4, over int8
+    codes; :func:`cand_scan_int4_prefix`, B7, over packed int4 codes) and
+    the fixed-permutation layout of a corpus shard (``prefix=False``,
+    liveness ``perm[position] < valid`` against the global live count:
+    :func:`cand_scan`, B10, bf16; :func:`cand_scan_int8`, B11, int8);
   - the exact scan (:func:`_approx_scan` and its int8/int4 twins) for
     corpora too small for the bucket winners to cover the fetch
-    (:func:`prefix_fused_ok`) or whose capacity the kernel cannot tile
-    (:func:`_fused_usable`). The reference uses hardware ApproxTopK there;
-    on this card the exact top-k is the plain choice.
+    (:func:`prefix_fused_ok`), whose capacity the kernel cannot tile
+    (:func:`_fused_usable`), or under ``VQT_CANDIDATE_TOPK=approx``. The
+    reference uses hardware ApproxTopK there; on this card the exact top-k
+    is the plain choice.
+
+  ``VQT_CANDIDATE_TOPK=pallas`` (the reference's exact-candidate hatch,
+  read at call time) sends the bf16 and int8 stages of an identity-layout
+  mirror (``perm=None``) to the exact scans instead: :func:`cosine_topk`
+  over the bf16 rows (:func:`block_scan_bf16`, B8 on bf16 rows) and
+  :func:`cosine_topk_int8` (:func:`block_scan_int8`, kernel B9). The int4
+  stage keeps its fused scan under the hatch, as the reference's code does.
 
 The quantized tiers use the reference's native contract: queries are
 quantized to int8 like the rows (:func:`quantize_rows`), the products are exact
 integer sums, and the scales multiply in the reference's order for each
 path (``raw * row_scale * query_scale`` in the fused kernels, ``raw *
 query_scale * row_scale`` in the exact scans). Their winners are
-bit-identical to the JAX kernels'.
+bit-identical to the JAX kernels'. The exact int8 scan (B9) is not
+quantized: codes times the f32 query (B = 1) or the bf16-rounded query
+(B > 1), summed in f32, times the row scale — the reference kernel's two
+contracts.
 
 Every top-k here is descending-stable: ties break to the lowest index
 (stable sorts — ``torch.topk`` promises no tie order).
-
-Only the live-PREFIX mirror layout of the candidate stages is ported
-(single device: live rows fill mirror positions ``[0, valid)``); the
-perm-layout scans of the corpus meshes are later ports.
 """
 
 from __future__ import annotations
@@ -70,6 +81,13 @@ NEG_INF = float("-inf")
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
+def _candidate_mode() -> str:
+    """``VQT_CANDIDATE_TOPK``, read at every call as in the reference:
+    ``"fused"`` (default), ``"approx"`` (the exact small-corpus scans
+    serve) or ``"pallas"`` (the exact-candidate hatch)."""
+    return os.environ.get("VQT_CANDIDATE_TOPK", "fused")
+
+
 def _approx_fetch(k: int) -> int:
     """Candidate depth for a final k (``VQT_RERANK_FETCH`` overrides; never
     below k)."""
@@ -97,19 +115,24 @@ def _pad_k(vals: torch.Tensor, idxs: torch.Tensor, k: int) -> Pair:
     return vals, idxs
 
 
-# -- fused candidate scans: kernels B1, B4, B7 and their plain versions ---
+# -- fused candidate scans: kernels B1, B4, B7, B10, B11 and their plain
+# versions ---------------------------------------------------------------
 
 def _bucket_winners(sc: torch.Tensor, valid: int, *, bucket: int,
-                    rounds: int, block_rows: int) -> Pair:
+                    rounds: int, block_rows: int,
+                    perm: Optional[torch.Tensor] = None) -> Pair:
     """The packed-key selection of the candidate kernels over f32 scores
     ``sc [N, B]``: the top ``rounds`` rows of every bucket, in the
-    kernels' block-major ``[n_blocks, rounds·nb, B]`` layout."""
+    kernels' block-major ``[n_blocks, rounds·nb, B]`` layout. Row ``p`` is
+    live when ``p < valid`` (live prefix), or ``perm[p] < valid`` when
+    ``perm`` is given (perm layout)."""
     n_pad, b = sc.shape
     lowmask = _lowmask(bucket)
     nb = block_rows // bucket
     pos = torch.arange(n_pad, device=sc.device, dtype=torch.int32)
+    live = (pos if perm is None else perm) < valid
     keys = (sc + _KEY_BIAS).view(torch.int32)
-    keys = torch.where((pos < valid)[:, None], keys, torch.zeros_like(keys))
+    keys = torch.where(live[:, None], keys, torch.zeros_like(keys))
     keys = (keys & ~lowmask) + (lowmask - pos % bucket)[:, None]
     # keys are unique inside a bucket, so any top-k order is exact
     wk = torch.topk(keys.view(n_pad // bucket, bucket, b), rounds,
@@ -147,6 +170,52 @@ def _winner_buffers(n_pad: int, b: int, rounds: int, bucket: int,
             torch.empty(shape, dtype=torch.int32, device=dev))
 
 
+def cand_scan_ref(emb: torch.Tensor, perm: torch.Tensor,
+                  queries: torch.Tensor, valid: int, *, bucket: int,
+                  rounds: int, block_rows: int) -> Pair:
+    """Plain PyTorch version of kernel B10: B1 with row ``p`` live when
+    ``perm[p] < valid``."""
+    sc = emb.float() @ queries.to(emb.dtype).float().t()        # [N, B]
+    return _bucket_winners(sc, valid, bucket=bucket, rounds=rounds,
+                           block_rows=block_rows, perm=perm)
+
+
+def _check_perm(perm: torch.Tensor, n_pad: int) -> None:
+    if perm.dtype != torch.int32 or perm.shape != (n_pad,):
+        raise ValueError(f"the perm column must be [{n_pad}] int32, got "
+                         f"{tuple(perm.shape)} {perm.dtype}")
+
+
+def _cand_scan_bf16(fn_name: str, wrapper, emb: torch.Tensor,
+                    perm: Optional[torch.Tensor], q: torch.Tensor,
+                    valid: int, *, bucket: int, rounds: int,
+                    block_rows: int) -> Pair:
+    """Launch B1 (``perm`` None) or B10 on CUDA operands."""
+    dev = kernels.require_cuda(emb, q, *(() if perm is None else (perm,)))
+    n_pad, d = emb.shape
+    b = q.shape[0]
+    if emb.dtype != torch.bfloat16:
+        raise TypeError(f"the candidate scan kernel takes a bf16 mirror, "
+                        f"got {emb.dtype}")
+    if q.ndim != 2 or q.shape[1] != d or n_pad % block_rows \
+            or block_rows % bucket or bucket % 16 or d % 16 \
+            or not 1 <= rounds <= 4 or emb.data_ptr() % 32:
+        raise ValueError(f"unsupported candidate scan: N={n_pad} D={d} "
+                         f"B={b} bucket={bucket} rounds={rounds} (the "
+                         "mirror must start 32-byte aligned)")
+    if perm is not None:
+        _check_perm(perm, n_pad)
+    vals, idxs = _winner_buffers(n_pad, b, rounds, bucket, block_rows, dev)
+    head = [kernels.ptr(emb)] + ([] if perm is None else [kernels.ptr(perm)])
+    with torch.cuda.device(dev):
+        kernels.check(getattr(kernels.lib(), fn_name)(
+            *head, kernels.ptr(q), kernels.ptr(vals), kernels.ptr(idxs),
+            n_pad, d, b, int(valid), bucket, rounds, block_rows,
+            kernels.stream(dev)), fn_name)
+    kernels.count_launch(wrapper)
+    return vals, idxs
+
+
 def cand_scan_prefix(emb: torch.Tensor, queries: torch.Tensor, valid: int,
                      *, bucket: int, rounds: int,
                      block_rows: int = None) -> Pair:
@@ -159,29 +228,32 @@ def cand_scan_prefix(emb: torch.Tensor, queries: torch.Tensor, valid: int,
     if emb.device.type == "cpu":
         return cand_scan_prefix_ref(emb, q, valid, bucket=bucket,
                                     rounds=rounds, block_rows=block_rows)
-    dev = kernels.require_cuda(emb, q)
-    n_pad, d = emb.shape
-    b = q.shape[0]
-    if emb.dtype != torch.bfloat16:
-        raise TypeError(f"the candidate scan kernel takes a bf16 mirror, "
-                        f"got {emb.dtype}")
-    if q.ndim != 2 or q.shape[1] != d or n_pad % block_rows \
-            or block_rows % bucket or bucket % 16 or d % 16 \
-            or not 1 <= rounds <= 4 or emb.data_ptr() % 32:
-        raise ValueError(f"unsupported candidate scan: N={n_pad} D={d} "
-                         f"B={b} bucket={bucket} rounds={rounds} (the "
-                         "mirror must start 32-byte aligned)")
-    vals, idxs = _winner_buffers(n_pad, b, rounds, bucket, block_rows, dev)
-    with torch.cuda.device(dev):
-        kernels.check(kernels.lib().vqt_cand_scan_prefix(
-            kernels.ptr(emb), kernels.ptr(q), kernels.ptr(vals),
-            kernels.ptr(idxs), n_pad, d, b, int(valid), bucket, rounds,
-            block_rows, kernels.stream(dev)), "candidate scan")
-    kernels.count_launch(cand_scan_prefix)
-    return vals, idxs
+    return _cand_scan_bf16("vqt_cand_scan_prefix", cand_scan_prefix, emb,
+                           None, q, valid, bucket=bucket, rounds=rounds,
+                           block_rows=block_rows)
 
 
 cand_scan_prefix.launches = 0
+
+
+def cand_scan(emb: torch.Tensor, perm: torch.Tensor, queries: torch.Tensor,
+              valid: int, *, bucket: int, rounds: int,
+              block_rows: int = None) -> Pair:
+    """Bucket winners of the perm-layout candidate scan (a corpus shard's
+    bf16 mirror, ``perm [N]`` i32 its mirror position → host row column,
+    ``valid`` the global live count), in B1's layout. Kernel B10 on CUDA
+    tensors, the plain version on CPU ones."""
+    block_rows = block_rows or CAND_BLOCK_ROWS
+    q = queries.to(emb.dtype).contiguous()
+    if emb.device.type == "cpu":
+        return cand_scan_ref(emb, perm, q, valid, bucket=bucket,
+                             rounds=rounds, block_rows=block_rows)
+    return _cand_scan_bf16("vqt_cand_scan", cand_scan, emb, perm, q, valid,
+                           bucket=bucket, rounds=rounds,
+                           block_rows=block_rows)
+
+
+cand_scan.launches = 0
 
 
 def _unpack_nibbles(packed: torch.Tensor) -> Pair:
@@ -231,16 +303,30 @@ def cand_scan_int4_prefix_ref(packed: torch.Tensor, scales: torch.Tensor,
                            block_rows=block_rows)
 
 
+def cand_scan_int8_ref(codes: torch.Tensor, scales: torch.Tensor,
+                       perm: torch.Tensor, q_codes: torch.Tensor,
+                       qscale: torch.Tensor, valid: int, *, bucket: int,
+                       rounds: int, block_rows: int) -> Pair:
+    """Plain PyTorch version of kernel B11: B4 with row ``p`` live when
+    ``perm[p] < valid``."""
+    sc = _dot_codes(codes, q_codes) * scales * qscale.t()
+    return _bucket_winners(sc, valid, bucket=bucket, rounds=rounds,
+                           block_rows=block_rows, perm=perm)
+
+
 def _cand_scan_codes(fn_name: str, wrapper, ref, codes: torch.Tensor,
                      scales: torch.Tensor, q_codes: torch.Tensor,
                      qscale: torch.Tensor, valid: int, *, bucket: int,
-                     rounds: int, block_rows: Optional[int], d: int
-                     ) -> Pair:
+                     rounds: int, block_rows: Optional[int], d: int,
+                     perm: Optional[torch.Tensor] = None) -> Pair:
+    """The quantized candidate scans: B4/B7 (``perm`` None, live prefix)
+    or B11 (perm layout); the plain version ``ref`` for CPU tensors."""
     block_rows = block_rows or CAND_BLOCK_ROWS
+    head = (codes, scales) + (() if perm is None else (perm,))
     if codes.device.type == "cpu":
-        return ref(codes, scales, q_codes, qscale, valid, bucket=bucket,
+        return ref(*head, q_codes, qscale, valid, bucket=bucket,
                    rounds=rounds, block_rows=block_rows)
-    dev = kernels.require_cuda(codes, scales, q_codes, qscale)
+    dev = kernels.require_cuda(*head, q_codes, qscale)
     n_pad = codes.shape[0]
     b = q_codes.shape[0]
     if codes.dtype != torch.int8 or q_codes.dtype != torch.int8 \
@@ -258,10 +344,12 @@ def _cand_scan_codes(fn_name: str, wrapper, ref, codes: torch.Tensor,
                          f"D={d} B={b} bucket={bucket} rounds={rounds} "
                          "(row bytes a multiple of 64, codes and queries "
                          "16-byte aligned)")
+    if perm is not None:
+        _check_perm(perm, n_pad)
     vals, idxs = _winner_buffers(n_pad, b, rounds, bucket, block_rows, dev)
     with torch.cuda.device(dev):
         kernels.check(getattr(kernels.lib(), fn_name)(
-            kernels.ptr(codes), kernels.ptr(scales), kernels.ptr(q_codes),
+            *(kernels.ptr(t) for t in head), kernels.ptr(q_codes),
             kernels.ptr(qscale), kernels.ptr(vals), kernels.ptr(idxs),
             n_pad, d, b, int(valid), bucket, rounds, block_rows,
             kernels.stream(dev)), fn_name)
@@ -301,6 +389,22 @@ def cand_scan_int4_prefix(packed: torch.Tensor, scales: torch.Tensor,
 
 
 cand_scan_int4_prefix.launches = 0
+
+
+def cand_scan_int8(codes: torch.Tensor, scales: torch.Tensor,
+                   perm: torch.Tensor, q_codes: torch.Tensor,
+                   qscale: torch.Tensor, valid: int, *, bucket: int,
+                   rounds: int, block_rows: int = None) -> Pair:
+    """Bucket winners over a corpus shard's perm-layout int8 mirror (row
+    ``p`` live when ``perm[p] < valid``, the global live count), in B1's
+    layout. Kernel B11 on CUDA tensors, the plain version on CPU ones."""
+    return _cand_scan_codes(
+        "vqt_cand_scan_int8", cand_scan_int8, cand_scan_int8_ref, codes,
+        scales, q_codes, qscale, valid, bucket=bucket, rounds=rounds,
+        block_rows=block_rows, d=codes.shape[1], perm=perm)
+
+
+cand_scan_int8.launches = 0
 
 
 # -- merges ---------------------------------------------------------------
@@ -345,11 +449,16 @@ def _cand_merge(bvals: torch.Tensor, bidxs: torch.Tensor,
 # -- exact scans for small corpora ----------------------------------------
 
 def _approx_tail(scores: torch.Tensor, valid: int, *, k: int,
-                 perm: Optional[torch.Tensor]) -> Pair:
-    """Rows ``>= valid`` masked, stable top-k, perm translation, pads."""
+                 perm: Optional[torch.Tensor], prefix: bool) -> Pair:
+    """Dead rows masked (position ``>= valid``, or ``perm[position] >=
+    valid`` under the perm layout: ``perm`` given and ``prefix`` False),
+    stable top-k, perm translation, pads."""
     n_pad = scores.shape[1]
-    rows = torch.arange(n_pad, device=scores.device)
-    scores = scores.masked_fill((rows >= valid)[None, :], NEG_INF)
+    if perm is None or prefix:
+        dead = torch.arange(n_pad, device=scores.device) >= valid
+    else:
+        dead = perm >= valid
+    scores = scores.masked_fill(dead[None, :], NEG_INF)
     vals, idxs = _stable_topk(scores, min(k, n_pad))
     idxs = idxs.to(torch.int32)
     if perm is not None:
@@ -358,30 +467,33 @@ def _approx_tail(scores: torch.Tensor, valid: int, *, k: int,
 
 
 def _approx_scan(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
-                 k: int, perm: Optional[torch.Tensor]) -> Pair:
-    """Exact scan over the live prefix: f32 scores of the dtype-rounded
+                 k: int, perm: Optional[torch.Tensor],
+                 prefix: bool = True) -> Pair:
+    """Exact scan of a float mirror: f32 scores of the dtype-rounded
     queries."""
     scores = queries.to(emb.dtype).float() @ emb.float().t()    # [B, N]
-    return _approx_tail(scores, valid, k=k, perm=perm)
+    return _approx_tail(scores, valid, k=k, perm=perm, prefix=prefix)
 
 
 def _approx_scan_int8(codes: torch.Tensor, scales: torch.Tensor,
                       queries: torch.Tensor, valid: int, *, k: int,
-                      perm: Optional[torch.Tensor]) -> Pair:
+                      perm: Optional[torch.Tensor],
+                      prefix: bool = True) -> Pair:
     """Exact scan of the int8 mirror: ``raw * qscale * row_scale``."""
     q_codes, qscale = quantize_rows(queries)
     scores = _dot_codes(codes, q_codes).t() * qscale * scales[:, 0][None, :]
-    return _approx_tail(scores, valid, k=k, perm=perm)
+    return _approx_tail(scores, valid, k=k, perm=perm, prefix=prefix)
 
 
 def _approx_scan_int4(packed: torch.Tensor, scales: torch.Tensor,
                       queries: torch.Tensor, valid: int, *, k: int,
-                      perm: Optional[torch.Tensor]) -> Pair:
+                      perm: Optional[torch.Tensor],
+                      prefix: bool = True) -> Pair:
     """Exact scan of the packed int4 mirror (two half-depth dots)."""
     q_codes, qscale = quantize_rows(queries)
     scores = (_dot_packed(packed, q_codes).t() * qscale
               * scales[:, 0][None, :])
-    return _approx_tail(scores, valid, k=k, perm=perm)
+    return _approx_tail(scores, valid, k=k, perm=perm, prefix=prefix)
 
 
 # -- routing ----------------------------------------------------------------
@@ -403,7 +515,8 @@ def _fused_usable(n_pad: int, fetch: int, b: int,
 def prefix_fused_ok(live: int, fetch: int) -> bool:
     """Live-count gate: under the prefix layout the kernel emits
     ``rounds · ceil(live / bucket)`` live candidates; below ``min(fetch,
-    live)`` the exact scan serves."""
+    live)`` the exact scan serves. (The perm layout spreads live rows over
+    every bucket, so it has no such gate.)"""
     if live <= 0:
         return True
     winners = CAND_ROUNDS * -(-live // CAND_BUCKET)
@@ -419,9 +532,10 @@ def _chunked_stage(stage: Callable[[torch.Tensor], Pair],
 
 
 def _fused_route(n_pad: int, k: int, b: int, live: Optional[int],
-                 min_b: Optional[int] = None) -> bool:
-    return _fused_usable(n_pad, k, b, min_b) \
-        and (live is None or prefix_fused_ok(live, k))
+                 min_b: Optional[int] = None, *, prefix: bool = True) -> bool:
+    return _candidate_mode() != "approx" \
+        and _fused_usable(n_pad, k, b, min_b) \
+        and (not prefix or live is None or prefix_fused_ok(live, k))
 
 
 def _identity(n_pad: int, device) -> torch.Tensor:
@@ -430,57 +544,80 @@ def _identity(n_pad: int, device) -> torch.Tensor:
 
 def candidate_stage(emb: torch.Tensor, queries: torch.Tensor, valid: int,
                     *, k: int, perm: Optional[torch.Tensor] = None,
+                    prefix: bool = True,
                     live: Optional[int] = None) -> Pair:
-    """Candidate scan over a bf16 live-prefix mirror: the fused scan when
-    usable, the exact scan otherwise; batches wider than ``CAND_MAX_B``
-    chunk. Returns host rows when ``perm`` is given."""
+    """Candidate scan over a bf16 mirror: the fused scan when usable (B1
+    over a live-prefix mirror, B10 over a perm-layout one,
+    ``prefix=False``), the exact scan otherwise; batches wider than
+    ``CAND_MAX_B`` chunk. Returns host rows when ``perm`` is given. (The
+    reference's ``prefix`` defaults to False; the port's single-card
+    callers are the prefix ones, so its default is True and the sharded
+    scans pass False.)"""
     if queries.shape[0] > CAND_MAX_B:
         return _chunked_stage(
             lambda q: candidate_stage(emb, q, valid, k=k, perm=perm,
-                                      live=live), queries)
-    if _fused_route(emb.shape[0], k, queries.shape[0], live):
+                                      prefix=prefix, live=live), queries)
+    if _fused_route(emb.shape[0], k, queries.shape[0], live,
+                    prefix=prefix):
         if perm is None:
             perm = _identity(emb.shape[0], emb.device)
-        bvals, bidxs = cand_scan_prefix(emb, queries, valid,
-                                        bucket=CAND_BUCKET,
-                                        rounds=CAND_ROUNDS)
-        return _cand_merge_cols(bvals, bidxs, perm, fetch=k)
-    return _approx_scan(emb, queries, valid, k=k, perm=perm)
+        if prefix:
+            bvals, bidxs = cand_scan_prefix(emb, queries, valid,
+                                            bucket=CAND_BUCKET,
+                                            rounds=CAND_ROUNDS)
+            return _cand_merge_cols(bvals, bidxs, perm, fetch=k)
+        bvals, bidxs = cand_scan(emb, perm, queries, valid,
+                                 bucket=CAND_BUCKET, rounds=CAND_ROUNDS)
+        return _cand_merge(bvals, bidxs, perm, fetch=k)
+    return _approx_scan(emb, queries, valid, k=k, perm=perm, prefix=prefix)
 
 
 def candidate_stage_int8(codes: torch.Tensor, scales: torch.Tensor,
                          queries: torch.Tensor, valid: int, *, k: int,
                          perm: Optional[torch.Tensor] = None,
+                         prefix: bool = True,
                          live: Optional[int] = None) -> Pair:
-    """Int8 twin of :func:`candidate_stage` (kernel B4)."""
+    """Int8 twin of :func:`candidate_stage` (kernels B4 and B11)."""
     if queries.shape[0] > CAND_MAX_B:
         return _chunked_stage(
             lambda q: candidate_stage_int8(codes, scales, q, valid, k=k,
-                                           perm=perm, live=live), queries)
-    if _fused_route(codes.shape[0], k, queries.shape[0], live):
+                                           perm=perm, prefix=prefix,
+                                           live=live), queries)
+    if _fused_route(codes.shape[0], k, queries.shape[0], live,
+                    prefix=prefix):
         if perm is None:
             perm = _identity(codes.shape[0], codes.device)
         q_codes, qscale = quantize_rows(queries)
-        bvals, bidxs = cand_scan_int8_prefix(
-            codes, scales, q_codes, qscale, valid, bucket=CAND_BUCKET,
-            rounds=CAND_ROUNDS)
+        if prefix:
+            bvals, bidxs = cand_scan_int8_prefix(
+                codes, scales, q_codes, qscale, valid, bucket=CAND_BUCKET,
+                rounds=CAND_ROUNDS)
+        else:
+            bvals, bidxs = cand_scan_int8(
+                codes, scales, perm, q_codes, qscale, valid,
+                bucket=CAND_BUCKET, rounds=CAND_ROUNDS)
         return _cand_merge(bvals, bidxs, perm, fetch=k)
-    return _approx_scan_int8(codes, scales, queries, valid, k=k, perm=perm)
+    return _approx_scan_int8(codes, scales, queries, valid, k=k, perm=perm,
+                             prefix=prefix)
 
 
 def candidate_stage_int4(packed: torch.Tensor, scales: torch.Tensor,
                          queries: torch.Tensor, valid: int, *, k: int,
                          perm: Optional[torch.Tensor] = None,
+                         prefix: bool = True,
                          live: Optional[int] = None) -> Pair:
     """Int4 twin of :func:`candidate_stage_int8` over the packed
-    split-halves mirror (kernel B7). The fused scan serves from B=1 even
+    split-halves mirror (kernel B7, live-prefix layout only; another
+    layout takes the exact scan). The fused scan serves from B=1 even
     when ``VQT_FUSED_MIN_B`` is raised: the exact scan materializes the
     unpacked codes."""
     if queries.shape[0] > CAND_MAX_B:
         return _chunked_stage(
             lambda q: candidate_stage_int4(packed, scales, q, valid, k=k,
-                                           perm=perm, live=live), queries)
-    if _fused_route(packed.shape[0], k, queries.shape[0], live, min_b=1):
+                                           perm=perm, prefix=prefix,
+                                           live=live), queries)
+    if prefix and _fused_route(packed.shape[0], k, queries.shape[0], live,
+                               min_b=1):
         if perm is None:
             perm = _identity(packed.shape[0], packed.device)
         q_codes, qscale = quantize_rows(queries)
@@ -488,12 +625,19 @@ def candidate_stage_int4(packed: torch.Tensor, scales: torch.Tensor,
             packed, scales, q_codes, qscale, valid, bucket=CAND_BUCKET,
             rounds=CAND_ROUNDS)
         return _cand_merge(bvals, bidxs, perm, fetch=k)
-    return _approx_scan_int4(packed, scales, queries, valid, k=k, perm=perm)
+    return _approx_scan_int4(packed, scales, queries, valid, k=k, perm=perm,
+                             prefix=prefix)
 
 
 def _candidate_dispatch(stage: Callable[[torch.Tensor], Pair],
-                        queries: torch.Tensor, k: int) -> Pair:
-    """Check ``k``, squeeze 1-D queries, run ``stage(queries [B, D] f32)``."""
+                        queries: torch.Tensor, k: int,
+                        exact: Optional[Callable[[int], Pair]] = None,
+                        perm: Optional[torch.Tensor] = None) -> Pair:
+    """The hatch (``VQT_CANDIDATE_TOPK=pallas``: ``exact(min(k, MAX_K))``
+    for an identity-layout mirror, ``perm`` None), else check ``k``,
+    squeeze 1-D queries and run ``stage(queries [B, D] f32)``."""
+    if exact is not None and perm is None and _candidate_mode() == "pallas":
+        return exact(min(k, MAX_K))
     if k <= 0 or k > APPROX_FETCH_CAP:
         raise ValueError(f"k must be in [1, {APPROX_FETCH_CAP}], got {k}")
     squeeze = queries.ndim == 1
@@ -505,48 +649,59 @@ def _candidate_dispatch(stage: Callable[[torch.Tensor], Pair],
 
 def candidate_topk(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
                    k: int, perm: Optional[torch.Tensor] = None,
+                   prefix: bool = True,
                    live: Optional[int] = None) -> Pair:
     """Top-``k`` candidates (``k`` up to ``APPROX_FETCH_CAP``) of f32
-    ``queries`` ``[B, D]`` or ``[D]`` over the bf16 live-prefix mirror, in
-    host row space when ``perm`` is given."""
+    ``queries`` ``[B, D]`` or ``[D]`` over the bf16 mirror, in host row
+    space when ``perm`` is given; the exact scan over the bf16 rows under
+    the hatch."""
     return _candidate_dispatch(
         lambda q: candidate_stage(emb, q, int(valid), k=k, perm=perm,
-                                  live=live), queries, k)
+                                  prefix=prefix, live=live), queries, k,
+        lambda kk: cosine_topk(emb, queries, valid, k=kk), perm)
 
 
 def candidate_topk_int8(codes: torch.Tensor, scales: torch.Tensor,
                         queries: torch.Tensor, valid: int, *, k: int,
                         perm: Optional[torch.Tensor] = None,
+                        prefix: bool = True,
                         live: Optional[int] = None) -> Pair:
-    """:func:`candidate_topk` over the int8 mirror."""
+    """:func:`candidate_topk` over the int8 mirror (the hatch:
+    :func:`cosine_topk_int8`)."""
     return _candidate_dispatch(
         lambda q: candidate_stage_int8(codes, scales, q, int(valid), k=k,
-                                       perm=perm, live=live), queries, k)
+                                       perm=perm, prefix=prefix, live=live),
+        queries, k,
+        lambda kk: cosine_topk_int8(codes, scales, queries, valid, k=kk),
+        perm)
 
 
 def candidate_topk_int4(packed: torch.Tensor, scales: torch.Tensor,
                         queries: torch.Tensor, valid: int, *, k: int,
                         perm: Optional[torch.Tensor] = None,
+                        prefix: bool = True,
                         live: Optional[int] = None) -> Pair:
-    """:func:`candidate_topk` over the packed int4 mirror."""
+    """:func:`candidate_topk` over the packed int4 mirror. The hatch does
+    not apply: int4 has no exact kernel, and the reference's code keeps
+    the fused scan (its docstring says the approx scan; the code
+    rules)."""
     return _candidate_dispatch(
         lambda q: candidate_stage_int4(packed, scales, q, int(valid), k=k,
-                                       perm=perm, live=live), queries, k)
+                                       perm=perm, prefix=prefix, live=live),
+        queries, k)
 
 
-# -- the exact f32 tier: kernel B8 ------------------------------------------
+# -- the exact scans: kernels B8 (f32 and bf16 rows) and B9 (int8) ---------
 
-def block_scan_ref(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
-                   k: int, tile_rows: int) -> Pair:
-    """Plain PyTorch version of kernel B8: per ``tile_rows``-row tile and
-    query, the top ``k`` rows by (f32 score desc, row asc), rows ``>=
-    valid`` scored ``-inf``; ``[n_tiles, B, k]``, short tiles padded with
-    ``(-inf, _IMAX)``."""
-    n = emb.shape[0]
-    b = queries.shape[0]
+def _tile_topk(sc: torch.Tensor, valid: int, *, k: int, tile_rows: int
+               ) -> Pair:
+    """Per ``tile_rows``-row tile of the scores ``sc [B, N]`` and query,
+    the top ``k`` rows by (score desc, row asc), rows ``>= valid`` scored
+    ``-inf``; ``[n_tiles, B, k]``, short tiles padded with ``(-inf,
+    _IMAX)``."""
+    b, n = sc.shape
     n_tiles = -(-n // tile_rows)
-    sc = queries.float() @ emb.float().t()                     # [B, N]
-    rows = torch.arange(n, device=emb.device)
+    rows = torch.arange(n, device=sc.device)
     sc = sc.masked_fill((rows >= valid)[None, :], NEG_INF)
     # pad rows sort after every real row of their tile (-inf, higher row)
     sc = torch.nn.functional.pad(sc, (0, n_tiles * tile_rows - n),
@@ -554,11 +709,65 @@ def block_scan_ref(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
     vals, pos = _stable_topk(sc.view(b, n_tiles, tile_rows),
                              min(k, tile_rows))
     starts = torch.arange(0, n_tiles * tile_rows, tile_rows,
-                          device=emb.device)
+                          device=sc.device)
     idxs = pos + starts[None, :, None]
     idxs = idxs.masked_fill(idxs >= n, _IMAX).to(torch.int32)
     vals, idxs = _pad_k(vals, idxs, k)
     return vals.transpose(0, 1).contiguous(), idxs.transpose(0, 1).contiguous()
+
+
+def block_scan_ref(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
+                   k: int, tile_rows: int) -> Pair:
+    """Plain PyTorch version of kernel B8 (f32 or bf16 rows, the queries
+    already rounded to the rows' dtype): f32 scores, then the per-tile
+    top ``k`` (:func:`_tile_topk`)."""
+    return _tile_topk(queries.float() @ emb.float().t(), valid, k=k,
+                      tile_rows=tile_rows)
+
+
+def block_scan_int8_ref(codes: torch.Tensor, scales: torch.Tensor,
+                        queries: torch.Tensor, valid: int, *, k: int,
+                        tile_rows: int) -> Pair:
+    """Plain PyTorch version of kernel B9: ``(q · codes) * row_scale`` in
+    f32 for the contract's queries (:func:`_int8_scan_queries`), then the
+    per-tile top ``k``."""
+    sc = (queries.float() @ codes.float().t()) * scales[:, 0][None, :]
+    return _tile_topk(sc, valid, k=k, tile_rows=tile_rows)
+
+
+def _block_scan(wrapper, emb: torch.Tensor, scales: Optional[torch.Tensor],
+                q: torch.Tensor, valid: int, *, k: int,
+                tile_rows: int) -> Pair:
+    """Launch B8 (``scales`` None; f32 or bf16 rows) or B9 (int8 codes)
+    on CUDA operands; ``q`` f32 ``[B, D]``."""
+    dev = kernels.require_cuda(emb, q,
+                               *(() if scales is None else (scales,)))
+    n, d = emb.shape
+    b = q.shape[0]
+    if q.ndim != 2 or q.shape[1] != d or d % 32 or not 1 <= k <= MAX_K \
+            or emb.data_ptr() % 16 or q.data_ptr() % 16 \
+            or (scales is not None and (scales.shape != (n, 1)
+                                        or scales.dtype != torch.float32)):
+        raise ValueError(f"unsupported exact scan: N={n} D={d} B={b} k={k} "
+                         "(D a multiple of 32, 16-byte aligned operands, "
+                         "[N, 1] f32 scales)")
+    n_tiles = -(-n // tile_rows)
+    vals = torch.empty((n_tiles, b, k), dtype=torch.float32, device=dev)
+    idxs = torch.empty((n_tiles, b, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_block_scan(
+            kernels.ptr(emb),
+            None if scales is None else kernels.ptr(scales), kernels.ptr(q),
+            kernels.ptr(vals), kernels.ptr(idxs), n, d, b, int(valid), k,
+            tile_rows, kernels.dtype_code(emb), kernels.stream(dev)),
+            "exact scan")
+    kernels.count_launch(wrapper)
+    return vals, idxs
+
+
+def _require_dtype(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{what} takes a {dtype} matrix, got {t.dtype}")
 
 
 def block_scan(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
@@ -570,29 +779,62 @@ def block_scan(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
     q = queries.float().contiguous()
     if emb.device.type == "cpu":
         return block_scan_ref(emb, q, valid, k=k, tile_rows=tile_rows)
-    dev = kernels.require_cuda(emb, q)
-    n, d = emb.shape
-    b = q.shape[0]
-    if emb.dtype != torch.float32:
-        raise TypeError(f"the exact scan kernel takes an f32 matrix, got "
-                        f"{emb.dtype}")
-    if q.ndim != 2 or q.shape[1] != d or d % 32 or not 1 <= k <= MAX_K \
-            or emb.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError(f"unsupported exact scan: N={n} D={d} B={b} k={k} "
-                         "(D a multiple of 32, 16-byte aligned operands)")
-    n_tiles = -(-n // tile_rows)
-    vals = torch.empty((n_tiles, b, k), dtype=torch.float32, device=dev)
-    idxs = torch.empty((n_tiles, b, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        kernels.check(kernels.lib().vqt_block_scan(
-            kernels.ptr(emb), kernels.ptr(q), kernels.ptr(vals),
-            kernels.ptr(idxs), n, d, b, int(valid), k, tile_rows,
-            kernels.stream(dev)), "exact scan")
-    kernels.count_launch(block_scan)
-    return vals, idxs
+    _require_dtype(emb, torch.float32, "the exact scan kernel")
+    return _block_scan(block_scan, emb, None, q, valid, k=k,
+                       tile_rows=tile_rows)
 
 
 block_scan.launches = 0
+
+
+def block_scan_bf16(emb: torch.Tensor, queries: torch.Tensor, valid: int,
+                    *, k: int, tile_rows: int = None) -> Pair:
+    """:func:`block_scan` over bf16 rows, the queries rounded to bf16 as
+    the reference's ``cosine_topk`` rounds them (every product then exact
+    in f32). Kernel B8 on bf16 rows on CUDA tensors, counted apart from
+    the f32 scan's launches."""
+    tile_rows = tile_rows or SCAN_TILE_ROWS
+    q = queries.to(torch.bfloat16).float().contiguous()
+    if emb.device.type == "cpu":
+        return block_scan_ref(emb, q, valid, k=k, tile_rows=tile_rows)
+    _require_dtype(emb, torch.bfloat16, "the bf16 exact scan kernel")
+    return _block_scan(block_scan_bf16, emb, None, q, valid, k=k,
+                       tile_rows=tile_rows)
+
+
+block_scan_bf16.launches = 0
+
+
+def _int8_scan_queries(queries: torch.Tensor, n: int) -> torch.Tensor:
+    """The reference exact int8 scan's query contract: the f32 query for
+    one query over a whole number of ``SCAN_TILE_ROWS`` tiles (its kernel's
+    flat B = 1 layout, ``topk.py:_use_flat_layout``), else the query
+    rounded to bf16 (its MXU layout, and its XLA path for other row
+    counts)."""
+    q = queries.float()
+    if q.shape[0] == 1 and n % SCAN_TILE_ROWS == 0:
+        return q.contiguous()
+    return q.to(torch.bfloat16).float().contiguous()
+
+
+def block_scan_int8(codes: torch.Tensor, scales: torch.Tensor,
+                    queries: torch.Tensor, valid: int, *, k: int,
+                    tile_rows: int = None) -> Pair:
+    """Per-tile top-``k`` lists of the exact int8 scan: codes ``[N, D]``
+    int8 times the contract's f32 queries (:func:`_int8_scan_queries`),
+    summed in f32, times the row scales ``[N, 1]`` f32. Kernel B9 on CUDA
+    tensors, the plain version on CPU ones."""
+    tile_rows = tile_rows or SCAN_TILE_ROWS
+    q = _int8_scan_queries(queries, codes.shape[0])
+    if codes.device.type == "cpu":
+        return block_scan_int8_ref(codes, scales, q, valid, k=k,
+                                   tile_rows=tile_rows)
+    _require_dtype(codes, torch.int8, "the exact int8 scan kernel")
+    return _block_scan(block_scan_int8, codes, scales, q, valid, k=k,
+                       tile_rows=tile_rows)
+
+
+block_scan_int8.launches = 0
 
 
 def merge_topk(vals: torch.Tensor, idxs: torch.Tensor, *, k: int) -> Pair:
@@ -604,20 +846,41 @@ def merge_topk(vals: torch.Tensor, idxs: torch.Tensor, *, k: int) -> Pair:
     return _pad_k(top_vals, torch.gather(idxs, -1, pos), k)
 
 
-def cosine_topk(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
+def _exact_topk(scan: Callable[[torch.Tensor], Pair], queries: torch.Tensor,
                 k: int) -> Pair:
-    """Exact top-``k`` similarity scan of the f32 matrix ``emb [N, D]``:
-    ``(scores [B, k] f32, rows [B, k] i32)`` for ``queries`` ``[B, D]`` or
-    ``[D]`` (already normalized by the caller), descending-stable, entries
-    past ``valid`` scored ``-inf``. ``k <= MAX_K``."""
+    """Check ``k``, squeeze 1-D queries, run the per-tile ``scan`` and
+    merge its lists."""
     if k <= 0 or k > MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
     squeeze = queries.ndim == 1
     if squeeze:
         queries = queries[None, :]
-    bvals, bidxs = block_scan(emb, queries, int(valid), k=k)
+    bvals, bidxs = scan(queries)
     n_tiles, b, _ = bvals.shape
     vals, idxs = merge_topk(bvals.transpose(0, 1).reshape(b, n_tiles * k),
                             bidxs.transpose(0, 1).reshape(b, n_tiles * k),
                             k=k)
     return (vals[0], idxs[0]) if squeeze else (vals, idxs)
+
+
+def cosine_topk(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
+                k: int) -> Pair:
+    """Exact top-``k`` similarity scan of the matrix ``emb [N, D]`` (f32,
+    or bf16 rows with the queries rounded to bf16): ``(scores [B, k] f32,
+    rows [B, k] i32)`` for ``queries`` ``[B, D]`` or ``[D]`` (already
+    normalized by the caller), descending-stable, entries past ``valid``
+    scored ``-inf``. ``k <= MAX_K``."""
+    if emb.dtype not in (torch.float32, torch.bfloat16):
+        emb = emb.float()
+    scan = block_scan_bf16 if emb.dtype == torch.bfloat16 else block_scan
+    return _exact_topk(lambda q: scan(emb, q, int(valid), k=k), queries, k)
+
+
+def cosine_topk_int8(codes: torch.Tensor, scales: torch.Tensor,
+                     queries: torch.Tensor, valid: int, *, k: int) -> Pair:
+    """:func:`cosine_topk` over int8 codes and their row scales (kernel
+    B9): scores carry the codes' quantization error, so callers that want
+    exact ordering re-rank the candidates in f32 (the index does)."""
+    return _exact_topk(
+        lambda q: block_scan_int8(codes, scales, q, int(valid), k=k),
+        queries, k)
