@@ -3,22 +3,36 @@
 GPU — the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py [--seed 0] [--videos 10000] [--frames 200]
+    python3 chip_smoke.py --ab DIR [--ab-scans]
 
-Run from the root of a checkout. Phases (any failure raises, and the
-script exits non-zero without its last line):
+Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
+of the text and vision kernel phases (and with ``--ab-scans`` the
+search-tier scans B1, B4, B7, B8) of the checkout in DIR (say the parent
+commit, unpacked with ``git archive``) against this one, in the order
+DIR, this, this, DIR, and prints each kernel's ms per run.
+
+Phases (any failure raises, and the script exits non-zero without its
+last line):
 
 1. environment: torch, CUDA and nvcc versions; the card's name and power
    limit as nvidia-smi gives them;
 2. build: the CUDA kernels from video_quierer_tpu_torch/csrc into
-   build/kernels/<hash of the sources>/ (nvcc, sm_90a);
+   build/kernels/<hash of the sources>/ (nvcc, sm_90a), with each kernel's
+   registers, shared memory and spills as ptxas reports them;
 3. kernels vs plain: each kernel of the search and ingest paths against
    its plain PyTorch version at the paths' shapes (2,000,000 rows for the
    scans; one ViT-B/32 vision layer at 256 frames for the layer halves,
    and the whole vision encode), with the tolerance, both times (CUDA
-   events, the second of two timed loops), the least time the card could
+   events, the second of two timed loops; B2, B3, B5, B6 and SDPA as
+   device time, their calls captured in one CUDA graph and replayed,
+   since their launches are short enough for the host to pace an eager
+   loop, which is printed beside), the least time the card could
    take (bytes over 3.35 TB/s or operations over the data sheet's peak
    for their type, whichever is larger) and, where one PyTorch call
-   computes the same function, that call's time; then the split of one
+   computes the same function, that call's time (B3 also at the vision
+   tower's shape, 256 frames x 12 heads, S = 50, beside SDPA; cuBLAS's
+   time for B6's two bare GEMMs is printed as the GEMM core's
+   yardstick); then the split of one
    ingest batch of 256 frames into its stages; then the IVF tier on a
    seeded clustered corpus (2,000,000 rows around 1,024 unit centres,
    spread 0.02 per coordinate): its build (nlist auto = 1,024, split into
@@ -229,6 +243,36 @@ def cuda_ms(fn, iters: int) -> float:
     return ms
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed between CUDA events (the second of two replays
+    counts), so the wrappers' host work is left out. For the layer
+    kernels and attention, whose launches are short enough that the
+    eager loop of :func:`cuda_ms` times the host."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    ms = 0.0
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
 def bound(bytes_moved: float, ops: float, kind: str) -> dict:
     """The least time the card could take: bytes over the HBM rate or
     operations over the peak of their type, whichever is larger."""
@@ -272,48 +316,62 @@ def phase_build() -> None:
     log(f"build: {lib.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if kernels.last_build else " (cached)"))
+    name = ""
     for line in kernels.last_build.get("ptxas", "").splitlines():
-        if "Used" in line or "spill stores" in line:
-            log("  ptxas: " + line.strip())
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Used" in line or "spill stores" in line:
+            log(f"  ptxas {name}: " + line.strip().removeprefix(
+                "ptxas info    : "))
 
 
 # -- phase 3: kernels vs plain ------------------------------------------------
 
 def compare_attention(dev) -> dict:
+    """B3 against its plain version and SDPA: the text shapes (8 heads,
+    causal; the kernels-line row is B = 64, S = 77) and the vision
+    tower's (B = 256 frames, S = 50, 12 heads, non-causal)."""
     out = {}
-    for b, s in ((1, 8), (64, 8), (1, 77), (64, 77)):
+    for b, s, heads, causal in ((1, 8, 8, True), (64, 8, 8, True),
+                                (1, 77, 8, True), (64, 77, 8, True),
+                                (256, 50, 12, False)):
+        d = 64 * heads
         g = torch.Generator(device=dev).manual_seed(1000 * s + b)
-        q, k, v = ((0.5 * torch.randn(b, s, DIM, generator=g, device=dev))
+        q, k, v = ((0.5 * torch.randn(b, s, d, generator=g, device=dev))
                    .bfloat16() for _ in range(3))
 
         def kern():
-            return attention(q, k, v, num_heads=8, causal=True)
+            return attention(q, k, v, num_heads=heads, causal=causal)
 
         def plain():
             qs = (q.float() * 64 ** -0.5).bfloat16()
-            return attention_ref(qs, k, v, num_heads=8, valid_len=s,
-                                 causal=True)
+            return attention_ref(qs, k, v, num_heads=heads, valid_len=s,
+                                 causal=causal)
 
         # the yardstick: PyTorch's fused attention, one call on the same
         # inputs in the [B, heads, S, 64] layout (used nowhere in the port)
-        qh, kh, vh = (t.view(b, s, 8, 64).transpose(1, 2) for t in (q, k, v))
+        qh, kh, vh = (t.view(b, s, heads, 64).transpose(1, 2)
+                      for t in (q, k, v))
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, scale=64 ** -0.5)
+                qh, kh, vh, is_causal=causal, scale=64 ** -0.5)
 
         err = (kern().float() - plain().float()).abs().max().item()
         require(err <= ATTN_ATOL, f"B3 B={b} S={s}: max_abs_err {err}")
-        ms, pms = cuda_ms(kern, 50), cuda_ms(plain, 50)
-        lms = cuda_ms(library, 50)
+        ms, lms = graph_ms(kern, 50), graph_ms(library, 50)
+        eager, pms = cuda_ms(kern, 50), cuda_ms(plain, 50)
+        eager_lib = cuda_ms(library, 50)
         # q, k, v read and the output written once, bf16; QK^T and PV
-        # over the causal pairs
-        lim = bound(4 * b * s * DIM * 2, 4 * b * DIM * s * (s + 1) / 2,
-                    "bf16")
-        log(f"B3 attention B={b} S={s}: max_abs_err {err:.3e} "
-            f"(atol {ATTN_ATOL}) kernel {ms:.4f} ms plain {pms:.4f} ms "
-            f"sdpa {lms:.4f} ms bound {lim['bound_ms']:.4f} ms "
-            f"({lim['bound_by']})")
+        # over the (causal) pairs
+        pairs = s * (s + 1) / 2 if causal else s * s
+        lim = bound(4 * b * s * d * 2, 4 * b * d * pairs, "bf16")
+        log(f"B3 attention B={b} S={s} H={heads} "
+            f"{'causal' if causal else 'non-causal'}: max_abs_err "
+            f"{err:.3e} (atol {ATTN_ATOL}) kernel {ms:.4f} ms sdpa "
+            f"{lms:.4f} ms (device, graph replay; eager {eager:.4f} / "
+            f"{eager_lib:.4f}) plain {pms:.4f} ms bound "
+            f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
         out[(b, s)] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                        **lim, "library_ms": lms}
     return out[(64, 77)]
@@ -343,7 +401,8 @@ def compare_fused_layer(embedder: CLIPEmbedder, seed: int) -> dict:
             err = (a - p).abs().max().item()
             require(cos.min().item() >= MIN_COS,
                     f"B2 S={s}: min row cosine {cos.min().item()}")
-            ms, pms = cuda_ms(kern, 10), cuda_ms(plain, 10)
+            ms, eager = graph_ms(kern, 10), cuda_ms(kern, 10)
+            pms = cuda_ms(plain, 10)
         # per layer: 12 W^2 bf16 weights read once and 2 x 12 W^2 flops a
         # token (q/k/v, out, fc1, fc2) plus causal attention; the stack's
         # input and output once
@@ -353,8 +412,9 @@ def compare_fused_layer(embedder: CLIPEmbedder, seed: int) -> dict:
                               + 4 * 64 * DIM * s * (s + 1) / 2), "bf16")
         log(f"B2 fused text encode B=64 S={s} x{layers} layers: min "
             f"cosine {cos.min().item():.6f} (>= {MIN_COS}) max_abs_err "
-            f"{err:.3e} kernel {ms:.3f} ms plain {pms:.3f} ms bound "
-            f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+            f"{err:.3e} kernel {ms:.3f} ms (device, graph replay; eager "
+            f"{eager:.3f}) plain {pms:.3f} ms bound {lim['bound_ms']:.4f} "
+            f"ms ({lim['bound_by']})")
         out[s] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
                   "library_ms": None}
     return out[16]
@@ -388,12 +448,25 @@ def compare_layer_halves(embedder: CLIPEmbedder, seed: int,
     }
     out = []
     with torch.inference_mode():
+        # the GEMM core's yardstick: cuBLAS on B6's two bare products
+        # (bf16, no LN or epilogue; used nowhere in the port)
+        h = torch.randn(t, f, generator=g, device=embedder.device).bfloat16()
+        w1, w2 = ops[5], ops[7]
+        mm = (cuda_ms(lambda: torch.matmul(x, w1), 10),
+              cuda_ms(lambda: torch.matmul(h, w2), 10))
+        log(f"cuBLAS B6 GEMMs B={b}: [{t}, {d}] @ [{d}, {f}] {mm[0]:.3f} ms, "
+            f"[{t}, {f}] @ [{f}, {d}] {mm[1]:.3f} ms, sum "
+            f"{mm[0] + mm[1]:.3f} ms (bound "
+            f"{1e3 * 4 * t * f * d / PEAK_OPS_S['bf16']:.4f} ms)")
+        del h
         for name, (kern, plain, lim) in halves.items():
             err = (kern().float() - plain().float()).abs().max().item()
             require(err <= LAYER_ATOL, f"{name} B={b}: max_abs_err {err}")
-            ms, pms = cuda_ms(kern, 10), cuda_ms(plain, 10)
+            ms, eager = graph_ms(kern, 10), cuda_ms(kern, 10)
+            pms = cuda_ms(plain, 10)
             log(f"{name} B={b} frames (T={t}, D={d}, S={s}): max_abs_err "
-                f"{err:.3e} (atol {LAYER_ATOL}) kernel {ms:.3f} ms plain "
+                f"{err:.3e} (atol {LAYER_ATOL}) kernel {ms:.3f} ms "
+                f"(device, graph replay; eager {eager:.3f}) plain "
                 f"{pms:.3f} ms bound {lim['bound_ms']:.4f} ms "
                 f"({lim['bound_by']})")
             out.append({"max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -920,7 +993,7 @@ def write_cache(corpus: np.ndarray, n_frames: int, path: Path) -> None:
     for v in range(len(corpus) // n_frames):
         idx.add_batch(corpus[v * n_frames:(v + 1) * n_frames],
                       video_name(v), stamps)
-    idx.save_to_disk(path)
+    require(idx.save_to_disk(path), f"cache write to {path}")
 
 
 def http(base: str, method: str, path: str, body=None):
@@ -1635,16 +1708,122 @@ def check_served(dtype, embedder, corpus, name_of, served, device,
             require(recall == 1.0, f"int8 recall@{K} {recall}")
 
 
+# one A/B run: the text and vision kernel phases (and the search-tier
+# scans with --ab-scans) of the chip_smoke.py in the working directory, in
+# a fresh process, then the device time (CUDA graph replay) of B3, B2, B5
+# and B6 at the same shapes, timed the same way in either tree; the
+# kernels' ms go to one "ab-row" JSON line
+_AB_RUN = """
+import json, sys, numpy as np, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from video_quierer_tpu_torch.ops import fused_layer as fl
+from video_quierer_tpu_torch.ops.attention import attention
+seed, scans, n_rows = int(sys.argv[1]), sys.argv[2] == "1", int(sys.argv[3])
+dev = torch.device("cuda", 0)
+
+
+def graph_ms(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    for _ in range(2):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+c.phase_environment()
+c.phase_build()
+emb = c.CLIPEmbedder(dtype=torch.bfloat16, device=dev, seed=seed)
+row = {"B3": c.compare_attention(dev)["ms"],
+       "B2": c.compare_fused_layer(emb, seed)["ms"]}
+row["B5"], row["B6"] = (r["ms"] for r in c.compare_layer_halves(emb, seed))
+c.ingest_split(emb, seed, dev)
+# device time of the same calls, whichever timer the tree's own uses
+with torch.inference_mode():
+    q, k, v = (0.5 * torch.randn(64, 77, 512, device=dev).bfloat16()
+               for _ in range(3))
+    row["B3 device"] = graph_ms(
+        lambda: attention(q, k, v, num_heads=8, causal=True), 50)
+    ids = emb.ids_tensor(c.trim_text_ids(emb.tokenizer(
+        [c.words(np.random.default_rng(seed), 11) for _ in range(64)])))
+    ops = emb._layer_ops(emb.params)
+    row["B2 device"] = graph_ms(
+        lambda: fl.fused_text_encode(emb.params, ids, ops), 10)
+    vc = emb.cfg.vision
+    vops = emb._layer_ops(emb.params, "vision")[0]
+    x = torch.randn(256 * vc.seq_len, vc.hidden_size, device=dev).bfloat16()
+    row["B5 device"] = graph_ms(lambda: fl.attn_half(
+        x, vops, s=vc.seq_len, heads=vc.num_heads, eps=vc.layer_norm_eps,
+        causal=False), 10)
+    row["B6 device"] = graph_ms(
+        lambda: fl.mlp_half(x, vops, eps=vc.layer_norm_eps), 10)
+if scans:
+    store, perm = c.corpus_on_card(dev, n_rows, seed)
+    row["B1"] = c.compare_cand_scan(store, perm, n_rows, seed)["ms"]
+    row["B4"] = c.compare_codes_scan(store, perm, n_rows, seed, "int8")["ms"]
+    row["B7"] = c.compare_codes_scan(store, perm, n_rows, seed, "int4")["ms"]
+    row["B8"] = c.compare_block_scan(store, n_rows, seed)["ms"]
+print("ab-row " + json.dumps(row), flush=True)
+"""
+
+
+def phase_ab(parent: Path, args) -> int:
+    """Same-call A/B of this tree's kernel phases against another
+    checkout's (``--ab DIR``, e.g. the parent commit unpacked with ``git
+    archive``): runs parent, this tree, this tree, parent, each in its own
+    process on the one card, then prints each kernel's ms per run."""
+    runs = [("parent", parent), ("change", ROOT), ("change", ROOT),
+            ("parent", parent)]
+    rows = []
+    for tag, tree in runs:
+        log(f"== A/B run {len(rows) + 1}: {tag} ({tree})")
+        proc = subprocess.run(
+            [sys.executable, "-c", _AB_RUN, str(args.seed),
+             "1" if args.ab_scans else "0",
+             str(args.videos * args.frames)], cwd=tree,
+            capture_output=True, text=True)
+        log(proc.stdout.rstrip())
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            return 1
+        rows.append(json.loads(proc.stdout.split("ab-row ")[-1]))
+    log("A/B kernel ms (parent, change, change, parent): " + "; ".join(
+        f"{k} " + " / ".join(f"{r[k]:.4f}" for r in rows)
+        for k in rows[0]))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--videos", type=int, default=10_000)
     ap.add_argument("--frames", type=int, default=200)
+    ap.add_argument("--ab", type=Path, default=None, metavar="DIR",
+                    help="only the same-call A/B of the kernel phases "
+                         "against the checkout in DIR")
+    ap.add_argument("--ab-scans", action="store_true",
+                    help="with --ab: the search-tier scans (B1, B4, B7, "
+                         "B8) too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    if args.ab is not None:
+        return phase_ab(args.ab.resolve(), args)
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     with timed("1, environment"):

@@ -11,7 +11,9 @@
   56 px patches, S = 17): the same names, timestamps, frame ids and
   arrangement (perm); embeddings within the towers' f32 tolerance (rtol /
   atol 2e-4, per-row cosine >= 1 - 1e-5); the pickle cache of either
-  loads in the other;
+  loads in the other; a truncated cache makes both engines reprocess
+  their videos and write a cache that loads (and ``save_to_disk`` /
+  ``load_from_disk`` return what the JAX package's return);
 - device-streamed appends (``DeviceVideoIndex.stream_rows_device``)
   against a twin index fed the same batches through ``add_batch`` +
   ``sync_mirror()`` (the host path), bit for bit, in all four tiers: a
@@ -23,6 +25,7 @@
 """
 
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -198,6 +201,65 @@ def test_engine_ingest_matches_jax(videos, tmp_path, jax_embedder,
     assert pidx.load_from_disk(jeng.cache_path)
     assert pidx.to_cache_dict()["metadata"] == want["metadata"]
     assert np.array_equal(np.stack(pidx.to_cache_dict()["embeddings"]), w)
+
+
+def _truncate(path):
+    path.write_bytes(path.read_bytes()[:len(path.read_bytes()) // 2])
+
+
+def test_save_and_load_return_what_jax_returns(tmp_path):
+    """``save_to_disk`` gives True (False on a failed write) and
+    ``load_from_disk`` gives False on a truncated or malformed cache and
+    leaves the index as it was, as the JAX package's."""
+    rows = np.eye(4, 64, dtype=np.float32)
+    pidx, jidx = DeviceVideoIndex(dim=64, device="cpu"), JaxIndex(dim=64)
+    for idx in (pidx, jidx):
+        idx.add_batch(rows, "a.mp4", [0.0, 0.5, 1.0, 1.5])
+    for idx, name in ((pidx, "port.pkl"), (jidx, "jax.pkl")):
+        assert idx.save_to_disk(tmp_path / name) is True
+        assert idx.save_to_disk(tmp_path) is False          # a directory
+        path = tmp_path / name
+        _truncate(path)
+        assert idx.load_from_disk(path, verify=False) is False
+        path.write_bytes(b"not a pickle")
+        assert idx.load_from_disk(path, verify=False) is False
+        assert len(idx) == 4
+
+
+def test_truncated_cache_reprocesses_in_both_engines(videos, tmp_path,
+                                                     jax_embedder,
+                                                     port_embedder):
+    """A truncated cache is a miss in both engines: startup ingests the
+    videos again, as the JAX engine does, and writes a cache that loads."""
+    jcfg = jax_config.EngineConfig(
+        videos_dir=str(tmp_path / "jax"),
+        api=jax_config.ApiConfig(max_frames=12))
+    jcfg.index.embed_dim = 64
+    jcfg.ingest.batch_size = 16
+    jeng = JaxEngine(_copy_videos(videos, tmp_path / "jax"), config=jcfg,
+                     embedder=jax_embedder)
+    peng = _port_engine(_copy_videos(videos, tmp_path / "port"),
+                        embedder=port_embedder)
+    for eng in (jeng, peng):
+        eng.startup()
+        assert len(eng.index) == 24
+        _truncate(eng.cache_path)
+        Path(str(eng.cache_path) + ".sha256").unlink()
+    jeng = JaxEngine(tmp_path / "jax", config=jcfg, embedder=jax_embedder)
+    peng = _port_engine(tmp_path / "port", embedder=port_embedder)
+    jeng.startup()
+    peng.startup()
+    want, got = jeng.index.to_cache_dict(), peng.index.to_cache_dict()
+    assert len(got["metadata"]) == 24 and got["metadata"] == \
+        want["metadata"]
+    np.testing.assert_allclose(np.stack(got["embeddings"]),
+                               np.stack(want["embeddings"]), rtol=F32_TOL,
+                               atol=F32_TOL)
+    for path in (jeng.cache_path, peng.cache_path):
+        pidx, jidx = DeviceVideoIndex(dim=64, device="cpu"), JaxIndex(dim=64)
+        assert pidx.load_from_disk(path) and jidx.load_from_disk(path)
+        assert pidx.to_cache_dict()["metadata"] == want["metadata"]
+        assert jidx.to_cache_dict()["metadata"] == want["metadata"]
 
 
 def test_engine_reingest_search_and_remove(videos, tmp_path, port_embedder):

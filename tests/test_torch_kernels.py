@@ -291,6 +291,105 @@ def test_layer_halves_refuse_bad_operands(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [8, 16, 50, 77, 197, 257])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_attention_tensor_core_shapes(cuda, b, s, causal):
+    """B3's bf16 tensor-core kernel at every length it serves (text 8/16/77,
+    ViT-B/32 50, B/16 197, L/14 257: one or two 64-key chunks, one or
+    several pairs a CTA) with masked keys (valid < S). atol 2e-2: the bf16
+    weights are exact products summed in another order, so den may round
+    to the neighbouring bf16 value."""
+    valid = s - s // 4
+    q, k, v = (_exact(10 * s + i, (b, s, 512)).mul(4).to(cuda, torch.bfloat16)
+               for i in range(3))
+    before = attention.launches
+    got = attention(q, k, v, num_heads=8, valid_len=valid, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    qs = (q.float() * 64 ** -0.5).bfloat16()
+    want = attention_ref(qs, k, v, num_heads=8, valid_len=valid,
+                         causal=causal)
+    torch.testing.assert_close(got[:, :valid].float(),
+                               want[:, :valid].float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,heads", [(16, 8), (50, 12), (77, 8)])
+def test_attention_strided_qkv_layout(cuda, s, heads, causal):
+    """The layout the layer halves pass: q, k, v the column blocks of one
+    [B*S, 3D] QKV buffer (row stride 3D), the output [B*S, D], the hd^-0.5
+    scale on the f32 logits."""
+    from video_quierer_tpu_torch.ops import kernels
+
+    b, d = 32, 64 * heads
+    qkv = _exact(s, (b * s, 3 * d)).mul(4).to(cuda, torch.bfloat16)
+    out = torch.empty(b * s, d, device=cuda, dtype=torch.bfloat16)
+    base, col = qkv.data_ptr(), d * 2
+    kernels.check(kernels.lib().vqt_attention(
+        base, base + col, base + 2 * col, kernels.ptr(out), b, s, heads, 64,
+        3 * d, d, s, int(causal), 1.0, 0.125, kernels.dtype_code(qkv),
+        kernels.stream(cuda)), "attention")
+    torch.cuda.synchronize()
+    q, k, v = (qkv[:, i * d:(i + 1) * d].reshape(b, s, d) for i in range(3))
+    want = attention_ref(q, k, v, num_heads=heads, valid_len=s,
+                         causal=causal, scale=0.125)
+    torch.testing.assert_close(out.float().reshape(b, s, d), want.float(),
+                               atol=2e-2, rtol=0)
+
+
+def _layer(d, f, device, seed, dtype=torch.bfloat16):
+    """One layer's operands at width ``d`` (as _vision_layer)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    ln = torch.stack([1 + rnd(d, scale=0.1), rnd(d, scale=0.1),
+                      1 + rnd(d, scale=0.1), rnd(d, scale=0.1)])
+    mats = (rnd(d, 3 * d, scale=d ** -0.5), rnd(3 * d, scale=0.02),
+            rnd(d, d, scale=d ** -0.5), rnd(d, scale=0.02),
+            rnd(d, f, scale=d ** -0.5), rnd(f, scale=0.02),
+            rnd(f, d, scale=f ** -0.5), rnd(d, scale=0.02))
+    return (ln.to(device),) + tuple(m.to(device, dtype) for m in mats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1024, 1600, 6400, 12800])
+@pytest.mark.parametrize("d", [512, 768])
+def test_layer_gemm_shapes(cuda, d, m):
+    """The TMA + wgmma GEMM through every prologue/epilogue it serves (LN +
+    bias: QKV; bias + residual: out-proj and fc2; LN + bias + quick-GELU:
+    fc1) at the text (512) and vision (768) widths and every M of the
+    paths: each tile shape (128x128, 128x64, 64x64) and ragged last tiles.
+    Tolerance as the halves' tests: two bf16 ulps at the largest
+    magnitude (sums of bf16 products in another order may round a GEMM
+    output to the other side); the whole text block per-row cosine as
+    B2."""
+    s = 50 if m % 50 == 0 else 16
+    heads, causal = d // 64, d == 512
+    ops = _layer(d, 4 * d, cuda, seed=m + d)
+    x = torch.randn(m, d, generator=torch.Generator().manual_seed(m)).to(
+        cuda, torch.bfloat16)
+    got = fl.attn_half(x, ops, s=s, heads=heads, eps=1e-5, causal=causal)
+    want = fl.attn_half_ref(x, ops, s=s, heads=heads, eps=1e-5,
+                            causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_half_atol(x))
+    got = fl.mlp_half(x, ops, eps=1e-5)
+    want = fl.mlp_half_ref(x, ops, eps=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_half_atol(x))
+    if causal:
+        got = fl.fused_layer(x, ops, s=s, heads=heads, eps=1e-5)
+        want = fl.fused_layer_ref(x, ops, s=s, heads=heads, eps=1e-5)
+        cos = torch.nn.functional.cosine_similarity(got.float(),
+                                                    want.float(), dim=-1)
+        assert cos.min().item() >= MIN_COS[torch.bfloat16]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 5, 16, 17, 64, 70, 256])
 def test_cand_scan_kernel(cuda, b):
     emb = _exact(b, (4 * 4096, 512)).to(cuda, torch.bfloat16)

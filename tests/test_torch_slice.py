@@ -4,9 +4,14 @@ tiny f32 tower (weights moved with ``params_from_jax``), the same
 short and 77-token text queries — single searches, a coalesced batch of
 32 and ``search_batch`` give the same rows (same frames in the same
 order, scores within 1e-5). One real-socket round trip through the
-port's HTTP server checks the ``/api/search`` response shape.
+port's HTTP server checks the ``/api/search`` response shape, and a table
+of request bodies gets the same status codes from the port's server as
+from the JAX package's aiohttp app (422: pydantic's error ``type`` and
+``loc``).
 """
 
+import asyncio
+import contextlib
 import json
 import threading
 import urllib.error
@@ -18,8 +23,10 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from aiohttp import web
 
 from tests.torch_parity import TINY_FULL_VOCAB, port_state_dict
+from video_quierer_tpu.api.app import create_app
 from video_quierer_tpu.engine.config import EngineConfig as JaxConfig
 from video_quierer_tpu.engine.system import VideoSearchEngine as JaxEngine
 from video_quierer_tpu.models.clip.embedder import \
@@ -150,3 +157,99 @@ def test_http_round_trip(engines):
         server.server_close()
         thread.join(10)
     assert not thread.is_alive()
+
+
+def _post(base, path, body):
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def _jax_app(engine, tmp):
+    """The JAX package's aiohttp app over ``engine`` on a free local port
+    (its own event loop on a thread); yields the base URL."""
+    app = create_app(engine=engine, config_path=tmp / "config.json",
+                     static_dir=tmp, run_startup=False)
+    loop = asyncio.new_event_loop()
+    state = {}
+
+    async def boot():
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        state["runner"] = runner
+        state["port"] = site._server.sockets[0].getsockname()[1]
+
+    loop.run_until_complete(boot())
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{state['port']}"
+    finally:
+        asyncio.run_coroutine_threadsafe(state["runner"].cleanup(),
+                                         loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+        loop.close()
+
+
+# bodies the reference's pydantic schemas coerce, refuse or bound
+SEARCH_BODIES = [
+    {"query": "a dog", "k": "5"}, {"query": "a dog", "k": 5.0},
+    {"query": "a dog", "use_cache": "true"}, {"query": "a dog",
+                                              "use_cache": 1},
+    {"query": "a dog", "k": True}, {"query": "a dog", "k": " 7 "},
+    {"query": "a dog", "dedup_videos": "yes", "offset": "2", "k": "3"},
+    {"query": "a dog", "k": "5.5"}, {"query": "a dog", "k": 5.5},
+    {"query": "a dog", "k": 0}, {"query": "a dog", "k": "51"},
+    {"query": "a dog", "offset": 64}, {"query": "a dog", "offset": -1},
+    {"query": "a dog", "use_cache": 2}, {"query": "a dog",
+                                         "use_cache": "maybe"},
+    {"query": "a dog", "dedup_videos": None}, {"query": 5}, {"query": None},
+    {"query": ["a"]}, {}, {"query": 5, "k": "x", "use_cache": 0.5},
+    {"query": "a dog", "offset": 60, "k": 10}, {"query": "   "},
+]
+BATCH_BODIES = [
+    {"queries": ["a dog", "a cat"], "k": "3"}, {"queries": ["a"], "k": 2.0},
+    {"queries": []}, {"queries": "a dog"}, {"queries": {"a": 1}},
+    {"queries": [1, "a", None]}, {"queries": ["a"], "k": "0"},
+    {"queries": ["a"], "k": [3]}, {}, {"queries": [], "k": 99},
+]
+
+
+def test_http_validation_matches_jax(engines, tmp_path):
+    """Status codes of both servers agree on every body; a 422 carries
+    pydantic's error list in both (the same ``type`` and ``loc`` per
+    entry, in order), other errors the same ``detail``."""
+    jax_engine, port = engines
+    server = create_server(port, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with _jax_app(jax_engine, tmp_path) as jax_base:
+            for path, bodies in (("/api/search", SEARCH_BODIES),
+                                 ("/api/search/batch", BATCH_BODIES)):
+                for body in bodies:
+                    got = _post(base, path, body)
+                    want = _post(jax_base, path, body)
+                    assert got[0] == want[0], (path, body, got, want)
+                    if got[0] == 200:
+                        continue
+                    g, w = got[1]["detail"], want[1]["detail"]
+                    if isinstance(w, list):
+                        assert [(e["type"], e["loc"]) for e in g] == \
+                            [(e["type"], e["loc"]) for e in w], (path, body)
+                    else:
+                        assert g == w, (path, body)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)

@@ -11,6 +11,11 @@ request. Routes, status codes and response shapes are the reference's:
   the request coalescer;
 - ``POST /api/search/batch`` — ``{queries (>= 1), k=5 (1..50)}``.
 
+Request fields take pydantic v2's lax coercion (``"5"`` and ``5.0`` are
+the int 5, ``"true"`` and ``1`` are True; ``engine/config.py:lax_int``),
+and a refused body answers 422 with pydantic's error list as ``detail``
+(``type``, ``loc``, ``msg``, ``input``, ``ctx``), as the reference's.
+
 Image queries (``data:image`` URIs), uploads, config, cache and video
 routes are later ports (501 / 404). The reference bounds a search by
 ``search_timeout``; this server does not yet.
@@ -23,8 +28,9 @@ import logging
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+from video_quierer_tpu_torch.engine.config import LAX, FieldError
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
 
 logger = logging.getLogger(__name__)
@@ -37,31 +43,93 @@ class RequestError(Exception):
         self.detail = detail
 
 
-def _int_field(body: Dict, name: str, default: int, lo: int,
-               hi: Optional[int]) -> int:
-    value = body.get(name, default)
-    if isinstance(value, bool) or not isinstance(value, int):
-        raise RequestError(422, f"{name} must be an integer")
-    if value < lo or (hi is not None and value > hi):
-        raise RequestError(422, f"{name} must be in [{lo}, {hi}]")
+# request schemas: (field, lax type, default (_REQUIRED: none), ge, le) in
+# the order of the reference's pydantic models (api/schemas.py)
+_REQUIRED = object()
+_SEARCH = (("query", "str", _REQUIRED, None, None),
+           ("k", "int", 5, 1, 50),
+           ("use_cache", "bool", True, None, None),
+           ("dedup_videos", "bool", False, None, None),
+           ("offset", "int", 0, 0, 63))
+_BATCH_K = ("k", "int", 5, 1, 50)
+
+
+def _error(type_: str, loc: list, msg: str, value, ctx=None) -> Dict:
+    """One entry of pydantic's error list."""
+    err = {"type": type_, "loc": loc, "msg": msg, "input": value}
+    if ctx is not None:
+        err["ctx"] = ctx
+    return err
+
+
+def _field(body: Dict, spec, errors: List[Dict]):
+    """One field of a request body, coerced as pydantic's lax mode; a
+    refusal is appended to ``errors`` (and gives None)."""
+    name, typ, default, lo, hi = spec
+    if name not in body:
+        if default is _REQUIRED:
+            errors.append(_error("missing", [name], "Field required", body))
+        return default
+    value = body[name]
+    try:
+        value = LAX[typ](value)
+    except FieldError as e:
+        errors.append(_error(e.type, [name], e.msg, value))
+        return None
+    if lo is not None and value < lo:
+        errors.append(_error(
+            "greater_than_equal", [name],
+            f"Input should be greater than or equal to {lo}", value,
+            {"ge": lo}))
+    elif hi is not None and value > hi:
+        errors.append(_error(
+            "less_than_equal", [name],
+            f"Input should be less than or equal to {hi}", value,
+            {"le": hi}))
     return value
 
 
-def _bool_field(body: Dict, name: str, default: bool) -> bool:
-    value = body.get(name, default)
-    if not isinstance(value, bool):
-        raise RequestError(422, f"{name} must be a boolean")
+def _queries(body: Dict, errors: List[Dict]) -> Optional[List[str]]:
+    """``queries``: a non-empty list of str (``List[str]``,
+    ``min_length=1``)."""
+    if "queries" not in body:
+        errors.append(_error("missing", ["queries"], "Field required", body))
+        return None
+    value = body["queries"]
+    if not isinstance(value, list):
+        errors.append(_error("list_type", ["queries"],
+                             "Input should be a valid list", value))
+        return None
+    before = len(errors)
+    for i, q in enumerate(value):
+        if not isinstance(q, str):
+            errors.append(_error("string_type", ["queries", i],
+                                 "Input should be a valid string", q))
+    if len(errors) == before and not value:
+        errors.append(_error(
+            "too_short", ["queries"], "List should have at least 1 item "
+            "after validation, not 0", value,
+            {"field_type": "List", "min_length": 1, "actual_length": 0}))
     return value
 
 
 def _search_request(body: Dict) -> Tuple[str, int, bool, bool, int]:
-    query = body.get("query")
-    if not isinstance(query, str):
-        raise RequestError(422, "query must be a string")
-    return (query, _int_field(body, "k", 5, 1, 50),
-            _bool_field(body, "use_cache", True),
-            _bool_field(body, "dedup_videos", False),
-            _int_field(body, "offset", 0, 0, 63))
+    """``SearchRequest``'s fields; 422 with pydantic's error list."""
+    errors: List[Dict] = []
+    values = tuple(_field(body, spec, errors) for spec in _SEARCH)
+    if errors:
+        raise RequestError(422, errors)
+    return values
+
+
+def _batch_request(body: Dict) -> Tuple[List[str], int]:
+    """``BatchSearchRequest``'s fields; 422 with pydantic's error list."""
+    errors: List[Dict] = []
+    queries = _queries(body, errors)
+    k = _field(body, _BATCH_K, errors)
+    if errors:
+        raise RequestError(422, errors)
+    return queries, k
 
 
 def make_handler(engine: VideoSearchEngine, started: float):
@@ -164,13 +232,7 @@ def make_handler(engine: VideoSearchEngine, started: float):
         }
 
     def api_search_batch(h):
-        body = h._body()
-        queries = body.get("queries")
-        if not isinstance(queries, list) or not queries \
-                or not all(isinstance(q, str) for q in queries):
-            raise RequestError(422, "queries must be a non-empty list of "
-                                    "strings")
-        k = _int_field(body, "k", 5, 1, 50)
+        queries, k = _batch_request(h._body())
         batches = engine.search_batch(queries, k)
         results = [{"query": q, "results": r, "count": len(r)}
                    for q, r in zip(queries, batches)]

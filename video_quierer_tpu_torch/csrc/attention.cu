@@ -2,58 +2,73 @@
 //
 // Replaces the TPU kernel video_quierer_tpu/ops/attention.py:_fused_attention
 // (kernel body _attn_kernel). Same contract: q, k, v are the h-minor
-// projections [B, S, H*64]; logits accumulate in f32; keys at position
-// >= valid are masked (and keys after the query for causal text); the bf16
-// tower uses the clamped unstabilised softmax with its bf16 rounding chain
-// (e = bf16(exp(bf16(min(l, 60)))), den = bf16(sum e), w = bf16(e *
-// bf16(1 / den))), the f32 tower the stabilised softmax. Rows at s >= valid
-// are garbage by contract.
+// projections [B, S, H*64] at any row stride; logits accumulate in f32;
+// keys at position >= valid are masked (and keys after the query for causal
+// text); the bf16 tower uses the clamped unstabilised softmax with its bf16
+// rounding chain (e = bf16(exp(bf16(min(l, 60)))), den = bf16(sum e), w =
+// bf16(e * bf16(1 / den))), the f32 tower the stabilised softmax. Rows at
+// s >= valid are garbage by contract.
 //
-// Design: one CTA per (item, head); K and V of that head live in shared
-// memory as f32 (row stride 65 so lane-parallel key reads hit distinct
-// banks), each warp takes query rows in turn: the lanes own keys for the
-// logits, the softmax reduces across the warp, and the lanes own output
-// columns for w @ V. S <= 77 at CLIP text lengths, so the [S, S] block is
-// never materialised and no online softmax is needed.
+// bf16 design (attn_bf16): a CTA stages Q and K, then V, of one or more
+// (item, head) pairs in shared memory as bf16 with 16-byte cp.async vectors
+// in two groups (S padded to a multiple of 16 with zero rows; 144-byte rows,
+// so the fragment loads hit distinct banks), so V lands while the logits
+// are formed. Each warp owns a 16-row query block: q's pre-scale (when the
+// caller asks for it) is applied to its rows in place, Q K^T runs on the
+// tensor cores (mma.sync m16n8k16 bf16, f32 accumulators; every product is
+// exact, only the order of the sum differs from the plain version), the
+// masks and the bf16 softmax chain run on the accumulator fragment (quad
+// shuffles for the row sums; e kept as packed bf16 pairs), and the rounded
+// weights feed the w @ V mma.sync straight from registers as its A operand
+// (V through ldmatrix.trans). The softmax has no max subtraction, so the
+// row sum is the only cross-key state: keys go in chunks of 80, a first pass
+// sums e over every chunk, a second forms the weights and w @ V (one pass
+// when S <= 80, the exps kept in registers). The block's output leaves
+// through its own Q rows as 16-byte stores. Where S is short a CTA takes
+// several pairs, so each CTA keeps four warps busy; at most 85 registers a
+// thread, so the 512 CTAs of a 64-query S = 77 batch fit in one wave.
 //
-// Bound on the H100: neither HBM (q, k, v, out are read/written once,
-// ~4*B*S*512*2 bytes) nor the tensor cores (the FMAs run on the CUDA
-// cores): at serving sizes the launch and the per-row warp reductions
-// dominate. The fused text layer (fused_layer.cu) launches the same kernel
-// on the strided q/k/v column blocks of its QKV buffer.
+// Bound on the H100: HBM (q, k, v read and the output written once,
+// ~4*B*S*H*64*2 bytes) at serving sizes; the products are a small share of
+// the bf16 peak's time. What sets the time is latency: one staging round
+// trip per CTA and the dependent mma chain of a 16-row block. The f32 branch
+// (attn_f32) keeps the CUDA-core kernel: one CTA per (item, head), K and V
+// in shared memory as f32, one query row per warp at a time. The fused
+// text and vision layers (fused_layer.cu) launch the same kernels on the
+// strided q/k/v column blocks of their QKV buffer, with the hd^-0.5 scale
+// on the f32 logits instead of on q.
 #include "common.cuh"
 
 namespace {
 
 using vqt::bf16;
-using vqt::from_f;
 using vqt::rnd;
-using vqt::to_f;
 
-constexpr int HD = 64;     // head dim (every CLIP text tower)
+constexpr int HD = 64;     // head dim (every CLIP tower)
+
+// -- f32: CUDA cores ----------------------------------------------------------
+
 constexpr int KS = HD + 1; // padded shared-memory row stride
 constexpr int WARPS = 4;
 
-template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ out, int seq,
-            int in_stride, int out_stride, int valid, int causal,
-            float scale) {
+attn_f32(const float* __restrict__ q, const float* __restrict__ k,
+         const float* __restrict__ v, float* __restrict__ out, int seq,
+         int in_stride, int out_stride, int valid, int causal, float q_scale,
+         float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                // [seq][KS]
   float* vs = ks + seq * KS;       // [seq][KS]
   float* qs = vs + seq * KS;       // [WARPS][HD]
   float* ps = qs + WARPS * HD;     // [WARPS][seq]
-  const bool fast = sizeof(T) == 2;
   const size_t row0 = (size_t)blockIdx.x * seq;
   const int col0 = blockIdx.y * HD;
 
   for (int i = threadIdx.x; i < seq * HD; i += blockDim.x) {
     const int s = i / HD, d = i % HD;
     const size_t g = (row0 + s) * (size_t)in_stride + col0 + d;
-    ks[s * KS + d] = to_f(k[g]);
-    vs[s * KS + d] = to_f(v[g]);
+    ks[s * KS + d] = k[g];
+    vs[s * KS + d] = v[g];
   }
   __syncthreads();
 
@@ -62,8 +77,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pw = ps + warp * seq;
   for (int i = warp; i < seq; i += WARPS) {
     const size_t gq = (row0 + i) * (size_t)in_stride + col0;
-    qw[lane] = to_f(q[gq + lane]);
-    qw[lane + 32] = to_f(q[gq + lane + 32]);
+    qw[lane] = q[gq + lane] * q_scale;
+    qw[lane + 32] = q[gq + lane + 32] * q_scale;
     __syncwarp();
     // keys [0, jn) are live for this row; the rest contribute e = 0
     int jn = valid < seq ? valid : seq;
@@ -80,44 +95,287 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mx = vqt::warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < jn; j += 32) {
-      const float l = pw[j];
-      const float e = fast ? rnd<bf16>(expf(rnd<bf16>(fminf(l, 60.f))))
-                           : expf(l - mx);
+      const float e = expf(pw[j] - mx);
       pw[j] = e;
       sum += e;
     }
     sum = vqt::warp_sum(sum);
     __syncwarp();
-    const float inv = rnd<T>(1.f / rnd<T>(sum));
     float o0 = 0.f, o1 = 0.f;
     for (int j = 0; j < jn; ++j) {
-      const float w = fast ? rnd<bf16>(pw[j] * inv) : pw[j] / sum;
+      const float w = pw[j] / sum;
       o0 = fmaf(w, vs[j * KS + lane], o0);
       o1 = fmaf(w, vs[j * KS + lane + 32], o1);
     }
     const size_t go = (row0 + i) * (size_t)out_stride + col0;
-    out[go + lane] = from_f<T>(o0);
-    out[go + lane + 32] = from_f<T>(o1);
+    out[go + lane] = o0;
+    out[go + lane + 32] = o1;
     __syncwarp();
   }
 }
 
-template <typename T>
-int launch_attn(const void* q, const void* k, const void* v, void* out,
-                int batch, int seq, int heads, int in_stride, int out_stride,
-                int valid, int causal, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               int batch, int seq, int heads, int in_stride, int out_stride,
+               int valid, int causal, float q_scale, float scale,
+               cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * seq * KS + WARPS * HD + WARPS * seq) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attn_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(batch, heads);
-  attn_kernel<T><<<grid, WARPS * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, seq, in_stride,
-      out_stride, valid, causal, scale);
+  attn_f32<<<grid, WARPS * 32, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, seq,
+      in_stride, out_stride, valid, causal, q_scale, scale);
+  return (int)cudaGetLastError();
+}
+
+// -- bf16: tensor cores -------------------------------------------------------
+
+constexpr int LDS = HD + 8;        // bf16 row stride in shared memory (144 B)
+constexpr int MAX_WARPS = 8;
+constexpr int KC = 80;             // keys per chunk (10 n-tiles of 8)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two f32 values rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a packed pair of bf16 values times f32 `inv`, rounded back to bf16 (the
+// softmax weights bf16(e * inv); q times its pre-scale)
+__device__ __forceinline__ uint32_t weights(uint32_t e, float inv) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&e));
+  return pack_bf16(f.x * inv, f.y * inv);
+}
+
+// c += a @ b on one m16n8k16 tile (bf16 in, f32 accumulate)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// min 3 CTAs of 8 warps an SM: at most 85 registers a thread
+__global__ void __launch_bounds__(MAX_WARPS * 32, 3)
+attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, bf16* __restrict__ out, int pairs,
+          int heads, int seq, int spad, int per_cta, int in_stride,
+          int out_stride, int valid, int causal, float q_scale,
+          float scale) {
+  extern __shared__ __align__(16) bf16 sm[];
+  const int tile = spad * LDS;     // one operand of one pair
+  const int p0 = blockIdx.x * per_cta;
+  const int np = min(per_cta, pairs - p0);
+
+  // stage Q, K (group 0) and V (group 1) of the CTA's pairs: 8 x 16 B a
+  // row, pad rows zero
+  const int c8 = threadIdx.x & 7;
+  auto stage = [&](int which) {
+    const bf16* src0 = which == 0 ? q : which == 1 ? k : v;
+    for (int j = 0; j < np; ++j) {
+      const int p = p0 + j;
+      const bf16* src = src0 + (size_t)(p / heads) * seq * in_stride +
+                        (p % heads) * HD + c8 * 8;
+      bf16* dst = sm + (3 * j + which) * tile + c8 * 8;
+      for (int r = threadIdx.x >> 3; r < spad; r += blockDim.x >> 3) {
+        if (r < seq)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                           smem_addr(dst + r * LDS)),
+                       "l"(src + (size_t)r * in_stride));
+        else
+          *reinterpret_cast<uint4*>(dst + r * LDS) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  stage(0);
+  stage(1);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  stage(2);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qblocks = spad / 16, nw = blockDim.x / 32;
+  const int ntasks = np * qblocks, iters = (ntasks + nw - 1) / nw;
+  for (int it = 0; it < iters; ++it) {
+    const int task = it * nw + warp;
+    const bool active = task < ntasks;
+    const int j = active ? task / qblocks : 0, qb = task % qblocks;
+    bf16* qs = sm + 3 * j * tile;
+    const bf16* ks = qs + tile;
+    const bf16* vs = ks + tile;
+    const int r0 = qb * 16 + g, r1 = r0 + 8;
+    // keys [0, kend) can be live for some row of the block
+    int kend = min(valid, seq);
+    if (causal) kend = min(kend, qb * 16 + 16);
+    const int nch = (kend + KC - 1) / KC;
+    if (it == 0) {  // Q and K have landed
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      __syncthreads();
+    }
+    // e of keys [kc, kc + KC), rounded to bf16 and packed in pairs: ep[n][0]
+    // row r0, ep[n][1] row r1; s0, s1 the rows' running sums
+    uint32_t ep[KC / 8][2];
+    float s0 = 0.f, s1 = 0.f;
+    auto exps = [&](int kc, bool sum) {
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int n0 = kc + 8 * n;
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        if (n0 < kend) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const bf16* qk = qs + kk * 16 + 2 * t;
+            const uint32_t a[4] = {ld32(qk + r0 * LDS), ld32(qk + r1 * LDS),
+                                   ld32(qk + r0 * LDS + 8),
+                                   ld32(qk + r1 * LDS + 8)};
+            const bf16* kr = ks + (n0 + g) * LDS + kk * 16 + 2 * t;
+            mma16816(c, a, ld32(kr), ld32(kr + 8));
+          }
+        }
+        float e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = n0 + 2 * t + (i & 1), row = i < 2 ? r0 : r1;
+          const bool live = key < kend && (!causal || key <= row);
+          e[i] = live ? rnd<bf16>(expf(rnd<bf16>(fminf(c[i] * scale, 60.f))))
+                      : 0.f;
+        }
+        ep[n][0] = pack_bf16(e[0], e[1]);  // exact: already bf16
+        ep[n][1] = pack_bf16(e[2], e[3]);
+        if (sum) {
+          s0 += e[0] + e[1];
+          s1 += e[2] + e[3];
+        }
+      }
+    };
+
+    if (active) {
+      // the block's Q rows times q_scale, rounded to bf16 (the wrapper's
+      // pre-scale), in place: only this warp reads them
+      if (q_scale != 1.f) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int idx = lane + 32 * i;
+          uint4* vec =
+              reinterpret_cast<uint4*>(qs + (qb * 16 + idx / 8) * LDS) +
+              idx % 8;
+          uint4 w = *vec;
+          uint32_t* h = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) h[u] = weights(h[u], q_scale);
+          *vec = w;
+        }
+        __syncwarp();
+      }
+      for (int ch = 0; ch < nch; ++ch) exps(ch * KC, true);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    }
+    if (it == 0) {  // V has landed
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+    }
+    if (!active) continue;
+    const float inv0 = rnd<bf16>(1.f / rnd<bf16>(s0));
+    const float inv1 = rnd<bf16>(1.f / rnd<bf16>(s1));
+
+    float o[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      if (nch > 1) exps(ch * KC, false);
+#pragma unroll
+      for (int ks16 = 0; ks16 < KC / 16; ++ks16) {
+        const int kb = ch * KC + ks16 * 16;
+        if (kb < kend) {
+          // the weights of 16 keys: the A fragment of w @ V
+          const uint32_t a[4] = {weights(ep[2 * ks16][0], inv0),
+                                 weights(ep[2 * ks16][1], inv1),
+                                 weights(ep[2 * ks16 + 1][0], inv0),
+                                 weights(ep[2 * ks16 + 1][1], inv1)};
+          const int mi = lane / 8;
+          const bf16* vrow =
+              vs + (kb + (mi & 1) * 8 + lane % 8) * LDS + (mi >> 1) * 8;
+#pragma unroll
+          for (int dp = 0; dp < HD / 16; ++dp) {
+            uint32_t b0, b1, b2, b3;
+            asm volatile(
+                "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+                "{%0, %1, %2, %3}, [%4];\n"
+                : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+                : "r"(smem_addr(vrow + dp * 16)));
+            mma16816(o[2 * dp], a, b0, b1);
+            mma16816(o[2 * dp + 1], a, b2, b3);
+          }
+        }
+      }
+    }
+    // the block's 16 output rows through its own (consumed) Q rows, then
+    // out as 16-byte vectors
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(qs + r0 * LDS + 8 * n + 2 * t) =
+          pack_bf16(o[n][0], o[n][1]);
+      *reinterpret_cast<uint32_t*>(qs + r1 * LDS + 8 * n + 2 * t) =
+          pack_bf16(o[n][2], o[n][3]);
+    }
+    __syncwarp();
+    const int p = p0 + j;
+    bf16* dst = out + (size_t)(p / heads) * seq * out_stride + (p % heads) * HD;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = lane + 32 * i, r = qb * 16 + idx / 8, c = idx % 8;
+      if (r < seq)
+        *reinterpret_cast<uint4*>(dst + (size_t)r * out_stride + c * 8) =
+            *reinterpret_cast<const uint4*>(qs + r * LDS + c * 8);
+    }
+  }
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int batch, int seq, int heads, int in_stride, int out_stride,
+                int valid, int causal, float q_scale, float scale,
+                cudaStream_t stream) {
+  // 16-byte cp.async rows and 16-byte output rows
+  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15) ||
+      in_stride % 8 || out_stride % 8)
+    return (int)cudaErrorInvalidValue;
+  const int spad = (seq + 15) / 16 * 16, qblocks = spad / 16;
+  // short sequences: several pairs a CTA, so each keeps four warps busy
+  const int per_cta = qblocks >= 4 ? 1 : 4 / qblocks;
+  const int warps =
+      per_cta * qblocks < MAX_WARPS ? per_cta * qblocks : MAX_WARPS;
+  const int pairs = batch * heads;
+  const size_t smem = (size_t)per_cta * 3 * spad * LDS * sizeof(bf16);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  attn_bf16<<<(pairs + per_cta - 1) / per_cta, warps * 32, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, pairs, heads,
+      seq, spad, per_cta, in_stride, out_stride, valid, causal, q_scale,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -126,17 +384,17 @@ int launch_attn(const void* q, const void* k, const void* v, void* out,
 extern "C" int vqt_attention(const void* q, const void* k, const void* v,
                              void* out, int batch, int seq, int heads,
                              int head_dim, int in_stride, int out_stride,
-                             int valid, int causal, float scale, int dtype,
-                             void* stream) {
+                             int valid, int causal, float q_scale,
+                             float scale, int dtype, void* stream) {
   if (head_dim != HD || seq <= 0 || batch <= 0 || heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == vqt::DT_BF16)
-    return launch_attn<bf16>(q, k, v, out, batch, seq, heads, in_stride,
-                             out_stride, valid, causal, scale, s);
+    return launch_bf16(q, k, v, out, batch, seq, heads, in_stride,
+                       out_stride, valid, causal, q_scale, scale, s);
   if (dtype == vqt::DT_F32)
-    return launch_attn<float>(q, k, v, out, batch, seq, heads, in_stride,
-                              out_stride, valid, causal, scale, s);
+    return launch_f32(q, k, v, out, batch, seq, heads, in_stride, out_stride,
+                      valid, causal, q_scale, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -53,5 +53,5 @@ enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
 extern "C" int vqt_attention(const void* q, const void* k, const void* v,
                              void* out, int batch, int seq, int heads,
                              int head_dim, int in_stride, int out_stride,
-                             int valid, int causal, float scale, int dtype,
-                             void* stream);
+                             int valid, int causal, float q_scale,
+                             float scale, int dtype, void* stream);

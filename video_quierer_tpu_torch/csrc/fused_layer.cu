@@ -13,8 +13,9 @@
 //
 // The TPU kernels keep a layer's (or a half's) weights resident in VMEM for
 // one pallas_call. One SM's 227 KB of shared memory cannot hold them, so
-// here a block is five launches on the host side of the C calls:
-//   B5 1. GEMM with LayerNorm-1 fused as its prologue, bias epilogue -> qkv
+// here a block is five GEMM/attention launches on the host side of the C
+// calls (bf16: plus one LayerNorm launch before each LN GEMM):
+//   B5 1. GEMM with LayerNorm-1 as its prologue, bias epilogue       -> qkv
 //      2. per-item attention on the q/k/v column blocks of qkv
 //         (attention.cu; the TPU kernel's cross-item mask over a shared
 //         tile is TPU redundancy, not semantics)                     -> attn
@@ -23,32 +24,40 @@
 //      5. GEMM, bias + residual epilogue                             -> out
 // The weights keep _layer_operands' layout: [in, out] row-major with q/k/v
 // concatenated along out (wqkv [D, 3D]). Item boundaries (S = 50 for the
-// vision tower) fall anywhere inside a 64-row GEMM tile: the GEMMs are
+// vision tower) fall anywhere inside a GEMM tile: the GEMMs are
 // per token, only the attention step sees items.
 //
 // The GEMM keeps the reference's bf16 rounding points in its prologue
 // (LN output rounded to T) and epilogue (T(acc), + bias in T, quick-GELU
 // in T, + residual in T) around an f32 accumulate:
-// - bf16 (the serving tower): WMMA bf16 16x16x16 tiles on the tensor
-//   cores, 64x64 output tile per CTA, 4 warps of 32x32, operands staged in
-//   shared memory as 16-byte vectors with the next step's loads in flight
-//   (the LN prologue is applied while staging A);
+// - bf16 (the serving towers): LayerNorm runs first as its own small kernel
+//   (ln_bf16, one warp a row, f32 statistics) into a scratch [T, D] bf16
+//   buffer, so the GEMM's A operand is a plain TMA copy; then gemm_wgmma: a
+//   ring of 3 shared-memory stages of 64-deep A and W tiles, filled by TMA
+//   (128-byte swizzle, mbarrier-guarded) from one producer warp, consumed by
+//   one or two warpgroups issuing wgmma.mma_async m64nNk16 bf16 with f32
+//   accumulators in registers, and the epilogue applied to the accumulator
+//   fragment in registers. W stays [in, out] row-major: it is wgmma's B
+//   operand in MN-major form (the transpose bit, 64-wide swizzle atoms).
+//   The tile is picked by shape: 128x128 where that gives at least one CTA
+//   per SM, else 128x64, else 64x64 (the text tower's N = 512 GEMMs), and
+//   two CTAs share an SM, so one's epilogue overlaps the other's loads.
 // - f32: a shared-memory tiled FMA loop on the CUDA cores (64x64 tile,
-//   4x4 outputs per thread).
-// Bound on the H100: at text serving batches (1,024 tokens x 512 wide) the
-// GEMMs are small (0.5-2 GFLOP each), so the 60 launches per 12-layer
-// encode and the per-CTA staging, not the tensor-core peak, set the time.
-// At the vision tower's ingest batch (12,800 tokens x 768 wide, 62 + 121
-// GFLOP a layer) the tensor-core peak bounds both halves; the 64x64 WMMA
-// tile with its per-step shared-memory staging sits far below it (wgmma
-// and TMA staging are the next step).
+//   4x4 outputs per thread) with the LayerNorm fused as its prologue.
+// Bound on the H100: at the vision tower's ingest batch (12,800 tokens x
+// 768 wide, 62 + 121 GFLOP a layer) the tensor-core peak bounds both
+// halves; what keeps the kernel from it is the non-persistent grid (the
+// prologue of each tile's pipeline, 2.3-4.5 waves of 128x128 tiles), the
+// scalar 4-byte epilogue stores and the LN pass (2 x T x D x 2 bytes). At
+// text serving batches (1,024 tokens x 512 wide) the GEMMs are small (0.5-2
+// GFLOP each), so the launches per 12-layer encode and the small grids,
+// not the peak, set the time.
 #include "common.cuh"
 
-#include <mma.h>
+#include <cuda.h>  // CUtensorMap (the encoder is fetched at run time)
 
 namespace {
 
-using namespace nvcuda;
 using vqt::bf16;
 using vqt::from_f;
 using vqt::rnd;
@@ -98,19 +107,27 @@ __device__ __forceinline__ float a_elem(const T* __restrict__ A, int M, int K,
                           : a;
 }
 
-// Epilogue of output (m, n) from its f32 accumulator. quick-GELU is
-// x / (1 + exp(c x)) with c the reference's weakly typed -1.702 rounded to T.
+// Epilogue of one output from its f32 accumulator, before the residual:
+// T(acc) + bias in T, then quick-GELU x / (1 + exp(c x)) in T with c the
+// reference's weakly typed -1.702 rounded to T.
+template <typename T>
+__device__ __forceinline__ float epilogue(float acc, float bias, int gelu) {
+  float t = rnd<T>(acc);
+  t = rnd<T>(t + bias);
+  if (gelu) {
+    const float e = rnd<T>(expf(rnd<T>(rnd<T>(-1.702f) * t)));
+    t = rnd<T>(t * rnd<T>(1.f / rnd<T>(1.f + e)));
+  }
+  return t;
+}
+
+// ... then + residual in T, stored
 template <typename T>
 __device__ __forceinline__ void store_out(float acc, int m, int n, int N,
                                           const T* __restrict__ bias,
                                           const T* __restrict__ res,
                                           int gelu, T* __restrict__ C) {
-  float t = rnd<T>(acc);
-  t = rnd<T>(t + to_f(bias[n]));
-  if (gelu) {
-    const float e = rnd<T>(expf(rnd<T>(rnd<T>(-1.702f) * t)));
-    t = rnd<T>(t * rnd<T>(1.f / rnd<T>(1.f + e)));
-  }
+  float t = epilogue<T>(acc, to_f(bias[n]), gelu);
   if (res != nullptr) t = rnd<T>(to_f(res[(size_t)m * N + n]) + t);
   C[(size_t)m * N + n] = from_f<T>(t);
 }
@@ -171,124 +188,430 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
-// bf16: the same on the tensor cores. 4 warps, warp (wm, wn) owns the
-// 32x32 quarter (wm, wn) of the 64x64 tile as 2x2 WMMA accumulators.
-// Operands move as 16-byte vectors (8 elements; each thread moves 2 of A
-// and 2 of W per 32-deep step), and the next step's vectors are loaded
-// into registers while the tensor cores work on the current step.
-constexpr int T_BK = 32, T_THREADS = 128;
-constexpr int LDA = T_BK + 8, LDW = BN + 8, LDC = BN + 4;  // padded strides
+// f32: launch gemm_f32 (LayerNorm fused when gamma is given)
+int gemm_f32_launch(const float* a, const float* w, const float* bias,
+                    const float* gamma, const float* beta, const float* res,
+                    float* c, int m, int n, int k, float eps, int gelu,
+                    cudaStream_t stream) {
+  if (n % BN || k % F_BK) return (int)cudaErrorInvalidValue;
+  dim3 grid(n / BN, (m + BM - 1) / BM);
+  gemm_f32<<<grid, F_THREADS, 0, stream>>>(a, w, bias, gamma, beta, res, c,
+                                           m, n, k, eps, gelu);
+  return (int)cudaGetLastError();
+}
 
-__global__ void __launch_bounds__(T_THREADS)
-gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ W,
-          const bf16* __restrict__ bias, const float* __restrict__ gamma,
-          const float* __restrict__ beta, const bf16* __restrict__ res,
-          bf16* __restrict__ C, int M, int N, int K, float eps, int gelu) {
-  __shared__ __align__(32) bf16 As[BM * LDA];
-  __shared__ __align__(32) bf16 Ws[T_BK * LDW];
-  __shared__ __align__(32) float Cs[BM * LDC];
-  __shared__ float mu[BM], rs[BM];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if (gamma != nullptr) ln_stats(A, M, K, m0, eps, mu, rs);
+// -- bf16: LayerNorm pass -----------------------------------------------------
 
-  // vector v of a step: A row v / 4, columns (v % 4) * 8 ..;
-  // W row v / 8, columns (v % 8) * 8 ..
-  uint4 ra[2], rw[2];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * T_THREADS;
-      const int m = m0 + v / 4;
-      ra[i] = m < M ? *reinterpret_cast<const uint4*>(
-                          A + (size_t)m * K + k0 + (v % 4) * 8)
-                    : make_uint4(0, 0, 0, 0);
-      rw[i] = *reinterpret_cast<const uint4*>(
-          W + (size_t)(k0 + v / 8) * N + n0 + (v % 8) * 8);
-    }
-  };
-  auto stash = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * T_THREADS;
-      const int r = v / 4, c = (v % 4) * 8;
-      uint4 a = ra[i];
-      if (gamma != nullptr && m0 + r < M) {
-        bf16* e = reinterpret_cast<bf16*>(&a);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int kk = k0 + c + j;
-          e[j] = __float2bfloat16_rn((to_f(e[j]) - mu[r]) * rs[r] * gamma[kk] +
-                                     beta[kk]);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = a;
-      *reinterpret_cast<uint4*>(Ws + (v / 8) * LDW + (v % 8) * 8) = rw[i];
-    }
-  };
+constexpr int LN_ROWS = 8;  // one warp a row
+constexpr int LN_MAX_K = 1024;  // 4 x 16-byte vectors a lane
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+// y = bf16(LN(x)) with f32 statistics (two-pass, as ln_stats): one warp a
+// row, held in registers as V 16-byte vectors a lane (K <= 256 V, K % 8 ==
+// 0), so x is read once.
+template <int V>
+__global__ void __launch_bounds__(LN_ROWS * 32)
+ln_bf16(const bf16* __restrict__ x, const float* __restrict__ gamma,
+        const float* __restrict__ beta, bf16* __restrict__ y, int M, int K,
+        float eps) {
+  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const bf16* xr = x + (size_t)row * K;
+  uint4 v[V];
+  float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < V; ++i) {
+    const int c = (lane + 32 * i) * 8;
+    v[i] = c < K ? *reinterpret_cast<const uint4*>(xr + c)
+                 : make_uint4(0, 0, 0, 0);
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += T_BK) {
-    stash(k0);
-    __syncthreads();
-    if (k0 + T_BK < K) load(k0 + T_BK);
-#pragma unroll
-    for (int kk = 0; kk < T_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> w[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(w[j], Ws + kk * LDW + wn * 32 + j * 16, LDW);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int j = 0; j < 8; ++j) s += to_f(e[j]);
   }
+  const float mean = vqt::warp_sum(s) / K;
+  float var = 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < V; ++i) {
+    if ((lane + 32 * i) * 8 >= K) continue;
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += T_THREADS) {
-    const int r = i / BN, c = i % BN;
-    if (m0 + r < M)
-      store_out(Cs[r * LDC + c], m0 + r, n0 + c, N, bias, res, gelu, C);
+    for (int j = 0; j < 8; ++j) {
+      const float d = to_f(e[j]) - mean;
+      var += d * d;
+    }
+  }
+  const float rstd = 1.f / sqrtf(vqt::warp_sum(var) / K + eps);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = (lane + 32 * i) * 8;
+    if (c >= K) continue;
+    // gamma and beta as 16-byte vectors too
+    const float4* g4 = reinterpret_cast<const float4*>(gamma + c);
+    const float4* b4 = reinterpret_cast<const float4*>(beta + c);
+    const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
+    const float ga[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float be[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    bf16* e = reinterpret_cast<bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = from_f<bf16>((to_f(e[j]) - mean) * rstd * ga[j] + be[j]);
+    *reinterpret_cast<uint4*>(y + (size_t)row * K + c) = v[i];
   }
 }
 
-template <typename T>
-int gemm(const void* a, const void* w, const void* bias, const float* gamma,
-         const float* beta, const void* res, void* c, int m, int n, int k,
-         float eps, int gelu, cudaStream_t stream) {
-  if (n % BN || k % T_BK) return (int)cudaErrorInvalidValue;
-  // the bf16 kernel moves A and W rows as 16-byte vectors
-  if (sizeof(T) == 2 && (((uintptr_t)a | (uintptr_t)w) & 15))
+int ln_launch(const bf16* x, const float* gamma, const float* beta, bf16* y,
+              int m, int k, float eps, cudaStream_t stream) {
+  if (k % 8 || k > LN_MAX_K ||
+      (((uintptr_t)x | (uintptr_t)y | (uintptr_t)gamma | (uintptr_t)beta) &
+       15))
     return (int)cudaErrorInvalidValue;
-  dim3 grid(n / BN, (m + BM - 1) / BM);
-  if (sizeof(T) == 2)
-    gemm_bf16<<<grid, T_THREADS, 0, stream>>>(
-        (const bf16*)a, (const bf16*)w, (const bf16*)bias, gamma, beta,
-        (const bf16*)res, (bf16*)c, m, n, k, eps, gelu);
-  else
-    gemm_f32<<<grid, F_THREADS, 0, stream>>>(
-        (const float*)a, (const float*)w, (const float*)bias, gamma, beta,
-        (const float*)res, (float*)c, m, n, k, eps, gelu);
+  const dim3 grid((m + LN_ROWS - 1) / LN_ROWS), block(LN_ROWS * 32);
+  switch ((k + 255) / 256) {
+    case 1: ln_bf16<1><<<grid, block, 0, stream>>>(x, gamma, beta, y, m, k,
+                                                   eps); break;
+    case 2: ln_bf16<2><<<grid, block, 0, stream>>>(x, gamma, beta, y, m, k,
+                                                   eps); break;
+    case 3: ln_bf16<3><<<grid, block, 0, stream>>>(x, gamma, beta, y, m, k,
+                                                   eps); break;
+    default: ln_bf16<4><<<grid, block, 0, stream>>>(x, gamma, beta, y, m, k,
+                                                    eps); break;
+  }
   return (int)cudaGetLastError();
+}
+
+// -- bf16: TMA + wgmma GEMM ---------------------------------------------------
+
+constexpr int G_BK = 64;     // K depth of a stage: one 128-byte swizzle row
+constexpr int G_ST = 3;      // pipeline stages (96 KB at 128x128: two CTAs
+                             // an SM, so one's epilogue overlaps the other)
+constexpr int ATOM = 64 * G_BK * 2;  // a 64 x 64 bf16 tile: 8 KB
+constexpr int MAX_DEVICES = 64;      // per-device host caches
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: the box at (c0 inner, c1 outer) of `map` into shared `dst`; rows and
+// columns past the tensor's edge arrive as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (MN-major: between 64-wide atoms; ignored K-major), stride
+// byte offset (between 8-row groups)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// d += A (K-major, shared) @ B (MN-major, shared): m64 n64/n128 k16
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BM, int BN>
+constexpr size_t wgmma_smem() {
+  return G_ST * ((size_t)(BM + BN) * G_BK * 2 + 16) + 1024;
+}
+
+// C[M, N] = epilogue(A[M, K] @ W[K, N]). Warps 0 .. BM/16 - 1 are the
+// consumer warpgroups (rows 64 wg .. of the tile), the last warp the
+// producer. Stage s holds A [BM][64] (K-major) and W as BN/64 atoms of
+// [64 K][64 N] (MN-major), each 128-byte swizzled by TMA.
+template <int BM, int BN>
+__global__ void __launch_bounds__(BM * 2 + 32, 2)
+gemm_wgmma(const __grid_constant__ CUtensorMap amap,
+           const __grid_constant__ CUtensorMap wmap,
+           const bf16* __restrict__ bias, const bf16* __restrict__ res,
+           bf16* __restrict__ C, int M, int N, int K, int gelu) {
+  constexpr int CONS = BM / 64, A_BYTES = BM * G_BK * 2,
+                STAGE = (BM + BN) * G_BK * 2;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms must sit on 1,024-byte boundaries
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_ST * STAGE);
+  uint64_t* empty = full + G_ST;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kt_n = (K + G_BK - 1) / G_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONS * 4) {  // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < kt_n; ++kt) {
+        const int s = kt % G_ST;
+        if (kt >= G_ST) mbar_wait(&empty[s], ((kt / G_ST) & 1) ^ 1);
+        uint8_t* st = smem + s * STAGE;
+        mbar_expect(&full[s], STAGE);
+        tma_load(st, &amap, kt * G_BK, m0, &full[s]);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(st + A_BYTES + j * ATOM, &wmap, n0 + 64 * j, kt * G_BK,
+                   &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int s = kt % G_ST;
+    mbar_wait(&full[s], (kt / G_ST) & 1);
+    const uint32_t a = smem_u32(smem + s * STAGE) + wg * 64 * 128;
+    const uint32_t b = smem_u32(smem + s * STAGE + A_BYTES);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk)
+      // A: 16 columns = 32 bytes along the swizzled row; W: 16 rows = two
+      // 8-row groups of 1,024 bytes
+      wgmma(acc, gmma_desc(a + kk * 32, 16, 1024),
+            gmma_desc(b + kk * 2048, ATOM, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the previous stage's products are done: hand its buffers back
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % G_ST]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+  // fragment: rows g and g + 8 of the warp's 16, columns 8 j + 2 t, + 1
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = m0 + wg * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    const __nv_bfloat162 bb =
+        *reinterpret_cast<const __nv_bfloat162*>(bias + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M) continue;
+      float v0 = epilogue<bf16>(acc[4 * j + 2 * h], __low2float(bb), gelu);
+      float v1 =
+          epilogue<bf16>(acc[4 * j + 2 * h + 1], __high2float(bb), gelu);
+      const size_t o = (size_t)r * N + c;
+      if (res != nullptr) {
+        const __nv_bfloat162 rr =
+            *reinterpret_cast<const __nv_bfloat162*>(res + o);
+        v0 = rnd<bf16>(__low2float(rr) + v0);
+        v1 = rnd<bf16>(__high2float(rr) + v1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(C + o) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's tensor-map encoder, looked up once (no link against libcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a row-major [rows, cols] bf16 matrix cut into [box_rows, 64] boxes
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
+                int box_rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN>
+int launch_wgmma(const bf16* a, const bf16* w, const bf16* bias,
+                 const bf16* res, bf16* c, int m, int n, int k, int gelu,
+                 int dev, cudaStream_t stream) {
+  CUtensorMap amap, wmap;
+  if (!tensor_map(&amap, a, m, k, BM) || !tensor_map(&wmap, w, k, n, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = wgmma_smem<BM, BN>();
+  // the shared-memory opt-in, once per device
+  static bool opted[MAX_DEVICES];
+  if (!opted[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gemm_wgmma<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
+  }
+  dim3 grid(n / BN, (m + BM - 1) / BM);
+  gemm_wgmma<BM, BN><<<grid, BM * 2 + 32, smem, stream>>>(
+      amap, wmap, bias, res, c, m, n, k, gelu);
+  return (int)cudaGetLastError();
+}
+
+// the tile: the largest of 128x128, 128x64, 64x64 whose grid gives every
+// SM at least one CTA (N % 128 for the first). 128x256 with 4 stages, one
+// CTA an SM, read 0.60 ms for B6 at 256 frames against 0.42 for 128x128:
+// its epilogue idles the tensor cores.
+int gemm_bf16(const bf16* a, const bf16* w, const bf16* bias, const bf16* res,
+              bf16* c, int m, int n, int k, int gelu, cudaStream_t stream) {
+  // TMA: 16-byte aligned bases and row strides; whole 64-wide W atoms
+  if (n % 64 || k % 8 || (((uintptr_t)a | (uintptr_t)w) & 15))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  static int sm_count[MAX_DEVICES];
+  if (sm_count[dev] == 0)
+    cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  const long rows128 = (m + 127) / 128, sms = sm_count[dev];
+  if (n % 128 == 0 && rows128 * (n / 128) >= sms)
+    return launch_wgmma<128, 128>(a, w, bias, res, c, m, n, k, gelu, dev,
+                                  stream);
+  if (rows128 * (n / 64) >= sms)
+    return launch_wgmma<128, 64>(a, w, bias, res, c, m, n, k, gelu, dev,
+                                 stream);
+  return launch_wgmma<64, 64>(a, w, bias, res, c, m, n, k, gelu, dev,
+                              stream);
+}
+
+// One GEMM of a block: C = epilogue(LN?(A) @ W). f32: gemm_f32 with the
+// LayerNorm fused; bf16: ln_bf16 into `lnbuf` ([m, k], when gamma is given),
+// then gemm_wgmma.
+template <typename T>
+int layer_gemm(const void* a, const void* w, const void* bias,
+               const float* gamma, const float* beta, void* lnbuf,
+               const void* res, void* c, int m, int n, int k, float eps,
+               int gelu, cudaStream_t stream) {
+  if (sizeof(T) == 4)
+    return gemm_f32_launch((const float*)a, (const float*)w,
+                           (const float*)bias, gamma, beta,
+                           (const float*)res, (float*)c, m, n, k, eps, gelu,
+                           stream);
+  if (gamma != nullptr) {
+    const int e = ln_launch((const bf16*)a, gamma, beta, (bf16*)lnbuf, m, k,
+                            eps, stream);
+    if (e) return e;
+    a = lnbuf;
+  }
+  return gemm_bf16((const bf16*)a, (const bf16*)w, (const bf16*)bias,
+                   (const bf16*)res, (bf16*)c, m, n, k, gelu, stream);
 }
 
 // B5: LN1 -> QKV -> per-item attention -> out-proj + residual (launches 1-3)
@@ -298,9 +621,9 @@ int attn_half(const void* x, void* out, void* qkv, void* attn,
               const void* wout, const void* bout, int tokens, int seq, int d,
               int heads, float eps, int causal, int dtype, cudaStream_t s) {
   int e;
-  // 1. LN1 -> QKV
-  if ((e = gemm<T>(x, wqkv, bqkv, ln, ln + d, nullptr, qkv, tokens, 3 * d, d,
-                   eps, 0, s)))
+  // 1. LN1 -> QKV (bf16: LN1 into attn, free until step 2)
+  if ((e = layer_gemm<T>(x, wqkv, bqkv, ln, ln + d, attn, nullptr, qkv,
+                         tokens, 3 * d, d, eps, 0, s)))
     return e;
   // 2. per-item attention over the q/k/v column blocks (row stride 3D);
   //    q is not pre-scaled: the f32 logits take hd^-0.5 (_attn_math)
@@ -308,11 +631,12 @@ int attn_half(const void* x, void* out, void* qkv, void* attn,
   const size_t col = (size_t)d * sizeof(T);
   if ((e = vqt_attention(base, base + col, base + 2 * col, attn,
                          tokens / seq, seq, heads, d / heads, 3 * d, d, seq,
-                         causal, 1.f / sqrtf((float)(d / heads)), dtype, s)))
+                         causal, 1.f, 1.f / sqrtf((float)(d / heads)), dtype,
+                         s)))
     return e;
   // 3. out-proj + residual
-  return gemm<T>(attn, wout, bout, nullptr, nullptr, x, out, tokens, d, d,
-                 eps, 0, s);
+  return layer_gemm<T>(attn, wout, bout, nullptr, nullptr, nullptr, x, out,
+                       tokens, d, d, eps, 0, s);
 }
 
 // B6: LN2 (ln rows 2-3) -> fc1 -> quick-GELU -> fc2 + residual (launches 4-5)
@@ -322,13 +646,13 @@ int mlp_half(const void* x3, void* out, void* h, const float* ln,
              const void* bfc2, int tokens, int d, int f, float eps,
              cudaStream_t s) {
   int e;
-  // 4. LN2 -> fc1 -> quick-GELU
-  if ((e = gemm<T>(x3, wfc1, bfc1, ln + 2 * d, ln + 3 * d, nullptr, h,
-                   tokens, f, d, eps, 1, s)))
+  // 4. LN2 -> fc1 -> quick-GELU (bf16: LN2 into out, free until step 5)
+  if ((e = layer_gemm<T>(x3, wfc1, bfc1, ln + 2 * d, ln + 3 * d, out,
+                         nullptr, h, tokens, f, d, eps, 1, s)))
     return e;
   // 5. fc2 + residual
-  return gemm<T>(h, wfc2, bfc2, nullptr, nullptr, x3, out, tokens, d, f,
-                 eps, 0, s);
+  return layer_gemm<T>(h, wfc2, bfc2, nullptr, nullptr, nullptr, x3, out,
+                       tokens, d, f, eps, 0, s);
 }
 
 bool bad_shape(int tokens, int seq, int d, int heads) {

@@ -2,8 +2,10 @@
 ``video_quierer_tpu/engine/config.py``).
 
 Tier 1 — :class:`ApiConfig`: the reference's flat ``config.json`` — the
-same nine keys and defaults — as a dataclass with hand-written validation
-in place of pydantic (which the port does not depend on). Tier 2 —
+same nine keys and defaults — as a dataclass whose fields take pydantic
+v2's lax coercion, written by hand (:func:`lax_int`, :func:`lax_bool`,
+:func:`lax_str`: the port does not depend on pydantic); the HTTP server
+validates its request bodies with the same functions. Tier 2 —
 :class:`EngineConfig`: the engine's typed knobs with the same ``VQT_*``
 environment overrides. Semantics match the JAX package, the IVF tier's
 fields included (``index.kind = "ivf"``, ``ivf_nlist``, ``ivf_nprobe``,
@@ -15,7 +17,8 @@ pipeline parallelism) keep their names and validation so one
 ``config.json``/``engine.yaml`` serves both packages.
 Ingest samples by the reference's interval rule only: the adaptive and
 hybrid samplers and the quality filter (``ingest/samplers.py``) are not
-ported, and asking for them raises ``NotImplementedError``.
+ported, and asking for them raises ``NotImplementedError``; so does
+``cache.frame_memo_size > 0`` (the frame-embedding memo is not ported).
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
+import re
 from pathlib import Path
 from typing import Optional
 
@@ -31,6 +36,84 @@ logger = logging.getLogger(__name__)
 
 SAMPLING_MODES = ("ultra_high", "high", "medium", "low")
 SAMPLING_STRATEGIES = ("interval", "uniform", "adaptive", "hybrid", "auto")
+
+
+class FieldError(ValueError):
+    """A value pydantic v2 refuses in lax mode; ``type`` and ``msg`` are
+    pydantic's error type and message."""
+
+    def __init__(self, type_: str, msg: str):
+        super().__init__(msg)
+        self.type = type_
+        self.msg = msg
+
+
+# a decimal integer string as pydantic reads it: sign, digits with single
+# underscores between them, and an optional fraction of zeros
+_INT_STR = re.compile(r"[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?")
+_TRUE = frozenset(("1", "true", "yes", "on", "t", "y"))
+_FALSE = frozenset(("0", "false", "no", "off", "f", "n"))
+_I64 = 2 ** 63
+
+
+def lax_int(value) -> int:
+    """pydantic v2's lax ``int``: an int (a bool as 0/1), an integral
+    finite float within int64, or a decimal string (surrounding whitespace
+    ignored)."""
+    if isinstance(value, bool):
+        return int(value)
+    if isinstance(value, int):
+        return value
+    if isinstance(value, float):
+        if not math.isfinite(value):
+            raise FieldError("finite_number",
+                             "Input should be a finite number")
+        if not value.is_integer():
+            raise FieldError("int_from_float", "Input should be a valid "
+                             "integer, got a number with a fractional part")
+        if abs(value) >= _I64:
+            raise FieldError("int_parsing_size", "Unable to parse input "
+                             "string as an integer, exceeded maximum size")
+        return int(value)
+    if isinstance(value, str):
+        text = value.strip()
+        if _INT_STR.fullmatch(text):
+            return int(text.split(".")[0].replace("_", ""))
+        raise FieldError("int_parsing", "Input should be a valid integer, "
+                         "unable to parse string as an integer")
+    raise FieldError("int_type", "Input should be a valid integer")
+
+
+def lax_bool(value) -> bool:
+    """pydantic v2's lax ``bool``: a bool, 0/1 (int or float), or one of
+    true/false/1/0/yes/no/on/off/t/f/y/n in any case."""
+    if isinstance(value, bool):
+        return value
+    if isinstance(value, float) and value.is_integer():
+        value = int(value)
+    if isinstance(value, int):
+        if value in (0, 1):
+            return bool(value)
+        if abs(value) < _I64:
+            raise FieldError("bool_parsing", "Input should be a valid "
+                             "boolean, unable to interpret input")
+    elif isinstance(value, str):
+        low = value.lower()
+        if low in _TRUE or low in _FALSE:
+            return low in _TRUE
+        raise FieldError("bool_parsing", "Input should be a valid boolean, "
+                         "unable to interpret input")
+    raise FieldError("bool_type", "Input should be a valid boolean")
+
+
+def lax_str(value) -> str:
+    """pydantic v2's lax ``str``: a str only."""
+    if isinstance(value, str):
+        return value
+    raise FieldError("string_type", "Input should be a valid string")
+
+
+LAX = {"int": lax_int, "bool": lax_bool, "str": lax_str}
 
 
 @dataclasses.dataclass
@@ -48,18 +131,12 @@ class ApiConfig:
     log_level: str = "INFO"
 
     def __post_init__(self):
-        # pydantic-style coercion of the JSON types, with the same errors
+        # pydantic's lax coercion of each field, with its errors
         for f in dataclasses.fields(self):
-            value = getattr(self, f.name)
-            typ = {"str": str, "int": int, "bool": bool}[f.type]
-            if typ is bool:
-                if not isinstance(value, bool):
-                    raise ValueError(f"{f.name} must be a boolean")
-            elif typ is int:
-                if isinstance(value, bool) or not isinstance(value, int):
-                    raise ValueError(f"{f.name} must be an integer")
-            elif not isinstance(value, str):
-                raise ValueError(f"{f.name} must be a string")
+            try:
+                setattr(self, f.name, LAX[f.type](getattr(self, f.name)))
+            except FieldError as e:
+                raise FieldError(e.type, f"{f.name}: {e.msg}") from None
 
     @classmethod
     def from_dict(cls, data: dict) -> "ApiConfig":
@@ -179,6 +256,7 @@ class EngineConfig:
                              "'float32' or 'bfloat16'")
         if self.index.ivf_nprobe <= 0:
             raise ValueError("ivf_nprobe must be positive")
+        check_cache_ported(self.cache)
         if self.model.dtype not in ("float32", "bfloat16"):
             raise ValueError("model.dtype must be 'float32' or 'bfloat16'")
         if self.model.parallel not in ("none", "pp"):
@@ -199,6 +277,16 @@ def check_sampling_ported(ingest: IngestConfig) -> None:
             "ingest.sampling_strategy other than 'interval' and "
             "ingest.quality_filter need ingest/samplers.py, which is not "
             "yet ported")
+
+
+def check_cache_ported(cache: CacheConfig) -> None:
+    """Refuse the frame-embedding memo (``frame_memo_size > 0``): its
+    ``MemoizedEmbedder`` is not ported yet, and ignoring the setting would
+    serve other rows than the reference's."""
+    if cache.frame_memo_size > 0:
+        raise NotImplementedError(
+            "cache.frame_memo_size > 0 needs the frame-embedding memo "
+            "(MemoizedEmbedder), which is not yet ported")
 
 
 def _flag(v: str) -> bool:

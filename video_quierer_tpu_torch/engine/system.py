@@ -52,6 +52,7 @@ from video_quierer_tpu_torch.engine.cache import QueryResultCache
 from video_quierer_tpu_torch.engine.config import (
     ApiConfig,
     EngineConfig,
+    check_cache_ported,
     check_sampling_ported,
     load_engine_config,
 )
@@ -101,6 +102,7 @@ class VideoSearchEngine:
         ``index.corpus_shards`` (> 0: the first that many CUDA devices,
         split into ``index.corpus_slices`` slices when > 1)."""
         self.config = config or load_engine_config()
+        check_cache_ported(self.config.cache)
         self.device = resolve_device(device)
         self.videos_dir = Path(videos_dir or self.config.videos_dir)
         self.videos_dir.mkdir(parents=True, exist_ok=True)

@@ -1013,32 +1013,44 @@ class DeviceVideoIndex:
     def _sidecar(cache_path: Path) -> Path:
         return Path(str(cache_path) + ".sha256")
 
-    def save_to_disk(self, cache_path: Path, checksum: bool = True) -> None:
+    def save_to_disk(self, cache_path: Path, checksum: bool = True) -> bool:
         """Write the v1.0 pickle; with ``checksum`` also its SHA-256
-        sidecar. Errors raise (the reference logs and returns False)."""
-        payload = pickle.dumps(self.to_cache_dict())
-        Path(cache_path).write_bytes(payload)
-        if checksum:
-            self._sidecar(cache_path).write_text(
-                hashlib.sha256(payload).hexdigest())
+        sidecar. True on success; a failed write is logged and gives False,
+        as the reference's."""
+        try:
+            payload = pickle.dumps(self.to_cache_dict())
+            Path(cache_path).write_bytes(payload)
+            if checksum:
+                self._sidecar(cache_path).write_text(
+                    hashlib.sha256(payload).hexdigest())
+        except Exception as e:  # boundary: the caller decides on a miss
+            logger.error("Failed to save cache: %s", e)
+            return False
         logger.info("Saved %d embeddings to %s", self._count, cache_path)
+        return True
 
     def load_from_disk(self, cache_path: Path, verify: bool = True) -> bool:
-        """Load the v1.0 pickle. False when the file is absent or its
-        checksum sidecar disagrees; a malformed payload raises."""
+        """Load the v1.0 pickle. False when the file is absent, its
+        checksum sidecar disagrees, or it cannot be read (truncated or
+        malformed: logged, the index left as it was), as the reference's;
+        the engine then reprocesses its videos."""
         cache_path = Path(cache_path)
-        if not cache_path.exists():
-            return False
-        payload = cache_path.read_bytes()
-        sidecar = self._sidecar(cache_path)
-        if verify and sidecar.exists():
-            expected = sidecar.read_text().strip()
-            actual = hashlib.sha256(payload).hexdigest()
-            if actual != expected:
-                logger.error("Cache checksum mismatch for %s (expected "
-                             "%s..., got %s...)", cache_path, expected[:12],
-                             actual[:12])
+        try:
+            if not cache_path.exists():
                 return False
-        self.load_cache_dict(safe_pickle_loads(payload))
+            payload = cache_path.read_bytes()
+            sidecar = self._sidecar(cache_path)
+            if verify and sidecar.exists():
+                expected = sidecar.read_text().strip()
+                actual = hashlib.sha256(payload).hexdigest()
+                if actual != expected:
+                    logger.error("Cache checksum mismatch for %s (expected "
+                                 "%s..., got %s...)", cache_path,
+                                 expected[:12], actual[:12])
+                    return False
+            self.load_cache_dict(safe_pickle_loads(payload))
+        except Exception as e:  # boundary: an unreadable cache is a miss
+            logger.error("Failed to load cache: %s", e)
+            return False
         logger.info("Loaded %d embeddings from %s", self._count, cache_path)
         return True

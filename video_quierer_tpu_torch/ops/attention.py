@@ -7,8 +7,8 @@ launches kernel B3 (``csrc/attention.cu``); on a CPU tensor it runs the
 plain version :func:`attention_ref`. Both follow the TPU kernel's
 contract:
 
-- q is pre-scaled by ``hd**-0.5`` in f32 outside the kernel, then rounded
-  back to its dtype;
+- q is pre-scaled by ``hd**-0.5`` in f32, then rounded back to its dtype
+  (on the card the kernel does it as it loads q);
 - logits accumulate in f32; keys at positions ``>= valid_len`` are masked,
   and keys after the query for causal (text) attention;
 - bf16: the clamped unstabilised softmax, each step rounded to bf16 —
@@ -25,7 +25,7 @@ import torch
 
 from video_quierer_tpu_torch.ops import kernels
 
-HEAD_DIM = 64       # the kernel's head width (every CLIP text tower)
+HEAD_DIM = 64       # the kernel's head width (every CLIP tower)
 MAX_SEQ = 400       # K and V of one head (f32) must fit one SM's 227 KB
 
 
@@ -67,8 +67,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if valid_len is None:
         valid_len = s
     hd = d // num_heads
-    q = (q.float() * hd ** -0.5).to(q.dtype)
     if q.device.type == "cpu":
+        q = (q.float() * hd ** -0.5).to(q.dtype)
         return attention_ref(q, k, v, num_heads=num_heads,
                              valid_len=valid_len, causal=causal)
     dev = kernels.require_cuda(q, k, v)
@@ -78,13 +78,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd != HEAD_DIM or d != num_heads * hd or not 0 < s <= MAX_SEQ:
         raise ValueError(f"attention kernel takes head_dim {HEAD_DIM} and "
                          f"S <= {MAX_SEQ}, got D={d}, H={num_heads}, S={s}")
+    if q.dtype == torch.bfloat16 \
+            and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 attention kernel loads 16-byte vectors: "
+                         "q, k, v must start 16-byte aligned")
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         kernels.check(kernels.lib().vqt_attention(
             kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
             kernels.ptr(out), b, s, num_heads, HEAD_DIM, d, d,
-            int(valid_len), int(causal), 1.0, kernels.dtype_code(q),
-            kernels.stream(dev)), "attention")
+            int(valid_len), int(causal), hd ** -0.5, 1.0,
+            kernels.dtype_code(q), kernels.stream(dev)), "attention")
     kernels.count_launch(attention)
     return out
 

@@ -44,6 +44,9 @@ from video_quierer_tpu_torch.ops.attention import HEAD_DIM, attention_ref
 # Minimum tokens (B·S) for the fused text encode: the reference's
 # single-batch policy (fused_layer.py:MIN_TOKENS)
 MIN_TOKENS = 256
+# the bf16 kernels' LayerNorm pass holds a row in registers (every dense
+# CLIP tower with 64-wide heads is at most 1,024 wide)
+BF16_MAX_WIDTH = 1024
 
 LayerOps = Tuple[torch.Tensor, ...]
 
@@ -173,10 +176,11 @@ def _check_operands(x2: torch.Tensor, ops: LayerOps, *, s: int = 1,
     if wqkv.shape != (d, 3 * d) or wout.shape != (d, d) \
             or wfc1.shape != (d, f) or wfc2.shape != (f, d) \
             or (heads and d != heads * HEAD_DIM) or d % 64 or f % 64 \
-            or t % s or any(o.data_ptr() % 16 for o in (x2, *ops)):
+            or t % s or any(o.data_ptr() % 16 for o in (x2, *ops)) \
+            or (x2.dtype == torch.bfloat16 and d > BF16_MAX_WIDTH):
         raise ValueError(f"unsupported fused layer shape: T={t} D={d} "
                          f"F={f} heads={heads} S={s} (operands must start "
-                         "16-byte aligned)")
+                         f"16-byte aligned; bf16 D <= {BF16_MAX_WIDTH})")
     return dev
 
 

@@ -58,7 +58,7 @@ _SIGNATURES = {
     "vqt_block_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "vqt_probe_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vqt_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                      _I, _P),
+                      _F, _I, _P),
     "vqt_text_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "vqt_attn_half": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
