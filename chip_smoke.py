@@ -7,9 +7,10 @@ GPU — the quickest proof that the port still starts on the card.
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
-search-tier scans B1, B4, B7, B8) of the checkout in DIR (say the parent
-commit, unpacked with ``git archive``) against this one, in the order
-DIR, this, this, DIR, and prints each kernel's ms per run.
+search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16) of the
+checkout in DIR (say the parent commit, unpacked with ``git archive``)
+against this one, in the order DIR, this, this, DIR, and prints each
+kernel's ms per run.
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -32,7 +33,9 @@ last line):
    computes the same function, that call's time (B3 also at the vision
    tower's shape, 256 frames x 12 heads, S = 50, beside SDPA; cuBLAS's
    time for B6's two bare GEMMs is printed as the GEMM core's
-   yardstick); then the split of one
+   yardstick; B8, the exact f32 scan, runs at B = 1, 16 and 64, with
+   ``torch.mm`` alone, f32 without TF32, as the yardstick of its product
+   only); then the split of one
    ingest batch of 256 frames into its stages; then the IVF tier on a
    seeded clustered corpus (2,000,000 rows around 1,024 unit centres,
    spread 0.02 per coordinate): its build (nlist auto = 1,024, split into
@@ -162,7 +165,8 @@ SCORE_ATOL = 1e-5       # returned scores vs host exact f32
 SCAN_RTOL = 1e-5        # exact-scan kernel scores vs its plain version
 # NVIDIA H100 SXM data sheet (700 W): HBM rate and dense peaks
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12,
+              "f32": 67e12}
 # each kernel's wrapper, by the name the kernels line gives it
 WRAPPERS = {"cand_scan_prefix": topk.cand_scan_prefix,
             "fused_layer": fl.fused_layer, "attention": attention,
@@ -677,8 +681,14 @@ def compare_codes_scan(store, perm, n_rows: int, seed: int,
 def check_tile_lists(name: str, kern, plain) -> tuple:
     """Per-tile lists of an exact-scan kernel against its plain version:
     live entries alike, scores within SCAN_RTOL, rows identical except
-    where two scores tie within it. Returns (max_abs_err, tied entries)."""
+    where two scores tie within it. ``plain`` may give lists one entry
+    deeper than the kernel's: that entry is the neighbour of the last one,
+    so a row that a tie within SCAN_RTOL moves across the cut counts as
+    tied there too. Returns (max_abs_err, tied entries)."""
     (kv, ki), (pv, pi) = kern(), plain()
+    k = kv.shape[-1]
+    below = pv[..., k:k + 1]                 # the plain's next entry, if any
+    pv, pi = pv[..., :k], pi[..., :k]
     require(torch.equal(torch.isfinite(kv), torch.isfinite(pv)),
             f"{name}: live entries differ")
     live = torch.isfinite(pv)
@@ -689,27 +699,38 @@ def check_tile_lists(name: str, kern, plain) -> tuple:
     gap = torch.full_like(pv, float("inf"))
     gap[..., 1:] = pv[..., :-1] - pv[..., 1:]
     gap[..., :-1] = torch.minimum(gap[..., :-1], pv[..., :-1] - pv[..., 1:])
+    if below.shape[-1]:
+        gap[..., -1:] = torch.minimum(gap[..., -1:], pv[..., -1:] - below)
     apart = gap > SCAN_RTOL * pv.abs()
     require(torch.equal(ki[apart], pi[apart]), f"{name}: rows differ")
     return err, int((~apart & live).sum())
 
 
 def compare_block_scan(store, n_rows: int, seed: int) -> dict:
-    """B8, the exact f32 scan: rows identical to the plain version's
-    (except where two scores tie within the tolerance), scores within
-    SCAN_RTOL of it and of the host f32 scores."""
+    """B8, the exact f32 scan, at B = 1 (the FMA tile), 16 (a typical
+    coalesced flush) and 64 (the 3xTF32 tile): rows identical to the plain
+    version's (except where two scores tie within the tolerance), scores
+    within SCAN_RTOL of it, the merged top-K within SCORE_ATOL of host f64.
+    Bounds: the byte bound, and the operations bound of the tile's own
+    products (3xTF32: three TF32 products at the TF32 peak; the FMA tile:
+    one product at the f32 peak), with the f32-core bound of one product
+    beside them. Library: ``torch.mm`` alone, f32 with TF32 off, at the
+    same shape — a yardstick for the product only (the port never calls
+    it; the scan also selects each tile's top K)."""
     out = {}
-    for b in (1, 64):
+    n_tiles = -(-store.shape[0] // topk.SCAN_TILE_ROWS)
+    for b in (1, 16, 64):
         q = unit_queries(store.device, b, seed + b)
 
         def kern():
             return topk.block_scan(store, q, n_rows, k=K)
 
-        def plain():
-            return topk.block_scan_ref(store, q, n_rows, k=K,
+        def plain(k=K):
+            return topk.block_scan_ref(store, q, n_rows, k=k,
                                        tile_rows=topk.SCAN_TILE_ROWS)
 
-        err, ties = check_tile_lists(f"B8 B={b}", kern, plain)
+        err, ties = check_tile_lists(f"B8 B={b}", kern,
+                                     lambda: plain(K + 1))
         # the merged top-K against host f64 scores of the same rows
         vals, rows = topk.cosine_topk(store, q, n_rows, k=K)
         host = (store[rows.long()].double().cpu()
@@ -718,16 +739,24 @@ def compare_block_scan(store, n_rows: int, seed: int) -> dict:
         require(herr <= SCORE_ATOL, f"B8 B={b}: host score error {herr}")
         iters = 20 if b == 1 else 10
         ms, pms = cuda_ms(kern, iters), cuda_ms(plain, iters)
-        n_tiles = -(-store.shape[0] // topk.SCAN_TILE_ROWS)
-        lim = bound(store.numel() * 4 + b * DIM * 4 + n_tiles * b * K * 8,
-                    2 * store.shape[0] * DIM * b, "f32")
-        log(f"B8 exact scan N={n_rows} B={b} k={K}: rows identical "
+        lms = cuda_ms(lambda: torch.mm(q, store.t()), iters)
+        moved = store.numel() * 4 + b * DIM * 4 + n_tiles * b * K * 8
+        flop = 2 * store.shape[0] * DIM * b
+        tf32 = b > 8                         # vqt_block_scan's route
+        lim = bound(moved, 3 * flop if tf32 else flop,
+                    "tf32" if tf32 else "f32")
+        cores = bound(moved, flop, "f32")
+        log(f"B8 exact scan N={n_rows} B={b} k={K} "
+            f"({'3xTF32' if tf32 else 'FMA'} tile): rows identical "
             f"({ties} tied entries), max_abs_err {err:.3e} (rtol "
             f"{SCAN_RTOL}), top-{K} vs host f64 {herr:.2e}; kernel "
-            f"{ms:.3f} ms plain {pms:.3f} ms bound {lim['bound_ms']:.3f} "
-            f"ms ({lim['bound_by']})")
+            f"{ms:.3f} ms plain {pms:.3f} ms torch.mm alone {lms:.3f} ms; "
+            f"bound {lim['bound_ms']:.3f} ms ({lim['bound_by']}: bytes "
+            f"{1e3 * moved / HBM_BYTES_S:.3f}, 3xTF32 operations "
+            f"{3e3 * flop / PEAK_OPS_S['tf32']:.3f}; f32-core bound "
+            f"{cores['bound_ms']:.3f})")
         out[b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
-                  "library_ms": None}
+                  "library_ms": lms}
     return out[64]
 
 
@@ -1776,6 +1805,10 @@ if scans:
     row["B4"] = c.compare_codes_scan(store, perm, n_rows, seed, "int8")["ms"]
     row["B7"] = c.compare_codes_scan(store, perm, n_rows, seed, "int4")["ms"]
     row["B8"] = c.compare_block_scan(store, n_rows, seed)["ms"]
+    for b in (1, 16):
+        q = c.unit_queries(dev, b, seed + b)
+        row[f"B8 B={b}"] = c.cuda_ms(
+            lambda: c.topk.block_scan(store, q, n_rows, k=c.K), 20)
 print("ab-row " + json.dumps(row), flush=True)
 """
 

@@ -18,8 +18,11 @@ other side of a tie, and the bf16 softmax and residual carry it); the
 whole vision encode per-row cosine as B2; B4 and B7
 bit-identical (integer dot products are exact, and both versions multiply
 the scales in the same order); B8 rows identical and scores equal on
-exact inputs, rows identical and scores within rtol 1e-5 on random unit
-rows (the kernel sums in another order than cuBLAS); B12 as B8, pads
+exact inputs (on f32 rows past B = 8 too, whose 3xTF32 tile then has
+zero small parts and exact sums), rows identical and scores within rtol
+1e-5 on random unit rows (the kernel sums in another order than cuBLAS),
+and on unnormalised N(0, 1e3^2) rows also against f64 host scores; B12
+as B8, pads
 (-inf, -1) in the same places, also for a pair on tile 4,096 and beyond
 (64-bit tile offsets: 8.6 GB of tiles on the card); B9 and B8 over bf16
 rows as B8 (rows and scores identical on exact inputs); B10 exact and
@@ -470,6 +473,86 @@ def test_block_scan_kernel(cuda, b, k):
     gap[:, :-1] = torch.minimum(gap[:, :-1], pv[:, :-1] - pv[:, 1:])
     apart = gap > 1e-5 * pv.abs()
     assert torch.equal(ki[apart], pi[apart])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 64])
+@pytest.mark.parametrize("b", [9, 65])
+def test_block_scan_kernel_route_edges(cuda, b, k):
+    """B = 9, the first batch on the 3xTF32 tile, and B = 65, a second
+    64-query chunk holding one query, over 2 x 1,024 + 37 rows (a short
+    last tile) with valid cutting the second tile: exact inputs, so rows
+    and scores equal the plain version's bit for bit."""
+    n = 2 * 1024 + 37
+    emb = _exact(10 + b, (n, 512))
+    emb[1500:1540] = emb[100:140]
+    emb, q = emb.to(cuda), _exact(600 + b, (b, 512)).to(cuda)
+    before = topk.block_scan.launches
+    kv, ki = topk.block_scan(emb, q, 1024 + 400, k=k)
+    torch.cuda.synchronize()
+    assert topk.block_scan.launches == before + 1
+    pv, pi = topk.block_scan_ref(emb, q, 1024 + 400, k=k,
+                                 tile_rows=topk.SCAN_TILE_ROWS)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_block_scan_kernel_wide_range(cuda, b):
+    """Unnormalised N(0, 1e3^2) rows (neighbouring pairs 1e-4 of a norm
+    apart): the tile lists' scores within rtol 1e-5 of the f64 host
+    scores of their rows, and rows identical to the plain version's except
+    where two scores tie within it. One TF32 product per element (the
+    small parts dropped) is off by ~4e-4 relative here."""
+    rng = np.random.default_rng(b)
+    emb = rng.normal(0.0, 1e3, (3000, 512))
+    emb[1::2] = emb[0::2] + 1e-4 * np.linalg.norm(
+        emb[0::2], axis=-1, keepdims=True) * _unit(b, (1500, 512)).numpy()
+    emb = torch.from_numpy(emb.astype(np.float32)).to(cuda)
+    q = _unit(700 + b, (b, 512)).to(cuda)
+    kv, ki = topk.block_scan(emb, q, 2900, k=10)
+    torch.cuda.synchronize()
+    live = torch.isfinite(kv)
+    host = torch.einsum("tbkd,bd->tbk",
+                        emb.double()[ki.clamp(max=2999).long()], q.double())
+    torch.testing.assert_close(kv.double()[live], host[live], rtol=1e-5,
+                               atol=0)
+    pv, pi = topk.block_scan_ref(emb, q, 2900, k=10,
+                                 tile_rows=topk.SCAN_TILE_ROWS)
+    assert torch.equal(live, torch.isfinite(pv))
+    _check_close_rows(*(t.reshape(-1, 10) for t in (kv, ki, pv, pi)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [16, 64])
+def test_block_scan_bf16_and_int8_keep_their_counts(cuda, b):
+    """Past B = 8 only f32 rows take the 3xTF32 tile: bf16 rows and int8
+    codes count under block_scan_bf16 and block_scan_int8, never under
+    block_scan, and still match their plain versions on exact inputs."""
+    emb = _exact(b, (3000, 512))
+    codes, scales = _codes_mirror("int8", b, n=3000)
+    rows16, codes, scales = (emb.to(cuda, torch.bfloat16), codes.to(cuda),
+                             scales.to(cuda))
+    q = _exact(800 + b, (b, 512)).to(cuda)
+    before = (topk.block_scan.launches, topk.block_scan_bf16.launches,
+              topk.block_scan_int8.launches)
+    hv, hi = topk.block_scan_bf16(rows16, q, 1700, k=10)
+    iv, ii = topk.block_scan_int8(codes, scales, q, 1700, k=10)
+    torch.cuda.synchronize()
+    assert (topk.block_scan.launches, topk.block_scan_bf16.launches,
+            topk.block_scan_int8.launches) == \
+        (before[0], before[1] + 1, before[2] + 1)
+    pv, pi = topk.block_scan_ref(rows16, q, 1700, k=10,
+                                 tile_rows=topk.SCAN_TILE_ROWS)
+    torch.testing.assert_close(hv, pv, rtol=0, atol=0)
+    assert torch.equal(hi, pi)
+    pv, pi = topk.block_scan_int8_ref(codes, scales,
+                                      topk._int8_scan_queries(q, 3000),
+                                      1700, k=10,
+                                      tile_rows=topk.SCAN_TILE_ROWS)
+    torch.testing.assert_close(iv, pv, rtol=0, atol=0)
+    assert torch.equal(ii, pi)
 
 
 def _shard_perm(seed, n, valid, live=True):

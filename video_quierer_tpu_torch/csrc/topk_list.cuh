@@ -68,4 +68,64 @@ __device__ __forceinline__ void fold_warp(float* lv, int* li, int k, bool here,
   }
 }
 
+// The same list for k <= 16 held in registers while a warp folds two
+// queries at once, one a half-warp: lane l of a half holds entry l (lanes
+// >= k hold (-inf, INT_MAX) and are never written), and (tv, tr) the last
+// entry, k - 1. The same order, ties and pads as fold_warp; an insert is a
+// ballot and a shift by one lane, and the two halves' inserts run side by
+// side.
+struct HalfList {
+  float v, tv;
+  int r, tr;
+};
+
+constexpr int HALF_KMAX = 16;
+
+__device__ __forceinline__ HalfList load_half_list(const float* lv,
+                                                  const int* li, int k,
+                                                  int hl) {
+  HalfList l;
+  l.v = hl < k ? lv[hl] : -INFINITY;
+  l.r = hl < k ? li[hl] : INT_MAX;
+  l.tv = __shfl_sync(0xffffffffu, l.v, k - 1, 16);
+  l.tr = __shfl_sync(0xffffffffu, l.r, k - 1, 16);
+  return l;
+}
+
+__device__ __forceinline__ void store_half_list(const HalfList& l, float* lv,
+                                                int* li, int k, int hl) {
+  if (hl < k) {
+    lv[hl] = l.v;
+    li[hl] = l.r;
+  }
+}
+
+// Fold 16 candidates a half-warp, one a lane (``here`` false for lanes
+// without one), into the half's list; hl = lane % 16, all 32 lanes call
+__device__ __forceinline__ void fold_half(HalfList& l, int k, bool here,
+                                          float v, int r, int hl, int half) {
+  const unsigned full = 0xffffffffu;
+  unsigned mask = (__ballot_sync(full, here && better(v, r, l.tv, l.tr)) >>
+                   (16 * half)) & 0xffffu;
+  while (__any_sync(full, mask != 0)) {
+    const bool active = mask != 0;
+    const int src = active ? __ffs(mask) - 1 : 0;
+    mask &= mask - 1;
+    const float cv = __shfl_sync(full, v, src, 16);
+    const int cr = __shfl_sync(full, r, src, 16);
+    const bool ins = active && better(cv, cr, l.tv, l.tr);  // per half
+    const int pos = __popc((__ballot_sync(full, hl < k && better(l.v, l.r, cv,
+                                                                 cr)) >>
+                            (16 * half)) & 0xffffu);
+    const float pv = __shfl_up_sync(full, l.v, 1, 16);
+    const int pr = __shfl_up_sync(full, l.r, 1, 16);
+    if (ins && hl >= pos && hl < k) {
+      l.v = hl == pos ? cv : pv;
+      l.r = hl == pos ? cr : pr;
+    }
+    l.tv = __shfl_sync(full, l.v, k - 1, 16);
+    l.tr = __shfl_sync(full, l.r, k - 1, 16);
+  }
+}
+
 }  // namespace vqt

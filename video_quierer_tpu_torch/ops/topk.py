@@ -773,8 +773,9 @@ def _require_dtype(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 def block_scan(emb: torch.Tensor, queries: torch.Tensor, valid: int, *,
                k: int, tile_rows: int = None) -> Pair:
     """Per-tile top-``k`` lists ``[n_tiles, B, k]`` of the exact f32 scan
-    (``k <= MAX_K``). Kernel B8 on CUDA tensors (f32 matrix), the plain
-    version on CPU ones."""
+    (``k <= MAX_K``). Kernel B8 on CUDA tensors (f32 matrix: the FMA tile
+    up to B = 8, the 3xTF32 tensor-core tile past it), the plain version
+    on CPU ones."""
     tile_rows = tile_rows or SCAN_TILE_ROWS
     q = queries.float().contiguous()
     if emb.device.type == "cpu":
