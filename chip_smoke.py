@@ -7,10 +7,11 @@ GPU — the quickest proof that the port still starts on the card.
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
-search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16) of the
-checkout in DIR (say the parent commit, unpacked with ``git archive``)
-against this one, in the order DIR, this, this, DIR, and prints each
-kernel's ms per run.
+search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1 at B = 1
+and 256 — and B10 at B = 64 over the whole corpus and over shard 0 of the
+4-shard perm layout) of the checkout in DIR (say the parent commit,
+unpacked with ``git archive``) against this one, in the order DIR, this,
+this, DIR, and prints each kernel's ms per run.
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -80,8 +81,11 @@ last line):
    read 0;
 5. corpus meshes and the exact-candidate hatch, each an engine over the
    same cache served through its own entry points (``search_ex`` for 8
-   single queries, ``search_batch`` for one batch of 64), the launch
-   counters set to 0 before the searches and read after: a 4-shard mesh
+   single queries, ``search_batch`` for one batch of 64, sent twice: the
+   first and the second call's times and their split by the serving
+   path's stage spans, ``utils/stageprof.py``, are printed, and the two
+   calls' rows must agree), the launch counters set to 0 before the
+   searches and read after: a 4-shard mesh
    on the one card (``corpus_mesh=CorpusMesh([cuda:0] * 4)``) in
    bfloat16 (first ingesting 2 videos x 200 seeded frames, which the mesh
    takes by re-placing its mirror: checked bit for bit), int8, float32
@@ -91,7 +95,9 @@ last line):
    (B10 over the whole corpus). Served rows equal the host exact top-10
    (IVF: the host's probed-exact top-10); each path's scan kernel launched
    and the single-card candidate kernels (B1, B4) not;
-6. a JSON line of the kernels, the nvidia-smi line, and the result line
+6. a JSON line of the kernels (B1 also under ``at_b`` at B = 1, 64 and
+   256, B10 also under ``shard`` on shard 0 of the 4-shard layout), the
+   nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every phase prints its time. Needs one CUDA card; without one it exits
@@ -147,6 +153,7 @@ from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows_int4,
 )
 from video_quierer_tpu_torch.parallel.mesh import CorpusMesh
+from video_quierer_tpu_torch.utils import stageprof
 
 ROOT = Path(__file__).resolve().parent
 DIM = 512
@@ -614,7 +621,8 @@ def compare_winners(name: str, b: int, kern, plain, merge, store, perm,
 
 
 def compare_cand_scan(store, perm, n_rows: int, seed: int) -> dict:
-    """B1 over the bf16 live-prefix mirror."""
+    """B1 over the bf16 live-prefix mirror at B = 1, 64 and 256: the B = 64
+    result, with every width's under ``at_b``."""
     mirror = store[perm.long()].bfloat16()
     out = {}
     for b in (1, 64, 256):
@@ -631,7 +639,13 @@ def compare_cand_scan(store, perm, n_rows: int, seed: int) -> dict:
         out[b].update(_scan_bound(mirror.numel() * 2, b * DIM * 2, b,
                                   "bf16", n_rows), library_ms=None)
     del mirror
-    return out[64]
+    return dict(out[64], at_b={str(b): _brief(r) for b, r in out.items()})
+
+
+def _brief(result: dict) -> dict:
+    """The numbers of one width or layout beside a kernels-line entry."""
+    return {k: result[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "max_abs_err")}
 
 
 def _scan_bound(mirror_bytes: int, query_bytes: int, b: int, kind: str,
@@ -786,7 +800,8 @@ def compare_perm_scans(store, n_rows: int, seed: int) -> tuple:
     perm layout of a MESH_SHARDS-shard mesh and over the whole corpus as
     one shard (liveness ``perm < n_rows``, the global count): the top-K
     after merge + exact re-rank identical to the plain version's, B11's
-    winners bit-identical. Returns the one-shard (B10, B11) results."""
+    winners bit-identical. Returns the one-shard (B10, B11) results, B10's
+    with the shard's numbers under ``shard``."""
     dev, b = store.device, 64
     q = unit_queries(dev, b, seed + b)
     q_codes, qscale = quantize_rows(q)
@@ -830,7 +845,8 @@ def compare_perm_scans(store, n_rows: int, seed: int) -> tuple:
             log(f"{name} ({what}) B={b}: bound {r['bound_ms']:.3f} ms "
                 f"({r['bound_by']})")
         out[shards] = (b10, b11)
-    return out[1]
+    b10, b11 = out[1]
+    return dict(b10, shard=_brief(out[MESH_SHARDS][0])), b11
 
 
 def compare_exact_scans(store, n_rows: int, seed: int) -> tuple:
@@ -1311,15 +1327,30 @@ def drive_engine(engine: VideoSearchEngine, tag: str, rng) -> tuple:
         lat.append(time.perf_counter() - t0)
         require(not cached and len(rows) == K, f"[{tag}] single search")
         single_rows.append(rows)
-    batch = [words(rng, 4) for _ in range(64)]
-    t0 = time.perf_counter()
-    batch_rows = engine.search_batch(batch, k=K)
-    t = time.perf_counter() - t0
-    require(len(batch_rows) == 64 and all(len(r) == K for r in batch_rows),
-            f"[{tag}] batch search")
+    batch, times, splits, rows = [words(rng, 4) for _ in range(64)], [], [], []
+    for _ in range(2):
+        before = stageprof.snapshot()
+        t0 = time.perf_counter()
+        rows.append(engine.search_batch(batch, k=K))
+        times.append(time.perf_counter() - t0)
+        splits.append(stage_ms(before, stageprof.snapshot()))
+    batch_rows = rows[0]
+    require(len(batch_rows) == 64 and all(len(r) == K for r in batch_rows)
+            and rows[1] == batch_rows, f"[{tag}] batch search")
     log(f"[{tag}] 8 single searches, p50 {1e3 * float(np.median(lat)):.2f} "
-        f"ms (first {1e3 * lat[0]:.2f} ms); batch of 64 {1e3 * t:.2f} ms")
+        f"ms (first {1e3 * lat[0]:.2f} ms); batch of 64, the same queries "
+        f"twice: first {1e3 * times[0]:.2f} ms, second {1e3 * times[1]:.2f} "
+        "ms")
+    log(f"[{tag}] batch stages (host ms, first / second): " + ", ".join(
+        f"{k} {splits[0][k]:.2f} / {splits[1].get(k, 0.0):.2f}"
+        for k in splits[0]))
     return singles, single_rows, batch, batch_rows
+
+
+def stage_ms(before: dict, after: dict) -> dict:
+    """The stageprof spans' host ms between two snapshots."""
+    return {k: 1e3 * (v[1] - before.get(k, (0, 0.0))[1])
+            for k, v in after.items() if v[0] > before.get(k, (0, 0.0))[0]}
 
 
 def ingest_name(v: int) -> str:
@@ -1809,6 +1840,24 @@ if scans:
         q = c.unit_queries(dev, b, seed + b)
         row[f"B8 B={b}"] = c.cuda_ms(
             lambda: c.topk.block_scan(store, q, n_rows, k=c.K), 20)
+    scan = dict(bucket=c.topk.CAND_BUCKET, rounds=c.topk.CAND_ROUNDS)
+    mirror = store[perm.long()].bfloat16()
+    for b in (1, 256):
+        q = c.unit_queries(dev, b, seed + b)
+        row[f"B1 B={b}"] = c.cuda_ms(lambda: c.topk.cand_scan_prefix(
+            mirror, q, n_rows, **scan), 20 if b == 1 else 5)
+    del mirror
+    # B10 at B = 64 over the whole corpus as one shard, then over shard 0
+    # of the 4-shard perm layout
+    q = c.unit_queries(dev, 64, seed + 64)
+    for shards in (1, c.MESH_SHARDS):
+        cap, perm_np = c.mesh_perm(n_rows, shards)
+        sperm = torch.from_numpy(perm_np[:cap // shards]).to(dev)
+        mirror = store[torch.clamp(sperm, max=store.shape[0] - 1)
+                       .long()].bfloat16()
+        row["B10" if shards == 1 else "B10 shard"] = c.cuda_ms(
+            lambda: c.topk.cand_scan(mirror, sperm, q, n_rows, **scan), 20)
+        del mirror
 print("ab-row " + json.dumps(row), flush=True)
 """
 
@@ -1888,6 +1937,8 @@ def main() -> int:
         b12 = compare_probe_scan(device, n_rows, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
+    # the serving path's stage spans: phase 5 splits its batches by them
+    stageprof.ENABLED = True
     launches, ingested, extra = phase_end_to_end(embedder, args, device)
     src = "video_quierer_tpu_torch/csrc/"
     kernels_line = {"kernels": [

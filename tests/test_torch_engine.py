@@ -192,3 +192,65 @@ def test_server_refuses_to_start_without_a_card(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert "torch.cuda.is_available() is False" in out.stderr
+
+
+def _warm_engine(tmp_path, dtype="bfloat16", embedder=True):
+    from tests.torch_parity import TINY_FULL_VOCAB
+    from video_quierer_tpu_torch.models.clip.embedder import CLIPEmbedder
+    cfg = torch_config.EngineConfig(videos_dir=str(tmp_path))
+    cfg.index.embed_dim = 64
+    cfg.index.device_dtype = dtype
+    emb = (CLIPEmbedder(TINY_FULL_VOCAB, dtype=torch.float32, device="cpu")
+           if embedder else None)
+    engine = VideoSearchEngine(tmp_path, config=cfg, embedder=emb,
+                               device="cpu")
+    engine.index.add_batch(torch.randn(300, 64).numpy(), "a.mp4",
+                           [float(i) for i in range(300)])
+    return engine
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_startup_warms_the_fused_search_path(tmp_path, monkeypatch, dtype):
+    """startup() runs the fused text-search path once for each shape the
+    first requests meet — singles at k = 1, 10 (default_results) and a
+    ~30-token single, the text buckets up to the coalescer's width at k =
+    10 — so that one-time costs on the card fall in startup; no metric,
+    cache or index state sees the warm-up."""
+    engine = _warm_engine(tmp_path, dtype)
+    calls = []
+    dispatch = engine._dispatch_batch_fused
+
+    def spy(queries, k):
+        calls.append((len(queries), k))
+        return dispatch(queries, k)
+
+    monkeypatch.setattr(engine, "_dispatch_batch_fused", spy)
+    hashes = dict(engine.index.video_hashes)
+    engine.startup()
+    assert engine.ready and len(engine.index) == 300
+    assert calls == [(1, 1), (1, 1), (1, 10), (1, 10), (8, 10), (32, 10),
+                     (64, 10)]
+    assert engine.metrics.counter("searches") == 0
+    assert engine.index.video_hashes == hashes
+    assert len(engine.query_cache._cache) == 0
+    got = engine.search_batch(["a query"], k=3)
+    assert len(got) == 1 and len(got[0]) == 3
+
+
+def test_startup_on_the_cpu_does_not_build_an_embedder_to_warm(tmp_path,
+                                                               monkeypatch):
+    engine = _warm_engine(tmp_path, embedder=False)
+    monkeypatch.setattr(engine, "_dispatch_batch_fused", None)
+    engine.startup()
+    assert engine.ready and engine._embedder is None
+
+
+def test_a_failing_warm_up_does_not_fail_startup(tmp_path, caplog):
+    engine = _engine(tmp_path, embedder=_BrokenEmbedder())
+    engine.index.add_batch(torch.randn(10, 64).numpy(), "a.mp4",
+                           [float(i) for i in range(10)])
+    engine.startup()
+    assert engine.ready
+    assert "search warm-up failed (RuntimeError: tower failed)" in caplog.text
+    with pytest.raises(RuntimeError, match="tower failed"):
+        engine.search_batch(["q"], k=3)

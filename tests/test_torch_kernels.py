@@ -408,6 +408,115 @@ def test_cand_scan_kernel(cuda, b):
     assert torch.equal(ki, pi)
 
 
+def _check_cand_prefix(emb, q, valid, bucket, rounds):
+    """B1 against its plain version: winners bit-identical."""
+    before = topk.cand_scan_prefix.launches
+    kv, ki = topk.cand_scan_prefix(emb, q, valid, bucket=bucket,
+                                   rounds=rounds)
+    torch.cuda.synchronize()
+    assert topk.cand_scan_prefix.launches == before + 1
+    pv, pi = topk.cand_scan_prefix_ref(emb, q, valid, bucket=bucket,
+                                       rounds=rounds, block_rows=4096)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    return kv, ki
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 9, 63, 65, 128])
+def test_cand_scan_query_chunk_edges(cuda, b):
+    """The tile's query widths: the 16-wide panel's edge (B = 8, 9 past
+    it), the 64-wide one's (63, 65), and two whole chunks (128)."""
+    emb = _exact(b, (4 * 4096, 512)).to(cuda, torch.bfloat16)
+    q = _exact(100 + b, (b, 512)).to(cuda)
+    _check_cand_prefix(emb, q, 2 * 4096 + 1500, 1024, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("bucket", [128, 1024])
+@pytest.mark.parametrize("rounds", [1, 2, 4])
+def test_cand_scan_rounds_and_buckets(cuda, rounds, bucket, b):
+    emb = _exact(rounds, (4 * 4096, 512)).to(cuda, torch.bfloat16)
+    q = _exact(200 + b, (b, 512)).to(cuda)
+    _check_cand_prefix(emb, q, 4096 + 777, bucket, rounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [0, 1, 700, 1024, 4096 + 1500,
+                                   4 * 4096])
+def test_cand_scan_valid_cuts(cuda, valid):
+    """``valid`` inside a tile (700: tile 10 of bucket 0; 4096 + 1500),
+    on a bucket's edge, past the mirror, and none live: buckets wholly
+    past it emit -inf at their first positions."""
+    emb = _exact(7, (4 * 4096, 512)).to(cuda, torch.bfloat16)
+    q = _exact(8, (64, 512)).to(cuda)
+    kv, ki = _check_cand_prefix(emb, q, valid, 1024, 2)
+    dead = -(-valid // 1024)                 # first bucket wholly dead
+    if dead < 16:
+        assert bool(torch.isinf(kv.view(4, 2, 4, 64)
+                                .transpose(1, 2).reshape(16, 2, 64)[dead:])
+                    .all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 64])
+def test_cand_scan_duplicate_rows(cuda, b):
+    """Equal scores inside one tile, across tiles and across warps of a
+    bucket: the lowest position wins, as the packed key says."""
+    emb = _exact(9, (4 * 4096, 512))
+    emb[70:80] = emb[64:74].clone()          # same tile
+    emb[300:340] = emb[100:140]              # another tile, same bucket
+    emb[1000:1024] = emb[1024:1048]          # across a bucket edge
+    emb[2048:3072] = emb[2048].clone()       # a whole bucket of one row
+    emb = emb.to(cuda, torch.bfloat16)
+    q = _exact(10, (b, 512)).to(cuda)
+    _check_cand_prefix(emb, q, 3 * 4096, 1024, 2)
+
+
+@pytest.mark.gpu
+def test_cand_scan_partial_box(cuda):
+    """D = 96: the second 64-column TMA box is half past the row (zeros)."""
+    emb = _exact(11, (4096, 96)).to(cuda, torch.bfloat16)
+    q = _exact(12, (5, 96)).to(cuda)
+    _check_cand_prefix(emb, q, 3000, 128, 2)
+
+
+@pytest.mark.gpu
+def test_cand_scan_unaligned_queries(cuda):
+    """Queries 2 bytes off a 16-byte boundary: the wrapper hands the
+    kernel an aligned copy."""
+    emb = _exact(15, (4096, 512)).to(cuda, torch.bfloat16)
+    flat = torch.zeros(3 * 512 + 1, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(3, 512)
+    q.copy_(_exact(16, (3, 512)))
+    _check_cand_prefix(emb, q, 3000, 1024, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 64])
+def test_cand_scan_perm_dead_bucket(cuda, b):
+    """B10 with every row of bucket 5 dead by perm (and bucket 9 all
+    live): the dead bucket emits -inf at its first positions."""
+    n, valid = 4 * 4096, 4 * 4096 + 777
+    perm = _shard_perm(3, n, valid).numpy().copy()
+    perm[5 * 1024:6 * 1024] = valid + np.arange(1024)
+    perm[9 * 1024:10 * 1024] = np.arange(1024)
+    perm = torch.from_numpy(perm).to(cuda)
+    emb = _exact(13, (n, 512)).to(cuda, torch.bfloat16)
+    q = _exact(14, (b, 512)).to(cuda)
+    kv, ki = topk.cand_scan(emb, perm, q, valid, bucket=1024, rounds=2)
+    pv, pi = topk.cand_scan_ref(emb, perm, q, valid, bucket=1024, rounds=2,
+                                block_rows=4096)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    # bucket 5: block 1, entries r * 4 + 1
+    assert bool(torch.isinf(kv[1, [1, 5]]).all())
+    assert torch.equal(ki[1, [1, 5]].cpu(),
+                       torch.tensor([5 * 1024, 5 * 1024 + 1])[:, None]
+                       .expand(2, b).int())
+
+
 def _unit(seed, shape):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape).astype(np.float32)

@@ -52,15 +52,21 @@
 // text serving batches (1,024 tokens x 512 wide) the GEMMs are small (0.5-2
 // GFLOP each), so the launches per 12-layer encode and the small grids,
 // not the peak, set the time.
-#include "common.cuh"
-
-#include <cuda.h>  // CUtensorMap (the encoder is fetched at run time)
+#include "tma.cuh"
 
 namespace {
 
 using vqt::bf16;
 using vqt::from_f;
+using vqt::gmma_desc;
+using vqt::mbar_arrive;
+using vqt::mbar_expect;
+using vqt::mbar_init;
+using vqt::mbar_wait;
 using vqt::rnd;
+using vqt::smem_u32;
+using vqt::tensor_map;
+using vqt::tma_load;
 using vqt::to_f;
 
 constexpr int BM = 64, BN = 64;
@@ -287,65 +293,6 @@ constexpr int G_ST = 3;      // pipeline stages (96 KB at 128x128: two CTAs
 constexpr int ATOM = 64 * G_BK * 2;  // a 64 x 64 bf16 tile: 8 KB
 constexpr int MAX_DEVICES = 64;      // per-device host caches
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// TMA: the box at (c0 inner, c1 outer) of `map` into shared `dst`; rows and
-// columns past the tensor's edge arrive as zeros
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// byte offset (MN-major: between 64-wide atoms; ignored K-major), stride
-// byte offset (between 8-row groups)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
 // d += A (K-major, shared) @ B (MN-major, shared): m64 n64/n128 k16
 __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
                                       uint64_t db) {
@@ -502,43 +449,6 @@ gemm_wgmma(const __grid_constant__ CUtensorMap amap,
           __floats2bfloat162_rn(v0, v1);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's tensor-map encoder, looked up once (no link against libcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a row-major [rows, cols] bf16 matrix cut into [box_rows, 64] boxes
-bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
-                int box_rows) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BM, int BN>

@@ -218,9 +218,45 @@ class VideoSearchEngine:
             self.index.sync_mirror()
             if self._ivf is None:
                 self._maybe_build_ivf()
+        self._warm_up()
         self._ready = True
         self.metrics.set_gauge("frames_indexed", len(self.index))
         logger.info("Startup complete: %d frames indexed", len(self.index))
+
+    def _warm_up(self) -> None:
+        """Run the fused text-search path once for each shape its first
+        requests meet, so that their one-time costs on the card (a first
+        sort or kernel load at a new shape, allocator growth after
+        ``torch.cuda.empty_cache()``) fall in startup: single queries (a
+        short and a ~30-token one) at k = 1, ``default_results`` and 10,
+        and every text bucket up to the coalescer's width at the largest
+        of those k — the shapes the reference's boot warm-up
+        (``VQT_WARMUP``, ``api/app.py``) compiles. On the card the
+        embedder is built here if it was not yet; on the CPU the warm-up
+        runs only when one is loaded. The results are dropped: no metric,
+        cache or index state sees them. The IVF route is not warmed. As the
+        reference's warm-up runs detached, a failure here is logged and
+        startup goes on: the first request then meets it."""
+        if (len(self.index) == 0 or not self.use_clip
+                or self._ivf is not None
+                or (self._embedder is None and self.device.type != "cuda")):
+            return
+        ks = sorted({1, self.config.api.default_results, 10})
+        long_q = " ".join(["warmup"] * 28)
+        try:
+            with self.lock.read(), span("warm_up"):
+                for k in ks:
+                    for query in ("warmup", long_q):
+                        self._dispatch_batch_fused([query], k)()
+                for bucket in TEXT_BUCKETS[1:]:
+                    if bucket > max(64, self.config.coalesce_width):
+                        break
+                    self._dispatch_batch_fused(
+                        [f"warmup {i}" for i in range(bucket)], ks[-1])()
+        except Exception as e:
+            logger.warning("search warm-up failed (%s: %s); the first "
+                           "requests meet their one-time costs",
+                           type(e).__name__, e)
 
     def _ingest(self, videos: Sequence[Path],
                 api_cfg: Optional[ApiConfig] = None) -> int:

@@ -101,6 +101,7 @@ from video_quierer_tpu_torch.ops.topk import (
 )
 from video_quierer_tpu_torch.parallel.mesh import CorpusMesh
 from video_quierer_tpu_torch.utils.env import resolve_device
+from video_quierer_tpu_torch.utils.stageprof import span
 
 logger = logging.getLogger(__name__)
 
@@ -919,24 +920,35 @@ class DeviceVideoIndex:
         exact = self.device_dtype == "float32"
         k_dev = k if exact else self._rerank_fetch(k)
         count = self._count
-        with self._sync_lock:
+        with span("mirror_sync"), self._sync_lock:
             mirror = self._synced_mirror()
             store = (self._sync_device_f32()
                      if self._device_rerank_active() else None)
-        ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
-            self.device)
         with torch.inference_mode():
-            q = encode_fn(params, ids_t)
-            q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True)
-                     + 1e-10)
-            vals, idxs = self._scan(mirror, q, count, k_dev)
+            with span("encode"):
+                ids_t = torch.from_numpy(np.ascontiguousarray(
+                    ids, np.int64)).to(self.device)
+                q = encode_fn(params, ids_t)
+                q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+                         + 1e-10)
+            with span("scan"):
+                vals, idxs = self._scan(mirror, q, count, k_dev)
             if store is not None:
-                vals, idxs = _device_exact_rerank(store, q, idxs, count, k)
+                with span("rerank"):
+                    vals, idxs = _device_exact_rerank(store, q, idxs, count,
+                                                      k)
             if exact or store is not None:
-                return lambda: self._rows_from(vals.cpu().numpy(),
+                def rows() -> List[List[Dict]]:
+                    with span("results"):
+                        return self._rows_from(vals.cpu().numpy(),
                                                idxs.cpu().numpy())
-        return lambda: self._rerank_f32(q.cpu().numpy(), idxs.cpu().numpy(),
+                return rows
+
+        def rerank_rows() -> List[List[Dict]]:
+            with span("results"):
+                return self._rerank_f32(q.cpu().numpy(), idxs.cpu().numpy(),
                                         k)
+        return rerank_rows
 
     def _rerank_f32(self, q: np.ndarray, idxs: np.ndarray, k: int
                     ) -> List[List[Dict]]:

@@ -198,13 +198,16 @@ def _cand_scan_bf16(fn_name: str, wrapper, emb: torch.Tensor,
         raise TypeError(f"the candidate scan kernel takes a bf16 mirror, "
                         f"got {emb.dtype}")
     if q.ndim != 2 or q.shape[1] != d or n_pad % block_rows \
-            or block_rows % bucket or bucket % 16 or d % 16 \
+            or block_rows % bucket or bucket % 64 or d % 16 \
             or not 1 <= rounds <= 4 or emb.data_ptr() % 32:
         raise ValueError(f"unsupported candidate scan: N={n_pad} D={d} "
-                         f"B={b} bucket={bucket} rounds={rounds} (the "
-                         "mirror must start 32-byte aligned)")
+                         f"B={b} bucket={bucket} rounds={rounds} (buckets "
+                         "of whole 64-row tiles; the mirror must start "
+                         "32-byte aligned)")
     if perm is not None:
         _check_perm(perm, n_pad)
+    if q.data_ptr() % 16:            # the kernel loads 16-byte pieces
+        q = q.clone()
     vals, idxs = _winner_buffers(n_pad, b, rounds, bucket, block_rows, dev)
     head = [kernels.ptr(emb)] + ([] if perm is None else [kernels.ptr(perm)])
     with torch.cuda.device(dev):

@@ -20,6 +20,18 @@ Spans (wired in engine/system.py + engine/batching.py):
   format         reference result shaping per flush
   deliver        future set_result fan-out (waker wake-ups)
 
+and inside index/device_index.py:search_batch_fused_async (host time:
+the device work is enqueued, so these show host-side costs such as
+allocator growth or a kernel's first load; ``results`` waits for the
+device):
+  mirror_sync    device mirror / re-rank store sync under the sync lock
+  encode         ids upload, text tower, normalisation
+  scan           the mirror's scan and merge
+  rerank         the device exact f32 re-rank
+  results        device-to-host copies and row building
+and engine/system.py:_warm_up:
+  warm_up        startup's run of the fused search path
+
 ``snapshot()`` returns {name: (calls, seconds)}; serving_bench prints
 per-phase deltas as µs/query.
 """
