@@ -4,14 +4,18 @@ GPU — the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py [--seed 0] [--videos 10000] [--frames 200]
     python3 chip_smoke.py --ab DIR [--ab-scans]
+    python3 chip_smoke.py --exact-scans
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
 search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1 at B = 1
-and 256 — and B10 at B = 64 over the whole corpus and over shard 0 of the
-4-shard perm layout) of the checkout in DIR (say the parent commit,
-unpacked with ``git archive``) against this one, in the order DIR, this,
-this, DIR, and prints each kernel's ms per run.
+and 256 —, B9 and B8 over bf16 rows at B = 1 and 64 and k = 10 and 40,
+and B10 at B = 64 over the whole corpus and over shard 0 of the 4-shard
+perm layout) of the checkout in DIR (say the parent commit, unpacked with
+``git archive``) against this one, in the order DIR, this, this, DIR,
+and prints each kernel's ms per run. ``--exact-scans`` runs phases 1 and
+2, then only the hatch's exact scans against their plain versions
+(phase 3's last part), timed.
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -46,9 +50,12 @@ last line):
    then the corpus-mesh and hatch kernels at the serving size: B10 and
    B11 (the perm-layout candidate scans) at B = 64, fetch 128, over shard
    0 of the perm layout a 4-shard mesh places (503,808 rows) and over the
-   whole corpus as one shard; B9 (the exact int8 scan) at B = 1 and 64
-   and B8 over bf16 rows at B = 1 and 64, k = 40 (the hatch's fetch at
-   k = 10), over the 2M-row identity mirror;
+   whole corpus as one shard; B9 (the exact int8 scan) and B8 over bf16
+   rows at B = 1 and 64, k = 10 and 40 (the hatch's fetch at k = 10),
+   over the 2M-row identity mirror: their per-span lists (8,192 rows a
+   span, the reference's macro) against the plain version's at the same
+   span, the merged top-10's scores against host f64, and the ring stages
+   each launch takes;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512) written once as the pickle v1.0 cache; for each mirror
    dtype (bfloat16, then float32, int8 and int4), and then for the IVF
@@ -849,51 +856,81 @@ def compare_perm_scans(store, n_rows: int, seed: int) -> tuple:
     return dict(b10, shard=_brief(out[MESH_SHARDS][0])), b11
 
 
+def _host_scores(mat, scales, q, rows) -> torch.Tensor:
+    """f64 scores, on the host, of the rows ``rows [B, k]`` of ``mat`` for
+    the queries ``q [B, D]``, times the rows' scales where given."""
+    e = mat[rows.long()].double().cpu()
+    sc = (e @ q.double().cpu()[:, :, None])[..., 0]
+    if scales is not None:
+        sc = sc * scales[rows.long(), 0].double().cpu()
+    return sc
+
+
 def compare_exact_scans(store, n_rows: int, seed: int) -> tuple:
-    """The hatch's exact scans over the identity mirror, k = HATCH_K: B9
-    over int8 codes (B = 1: the f32-query contract; B = 64: the
-    bf16-query one) and B8 over bf16 rows; per-tile lists against the
-    plain versions as B8's. Returns the B = 64 (B9, B8 bf16) results."""
+    """The hatch's exact scans over the identity mirror, both on the span
+    tile: B9 over int8 codes (B = 1: the f32-query contract, split by the
+    kernel into three bf16 parts; B = 64: the bf16-query one) and B8 over
+    bf16 rows, at B = 1 and 64 and k = K and HATCH_K (the hatch's fetch).
+    Per-span lists against the plain version's at the same span
+    (check_tile_lists), the merged top-K's scores against host f64 scores
+    of their rows within SCORE_ATOL; the ring stages each launch takes;
+    bounds with the span lists' output bytes. Returns the B = 64, k =
+    HATCH_K results (B9, B8 bf16)."""
     n = store.shape[0]
-    n_tiles = -(-n // topk.SCAN_TILE_ROWS)
+    n_spans = -(-n // topk.SCAN_SPAN_ROWS)
     codes, scales = quantize_rows(store)
     rows16 = store.bfloat16()
+    span = topk.SCAN_SPAN_ROWS
     scans = {
         "B9 exact int8 scan": (
-            lambda q: topk.block_scan_int8(codes, scales, q, n_rows,
-                                           k=HATCH_K),
-            lambda q: topk.block_scan_int8_ref(
-                codes, scales, topk._int8_scan_queries(q, n), n_rows,
-                k=HATCH_K, tile_rows=topk.SCAN_TILE_ROWS),
-            n * (DIM + 4)),
+            codes, scales,
+            lambda q, k: topk.block_scan_int8(codes, scales, q, n_rows, k=k),
+            lambda q, k: topk.block_scan_int8_ref(
+                codes, scales, topk._int8_scan_queries(q, n), n_rows, k=k,
+                tile_rows=span),
+            lambda q: topk.cosine_topk_int8(codes, scales, q, n_rows, k=K),
+            lambda q: topk._int8_scan_queries(q, n), n * (DIM + 4)),
         "B8 exact scan over bf16 rows": (
-            lambda q: topk.block_scan_bf16(rows16, q, n_rows, k=HATCH_K),
-            lambda q: topk.block_scan_ref(
-                rows16, q.bfloat16().float(), n_rows, k=HATCH_K,
-                tile_rows=topk.SCAN_TILE_ROWS),
-            n * DIM * 2),
+            rows16, None,
+            lambda q, k: topk.block_scan_bf16(rows16, q, n_rows, k=k),
+            lambda q, k: topk.block_scan_ref(
+                rows16, q.bfloat16().float(), n_rows, k=k, tile_rows=span),
+            lambda q: topk.cosine_topk(rows16, q, n_rows, k=K),
+            lambda q: q.bfloat16().float(), n * DIM * 2),
     }
     out = {}
-    for name, (kern_fn, plain_fn, matrix_bytes) in scans.items():
+    for name, (mat, sc, kern_fn, plain_fn, merged_fn, contract,
+               matrix_bytes) in scans.items():
         for b in (1, 64):
             q = unit_queries(store.device, b, seed + b)
-            err, ties = check_tile_lists(f"{name} B={b}", lambda: kern_fn(q),
-                                         lambda: plain_fn(q))
-            ms = cuda_ms(lambda: kern_fn(q), 20 if b == 1 else 10)
-            pms = cuda_ms(lambda: plain_fn(q), 5)
-            # B9 at B = 1 multiplies f32 queries (the f32 peak); the bf16
-            # contracts' products are exact bf16 ones
-            kind = "f32" if name.startswith("B9") and b == 1 else "bf16"
-            lim = bound(matrix_bytes + b * DIM * 4 + n_tiles * b * HATCH_K * 8,
-                        2 * n * DIM * b, kind)
-            log(f"{name} N={n_rows} B={b} k={HATCH_K}: rows identical "
-                f"({ties} tied entries), max_abs_err {err:.3e} (rtol "
-                f"{SCAN_RTOL}); kernel {ms:.3f} ms plain {pms:.3f} ms bound "
-                f"{lim['bound_ms']:.3f} ms ({lim['bound_by']})")
-            out[name, b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-                            **lim, "library_ms": None}
+            vals, rows = merged_fn(q)
+            herr = (vals.double().cpu()
+                    - _host_scores(mat, sc, contract(q), rows)).abs().max()
+            require(herr <= SCORE_ATOL,
+                    f"{name} B={b}: host score error {herr}")
+            for k in (K, HATCH_K):
+                err, ties = check_tile_lists(
+                    f"{name} B={b} k={k}", lambda: kern_fn(q, k),
+                    lambda: plain_fn(q, k + 1))
+                stages = topk.span_ring_stages(mat, b, k)
+                ms = cuda_ms(lambda: kern_fn(q, k), 20 if b == 1 else 10)
+                pms = cuda_ms(lambda: plain_fn(q, k), 5)
+                # B9 at B = 1 multiplies f32 queries (the f32 peak); the
+                # bf16 contracts' products are exact bf16 ones
+                kind = "f32" if name.startswith("B9") and b == 1 else "bf16"
+                lim = bound(matrix_bytes + b * DIM * 4 + n_spans * b * k * 8,
+                            2 * n * DIM * b, kind)
+                log(f"{name} N={n_rows} B={b} k={k} ({stages} ring stages "
+                    f"a warpgroup): span lists identical ({ties} tied "
+                    f"entries), max_abs_err {err:.3e} (rtol {SCAN_RTOL}), "
+                    f"top-{K} vs host f64 {herr:.2e}; kernel {ms:.4f} ms "
+                    f"plain {pms:.3f} ms bound {lim['bound_ms']:.3f} ms "
+                    f"({lim['bound_by']})")
+                out[name, b, k] = {"max_abs_err": err, "ms": ms,
+                                   "plain_ms": pms, **lim,
+                                   "library_ms": None}
     del codes, scales, rows16
-    return tuple(out[name, 64] for name in scans)
+    return tuple(out[name, 64, HATCH_K] for name in scans)
 
 
 def clustered_corpus(dev, n_rows: int, seed: int):
@@ -1847,6 +1884,20 @@ if scans:
         row[f"B1 B={b}"] = c.cuda_ms(lambda: c.topk.cand_scan_prefix(
             mirror, q, n_rows, **scan), 20 if b == 1 else 5)
     del mirror
+    # the hatch's exact scans, B9 and B8 over bf16 rows, through the
+    # wrappers both trees have, at B = 1 and 64, k = K and HATCH_K
+    codes, scales = c.quantize_rows(store)
+    rows16 = store.bfloat16()
+    for b in (1, 64):
+        q = c.unit_queries(dev, b, seed + b)
+        for k in (c.K, c.HATCH_K):
+            row[f"B9 B={b} k={k}"] = c.cuda_ms(
+                lambda: c.topk.block_scan_int8(codes, scales, q, n_rows,
+                                               k=k), 20 if b == 1 else 10)
+            row[f"B8 bf16 B={b} k={k}"] = c.cuda_ms(
+                lambda: c.topk.block_scan_bf16(rows16, q, n_rows, k=k),
+                20 if b == 1 else 10)
+    del codes, scales, rows16
     # B10 at B = 64 over the whole corpus as one shard, then over shard 0
     # of the 4-shard perm layout
     q = c.unit_queries(dev, 64, seed + 64)
@@ -1898,7 +1949,10 @@ def main() -> int:
                          "against the checkout in DIR")
     ap.add_argument("--ab-scans", action="store_true",
                     help="with --ab: the search-tier scans (B1, B4, B7, "
-                         "B8) too")
+                         "B8, B9, B10, B8 over bf16 rows) too")
+    ap.add_argument("--exact-scans", action="store_true",
+                    help="only the hatch's exact scans (B9, B8 over bf16 "
+                         "rows) against their plain versions, timed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run "
@@ -1912,6 +1966,13 @@ def main() -> int:
         smi = phase_environment()
     with timed("2, build"):
         phase_build()
+    n_rows = args.videos * args.frames
+    if args.exact_scans:
+        with timed("3, hatch scan kernels"):
+            store, _ = corpus_on_card(device, n_rows, args.seed)
+            compare_exact_scans(store, n_rows, args.seed)
+        log(smi)
+        return 0
     with timed("3, text and vision kernels"):
         embedder = CLIPEmbedder(dtype=torch.bfloat16, device=device,
                                 seed=args.seed)
@@ -1920,7 +1981,6 @@ def main() -> int:
         b5, b6 = compare_layer_halves(embedder, args.seed)
         compare_vision_encode(embedder, args.seed)
         ingest_split(embedder, args.seed, device)
-    n_rows = args.videos * args.frames
     with timed("3, scan kernels"):
         store, perm = corpus_on_card(device, n_rows, args.seed)
         b1 = compare_cand_scan(store, perm, n_rows, args.seed)

@@ -637,8 +637,9 @@ def test_block_scan_kernel_wide_range(cuda, b):
 @pytest.mark.parametrize("b", [16, 64])
 def test_block_scan_bf16_and_int8_keep_their_counts(cuda, b):
     """Past B = 8 only f32 rows take the 3xTF32 tile: bf16 rows and int8
-    codes count under block_scan_bf16 and block_scan_int8, never under
-    block_scan, and still match their plain versions on exact inputs."""
+    codes (the span tile) count under block_scan_bf16 and block_scan_int8,
+    never under block_scan, and still match their plain versions at the
+    span on exact inputs."""
     emb = _exact(b, (3000, 512))
     codes, scales = _codes_mirror("int8", b, n=3000)
     rows16, codes, scales = (emb.to(cuda, torch.bfloat16), codes.to(cuda),
@@ -653,13 +654,13 @@ def test_block_scan_bf16_and_int8_keep_their_counts(cuda, b):
             topk.block_scan_int8.launches) == \
         (before[0], before[1] + 1, before[2] + 1)
     pv, pi = topk.block_scan_ref(rows16, q, 1700, k=10,
-                                 tile_rows=topk.SCAN_TILE_ROWS)
+                                 tile_rows=topk.SCAN_SPAN_ROWS)
     torch.testing.assert_close(hv, pv, rtol=0, atol=0)
     assert torch.equal(hi, pi)
     pv, pi = topk.block_scan_int8_ref(codes, scales,
                                       topk._int8_scan_queries(q, 3000),
                                       1700, k=10,
-                                      tile_rows=topk.SCAN_TILE_ROWS)
+                                      tile_rows=topk.SCAN_SPAN_ROWS)
     torch.testing.assert_close(iv, pv, rtol=0, atol=0)
     assert torch.equal(ii, pi)
 
@@ -726,10 +727,11 @@ def test_cand_scan_int8_perm_kernel(cuda, b, live):
 @pytest.mark.parametrize("k", [10, 40])
 @pytest.mark.parametrize("b", [1, 64, 256])
 def test_block_scan_int8_kernel(cuda, b, k):
-    """B9 over int8 codes (3,000 rows: a short last tile, valid cutting the
-    second): exact queries (multiples of 1/256) make every sum exact, so
-    lists are identical; on random unit queries the scores agree within
-    rtol 1e-5 and rows differ only on ties within it."""
+    """B9 over int8 codes (3,000 rows: one short span, valid cutting it):
+    exact queries (multiples of 1/256) make every sum exact, so the lists
+    equal the plain version's at the kernel's span; on random unit queries
+    the scores agree within rtol 1e-5 and rows differ only on ties within
+    it."""
     codes, scales = _codes_mirror("int8", b, n=3000)
     codes, scales = codes.to(cuda), scales.to(cuda)
     q = _exact(200 + b, (b, 512)).to(cuda)
@@ -740,7 +742,7 @@ def test_block_scan_int8_kernel(cuda, b, k):
     pv, pi = topk.block_scan_int8_ref(codes, scales,
                                       topk._int8_scan_queries(q, 3000),
                                       1700, k=k,
-                                      tile_rows=topk.SCAN_TILE_ROWS)
+                                      tile_rows=topk.SCAN_SPAN_ROWS)
     torch.testing.assert_close(kv, pv, rtol=0, atol=0)
     assert torch.equal(ki, pi)
     codes, scales = (t.to(cuda) for t in _codes_mirror("int8", b, n=8192))
@@ -768,7 +770,9 @@ def _check_close_rows(kv, ki, pv, pi):
 @pytest.mark.parametrize("b", [1, 64, 256])
 def test_block_scan_bf16_kernel(cuda, b, k):
     """B8 over bf16 rows (the hatch's scan of a bf16 mirror), queries
-    rounded to bf16 as the reference rounds them."""
+    rounded to bf16 as the reference rounds them: lists equal the plain
+    version's at the kernel's span on exact inputs, merged rows and scores
+    as B9's on random unit rows."""
     emb = _exact(b, (3000, 512))
     emb[1500:1550] = emb[200:250]
     emb = emb.to(cuda, torch.bfloat16)
@@ -779,7 +783,7 @@ def test_block_scan_bf16_kernel(cuda, b, k):
     assert (topk.block_scan_bf16.launches, topk.block_scan.launches) == \
         (before[0] + 1, before[1])
     pv, pi = topk.block_scan_ref(emb, q, 1700, k=k,
-                                 tile_rows=topk.SCAN_TILE_ROWS)
+                                 tile_rows=topk.SCAN_SPAN_ROWS)
     torch.testing.assert_close(kv, pv, rtol=0, atol=0)
     assert torch.equal(ki, pi)
     emb = _unit(b, (8192, 512)).to(cuda, torch.bfloat16)
@@ -788,6 +792,120 @@ def test_block_scan_bf16_kernel(cuda, b, k):
     pv, pi = topk.block_scan_ref(emb, q.bfloat16().float(), 8000, k=k,
                                  tile_rows=8192)
     _check_close_rows(kv, ki, pv[0], pi[0])
+
+
+def _span_scan(rows, emb, q, valid, k, **kw):
+    """The exact scan of ``rows`` ("bf16" or "int8") over the f32 matrix
+    ``emb`` on the card and its plain version: ``(kernel lists, plain
+    lists one entry deeper)``. int8 codes are ``emb``'s quantization."""
+    span = kw.get("tile_rows", topk.SCAN_SPAN_ROWS)
+    if rows == "bf16":
+        m = emb.to(q.device, torch.bfloat16)
+        return (topk.block_scan_bf16(m, q, valid, k=k, **kw),
+                topk.block_scan_ref(m, q.bfloat16().float(), valid,
+                                    k=k + 1, tile_rows=span))
+    codes, scales = (t.to(q.device) for t in quantize_rows(emb))
+    return (topk.block_scan_int8(codes, scales, q, valid, k=k, **kw),
+            topk.block_scan_int8_ref(
+                codes, scales, topk._int8_scan_queries(q, emb.shape[0]),
+                valid, k=k + 1, tile_rows=span))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 16, 17, 40, 64])
+@pytest.mark.parametrize("b", [1, 2, 16, 17, 64, 65, 256])
+@pytest.mark.parametrize("rows", ["bf16", "int8"])
+def test_span_scan_route_edges(cuda, rows, b, k):
+    """The span tile (B8 over bf16 rows, B9) at its routes' edges: B = 1
+    (the query split), 2 and 16 (the 16-wide panel), 17, 64 and 65 (the
+    64-wide panel; a second chunk of one query), 256 (four chunks); k = 1
+    and 16 (the half-warp fold), 17 and 64 (the warp fold); over 2 x 8,192
+    + 1,037 rows (N not a multiple of 64: the last span and tile short),
+    with duplicated rows, first all live, then with valid cutting the
+    second span so that the third lies wholly past it (not read). Exact
+    inputs: the lists equal the plain version's at the span bit for bit."""
+    n = 2 * topk.SCAN_SPAN_ROWS + 1037
+    emb = _exact(b + k, (n, 512))
+    emb[9000:9040] = emb[100:140]
+    emb[n - 20:] = emb[300:320]
+    q = _exact(900 + b, (b, 512)).to(cuda)
+    counts = topk.block_scan_bf16.launches, topk.block_scan_int8.launches
+    for valid in (n, topk.SCAN_SPAN_ROWS + 3000):
+        (kv, ki), (pv, pi) = _span_scan(rows, emb, q, valid, k)
+        torch.cuda.synchronize()
+        assert kv.shape == (3, b, k)
+        torch.testing.assert_close(kv, pv[..., :k], rtol=0, atol=0)
+        assert torch.equal(ki, pi[..., :k])
+    grew = 2 if rows == "bf16" else 0, 0 if rows == "bf16" else 2
+    assert (topk.block_scan_bf16.launches, topk.block_scan_int8.launches) \
+        == (counts[0] + grew[0], counts[1] + grew[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span", [64, 1024])
+@pytest.mark.parametrize("rows", ["bf16", "int8"])
+def test_span_scan_other_spans(cuda, rows, span):
+    """The span tile at spans other than the reference's macro (whole
+    64-row tiles), valid cutting a span: exact inputs, lists equal the
+    plain version's at the same span."""
+    n = 3 * 1024 + 100
+    emb = _exact(span, (n, 512))
+    q = _exact(950, (5, 512)).to(cuda)
+    (kv, ki), (pv, pi) = _span_scan(rows, emb, q, 2 * 1024 + 30, 10,
+                                       tile_rows=span)
+    torch.cuda.synchronize()
+    assert kv.shape == (-(-n // span), 5, 10)
+    torch.testing.assert_close(kv, pv[..., :10], rtol=0, atol=0)
+    assert torch.equal(ki, pi[..., :10])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("rows", ["bf16", "int8"])
+def test_span_scan_random_queries(cuda, rows, k):
+    """B = 1 over whole 1,024-row blocks (B9: the f32-query contract, the
+    kernel's three bf16 parts) and B = 64, on random unit rows and queries:
+    the span lists' scores within rtol 1e-5 of the plain version's, rows
+    identical except where two scores tie within it (the plain list's
+    next entry included, so a tie across the cut counts)."""
+    n = 2 * topk.SCAN_SPAN_ROWS
+    emb = _unit(k, (n, 512))
+    emb[5000:5040] = emb[40:80]
+    for b in (1, 64):
+        q = _unit(1100 + b, (b, 512)).to(cuda)
+        (kv, ki), (pv, pi) = _span_scan(rows, emb, q, n - 300, k)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(kv, pv[..., :k], rtol=1e-5, atol=0)
+        gap = torch.full_like(pv[..., :k], float("inf"))
+        gap[..., 1:] = pv[..., :k - 1] - pv[..., 1:k]
+        gap[..., :-1] = torch.minimum(gap[..., :-1],
+                                      pv[..., :k - 1] - pv[..., 1:k])
+        gap[..., -1:] = torch.minimum(gap[..., -1:],
+                                      pv[..., k - 1:k] - pv[..., k:])
+        apart = gap > 1e-5 * pv[..., :k].abs()
+        assert torch.equal(ki[apart], pi[..., :k][apart])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8])
+def test_block_scan_small_batches_keep_the_fma_tile(cuda, b):
+    """f32 rows at B <= 8 stay on the FMA tile with 1,024-row tiles: one
+    launch under block_scan, none under the span tile's wrappers, lists
+    equal the plain version's on exact inputs."""
+    emb = _exact(70 + b, (2 * 1024 + 37, 512)).to(cuda)
+    q = _exact(80 + b, (b, 512)).to(cuda)
+    before = (topk.block_scan.launches, topk.block_scan_bf16.launches,
+              topk.block_scan_int8.launches)
+    kv, ki = topk.block_scan(emb, q, 1024 + 400, k=10)
+    torch.cuda.synchronize()
+    assert (topk.block_scan.launches, topk.block_scan_bf16.launches,
+            topk.block_scan_int8.launches) == \
+        (before[0] + 1, before[1], before[2])
+    assert kv.shape == (3, b, 10)
+    pv, pi = topk.block_scan_ref(emb, q, 1024 + 400, k=10,
+                                 tile_rows=topk.SCAN_TILE_ROWS)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
 
 
 @pytest.mark.gpu
@@ -830,6 +948,10 @@ def test_new_scans_refuse_bad_operands(cuda):
         topk.block_scan_int8(codes, scales, q, 10, k=65)
     with pytest.raises(TypeError):                  # f32 rows
         topk.block_scan_bf16(emb.float(), q, 10, k=10)
+    with pytest.raises(ValueError):                 # span of partial tiles
+        topk.block_scan_bf16(emb, q, 10, k=10, tile_rows=1000)
+    with pytest.raises(ValueError):
+        topk.block_scan_int8(codes, scales, q, 10, k=10, tile_rows=100)
     with pytest.raises(ValueError):                 # bf16 rows 8 bytes off
         topk.block_scan_bf16(flat[4:4 + 4096 * 512].view(4096, 512), q, 10,
                              k=10)

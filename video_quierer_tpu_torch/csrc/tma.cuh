@@ -1,9 +1,10 @@
 // Hopper's asynchronous copy and tensor-core pieces shared by the kernels
 // that stream tiles through a TMA ring into wgmma (fused_layer.cu's GEMM,
-// cand_scan.cu's candidate scan): mbarriers, the 2-D TMA load, the wgmma
-// shared-memory descriptor of a 128-byte-swizzled panel, and the host-side
-// tensor-map encoder, looked up at run time through
-// cudaGetDriverEntryPoint so that the library does not link libcuda.
+// cand_scan.cu's candidate scan, block_scan.cu's span scan): mbarriers,
+// the 1-D and 2-D TMA loads, the wgmma shared-memory descriptor of a
+// 128-byte-swizzled panel, and the host-side tensor-map encoder, looked
+// up at run time through cudaGetDriverEntryPoint so that the library does
+// not link libcuda.
 #pragma once
 
 #include "common.cuh"
@@ -61,6 +62,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA: the 1-D box at element c0 of `map` into shared `dst`; elements past
+// the tensor's end arrive as zeros
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            int c0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // byte offset (MN-major: between 64-wide atoms; ignored K-major), stride
 // byte offset (between 8-row groups)
@@ -92,20 +104,39 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// a row-major [rows, cols] bf16 matrix cut into [box_rows, 64] boxes,
-// 128-byte swizzled (16-byte aligned base, cols % 8 == 0)
-inline bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
-                       int box_rows) {
+// a row-major [rows, cols] matrix of `type` (bf16, or 1-byte codes as
+// CU_TENSOR_MAP_DATA_TYPE_UINT8) cut into [box_rows, 128-byte] boxes (64
+// bf16 or 128 codes), 128-byte swizzled (16-byte aligned base and rows)
+inline bool tensor_map(
+    CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
+  const int esize = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, elem,
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a vector of n f32 cut into boxes of `box` elements (16-byte aligned
+// base, box * 4 a multiple of 16), unswizzled
+inline bool tensor_map_1d(CUtensorMap* map, const float* base, int n,
+                          int box) {
+  EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};  // unused
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+             const_cast<float*>(base), dims, strides, boxes, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "vqt_cand_scan_int4_prefix": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
     "vqt_block_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "vqt_block_scan_stages": (_I, _I, _I, _I),
     "vqt_probe_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vqt_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P),

@@ -33,7 +33,8 @@ Four mirror dtypes, as in the reference:
   read at call time) sends the bf16 and int8 stages of an identity-layout
   mirror (``perm=None``) to the exact scans instead: :func:`cosine_topk`
   over the bf16 rows (:func:`block_scan_bf16`, B8 on bf16 rows) and
-  :func:`cosine_topk_int8` (:func:`block_scan_int8`, kernel B9). The int4
+  :func:`cosine_topk_int8` (:func:`block_scan_int8`, kernel B9), one
+  top-k list per ``SCAN_SPAN_ROWS``-row span, the reference's macro. The int4
   stage keeps its fused scan under the hatch, as the reference's code does.
 
 The quantized tiers use the reference's native contract: queries are
@@ -72,8 +73,13 @@ CAND_MAX_B = 256
 # narrowest query batch the fused scan takes (VQT_FUSED_MIN_B, as in the
 # reference; the int4 tier takes the fused scan from B=1 regardless)
 FUSED_MIN_B = int(os.environ.get("VQT_FUSED_MIN_B", "1"))
-# rows of one tile of the exact scan (its per-tile top-k lists)
+# rows of one tile of the exact f32 scan (its per-tile top-k lists): the
+# reference's row block (video_quierer_tpu/ops/topk.py:64, BLOCK_ROWS)
 SCAN_TILE_ROWS = 1024
+# rows of one span of the exact scans over bf16 rows and int8 codes (one
+# top-k list each): the reference's macro block, BLOCK_ROWS x SELECT_BLOCKS
+# (video_quierer_tpu/ops/topk.py:64, :78)
+SCAN_SPAN_ROWS = 8 * SCAN_TILE_ROWS
 _KEY_BIAS = 2.0
 _IMAX = 2**31 - 1
 NEG_INF = float("-inf")
@@ -738,11 +744,21 @@ def block_scan_int8_ref(codes: torch.Tensor, scales: torch.Tensor,
     return _tile_topk(sc, valid, k=k, tile_rows=tile_rows)
 
 
+def span_ring_stages(emb: torch.Tensor, b: int, k: int) -> int:
+    """The ring stages a warpgroup of the span tile takes for ``b`` queries
+    and ``k`` over the bf16 rows or int8 codes ``emb`` (chosen at launch
+    from the shared memory the panel, parks and lists leave)."""
+    with torch.cuda.device(emb.device):
+        return kernels.lib().vqt_block_scan_stages(
+            emb.shape[1], b, k, kernels.dtype_code(emb))
+
+
 def _block_scan(wrapper, emb: torch.Tensor, scales: Optional[torch.Tensor],
                 q: torch.Tensor, valid: int, *, k: int,
                 tile_rows: int) -> Pair:
     """Launch B8 (``scales`` None; f32 or bf16 rows) or B9 (int8 codes)
-    on CUDA operands; ``q`` f32 ``[B, D]``."""
+    on CUDA operands; ``q`` f32 ``[B, D]``. bf16 rows and int8 codes take
+    the span tile, whose spans are whole 64-row tiles."""
     dev = kernels.require_cuda(emb, q,
                                *(() if scales is None else (scales,)))
     n, d = emb.shape
@@ -750,10 +766,13 @@ def _block_scan(wrapper, emb: torch.Tensor, scales: Optional[torch.Tensor],
     if q.ndim != 2 or q.shape[1] != d or d % 32 or not 1 <= k <= MAX_K \
             or emb.data_ptr() % 16 or q.data_ptr() % 16 \
             or (scales is not None and (scales.shape != (n, 1)
-                                        or scales.dtype != torch.float32)):
+                                        or scales.dtype != torch.float32
+                                        or scales.data_ptr() % 16)) \
+            or (emb.dtype != torch.float32 and tile_rows % 64):
         raise ValueError(f"unsupported exact scan: N={n} D={d} B={b} k={k} "
-                         "(D a multiple of 32, 16-byte aligned operands, "
-                         "[N, 1] f32 scales)")
+                         f"rows={tile_rows} (D a multiple of 32, 16-byte "
+                         "aligned operands, 16-byte aligned [N, 1] f32 "
+                         "scales, spans of whole 64-row tiles)")
     n_tiles = -(-n // tile_rows)
     vals = torch.empty((n_tiles, b, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((n_tiles, b, k), dtype=torch.int32, device=dev)
@@ -793,11 +812,13 @@ block_scan.launches = 0
 
 def block_scan_bf16(emb: torch.Tensor, queries: torch.Tensor, valid: int,
                     *, k: int, tile_rows: int = None) -> Pair:
-    """:func:`block_scan` over bf16 rows, the queries rounded to bf16 as
-    the reference's ``cosine_topk`` rounds them (every product then exact
-    in f32). Kernel B8 on bf16 rows on CUDA tensors, counted apart from
+    """Per-span top-``k`` lists ``[n_spans, B, k]`` (``SCAN_SPAN_ROWS``
+    rows a span unless ``tile_rows`` says otherwise) of the exact scan over
+    bf16 rows, the queries rounded to bf16 as the reference's
+    ``cosine_topk`` rounds them (every product then exact in f32). Kernel
+    B8 on bf16 rows (the span tile) on CUDA tensors, counted apart from
     the f32 scan's launches."""
-    tile_rows = tile_rows or SCAN_TILE_ROWS
+    tile_rows = tile_rows or SCAN_SPAN_ROWS
     q = queries.to(torch.bfloat16).float().contiguous()
     if emb.device.type == "cpu":
         return block_scan_ref(emb, q, valid, k=k, tile_rows=tile_rows)
@@ -824,11 +845,13 @@ def _int8_scan_queries(queries: torch.Tensor, n: int) -> torch.Tensor:
 def block_scan_int8(codes: torch.Tensor, scales: torch.Tensor,
                     queries: torch.Tensor, valid: int, *, k: int,
                     tile_rows: int = None) -> Pair:
-    """Per-tile top-``k`` lists of the exact int8 scan: codes ``[N, D]``
-    int8 times the contract's f32 queries (:func:`_int8_scan_queries`),
-    summed in f32, times the row scales ``[N, 1]`` f32. Kernel B9 on CUDA
-    tensors, the plain version on CPU ones."""
-    tile_rows = tile_rows or SCAN_TILE_ROWS
+    """Per-span top-``k`` lists ``[n_spans, B, k]`` of the exact int8
+    scan (``SCAN_SPAN_ROWS`` rows a span unless ``tile_rows`` says
+    otherwise): codes ``[N, D]`` int8 times the contract's f32 queries
+    (:func:`_int8_scan_queries`), summed in f32, times the row scales
+    ``[N, 1]`` f32. Kernel B9 (the span tile) on CUDA tensors, the plain
+    version on CPU ones."""
+    tile_rows = tile_rows or SCAN_SPAN_ROWS
     q = _int8_scan_queries(queries, codes.shape[0])
     if codes.device.type == "cpu":
         return block_scan_int8_ref(codes, scales, q, valid, k=k,
@@ -843,8 +866,8 @@ block_scan_int8.launches = 0
 
 def merge_topk(vals: torch.Tensor, idxs: torch.Tensor, *, k: int) -> Pair:
     """Global top-``k`` of candidate lists ``[B, M]`` whose positions put
-    lower rows first among equal values (tile lists in ascending tile
-    order): descending-stable, lowest row first on ties."""
+    lower rows first among equal values (tile or span lists in ascending
+    row order): descending-stable, lowest row first on ties."""
     k_eff = min(k, vals.shape[-1])
     top_vals, pos = _stable_topk(vals, k_eff)
     return _pad_k(top_vals, torch.gather(idxs, -1, pos), k)
