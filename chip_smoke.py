@@ -8,14 +8,14 @@ GPU — the quickest proof that the port still starts on the card.
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
-search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1 at B = 1
-and 256 —, B9 and B8 over bf16 rows at B = 1 and 64 and k = 10 and 40,
-and B10 at B = 64 over the whole corpus and over shard 0 of the 4-shard
-perm layout) of the checkout in DIR (say the parent commit, unpacked with
-``git archive``) against this one, in the order DIR, this, this, DIR,
-and prints each kernel's ms per run. ``--exact-scans`` runs phases 1 and
-2, then only the hatch's exact scans against their plain versions
-(phase 3's last part), timed.
+search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1 and B4 at
+B = 1 and 256 —, B9 and B8 over bf16 rows at B = 1 and 64 and k = 10 and
+40, B10 at B = 64 and B11 at B = 1, 64 and 256, both over the whole
+corpus and over shard 0 of the 4-shard perm layout) of the checkout in
+DIR (say the parent commit, unpacked with ``git archive``) against this
+one, in the order DIR, this, this, DIR, and prints each kernel's ms per
+run. ``--exact-scans`` runs phases 1 and 2, then only the hatch's exact
+scans against their plain versions (phase 3's last part), timed.
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -40,22 +40,23 @@ last line):
    time for B6's two bare GEMMs is printed as the GEMM core's
    yardstick; B8, the exact f32 scan, runs at B = 1, 16 and 64, with
    ``torch.mm`` alone, f32 without TF32, as the yardstick of its product
-   only); then the split of one
+   only; B1, B4 and B7 at B = 1, 64 and 256, B4 with ``torch._int_mm``
+   alone as its product's yardstick); then the split of one
    ingest batch of 256 frames into its stages; then the IVF tier on a
    seeded clustered corpus (2,000,000 rows around 1,024 unit centres,
    spread 0.02 per coordinate): its build (nlist auto = 1,024, split into
    upload, k-means, rebalance and pack), the probe scan B12 against its
    plain version pair by pair for 64 and for 1 noisy corpus-row queries,
    and the tier's recall@10 against the exact scan (B8), gated at 0.8;
-   then the corpus-mesh and hatch kernels at the serving size: B10 and
-   B11 (the perm-layout candidate scans) at B = 64, fetch 128, over shard
-   0 of the perm layout a 4-shard mesh places (503,808 rows) and over the
-   whole corpus as one shard; B9 (the exact int8 scan) and B8 over bf16
-   rows at B = 1 and 64, k = 10 and 40 (the hatch's fetch at k = 10),
-   over the 2M-row identity mirror: their per-span lists (8,192 rows a
-   span, the reference's macro) against the plain version's at the same
-   span, the merged top-10's scores against host f64, and the ring stages
-   each launch takes;
+   then the corpus-mesh and hatch kernels at the serving size: B10 (at B
+   = 64) and B11 (at B = 1, 64 and 256), the perm-layout candidate scans,
+   fetch 128, over shard 0 of the perm layout a 4-shard mesh places
+   (503,808 rows) and over the whole corpus as one shard; B9 (the exact
+   int8 scan) and B8 over bf16 rows at B = 1 and 64, k = 10 and 40 (the
+   hatch's fetch at k = 10), over the 2M-row identity mirror: their
+   per-span lists (8,192 rows a span, the reference's macro) against the
+   plain version's at the same span, the merged top-10's scores against
+   host f64, and the ring stages each launch takes;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512) written once as the pickle v1.0 cache; for each mirror
    dtype (bfloat16, then float32, int8 and int4), and then for the IVF
@@ -72,7 +73,9 @@ last line):
    tier's fresh buffer, and each frame, as a vector query through the
    engine, finds itself first). Then the engine goes behind the
    port's HTTP server on a free local port, and single, coalesced and
-   batch searches run over HTTP (bfloat16 also 77-token ones). Every
+   batch searches run over HTTP (bfloat16 also 77-token ones, and
+   "data:image" and "data:imagex,abc", which hold no image and are
+   searched as text: 200 with k rows, checked as the singles). Every
    response's schema is checked; single and batch rows are checked
    against a host exact top-10 over the grown f32 corpus with the query
    vector the port's encoder gives (int4: each returned score against its
@@ -102,8 +105,9 @@ last line):
    (B10 over the whole corpus). Served rows equal the host exact top-10
    (IVF: the host's probed-exact top-10); each path's scan kernel launched
    and the single-card candidate kernels (B1, B4) not;
-6. a JSON line of the kernels (B1 also under ``at_b`` at B = 1, 64 and
-   256, B10 also under ``shard`` on shard 0 of the 4-shard layout), the
+6. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+   B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
+   4-shard layout, B11 there at each B under ``shard_at_b``), the
    nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -225,6 +229,9 @@ EXTRA = (("mesh bfloat16", "bfloat16", "exact", MESH_SHARDS, False,
           "cand_scan"))
 FPS = 30.0
 IMAGE = 224
+# /api/search queries shaped like image URIs that hold no image (no
+# OpenCV on the card's machine decodes one either): searched as text
+IMAGE_SHAPED_TEXT = ("data:image", "data:imagex,abc")
 
 
 def log(msg: str) -> None:
@@ -666,10 +673,23 @@ def _scan_bound(mirror_bytes: int, query_bytes: int, b: int, kind: str,
                  2 * n_pad * DIM * b, kind)
 
 
+def int_mm_ms(codes, q_codes, b: int):
+    """The yardstick of an int8 scan's product alone: ``torch._int_mm`` of
+    the codes [N, D] s8 and the query codes [D, B] s8 into [N, B] s32 (the
+    port never calls it; the scans also scale and select). cuBLASLt's int8
+    product takes B a multiple of 8: None below that."""
+    if b % 8:
+        return None
+    return cuda_ms(lambda: torch._int_mm(codes, q_codes.t()),
+                   20 if b < 256 else 5)
+
+
 def compare_codes_scan(store, perm, n_rows: int, seed: int,
                        tier: str) -> dict:
-    """B4 (int8) or B7 (int4) over the quantized live-prefix mirror:
-    winners bit-identical to the plain version."""
+    """B4 (int8) or B7 (int4) over the quantized live-prefix mirror at B =
+    1, 64 and 256: winners bit-identical to the plain version. The B = 64
+    result, with every width's under ``at_b``; B4's ``library_ms`` is
+    ``torch._int_mm`` for its product alone (:func:`int_mm_ms`)."""
     quant, kern_fn, ref_fn, name = {
         "int8": (quantize_rows, topk.cand_scan_int8_prefix,
                  topk.cand_scan_int8_prefix_ref, "B4 int8 candidate scan"),
@@ -694,9 +714,16 @@ def compare_codes_scan(store, perm, n_rows: int, seed: int,
         # int8 codes and f32 scales, rows and queries alike
         out[b].update(_scan_bound(codes.numel() + scales.numel() * 4,
                                   b * (DIM + 4), b, "int8", n_rows),
-                      library_ms=None)
+                      library_ms=(int_mm_ms(codes, q_codes, b)
+                                  if tier == "int8" else None))
+        r = out[b]
+        log(f"{name} B={b}: kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.3f} ms"
+            + ("" if r["library_ms"] is None else
+               f", torch._int_mm (product alone) {r['library_ms']:.4f} ms"))
     del codes, scales
-    return out[64]
+    return dict(out[64], at_b={str(b): _brief(r) for b, r in out.items()})
 
 
 def check_tile_lists(name: str, kern, plain) -> tuple:
@@ -803,15 +830,16 @@ def _perm_bound(mirror_bytes: int, query_bytes: int, kind: str,
 
 
 def compare_perm_scans(store, n_rows: int, seed: int) -> tuple:
-    """B10 (bf16) and B11 (int8) at B = 64, fetch 128, over shard 0 of the
-    perm layout of a MESH_SHARDS-shard mesh and over the whole corpus as
-    one shard (liveness ``perm < n_rows``, the global count): the top-K
-    after merge + exact re-rank identical to the plain version's, B11's
-    winners bit-identical. Returns the one-shard (B10, B11) results, B10's
-    with the shard's numbers under ``shard``."""
+    """B10 (bf16) at B = 64 and B11 (int8) at B = 1, 64 and 256, fetch 128,
+    over shard 0 of the perm layout of a MESH_SHARDS-shard mesh and over
+    the whole corpus as one shard (liveness ``perm < n_rows``, the global
+    count): the top-K after merge + exact re-rank identical to the plain
+    version's, B11's winners bit-identical. Returns the one-shard (B10,
+    B11) results at B = 64, each with the shard's numbers under
+    ``shard``; B11's with every width's under ``at_b`` (one shard) and
+    ``shard_at_b``."""
     dev, b = store.device, 64
     q = unit_queries(dev, b, seed + b)
-    q_codes, qscale = quantize_rows(q)
     out = {}
     for shards in (MESH_SHARDS, 1):
         cap, perm_np = mesh_perm(n_rows, shards)
@@ -834,26 +862,38 @@ def compare_perm_scans(store, n_rows: int, seed: int) -> tuple:
         b10.update(_perm_bound(rows * DIM * 2, b * DIM * 2, "bf16", rows, b),
                    library_ms=None)
         del mirror
+        log(f"B10 ({what}) B={b}: bound {b10['bound_ms']:.3f} ms "
+            f"({b10['bound_by']})")
         codes, scales = quantize_rows(store[src])
-        b11 = compare_winners(
-            f"B11 int8 perm candidate scan ({what})", b,
-            lambda: topk.cand_scan_int8(codes, scales, perm, q_codes, qscale,
-                                        n_rows, bucket=topk.CAND_BUCKET,
-                                        rounds=topk.CAND_ROUNDS),
-            lambda: topk.cand_scan_int8_ref(
-                codes, scales, perm, q_codes, qscale, n_rows,
-                bucket=topk.CAND_BUCKET, rounds=topk.CAND_ROUNDS,
-                block_rows=topk.CAND_BLOCK_ROWS),
-            topk._cand_merge, store, perm, q, n_rows, 128, True)
-        b11.update(_perm_bound(rows * (DIM + 4), b * (DIM + 4), "int8", rows,
-                               b), library_ms=None)
+        b11 = {}
+        for bb in (1, 64, 256):
+            qb = unit_queries(dev, bb, seed + bb)
+            q_codes, qscale = quantize_rows(qb)
+            b11[bb] = compare_winners(
+                f"B11 int8 perm candidate scan ({what})", bb,
+                lambda: topk.cand_scan_int8(
+                    codes, scales, perm, q_codes, qscale, n_rows,
+                    bucket=topk.CAND_BUCKET, rounds=topk.CAND_ROUNDS),
+                lambda: topk.cand_scan_int8_ref(
+                    codes, scales, perm, q_codes, qscale, n_rows,
+                    bucket=topk.CAND_BUCKET, rounds=topk.CAND_ROUNDS,
+                    block_rows=topk.CAND_BLOCK_ROWS),
+                topk._cand_merge, store, perm, qb, n_rows, 128, True)
+            b11[bb].update(_perm_bound(rows * (DIM + 4), bb * (DIM + 4),
+                                       "int8", rows, bb), library_ms=None)
+            r = b11[bb]
+            log(f"B11 ({what}) B={bb}: kernel {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.3f} ms")
         del codes, scales
-        for name, r in (("B10", b10), ("B11", b11)):
-            log(f"{name} ({what}) B={b}: bound {r['bound_ms']:.3f} ms "
-                f"({r['bound_by']})")
         out[shards] = (b10, b11)
     b10, b11 = out[1]
-    return dict(b10, shard=_brief(out[MESH_SHARDS][0])), b11
+    b10_shard, b11_shard = out[MESH_SHARDS]
+    return (dict(b10, shard=_brief(b10_shard)),
+            dict(b11[64], shard=_brief(b11_shard[64]),
+                 at_b={str(bb): _brief(r) for bb, r in b11.items()},
+                 shard_at_b={str(bb): _brief(r)
+                             for bb, r in b11_shard.items()}))
 
 
 def _host_scores(mat, scales, q, rows) -> torch.Tensor:
@@ -1606,11 +1646,11 @@ def search_batch(base, rng):
 
 def drive(base, dtype, rng):
     """The path of one mirror dtype over HTTP, and nothing else: 16 single
-    queries (B=1, module tower: attention kernel B3), coalesced rounds of
-    64 concurrent clients (fused layer kernel B2 once a flush holds >= 32;
-    bfloat16: three short rounds and one of 77 tokens, attention at S=77),
-    and one batch of 64 (B2). Returns the single and batch queries and
-    rows."""
+    queries (B=1, module tower: attention kernel B3; bfloat16: then the
+    IMAGE_SHAPED_TEXT queries), coalesced rounds of 64 concurrent clients
+    (fused layer kernel B2 once a flush holds >= 32; bfloat16: three short
+    rounds and one of 77 tokens, attention at S=77), and one batch of 64
+    (B2). Returns the single and batch queries and rows."""
     status, health, _ = http(base, "GET", "/api/health")
     require(status == 200 and health["status"] == "healthy", "health")
     status, stats, _ = http(base, "GET", "/api/stats")
@@ -1623,6 +1663,18 @@ def drive(base, dtype, rng):
         f"{1e3 * float(np.median(lat)):.2f} ms (first "
         f"{1e3 * lat[0]:.2f} ms), {1 / float(np.median(lat)):.1f} "
         "searches/s")
+    if dtype == "bfloat16":
+        # image-shaped queries that carry no image are searched as text,
+        # as the reference's server does: 200, K rows, held with the
+        # singles against the host exact top-K of their text embedding
+        for q in IMAGE_SHAPED_TEXT:
+            status, body, _ = http(base, "POST", "/api/search",
+                                   {"query": q, "k": K, "use_cache": False})
+            check_search_response(status, body, K)
+            singles.append(q)
+            single_rows.append(body["results"])
+        log(f"[{dtype}] image-shaped text queries "
+            f"{list(IMAGE_SHAPED_TEXT)}: 200, {K} rows each")
     # the flushes' composition (and so the encode path) is not known
     # here: the concurrent rows are held to their schema and order
     rounds = [(f"coalesced short, round {r}", 4)
@@ -1884,6 +1936,14 @@ if scans:
         row[f"B1 B={b}"] = c.cuda_ms(lambda: c.topk.cand_scan_prefix(
             mirror, q, n_rows, **scan), 20 if b == 1 else 5)
     del mirror
+    # B4 at B = 1 and 256 (its B = 64 above), through the wrapper both
+    # trees have
+    codes, scales = c.quantize_rows(store[perm.long()])
+    for b in (1, 256):
+        qc, qs = c.quantize_rows(c.unit_queries(dev, b, seed + b))
+        row[f"B4 B={b}"] = c.cuda_ms(lambda: c.topk.cand_scan_int8_prefix(
+            codes, scales, qc, qs, n_rows, **scan), 20 if b == 1 else 5)
+    del codes, scales
     # the hatch's exact scans, B9 and B8 over bf16 rows, through the
     # wrappers both trees have, at B = 1 and 64, k = K and HATCH_K
     codes, scales = c.quantize_rows(store)
@@ -1898,17 +1958,26 @@ if scans:
                 lambda: c.topk.block_scan_bf16(rows16, q, n_rows, k=k),
                 20 if b == 1 else 10)
     del codes, scales, rows16
-    # B10 at B = 64 over the whole corpus as one shard, then over shard 0
-    # of the 4-shard perm layout
+    # B10 at B = 64 and B11 at B = 1, 64 and 256 over the whole corpus as
+    # one shard, then over shard 0 of the 4-shard perm layout
     q = c.unit_queries(dev, 64, seed + 64)
     for shards in (1, c.MESH_SHARDS):
         cap, perm_np = c.mesh_perm(n_rows, shards)
         sperm = torch.from_numpy(perm_np[:cap // shards]).to(dev)
-        mirror = store[torch.clamp(sperm, max=store.shape[0] - 1)
-                       .long()].bfloat16()
-        row["B10" if shards == 1 else "B10 shard"] = c.cuda_ms(
+        src = torch.clamp(sperm, max=store.shape[0] - 1).long()
+        mirror = store[src].bfloat16()
+        tag = "" if shards == 1 else " shard"
+        row["B10" + tag] = c.cuda_ms(
             lambda: c.topk.cand_scan(mirror, sperm, q, n_rows, **scan), 20)
         del mirror
+        codes, scales = c.quantize_rows(store[src])
+        for b in (1, 64, 256):
+            qc, qs = c.quantize_rows(c.unit_queries(dev, b, seed + b))
+            row[f"B11{tag} B={b}"] = c.cuda_ms(
+                lambda: c.topk.cand_scan_int8(codes, scales, sperm, qc, qs,
+                                              n_rows, **scan),
+                20 if b < 256 else 5)
+        del codes, scales
 print("ab-row " + json.dumps(row), flush=True)
 """
 
@@ -1949,7 +2018,7 @@ def main() -> int:
                          "against the checkout in DIR")
     ap.add_argument("--ab-scans", action="store_true",
                     help="with --ab: the search-tier scans (B1, B4, B7, "
-                         "B8, B9, B10, B8 over bf16 rows) too")
+                         "B8, B9, B10, B11, B8 over bf16 rows) too")
     ap.add_argument("--exact-scans", action="store_true",
                     help="only the hatch's exact scans (B9, B8 over bf16 "
                          "rows) against their plain versions, timed")

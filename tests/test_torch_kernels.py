@@ -723,6 +723,151 @@ def test_cand_scan_int8_perm_kernel(cuda, b, live):
     assert bool(torch.isfinite(kv).any()) == live
 
 
+# -- B4 and B11: the int8 tensor-core tile's route edges -------------------
+
+def _int8_scan(cuda, b, valid, *, n=4 * 4096, d=512, perm=None,
+               bucket=1024, rounds=2, seed=0, scales_at=0):
+    """B4 (``perm`` None) or B11 over a seeded int8 mirror (ties and zero
+    rows, as ``_codes_mirror``) against the plain version: winners
+    bit-identical, one launch counted. ``scales_at`` shifts the scales'
+    storage by that many floats (a column the tile's TMA cannot take
+    as it is)."""
+    codes, scales = _codes_mirror("int8", seed, n=n, d=d)
+    codes = codes.to(cuda)
+    flat = torch.zeros(n + scales_at, 1, device=cuda)
+    flat[scales_at:] = scales.to(cuda)
+    scales = flat[scales_at:]
+    q_codes, qscale = quantize_rows(_unit(100 + seed, (b, d)).to(cuda))
+    scan = dict(bucket=bucket, rounds=rounds)
+    if perm is None:
+        kern, args = topk.cand_scan_int8_prefix, (codes, scales)
+        ref = topk.cand_scan_int8_prefix_ref
+    else:
+        perm = perm.to(cuda)
+        kern, args = topk.cand_scan_int8, (codes, scales, perm)
+        ref = topk.cand_scan_int8_ref
+    counts = (topk.cand_scan_int8_prefix.launches,
+              topk.cand_scan_int8.launches,
+              topk.cand_scan_int4_prefix.launches)
+    kv, ki = kern(*args, q_codes, qscale, valid, **scan)
+    torch.cuda.synchronize()
+    want = list(counts)
+    want[0 if perm is None else 1] += 1
+    assert [topk.cand_scan_int8_prefix.launches,
+            topk.cand_scan_int8.launches,
+            topk.cand_scan_int4_prefix.launches] == want
+    pv, pi = ref(*args, q_codes, qscale, valid, block_rows=4096, **scan)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+    return kv, ki
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["prefix", "perm"])
+@pytest.mark.parametrize("valid", [0, 1500, 4 * 4096])
+@pytest.mark.parametrize("b", [1, 16, 17, 64, 65, 256])
+def test_int8_tile_batch_edges(cuda, layout, valid, b):
+    """Both panel widths (QN = 16 for B <= 16, 64 above) and the query
+    chunks of B > 64, with no row live, ``valid`` inside the first bucket,
+    and every row live."""
+    n = 4 * 4096
+    perm = None
+    if layout == "perm":
+        # the shard's rows are host rows 0 .. n - 1 scattered: the same
+        # liveness count as the prefix, spread over the buckets
+        perm = torch.from_numpy(np.random.default_rng(b).permutation(n)
+                                .astype(np.int32))
+    kv, _ = _int8_scan(cuda, b, valid, n=n, perm=perm, seed=b)
+    assert bool(torch.isfinite(kv).any()) == (valid > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [700, 150 * 1024 + 333, 300 * 1024])
+@pytest.mark.parametrize("b", [1, 64])
+def test_int8_tile_persistent_grid(cuda, valid, b):
+    """300 buckets over the card's CTAs (a count the SM count does not
+    divide: ranges of unequal length, halves with unequal bucket counts);
+    a live prefix shorter than one CTA's range (700 rows), one that ends
+    mid-bucket half-way, and every bucket live."""
+    _int8_scan(cuda, b, valid, n=300 * 1024, seed=7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 17, 64])
+def test_int8_tile_perm_interleaved(cuda, b):
+    """B11 on a shard whose perm alternates live and dead rows (global
+    ``valid`` = the shard's row count), with one bucket wholly dead by perm
+    and one wholly live."""
+    n = 4 * 4096
+    p = np.arange(n)
+    perm = np.where(p % 2 == 0, p // 2, n + p // 2)
+    perm[3 * 1024:4 * 1024] = n + 10_000 + np.arange(1024)   # dead bucket
+    perm[5 * 1024:6 * 1024] = np.arange(1024)                # live bucket
+    kv, _ = _int8_scan(cuda, b, n, n=n, perm=torch.from_numpy(
+        perm.astype(np.int32)), seed=b)
+    # bucket 3 (block 0, entries r * 4 + 3) is dead: -inf winners
+    assert not bool(torch.isfinite(kv[0, 3::4]).any())
+    assert bool(torch.isfinite(kv[1, 1::4]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [1, 3, 4])
+@pytest.mark.parametrize("bucket", [128, 1024])
+@pytest.mark.parametrize("b", [1, 64])
+def test_int8_tile_rounds_and_buckets(cuda, rounds, bucket, b):
+    _int8_scan(cuda, b, 4096 + 777, bucket=bucket, rounds=rounds, seed=b)
+    perm = torch.from_numpy(np.random.default_rng(rounds).permutation(
+        2 * 4 * 4096)[:4 * 4096].astype(np.int32))
+    _int8_scan(cuda, b, 4 * 4096 + 777, perm=perm, bucket=bucket,
+               rounds=rounds, seed=b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 192, 768])
+def test_int8_tile_other_widths(cuda, d):
+    """D = 64 (half a box), 192 (a box and a half: the second box's far
+    columns arrive as zeros) and 768 (six boxes)."""
+    _int8_scan(cuda, 64, 3 * 4096 + 5, d=d, seed=d)
+    _int8_scan(cuda, 5, 3 * 4096 + 5, d=d, seed=d + 1)
+
+
+@pytest.mark.gpu
+def test_int8_tile_unaligned_scales(cuda):
+    """Scales 4 bytes off a 16-byte boundary: the wrapper hands the tile
+    an aligned copy; the winners stay the plain version's."""
+    _int8_scan(cuda, 64, 2 * 4096 + 9, scales_at=1, seed=3)
+
+
+@pytest.mark.gpu
+def test_int8_tile_buckets_of_whole_tiles(cuda):
+    """The int8 tile takes buckets of whole 64-row tiles; the int4 tile
+    keeps its 16-row strips (and its own counter)."""
+    codes = torch.zeros(4096, 512, device=cuda, dtype=torch.int8)
+    scales = torch.zeros(4096, 1, device=cuda)
+    qc = torch.zeros(2, 512, device=cuda, dtype=torch.int8)
+    qs = torch.ones(2, 1, device=cuda)
+    perm = torch.arange(4096, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        topk.cand_scan_int8_prefix(codes, scales, qc, qs, 10, bucket=32,
+                                   rounds=2)
+    with pytest.raises(ValueError):
+        topk.cand_scan_int8(codes, scales, perm, qc, qs, 10, bucket=32,
+                            rounds=2)
+    before = (topk.cand_scan_int4_prefix.launches,
+              topk.cand_scan_int8_prefix.launches)
+    kv, ki = topk.cand_scan_int4_prefix(codes[:, :256].contiguous(), scales,
+                                        qc, qs, 10, bucket=32, rounds=2)
+    torch.cuda.synchronize()
+    assert (topk.cand_scan_int4_prefix.launches,
+            topk.cand_scan_int8_prefix.launches) == (before[0] + 1,
+                                                     before[1])
+    pv, pi = topk.cand_scan_int4_prefix_ref(
+        codes[:, :256].contiguous(), scales, qc, qs, 10, bucket=32,
+        rounds=2, block_rows=4096)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
+    assert torch.equal(ki, pi)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [10, 40])
 @pytest.mark.parametrize("b", [1, 64, 256])

@@ -7,10 +7,15 @@ order, scores within 1e-5). One real-socket round trip through the
 port's HTTP server checks the ``/api/search`` response shape, and a table
 of request bodies gets the same status codes from the port's server as
 from the JAX package's aiohttp app (422: pydantic's error ``type`` and
-``loc``).
+``loc``). Image queries go through a second pair of engines on a tower
+that takes 224 px frames (``TINY_224_FULL_VOCAB``): a ``data:image/``
+URI that decodes to an image is searched by that image
+(``search_by_image_ex``), every other query as text, and both servers
+give the same status and rows for a table of such queries.
 """
 
 import asyncio
+import base64
 import contextlib
 import json
 import threading
@@ -25,7 +30,11 @@ import torch
 import jax.numpy as jnp
 from aiohttp import web
 
-from tests.torch_parity import TINY_FULL_VOCAB, port_state_dict
+from tests.torch_parity import (
+    TINY_224_FULL_VOCAB,
+    TINY_FULL_VOCAB,
+    port_state_dict,
+)
 from video_quierer_tpu.api.app import create_app
 from video_quierer_tpu.engine.config import EngineConfig as JaxConfig
 from video_quierer_tpu.engine.system import VideoSearchEngine as JaxEngine
@@ -49,37 +58,54 @@ def _queries(rng, n, words):
             for i in range(n)]
 
 
-def _config(cfg_cls, videos_dir):
+def _config(cfg_cls, videos_dir, model=TINY_FULL_VOCAB):
     cfg = cfg_cls(videos_dir=str(videos_dir))
     cfg.index.embed_dim = D
-    cfg.model.name = TINY_FULL_VOCAB
+    cfg.model.name = model
     cfg.model.dtype = "float32"
     return cfg
 
 
-@pytest.fixture(scope="module")
-def engines(tmp_path_factory):
-    videos = tmp_path_factory.mktemp("videos")
+def _engine_pair(videos, rows_per_video, model):
+    """The JAX engine and the port's over one seeded corpus of two videos
+    (written as the pickle v1.0 cache), on the same f32 tower ``model``."""
     rng = np.random.default_rng(11)
     idx = DeviceVideoIndex(dim=D, device_dtype="bfloat16", device="cpu")
     for name in ("a.mp4", "b.mp4"):
-        rows = rng.standard_normal((8192, D)).astype(np.float32)
+        rows = rng.standard_normal((rows_per_video, D)).astype(np.float32)
         rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
-        idx.add_batch(rows, name, [0.25 * t for t in range(8192)])
+        idx.add_batch(rows, name, [0.25 * t for t in range(rows_per_video)])
     idx.save_to_disk(videos / "video_search_cache.pkl")
 
-    jax_emb = JaxEmbedder(TINY_FULL_VOCAB, dtype=jnp.float32)
-    jax_engine = JaxEngine(videos, config=_config(JaxConfig, videos),
+    jax_emb = JaxEmbedder(model, dtype=jnp.float32)
+    jax_engine = JaxEngine(videos, config=_config(JaxConfig, videos, model),
                            embedder=jax_emb)
-    port_emb = CLIPEmbedder(TINY_FULL_VOCAB, dtype=torch.float32,
-                            device="cpu",
+    port_emb = CLIPEmbedder(model, dtype=torch.float32, device="cpu",
                             state_dict=port_state_dict(jax_emb.params,
-                                                       TINY_FULL_VOCAB))
-    port = VideoSearchEngine(videos, config=_config(EngineConfig, videos),
+                                                       model))
+    port = VideoSearchEngine(videos,
+                             config=_config(EngineConfig, videos, model),
                              embedder=port_emb, device="cpu")
     for e in (jax_engine, port):
         e.startup()
-        assert len(e.index) == 16384
+        assert len(e.index) == 2 * rows_per_video
+    return jax_engine, port
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    jax_engine, port = _engine_pair(tmp_path_factory.mktemp("videos"), 8192,
+                                    TINY_FULL_VOCAB)
+    yield jax_engine, port
+    port.close()
+
+
+@pytest.fixture(scope="module")
+def image_engines(tmp_path_factory):
+    """Both engines on a tower that takes 224 px frames (image queries
+    resize to 224 px) and the full CLIP vocab (text queries)."""
+    jax_engine, port = _engine_pair(tmp_path_factory.mktemp("videos224"),
+                                    2048, TINY_224_FULL_VOCAB)
     yield jax_engine, port
     port.close()
 
@@ -253,3 +279,64 @@ def test_http_validation_matches_jax(engines, tmp_path):
         server.shutdown()
         server.server_close()
         thread.join(10)
+
+
+def _png_payload(seed):
+    """Base64 of a PNG (``cv2.imencode``) of seeded 120 x 160 RGB pixels."""
+    import cv2
+    img = np.random.default_rng(seed).integers(0, 256, (120, 160, 3),
+                                               dtype=np.uint8)
+    ok, buf = cv2.imencode(".png", img)
+    assert ok
+    return base64.b64encode(buf.tobytes()).decode()
+
+
+# /api/search queries around the image route: a PNG data URI (searched by
+# the image), the same URI with its base64 cut short (incorrect padding),
+# three image-shaped strings that are not image URIs or carry no image,
+# and plain text; all but the first are searched as text
+IMAGE_QUERIES = {
+    "png": lambda: "data:image/png;base64," + _png_payload(5),
+    "bad_base64": lambda: "data:image/png;base64," + _png_payload(5)[:-1],
+    "no_slash": lambda: "data:image",
+    "imagex": lambda: "data:imagex,abc",
+    "empty_payload": lambda: "data:image/png;base64,",
+    "text": lambda: "a dog on the beach",
+}
+
+
+@pytest.mark.parametrize("case", list(IMAGE_QUERIES))
+def test_http_image_queries_match_jax(image_engines, tmp_path, case):
+    """Every query of the table gets the JAX app's status code and rows
+    (same frames in the same order, scores within 1e-5) from the port's
+    server."""
+    jax_engine, port = image_engines
+    body = {"query": IMAGE_QUERIES[case](), "k": 7, "use_cache": False}
+    server = create_server(port, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with _jax_app(jax_engine, tmp_path) as jax_base:
+            want = _post(jax_base, "/api/search", body)
+            got = _post(base, "/api/search", body)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    assert got[0] == want[0] == 200, (case, got[0], want[0])
+    assert len(got[1]["results"]) == 7
+    _same(got[1]["results"], want[1]["results"])
+
+
+def test_search_by_image_matches_jax(image_engines):
+    """The engine's image search: the port's resize, vision tower and
+    vector search give the JAX engine's rows for the same seeded image."""
+    jax_engine, port = image_engines
+    image = np.random.default_rng(9).integers(0, 256, (180, 240, 3),
+                                              dtype=np.uint8)
+    got, cached = port.search_by_image_ex(image, k=10)
+    want, _ = jax_engine.search_by_image_ex(image, k=10)
+    assert not cached and len(got) == 10
+    _same(got, want)
+    assert port.search_by_image(image, k=10) == got

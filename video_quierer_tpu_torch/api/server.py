@@ -7,8 +7,10 @@ request. Routes, status codes and response shapes are the reference's:
 - ``GET /health``, ``GET /api/health``, ``GET /api/stats``;
 - ``POST /api/search`` — ``{query, k=5 (1..50), use_cache=true,
   dedup_videos=false, offset=0 (0..63)}``; 400 on an empty query, 422 on
-  an invalid body or ``offset + k > 64``; ``enhanced_mode`` routes through
-  the request coalescer;
+  an invalid body or ``offset + k > 64``; a ``data:image/...;base64``
+  query that decodes to an image searches by that image
+  (``search_by_image_ex``), any other query as text; ``enhanced_mode``
+  routes text through the request coalescer;
 - ``POST /api/search/batch`` — ``{queries (>= 1), k=5 (1..50)}``.
 
 Request fields take pydantic v2's lax coercion (``"5"`` and ``5.0`` are
@@ -16,19 +18,22 @@ the int 5, ``"true"`` and ``1`` are True; ``engine/config.py:lax_int``),
 and a refused body answers 422 with pydantic's error list as ``detail``
 (``type``, ``loc``, ``msg``, ``input``, ``ctx``), as the reference's.
 
-Image queries (``data:image`` URIs), uploads, config, cache and video
-routes are later ports (501 / 404). The reference bounds a search by
-``search_timeout``; this server does not yet.
+The image search route, uploads, config, cache and video routes are
+later ports (404). The reference bounds a search by ``search_timeout``;
+this server does not yet.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from video_quierer_tpu_torch.engine.config import LAX, FieldError
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
@@ -132,6 +137,25 @@ def _batch_request(body: Dict) -> Tuple[List[str], int]:
     return queries, k
 
 
+def _decode_image_query(query: str) -> Optional[np.ndarray]:
+    """Decode a data:image/...;base64 query to an RGB uint8 array (a copy
+    of ``video_quierer_tpu/api/app.py:_decode_image_query``): None for any
+    other query, and for one that does not decode (OpenCV missing
+    included), which is then searched as text."""
+    if not query.startswith("data:image/"):
+        return None
+    try:
+        import cv2
+        payload = query.split(",", 1)[1]
+        raw = np.frombuffer(base64.b64decode(payload), np.uint8)
+        bgr = cv2.imdecode(raw, cv2.IMREAD_COLOR)
+        if bgr is None:
+            return None
+        return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    except Exception:
+        return None
+
+
 def make_handler(engine: VideoSearchEngine, started: float):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -213,9 +237,10 @@ def make_handler(engine: VideoSearchEngine, started: float):
         t0 = time.time()
         if offset and offset + k > 64:
             raise RequestError(422, "offset + k must be <= 64")
-        if query.startswith("data:image"):
-            raise RequestError(501, "image queries are not yet ported")
-        if dedup or offset:
+        image = _decode_image_query(query)
+        if image is not None:
+            results, from_cache = engine.search_by_image_ex(image, k)
+        elif dedup or offset:
             results, from_cache = engine.search_ex(query, k, use_cache,
                                                    dedup, offset)
         elif engine.config.api.enhanced_mode:

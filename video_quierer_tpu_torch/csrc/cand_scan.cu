@@ -61,6 +61,7 @@ namespace {
 
 using vqt::bf16;
 using vqt::gmma_desc;
+using vqt::insert;
 using vqt::mbar_arrive;
 using vqt::mbar_expect;
 using vqt::mbar_init;
@@ -77,18 +78,6 @@ constexpr int CWARPS = 4;                   // warps of a warpgroup
 constexpr int THREADS = HALVES * CWARPS * 32;
 constexpr int MAX_STAGES = 12;              // ring stages of a half
 constexpr int MAX_DEVICES = 64;             // per-device host caches
-
-// the R-key list top[0..R) stays sorted descending; keys are unique, and
-// INT_MIN pads sort last
-template <int R>
-__device__ __forceinline__ void insert(int (&top)[R], int key) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int hi = max(top[r], key);
-    key = min(top[r], key);
-    top[r] = hi;
-  }
-}
 
 // d (+)= A B^T: m64 nN k16, bf16 A and B K-major in shared memory, f32
 // sums; scale_d = 0 starts d from zero

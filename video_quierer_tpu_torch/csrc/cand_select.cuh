@@ -1,6 +1,7 @@
 // Bucket-winner selection shared by the candidate scans (kernels B1, B4,
-// B7): the TPU kernels' "packb" selection (video_quierer_tpu/ops/topk.py:
-// _bucket_select_cols / _bucket_select_rows) as running lists.
+// B7, B10, B11): the TPU kernels' "packb" selection
+// (video_quierer_tpu/ops/topk.py: _bucket_select_cols /
+// _bucket_select_rows) as running lists.
 //
 // For every `bucket`-row range of the mirror and every query a scan keeps
 // the top `rounds` rows by the packed int32 key
@@ -34,6 +35,19 @@ __device__ __forceinline__ void insert_key(int (&top)[MAXR], int key,
       top[r] = key;
       key = t;
     }
+  }
+}
+
+// The R-key list top[0..R) of the tensor-core scans (R a compile-time
+// count, so the list stays in registers) stays sorted descending; keys are
+// unique, and INT_MIN pads sort last
+template <int R>
+__device__ __forceinline__ void insert(int (&top)[R], int key) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int hi = max(top[r], key);
+    key = min(top[r], key);
+    top[r] = hi;
   }
 }
 

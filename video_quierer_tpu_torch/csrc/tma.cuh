@@ -1,10 +1,10 @@
 // Hopper's asynchronous copy and tensor-core pieces shared by the kernels
 // that stream tiles through a TMA ring into wgmma (fused_layer.cu's GEMM,
-// cand_scan.cu's candidate scan, block_scan.cu's span scan): mbarriers,
-// the 1-D and 2-D TMA loads, the wgmma shared-memory descriptor of a
-// 128-byte-swizzled panel, and the host-side tensor-map encoder, looked
-// up at run time through cudaGetDriverEntryPoint so that the library does
-// not link libcuda.
+// the candidate scans of cand_scan.cu and cand_scan_codes.cu,
+// block_scan.cu's span scan): mbarriers, the 1-D and 2-D TMA loads, the
+// wgmma shared-memory descriptor of a 128-byte-swizzled panel, and the
+// host-side tensor-map encoder, looked up at run time through
+// cudaGetDriverEntryPoint so that the library does not link libcuda.
 #pragma once
 
 #include "common.cuh"
@@ -123,19 +123,19 @@ inline bool tensor_map(
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// a vector of n f32 cut into boxes of `box` elements (16-byte aligned
-// base, box * 4 a multiple of 16), unswizzled
-inline bool tensor_map_1d(CUtensorMap* map, const float* base, int n,
-                          int box) {
+// a vector of n 4-byte elements (f32, or INT32) cut into boxes of `box`
+// elements (16-byte aligned base, box * 4 a multiple of 16), unswizzled
+inline bool tensor_map_1d(
+    CUtensorMap* map, const void* base, int n, int box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};  // unused
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused
   const cuuint32_t boxes[1] = {(cuuint32_t)box};
   const cuuint32_t elem[1] = {1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
-             const_cast<float*>(base), dims, strides, boxes, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+  return enc(map, type, 1, const_cast<void*>(base), dims, strides, boxes,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_NONE,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -23,7 +23,8 @@ multi-slice one, where it keeps one replica on the first device):
   ``{video_name, timestamp, frame_id, score, formatted_time}``;
 - ``search_ex`` (one query), ``search_coalesced_ex`` (through the request
   coalescer), ``search_batch`` (one device pass for many queries),
-  ``search_by_vector_ex`` (a query vector);
+  ``search_by_vector_ex`` (a query vector), ``search_by_image_ex`` (an
+  RGB image: resized and embedded by the vision tower);
 - the IVF tier (``index.kind = "ivf"``, ``index/ivf.py``): built at the
   end of ``startup`` once the corpus holds ``ivf_min_rows`` rows, rebuilt
   after a removal, fed appended rows through its fresh buffer (rebuilt
@@ -69,6 +70,8 @@ from video_quierer_tpu_torch.models.clip.embedder import (
     TEXT_BUCKETS,
     _bucket_for,
 )
+from video_quierer_tpu_torch.ops.preprocess import \
+    resize_shorter_side_and_crop
 from video_quierer_tpu_torch.ops.topk import MAX_K
 from video_quierer_tpu_torch.parallel.mesh import (
     CorpusMesh,
@@ -589,6 +592,17 @@ class VideoSearchEngine:
     def search_by_vector(self, vector: np.ndarray, k: int = 5,
                          use_cache: bool = True) -> List[Dict]:
         return self.search_by_vector_ex(vector, k, use_cache)[0]
+
+    def search_by_image_ex(self, image_rgb_u8: np.ndarray, k: int = 5
+                           ) -> Tuple[List[Dict], bool]:
+        """Query by raw image: resize → embed → vector search."""
+        img = resize_shorter_side_and_crop(np.asarray(image_rgb_u8))
+        vec = self.embed_frames(img[None])[0]
+        return self.search_by_vector_ex(vec, k)
+
+    def search_by_image(self, image_rgb_u8: np.ndarray, k: int = 5
+                        ) -> List[Dict]:
+        return self.search_by_image_ex(image_rgb_u8, k)[0]
 
     def search_coalesced_ex(self, query: str, k: int = 5,
                             use_cache: bool = True
