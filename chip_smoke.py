@@ -11,7 +11,9 @@ of the text and vision kernel phases (and with ``--ab-scans`` the
 search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1 and B4 at
 B = 1 and 256 —, B9 and B8 over bf16 rows at B = 1 and 64 and k = 10 and
 40, B10 at B = 64 and B11 at B = 1, 64 and 256, both over the whole
-corpus and over shard 0 of the 4-shard perm layout) of the checkout in
+corpus and over shard 0 of the 4-shard perm layout, and B12 at B = 1 and
+64 on the IVF tier and on shard 0 of the tier over a 4-shard mesh) of the
+checkout in
 DIR (say the parent commit, unpacked with ``git archive``) against this
 one, in the order DIR, this, this, DIR, and prints each kernel's ms per
 run. ``--exact-scans`` runs phases 1 and 2, then only the hatch's exact
@@ -46,8 +48,11 @@ last line):
    seeded clustered corpus (2,000,000 rows around 1,024 unit centres,
    spread 0.02 per coordinate): its build (nlist auto = 1,024, split into
    upload, k-means, rebalance and pack), the probe scan B12 against its
-   plain version pair by pair for 64 and for 1 noisy corpus-row queries,
-   and the tier's recall@10 against the exact scan (B8), gated at 0.8;
+   plain version pair by pair for 64 and for 1 noisy corpus-row queries
+   (also as device time, its calls replayed from a CUDA graph), the
+   tier's recall@10 against the exact scan (B8), gated at 0.8, then B12
+   on shard 0 of the same tier spread over a 4-shard mesh on the card,
+   at both B, with the pair list the mesh's search hands that shard;
    then the corpus-mesh and hatch kernels at the serving size: B10 (at B
    = 64) and B11 (at B = 1, 64 and 256), the perm-layout candidate scans,
    fetch 128, over shard 0 of the perm layout a 4-shard mesh places
@@ -107,7 +112,9 @@ last line):
    and the single-card candidate kernels (B1, B4) not;
 6. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
-   4-shard layout, B11 there at each B under ``shard_at_b``), the
+   4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
+   ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
+   the mesh at both B), the
    nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -124,6 +131,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -659,7 +667,8 @@ def compare_cand_scan(store, perm, n_rows: int, seed: int) -> dict:
 def _brief(result: dict) -> dict:
     """The numbers of one width or layout beside a kernels-line entry."""
     return {k: result[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "max_abs_err")}
+                                   "max_abs_err", "device_ms")
+            if k in result}
 
 
 def _scan_bound(mirror_bytes: int, query_bytes: int, b: int, kind: str,
@@ -994,14 +1003,16 @@ def log_build(what: str, split: dict) -> None:
         f"; rows evicted by the rebalance {split['evicted']}")
 
 
-def probe_bound(index: ivf.IVFIndex, tile_list: np.ndarray, b: int
+def probe_bound(row_ids: np.ndarray, tile_list: np.ndarray, b: int
                 ) -> tuple:
-    """B12's bound for this pair list: each probed tile's live rows and its
-    ids read once, the pair list and the queries read once, the lists
-    written once; 2 D operations per live row of every pair. Also the
-    bytes if every live pair read its own tile."""
-    live_rows = (index._row_ids >= 0).sum(axis=1)       # per tile
-    pairs = tile_list[tile_list != index._pad_tile]
+    """B12's bound for this pair list over tiles whose ids are ``row_ids
+    [T, BLOCK_ROWS]``: each probed tile's live rows and its ids read once,
+    the pair list and the queries read once, the lists written once; 2 D
+    operations per live row of every pair. Also the live pairs (those on a
+    tile with a live row), the distinct tiles they probe, and the bytes if
+    every live pair read its own tile."""
+    live_rows = (row_ids >= 0).sum(axis=1)              # per tile
+    pairs = tile_list[live_rows[tile_list] > 0]
     tiles = np.unique(pairs)
     p = tile_list.shape[0]
     moved = (live_rows[tiles].sum() * DIM * 4 + tiles.size * ivf.BLOCK_ROWS
@@ -1012,12 +1023,93 @@ def probe_bound(index: ivf.IVFIndex, tile_list: np.ndarray, b: int
             pairs.size, tiles.size, per_pair)
 
 
+def check_probe(name: str, got, want) -> tuple:
+    """B12's lists against the plain version's, pair by pair: pads in the
+    same places, rows identical except where two scores tie within
+    SCAN_RTOL, scores within SCAN_RTOL. Returns (max_abs_err, tied
+    entries)."""
+    (kv, ki), (pv, pi) = got, want
+    pad = ~torch.isfinite(pv)
+    require(torch.equal(~torch.isfinite(kv), pad)
+            and bool((ki[pad] == -1).all())
+            and bool((pi[pad] == -1).all()), f"{name}: pads differ")
+    err = (kv[~pad] - pv[~pad]).abs().max().item()
+    require(bool(((kv[~pad] - pv[~pad]).abs()
+                  <= SCAN_RTOL * pv[~pad].abs()).all()),
+            f"{name}: scores off by {err}")
+    gap = torch.full_like(pv, float("inf"))
+    gap[:, 1:] = pv[:, :-1] - pv[:, 1:]
+    gap[:, :-1] = torch.minimum(gap[:, :-1], pv[:, :-1] - pv[:, 1:])
+    apart = (gap > SCAN_RTOL * pv.abs()) & ~pad
+    require(torch.equal(ki[apart], pi[apart]), f"{name}: rows differ")
+    return err, int((~apart & ~pad).sum())
+
+
+def time_probe(name: str, tiles, ids, row_ids: np.ndarray,
+               tile_list: np.ndarray, qidx: np.ndarray, q) -> dict:
+    """B12 on one pair list against its plain version (:func:`check_probe`),
+    one launch counted, then timed: CUDA events around the wrapper call
+    (every launch of the call), and the device time of the same calls
+    replayed from a CUDA graph."""
+    b = q.shape[0]
+    tl, qi = (torch.from_numpy(x).to(q.device) for x in (tile_list, qidx))
+
+    def kern():
+        return ivf.probe_scan(tiles, ids, tl, qi, q, k=K)
+
+    def plain():
+        return ivf.probe_scan_ref(tiles, ids, tl, qi, q, k=K)
+
+    before = ivf.probe_scan.launches
+    got = kern()
+    torch.cuda.synchronize()
+    require(ivf.probe_scan.launches == before + 1, f"{name}: launch count")
+    err, ties = check_probe(name, got, plain())
+    ms = cuda_ms(kern, 20)
+    device_ms = graph_ms(kern, 20)
+    pms = cuda_ms(plain, 3 if b > 1 else 10)
+    # the host's time a call, nothing synchronised inside the loop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kern()
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    # each of the call's kernels (the later two launch early and wait for
+    # the one before, so their spans include that wait)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kern()
+        torch.cuda.synchronize()
+    spans = {re.search(r"probe_[a-z]+_kernel", e.key)[0]:
+             e.device_time_total / e.count / 1e3
+             for e in prof.key_averages()
+             if re.search(r"probe_[a-z]+_kernel", e.key)}
+    lim, live, distinct, per_pair = probe_bound(row_ids, tile_list, b)
+    log(f"{name} k={K}: {tile_list.size} pairs ({live} live, {distinct} "
+        f"distinct tiles, {ivf.probe_chunks(tile_list.size)} chunks a "
+        f"tile); rows identical ({ties} tied entries), pads identical, "
+        f"max_abs_err {err:.3e} (rtol {SCAN_RTOL}); kernel {ms:.4f} ms "
+        f"plain {pms:.4f} ms bound {lim['bound_ms']:.4f} ms "
+        f"({lim['bound_by']}; {per_pair / HBM_BYTES_S * 1e3:.4f} ms if "
+        f"every live pair read its own tile); device (graph replay) "
+        f"{device_ms:.4f} ms; kernel spans (ms) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(spans.items()))
+        + f"; host {host_ms:.4f} ms a call")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
+            "library_ms": None, "device_ms": device_ms}
+
+
 def compare_probe_scan(dev, n_rows: int, seed: int) -> dict:
     """The IVF tier on a clustered corpus: build it (nlist auto, nprobe 8),
-    hold B12 against its plain version pair by pair at B = 64 and B = 1 —
-    pads in the same places, rows identical except where two scores tie
-    within SCAN_RTOL, scores within SCAN_RTOL — time both, and gate the
-    tier's recall@10 against the exact scan (B8) over the same rows."""
+    hold B12 against its plain version pair by pair (:func:`time_probe`)
+    at B = 64 and B = 1, then on shard 0 of the same tier spread over a
+    MESH_SHARDS-shard mesh on this card (the pair list the mesh's search
+    hands its first device, :meth:`IVFIndex._shard_pairs`) at both B, and
+    gate the tier's recall@10 against the exact scan (B8) over the same
+    rows. Returns the B = 64 result, every case's under ``at_b`` (the
+    shard's under ``at_b["shard"]``)."""
     corpus, label = clustered_corpus(dev, n_rows, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     pick = torch.randint(n_rows, (64,), generator=g, device=dev)
@@ -1033,6 +1125,7 @@ def compare_probe_scan(dev, n_rows: int, seed: int) -> dict:
         "their own cluster")
     index = ivf.IVFIndex(nprobe=8, device=dev)
     index.build(corpus.cpu().numpy())
+    del corpus
     stats = index.stats()
     log(f"IVF build: nlist {stats['nlist']}, {stats['tiles']} tiles (max "
         f"{stats['max_tiles_per_cluster']} per cluster, padding "
@@ -1042,55 +1135,35 @@ def compare_probe_scan(dev, n_rows: int, seed: int) -> dict:
     for b in (64, 1):
         qb = q[:b]
         tile_list, qidx = index._probe_pairs(qb.cpu().numpy(), index.nprobe)
-        tl, qi = (torch.from_numpy(x).to(dev) for x in (tile_list, qidx))
-
-        def kern():
-            return ivf.probe_scan(index._tiled, index._row_ids_dev, tl, qi,
-                                  qb, k=K)
-
-        def plain():
-            return ivf.probe_scan_ref(index._tiled, index._row_ids_dev, tl,
-                                      qi, qb, k=K)
-
-        before = ivf.probe_scan.launches
-        (kv, ki), (pv, pi) = kern(), plain()
-        torch.cuda.synchronize()
-        require(ivf.probe_scan.launches == before + 1, "B12 launch count")
-        pad = ~torch.isfinite(pv)
-        require(torch.equal(~torch.isfinite(kv), pad)
-                and bool((ki[pad] == -1).all())
-                and bool((pi[pad] == -1).all()), f"B12 B={b}: pads differ")
-        err = (kv[~pad] - pv[~pad]).abs().max().item()
-        require(bool(((kv[~pad] - pv[~pad]).abs()
-                      <= SCAN_RTOL * pv[~pad].abs()).all()),
-                f"B12 B={b}: scores off by {err}")
-        gap = torch.full_like(pv, float("inf"))
-        gap[:, 1:] = pv[:, :-1] - pv[:, 1:]
-        gap[:, :-1] = torch.minimum(gap[:, :-1], pv[:, :-1] - pv[:, 1:])
-        apart = (gap > SCAN_RTOL * pv.abs()) & ~pad
-        require(torch.equal(ki[apart], pi[apart]), f"B12 B={b}: rows differ")
-        ties = int((~apart & ~pad).sum())
-        ms = cuda_ms(kern, 20)
-        pms = cuda_ms(plain, 3 if b > 1 else 10)
-        lim, live, distinct, per_pair = probe_bound(index, tile_list, b)
-        log(f"B12 probe scan N={n_rows} B={b} k={K}: {tile_list.size} pairs "
-            f"({live} live, {distinct} distinct tiles); rows identical "
-            f"({ties} tied entries), pads identical, max_abs_err {err:.3e} "
-            f"(rtol {SCAN_RTOL}); kernel {ms:.4f} ms plain {pms:.4f} ms "
-            f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}; "
-            f"{per_pair / HBM_BYTES_S * 1e3:.4f} ms if every live pair "
-            f"read its own tile); {ivf.probe_scan.launches - before} "
-            "launches in this comparison")
-        out[b] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim,
-                  "library_ms": None}
+        out[str(b)] = time_probe(
+            f"B12 probe scan N={n_rows} B={b}", index._tiled,
+            index._row_ids_dev, index._row_ids, tile_list, qidx, qb)
     _, idxs = index.search(q.cpu().numpy(), k=K)
     recall = evaluation.recall_at_k(exact.cpu().numpy(), idxs)
     log(f"IVF recall@{K} (nprobe 8 of {stats['nlist']}) against the exact "
         f"scan over the same rows, 64 queries: {recall:.4f} (>= "
         f"{IVF_RECALL})")
     require(recall >= IVF_RECALL, f"IVF recall@{K} {recall}")
-    del index, corpus
-    return out[64]
+    # the same tier over a mesh of MESH_SHARDS shards on this card
+    mesh = ivf.IVFIndex(nprobe=8, mesh=CorpusMesh([dev] * MESH_SHARDS))
+    mesh.nlist = index.nlist
+    mesh._set_built(index._centroids_np, index._tiled, index._row_ids,
+                    index._tile_start_np, index._tile_counts_np,
+                    index._n_built)
+    del index
+    shard = {}
+    row_ids = mesh._sh_ids[0].cpu().numpy()
+    for b in (64, 1):
+        qb = q[:b]
+        tile_lists, qidx, slots = mesh._shard_pairs(qb.cpu().numpy(),
+                                                    mesh.nprobe)
+        shard[str(b)] = _brief(time_probe(
+            f"B12 shard 0 of {MESH_SHARDS} B={b} ({slots} slots a query)",
+            mesh._sh_tiled[0], mesh._sh_ids[0], row_ids, tile_lists[0],
+            qidx, qb))
+    del mesh
+    return dict(out["64"], at_b={**{b: _brief(r) for b, r in out.items()},
+                                 "shard": shard})
 
 
 # -- phases 4 and 5: end to end -----------------------------------------------
@@ -1978,6 +2051,58 @@ if scans:
                                               n_rows, **scan),
                 20 if b < 256 else 5)
         del codes, scales
+    del store, perm
+    torch.cuda.empty_cache()
+    # B12 through compare_probe_scan, which both trees have: its log lines
+    # give B = 64 and B = 1; the index it builds and the queries it probes
+    # with are kept to time shard 0 of the same tier over a 4-shard mesh,
+    # with the pair list that a mesh search hands its first device
+    # (recorded from IVFIndex._search_sharded, the kernel not run)
+    import re
+    seen, kept, probed = [], [], {}
+    Index, scan, log = c.ivf.IVFIndex, c.ivf.probe_scan, c.log
+
+    class Kept(Index):
+        def build(self, emb):
+            super().build(emb)
+            kept.append(self)
+
+        def _probe_pairs(self, queries, nprobe):
+            probed.setdefault(queries.shape[0], queries)
+            return super()._probe_pairs(queries, nprobe)
+
+    c.log = lambda msg: (seen.append(msg), log(msg))
+    c.ivf.IVFIndex = Kept
+    c.compare_probe_scan(dev, n_rows, seed)
+    c.ivf.IVFIndex, c.log = Index, log
+    for msg in seen:
+        m = re.match(r"B12 probe scan N=[0-9]+ B=([0-9]+) .*?kernel "
+                     r"([0-9.]+) ms",
+                     msg)
+        if m:
+            row[f"B12 B={m[1]}"] = float(m[2])
+    index = kept[0]
+    mesh = Index(nprobe=8, mesh=c.CorpusMesh([dev] * c.MESH_SHARDS))
+    mesh.nlist = index.nlist
+    mesh._set_built(index._centroids_np, index._tiled, index._row_ids,
+                    index._tile_start_np, index._tile_counts_np,
+                    index._n_built)
+    del index, kept[:]
+    for b in (1, 64):
+        calls = []
+
+        def record(*args, k):
+            calls.append(args)
+            p = args[2].shape[0]
+            return (torch.full((p, k), float("-inf"), device=args[0].device),
+                    torch.full((p, k), -1, dtype=torch.int32,
+                               device=args[0].device))
+
+        c.ivf.probe_scan = record
+        mesh.search(probed[b], k=c.K)
+        c.ivf.probe_scan = scan
+        first = calls[0]
+        row[f"B12 shard B={b}"] = c.cuda_ms(lambda: scan(*first, k=c.K), 20)
 print("ab-row " + json.dumps(row), flush=True)
 """
 
@@ -2018,7 +2143,7 @@ def main() -> int:
                          "against the checkout in DIR")
     ap.add_argument("--ab-scans", action="store_true",
                     help="with --ab: the search-tier scans (B1, B4, B7, "
-                         "B8, B9, B10, B11, B8 over bf16 rows) too")
+                         "B8, B9, B10, B11, B8 over bf16 rows, B12) too")
     ap.add_argument("--exact-scans", action="store_true",
                     help="only the hatch's exact scans (B9, B8 over bf16 "
                          "rows) against their plain versions, timed")

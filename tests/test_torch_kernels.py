@@ -24,7 +24,9 @@ zero small parts and exact sums), rows identical and scores within rtol
 and on unnormalised N(0, 1e3^2) rows also against f64 host scores; B12
 as B8, pads
 (-inf, -1) in the same places, also for a pair on tile 4,096 and beyond
-(64-bit tile offsets: 8.6 GB of tiles on the card); B9 and B8 over bf16
+(64-bit tile offsets: 8.6 GB of tiles on the card), one pair split over
+16 CTAs, 9-40 queries on one tile, every pair on the padding tile, and
+the pair lists of B = 256 and of two plan windows; B9 and B8 over bf16
 rows as B8 (rows and scores identical on exact inputs); B10 exact and
 B11 bit-identical, as B1 and B4. With two or more cards, a corpus mesh
 over the cards returns the rows and scores of the same mesh with every
@@ -1169,6 +1171,116 @@ def test_probe_scan_kernel_64bit_tile_offsets(cuda):
                  False)
 
 
+def _probe_tiles(seed, n_tiles, exact, d=512, live=None):
+    """``n_tiles`` tiles with random distinct ids (the last all padding;
+    tile ``t`` keeps ``live[t]`` live rows where given)."""
+    rng = np.random.default_rng(seed)
+    tiles = (_exact(seed, (n_tiles, 1024, d)) if exact
+             else _unit(seed, (n_tiles * 1024, d)).view(n_tiles, 1024, d))
+    ids = torch.from_numpy(rng.permutation(1 << 24)[:n_tiles * 1024].astype(
+        np.int32)).view(n_tiles, 1024).clone()
+    ids[-1] = -1
+    for t, n in (live or {}).items():
+        ids[t, n:] = -1
+    return tiles, ids
+
+
+def _probe_ref(tiles, ids, tl, qi, q, k, step=2048):
+    """The plain version, ``step`` pairs at a time (it gathers each pair's
+    tile)."""
+    parts = [ivf.probe_scan_ref(tiles, ids, tl[lo:lo + step],
+                                qi[lo:lo + step], q, k=k)
+             for lo in range(0, tl.shape[0], step)]
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([i for _, i in parts]))
+
+
+def _probe_launch(tiles, ids, tl, qi, q, k):
+    before = ivf.probe_scan.launches
+    got = ivf.probe_scan(tiles, ids, tl, qi, q, k=k)
+    torch.cuda.synchronize()
+    assert ivf.probe_scan.launches == before + 1
+    assert got[0].shape == got[1].shape == (tl.shape[0], k)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("d", [96, 512, ivf.PROBE_MAX_D])
+def test_probe_scan_one_pair_over_many_ctas(cuda, d, k, exact):
+    """One query over one tile: the pair's 16 chunks of 64 rows go to 16
+    CTAs, and the last to finish merges them."""
+    tiles, ids = (t.to(cuda) for t in _probe_tiles(d + k, 2, exact, d=d))
+    q = (_exact(1, (1, d)) if exact else _unit(1, (1, d))).to(cuda)
+    tl = torch.zeros(1, dtype=torch.int32, device=cuda)
+    assert ivf.probe_chunks(1) == ivf.PROBE_MAX_CHUNKS
+    got = _probe_launch(tiles, ids, tl, tl, q, k)
+    _check_probe(got, ivf.probe_scan_ref(tiles, ids, tl, tl, q, k=k), exact)
+    assert torch.isfinite(got[0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("n_queries", [9, 16, 17, 40])
+def test_probe_scan_queries_on_one_tile(cuda, n_queries, exact):
+    """9 to 40 queries on one tile (groups of 8 and a remainder), twice
+    each, beside pairs on a tile with 5 live rows."""
+    tiles, ids = (t.to(cuda) for t in _probe_tiles(
+        n_queries, 3, exact, live={1: 5}))
+    q = (_exact(2, (n_queries, 512)) if exact
+         else _unit(2, (n_queries, 512))).to(cuda)
+    rng = np.random.default_rng(n_queries)
+    pairs = [(0, i) for i in range(n_queries)] * 2 + [(1, i) for i in
+                                                       range(n_queries)]
+    pairs = rng.permutation(np.array(pairs, np.int32))
+    tl, qi = (torch.from_numpy(np.ascontiguousarray(pairs[:, j])).to(cuda)
+              for j in (0, 1))
+    got = _probe_launch(tiles, ids, tl, qi, q, 10)
+    _check_probe(got, ivf.probe_scan_ref(tiles, ids, tl, qi, q, k=10), exact)
+    assert (got[1][tl == 1][:, 5:] == -1).all()
+
+
+@pytest.mark.gpu
+def test_probe_scan_padding_and_bad_pairs(cuda):
+    """Every pair on the padding tile: pads only. Pairs whose query is out
+    of range or whose tile is negative: pads only, beside live ones."""
+    tiles, ids = (t.to(cuda) for t in _probe_tiles(3, 3, True))
+    q = _exact(3, (4, 512)).to(cuda)
+    pad = torch.full((64,), 2, dtype=torch.int32, device=cuda)
+    qi = torch.arange(64, dtype=torch.int32, device=cuda) % 4
+    v, i = _probe_launch(tiles, ids, pad, qi, q, 10)
+    assert (v == float("-inf")).all() and (i == -1).all()
+    tl = torch.tensor([0, -1, 1, 0, 2, 1], dtype=torch.int32, device=cuda)
+    qi = torch.tensor([0, 1, 4, -1, 3, 2], dtype=torch.int32, device=cuda)
+    v, i = _probe_launch(tiles, ids, tl, qi, q, 10)
+    ok = torch.tensor([True, False, False, False, True, True], device=cuda)
+    assert (v[~ok] == float("-inf")).all() and (i[~ok] == -1).all()
+    _check_probe((v[ok], i[ok]), ivf.probe_scan_ref(
+        tiles, ids, tl[ok], qi[ok], q, k=10), True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pairs", [256 * 32, 8192 + 3001])
+def test_probe_scan_long_pair_lists(cuda, n_pairs):
+    """The pair list of B = 256 (8,192 pairs: one plan CTA) and one past
+    it (two plan windows, a tile's pairs in both): 64 tiles, the last all
+    padding, a third of the pairs on it, some tiles partly live (one with
+    its first 700 rows dead, one all dead)."""
+    tiles, ids = (t.to(cuda) for t in _probe_tiles(
+        5, 64, False, live={3: 1, 7: 100, 11: 600, 20: 1000}))
+    ids[5, :700] = -1
+    ids[9] = -1
+    q = _unit(4, (256, 512)).to(cuda)
+    rng = np.random.default_rng(n_pairs)
+    tl = np.where(rng.random(n_pairs) < 1 / 3, 63,
+                  rng.integers(0, 63, n_pairs)).astype(np.int32)
+    qi = rng.integers(0, 256, n_pairs).astype(np.int32)
+    tl, qi = (torch.from_numpy(x).to(cuda) for x in (tl, qi))
+    got = _probe_launch(tiles, ids, tl, qi, q, 10)
+    _check_probe(got, _probe_ref(tiles, ids, tl, qi, q, 10), False)
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_bad_operands(cuda):
     emb = torch.zeros(4096, 512, device=cuda, dtype=torch.bfloat16)
@@ -1205,6 +1317,10 @@ def test_kernels_refuse_bad_operands(cuda):
         ivf.probe_scan(tiles, ids, pairs.long(), pairs, qs, k=5)
     with pytest.raises(ValueError):                 # tile list on the CPU
         ivf.probe_scan(tiles, ids, pairs.cpu(), pairs, qs, k=5)
+    wide = torch.zeros(2, 1024, ivf.PROBE_MAX_D + 4, device=cuda)
+    with pytest.raises(ValueError):                 # D past PROBE_MAX_D
+        ivf.probe_scan(wide, ids, pairs, pairs,
+                       torch.zeros(2, ivf.PROBE_MAX_D + 4, device=cuda), k=5)
     q = torch.zeros(1, 8, 512, device=cuda)
     with pytest.raises(ValueError):
         attention(q, q, q, num_heads=4)            # head dim 128

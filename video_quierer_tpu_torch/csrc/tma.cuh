@@ -1,7 +1,8 @@
 // Hopper's asynchronous copy and tensor-core pieces shared by the kernels
 // that stream tiles through a TMA ring into wgmma (fused_layer.cu's GEMM,
 // the candidate scans of cand_scan.cu and cand_scan_codes.cu,
-// block_scan.cu's span scan): mbarriers, the 1-D and 2-D TMA loads, the
+// block_scan.cu's span scan, probe_scan.cu's bulk-copy ring): mbarriers,
+// the 1-D and 2-D TMA loads and the plain bulk copy, the
 // wgmma shared-memory descriptor of a 128-byte-swizzled panel, and the
 // host-side tensor-map encoder, looked up at run time through
 // cudaGetDriverEntryPoint so that the library does not link libcuda.
@@ -70,6 +71,17 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// TMA bulk copy: `bytes` contiguous bytes at global `src` into shared `dst`
+// (both 16-byte aligned, bytes a multiple of 16); no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -16,9 +16,10 @@ when ``index.kind = "ivf"``:
   ``np.argsort(kind="stable")``'s orders.
 - **Search** (:meth:`IVFIndex.search`): on the host each query is scored
   against the centroids and takes the first tiles of its ``nprobe`` best
-  clusters (:meth:`IVFIndex._probe_pairs`); one launch of
-  :func:`probe_scan` (kernel B12 on CUDA tensors) takes the top k of every
-  (query, tile) pair; the host merges each query's candidates
+  clusters (:meth:`IVFIndex._probe_pairs`); one call of
+  :func:`probe_scan` (kernel B12 on CUDA tensors: a plan, a scan and a
+  merge kernel, no host sync) takes the top k of every (query, tile)
+  pair; the host merges each query's candidates
   (:func:`_merge_pairs`) and the exact scan of the fresh buffer, the rows
   appended since the build (:meth:`IVFIndex._merge_fresh`).
 
@@ -32,7 +33,7 @@ device (:meth:`IVFIndex._pack_sharded`, a numpy copy: its tie orders decide
 the tiles); each device holds its clusters' tiles plus one padding tile,
 with global row ids; a search routes each probed cluster to its device's
 slot list, sized to the exact worst case so no probe is dropped
-(:meth:`IVFIndex._search_sharded`), runs B12 on every device and merges
+(:meth:`IVFIndex._shard_pairs`), runs B12 on every device and merges
 the per-device lists on the first one in device order
 (``index/sharded.py:_gather_merge``).
 
@@ -70,6 +71,45 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # -- kernel B12 and its plain version -----------------------------------------
 
+PROBE_GROUP = 8           # pairs of one tile a work item scores at once
+PROBE_WINDOW = 8192       # pairs the plan groups together (one plan CTA)
+PROBE_MAX_CHUNKS = 16     # chunks of 64 rows at most
+PROBE_MAX_D = 768         # widest rows whose ring and queries fit on an SM
+
+
+def probe_chunks(n_pairs: int) -> int:
+    """Chunks the kernel cuts each probed tile into for a list of
+    ``n_pairs`` pairs: the largest power of two in ``[2, 16]`` with at
+    most 8,192 (pair, chunk) slots, so a short list (B = 1: 32 pairs, 16
+    chunks of 64 rows) still gives every SM work and a long one keeps its
+    items long."""
+    chunks = 2
+    while chunks < PROBE_MAX_CHUNKS and 2 * chunks * n_pairs <= 8192:
+        chunks *= 2
+    return chunks
+
+
+def _select(scores: torch.Tensor, rid: torch.Tensor, k: int) -> Pair:
+    """Per row of ``scores [R, N]``, the top ``k`` by (score desc, id asc)
+    among the entries whose id ``rid [R, N]`` is >= 0; pads ``(-inf,
+    -1)``."""
+    scores = scores.masked_fill(rid < 0, NEG_INF)
+    # ties break by global id: order the rows by id, then sort stably
+    rid, order = torch.sort(rid, dim=-1, stable=True)
+    scores = torch.gather(scores, 1, order)
+    vals, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
+    vals = vals[:, :k]
+    idxs = torch.gather(rid, 1, pos[:, :k]).masked_fill(vals == NEG_INF, -1)
+    return vals.contiguous(), idxs.to(torch.int32).contiguous()
+
+
+def _pair_scores(tiles: torch.Tensor, tl: torch.Tensor, qs: torch.Tensor
+                 ) -> torch.Tensor:
+    """f32 scores ``[P, BLOCK_ROWS]`` of tiles ``tl`` against queries
+    ``qs [P, D]``, one batched product."""
+    return torch.bmm(tiles[tl], qs[:, :, None])[..., 0]
+
+
 def probe_scan_ref(tiles: torch.Tensor, ids: torch.Tensor,
                    tile_list: torch.Tensor, qidx: torch.Tensor,
                    queries: torch.Tensor, *, k: int) -> Pair:
@@ -78,26 +118,97 @@ def probe_scan_ref(tiles: torch.Tensor, ids: torch.Tensor,
     id is < 0 scored ``-inf``, and the top ``k`` by (score desc, id asc);
     ``([P, k] f32, [P, k] i32)``, pads ``(-inf, -1)``."""
     tl = tile_list.long()
-    rid = ids[tl]                                           # [P, R]
-    sc = torch.bmm(tiles[tl], queries[qidx.long()][:, :, None])[..., 0]
-    sc = sc.masked_fill(rid < 0, NEG_INF)
-    # ties break by global id: order the rows by id, then sort stably
-    rid, order = torch.sort(rid, dim=-1, stable=True)
-    sc = torch.gather(sc, 1, order)
-    vals, pos = torch.sort(sc, dim=-1, descending=True, stable=True)
-    vals = vals[:, :k]
-    idxs = torch.gather(rid, 1, pos[:, :k]).masked_fill(vals == NEG_INF, -1)
-    return vals.contiguous(), idxs.to(torch.int32).contiguous()
+    sc = _pair_scores(tiles, tl, queries[qidx.long()])
+    return _select(sc, ids[tl], k)
+
+
+def probe_plan_ref(ids: torch.Tensor, tile_list: torch.Tensor,
+                   qidx: torch.Tensor, b: int) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """Plain version of B12's plan (device-agnostic): the work groups and
+    the pairs that get pads only.
+
+    A pair is dead when its query is outside ``[0, b)``, its tile is
+    negative, or every id of its tile is -1. Within each window of
+    ``PROBE_WINDOW`` pairs the live ones are sorted stably by tile, and
+    each tile's run is cut into groups of up to ``PROBE_GROUP`` pairs, in
+    window order. Returns ``(groups [G, 2 + PROBE_GROUP] i32, dead [P]
+    bool)``: a group's row is its tile, its pair count and its pairs (-1
+    beyond the count). The kernel's work items are each group times each
+    of the ``probe_chunks(P)`` chunks of the tile's rows, group-major."""
+    p, dev = tile_list.shape[0], tile_list.device
+    tl = tile_list.long()
+    ok = (tl >= 0) & (qidx >= 0) & (qidx < b)
+    empty = (ids < 0).all(dim=1)
+    dead = ~ok | empty[tl.clamp(min=0)]
+    groups = []
+    for lo in range(0, p, PROBE_WINDOW):
+        pos = torch.arange(lo, min(p, lo + PROBE_WINDOW), device=dev)
+        pos = pos[~dead[pos]]
+        tiles, order = torch.sort(tl[pos], stable=True)
+        pos = pos[order]
+        counts = torch.unique_consecutive(tiles, return_counts=True)[1]
+        first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts,
+                                        counts)
+        rank = torch.arange(pos.shape[0], device=dev) - first
+        gid = torch.cumsum((rank % PROBE_GROUP == 0).long(), 0) - 1
+        n_groups = int(gid[-1]) + 1 if gid.numel() else 0
+        table = torch.full((n_groups, 2 + PROBE_GROUP), -1,
+                           dtype=torch.int32, device=dev)
+        table[gid, 0] = tiles.int()
+        table[gid, 2 + rank % PROBE_GROUP] = pos.int()
+        table[:, 1] = torch.bincount(gid, minlength=n_groups).int()
+        groups.append(table)
+    groups = torch.cat(groups) if groups else torch.empty(
+        (0, 2 + PROBE_GROUP), dtype=torch.int32, device=dev)
+    return groups, dead
+
+
+def probe_scan_items_ref(tiles: torch.Tensor, ids: torch.Tensor,
+                         tile_list: torch.Tensor, qidx: torch.Tensor,
+                         queries: torch.Tensor, *, k: int,
+                         chunks: Optional[int] = None) -> Pair:
+    """B12 as its kernel computes it, in plain PyTorch: the plan
+    (:func:`probe_plan_ref`), a top-``k`` list per (pair, chunk) of every
+    work item by :func:`probe_scan_ref`'s scoring, then each pair's chunk
+    lists merged by the same (score desc, id asc) key; dead pairs pad.
+    ``chunks`` defaults to the kernel's, :func:`probe_chunks`."""
+    p, dev = tile_list.shape[0], tiles.device
+    chunks = probe_chunks(p) if chunks is None else chunks
+    rows = BLOCK_ROWS // chunks
+    groups, _ = probe_plan_ref(ids, tile_list, qidx, queries.shape[0])
+    # every pair with a tile and a query scored as probe_scan_ref scores
+    # them (one batched product), each item's rows then cut from it
+    valid = torch.nonzero((tile_list >= 0) & (qidx >= 0)
+                          & (qidx < queries.shape[0])).flatten()
+    scores = _pair_scores(tiles, tile_list[valid].long(),
+                          queries[qidx[valid].long()])
+    row_of = torch.full((p,), -1, dtype=torch.long, device=dev)
+    row_of[valid] = torch.arange(valid.shape[0], device=dev)
+    lists_v = torch.full((p, chunks, k), NEG_INF, device=dev)
+    lists_i = torch.full((p, chunks, k), -1, dtype=torch.int32, device=dev)
+    for tile, n, *pairs in groups.tolist():
+        pairs = torch.tensor(pairs[:n], device=dev)
+        sc = scores[row_of[pairs]]
+        rid = ids[tile].expand(n, -1)
+        for c in range(chunks):
+            part = slice(c * rows, (c + 1) * rows)
+            lists_v[pairs, c], lists_i[pairs, c] = _select(
+                sc[:, part], rid[:, part], k)
+    return _select(lists_v.view(p, chunks * k), lists_i.view(p, chunks * k),
+                   k)
 
 
 def probe_scan(tiles: torch.Tensor, ids: torch.Tensor,
                tile_list: torch.Tensor, qidx: torch.Tensor,
                queries: torch.Tensor, *, k: int) -> Pair:
-    """Top ``k`` (``<= MAX_K``) of every (query, tile) pair in one launch:
+    """Top ``k`` (``<= MAX_K``) of every (query, tile) pair in one call:
     tiles ``[T, BLOCK_ROWS, D]`` f32, ids ``[T, BLOCK_ROWS]`` i32 (-1 for
     padding), ``tile_list``/``qidx`` ``[P]`` i32 (entries in ``[0, T)`` and
-    ``[0, B)``), queries ``[B, D]`` f32 → ``([P, k] f32, [P, k] i32)``.
-    Kernel B12 on CUDA tensors, the plain version on CPU ones."""
+    ``[0, B)``; a pair outside them pads), queries ``[B, D]`` f32 →
+    ``([P, k] f32, [P, k] i32)``. Kernel B12 on CUDA tensors (its plan,
+    scan and merge kernels on the current stream, no host sync; D at most
+    ``PROBE_MAX_D``), the plain version on CPU ones."""
     if tiles.device.type == "cpu":
         return probe_scan_ref(tiles, ids, tile_list, qidx, queries, k=k)
     dev = kernels.require_cuda(tiles, ids, tile_list, qidx, queries)
@@ -110,22 +221,28 @@ def probe_scan(tiles: torch.Tensor, ids: torch.Tensor,
     if tiles.ndim != 3 or tiles.shape[1] != BLOCK_ROWS \
             or ids.shape != tiles.shape[:2] or tile_list.ndim != 1 \
             or qidx.shape != tile_list.shape or queries.ndim != 2 \
-            or queries.shape[1] != d or d % 4 or not 1 <= k <= MAX_K \
+            or queries.shape[1] != d or d % 4 or d > PROBE_MAX_D \
+            or not 1 <= k <= MAX_K \
             or tiles.data_ptr() % 16 or queries.data_ptr() % 16:
         raise ValueError(f"unsupported probe scan: tiles {tuple(tiles.shape)}"
                          f" ids {tuple(ids.shape)} pairs "
                          f"{tuple(tile_list.shape)} queries "
-                         f"{tuple(queries.shape)} k={k} (D a multiple of 4, "
-                         f"16-byte aligned tiles and queries, k <= {MAX_K})")
+                         f"{tuple(queries.shape)} k={k} (D a multiple of 4 "
+                         f"up to {PROBE_MAX_D}, 16-byte aligned tiles and "
+                         f"queries, k <= {MAX_K})")
     p = tile_list.shape[0]
+    chunks = probe_chunks(p)
+    lib = kernels.lib()
     vals = torch.empty((p, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((p, k), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.vqt_probe_scan_scratch(p, k, chunks),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        kernels.check(kernels.lib().vqt_probe_scan(
+        kernels.check(lib.vqt_probe_scan(
             kernels.ptr(tiles), kernels.ptr(ids), kernels.ptr(tile_list),
             kernels.ptr(qidx), kernels.ptr(queries), kernels.ptr(vals),
-            kernels.ptr(idxs), p, d, queries.shape[0], k,
-            kernels.stream(dev)), "probe scan")
+            kernels.ptr(idxs), kernels.ptr(scratch), p, tiles.shape[0], d,
+            queries.shape[0], k, chunks, kernels.stream(dev)), "probe scan")
     kernels.count_launch(probe_scan)
     return vals, idxs
 
@@ -544,14 +661,13 @@ class IVFIndex:
         return _merge_pairs(vals.cpu().numpy(), idxs.cpu().numpy(),
                             queries.shape[0], k)
 
-    def _search_sharded(self, queries: np.ndarray, k: int, nprobe: int
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-        """The mesh's probe: each query's clusters (best first) routed to
-        their devices' slot lists — ``S`` slots per query and device, ``S``
-        the exact worst case over the batch, so no probed cluster is
-        dropped, unused slots on the local padding tile —; B12 on every
-        device; the per-device ``[B, S·k]`` lists merged on the first
-        device in device order; pads ``(-inf, -1)``."""
+    def _shard_pairs(self, queries: np.ndarray, nprobe: int
+                     ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The mesh's per-device pair lists: each query's clusters (best
+        first) routed to their devices' slot lists, ``S`` slots per query
+        and device, ``S`` the exact worst case over the batch so no probed
+        cluster is dropped, unused slots on the local padding tile.
+        Returns ``(tile_lists [n_dev, B·S] i32, qidx [B·S] i32, S)``."""
         b, n_dev = queries.shape[0], len(self._devices)
         budget = self.tile_budget()
         csims = queries @ self._centroids_np.T                  # [B, C]
@@ -575,6 +691,16 @@ class IVFIndex:
                     s, s + cnt)
                 cursor[d] += cnt
         qidx = np.repeat(np.arange(b, dtype=np.int32), slots)
+        return tile_lists, qidx, slots
+
+    def _search_sharded(self, queries: np.ndarray, k: int, nprobe: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """The mesh's probe: the per-device pair lists
+        (:meth:`_shard_pairs`); B12 on every device; the per-device ``[B,
+        S·k]`` lists merged on the first device in device order; pads
+        ``(-inf, -1)``."""
+        b = queries.shape[0]
+        tile_lists, qidx, slots = self._shard_pairs(queries, nprobe)
         parts = []
         for d, dev in enumerate(self._devices):
             v, i = probe_scan(self._sh_tiled[d], self._sh_ids[d],

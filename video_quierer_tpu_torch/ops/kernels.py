@@ -57,7 +57,9 @@ _SIGNATURES = {
                                   _I, _I, _I, _P),
     "vqt_block_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "vqt_block_scan_stages": (_I, _I, _I, _I),
-    "vqt_probe_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vqt_probe_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _P),
+    "vqt_probe_scan_scratch": (_I, _I, _I),
     "vqt_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P),
     "vqt_text_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -67,6 +69,9 @@ _SIGNATURES = {
     "vqt_mlp_half": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                      _P),
 }
+
+# return types other than the launchers' int error code
+_RESTYPES = {"vqt_probe_scan_scratch": ctypes.c_size_t}
 
 _lock = threading.Lock()
 _lib = None
@@ -151,7 +156,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             handle.vqt_error_string.argtypes = [ctypes.c_int]
             handle.vqt_error_string.restype = ctypes.c_char_p
             _lib = handle
