@@ -8,12 +8,12 @@ GPU — the quickest proof that the port still starts on the card.
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
-search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1 and B4 at
-B = 1 and 256 —, B9 and B8 over bf16 rows at B = 1 and 64 and k = 10 and
-40, B10 at B = 64 and B11 at B = 1, 64 and 256, both over the whole
-corpus and over shard 0 of the 4-shard perm layout, and B12 at B = 1 and
-64 on the IVF tier and on shard 0 of the tier over a 4-shard mesh) of the
-checkout in
+search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1, B4 and
+B7 at B = 1 and 256 —, B9 and B8 over bf16 rows at B = 1 and 64 and k =
+10 and 40, B10 at B = 64 and B11 at B = 1, 64 and 256, both over the
+whole corpus and over shard 0 of the 4-shard perm layout, and B12 at B =
+1 and 64 on the IVF tier and on shard 0 of the tier over a 4-shard mesh)
+of the checkout in
 DIR (say the parent commit, unpacked with ``git archive``) against this
 one, in the order DIR, this, this, DIR, and prints each kernel's ms per
 run. ``--exact-scans`` runs phases 1 and 2, then only the hatch's exact
@@ -42,8 +42,10 @@ last line):
    time for B6's two bare GEMMs is printed as the GEMM core's
    yardstick; B8, the exact f32 scan, runs at B = 1, 16 and 64, with
    ``torch.mm`` alone, f32 without TF32, as the yardstick of its product
-   only; B1, B4 and B7 at B = 1, 64 and 256, B4 with ``torch._int_mm``
-   alone as its product's yardstick); then the split of one
+   only; B1, B4 and B7 at B = 1, 64 and 256, B4 and B7 with
+   ``torch._int_mm`` alone over the int8 codes, or the unpacked nibbles,
+   as their product's yardstick, and with their ring stages and the
+   tile's ptxas register and spill line); then the split of one
    ingest batch of 256 frames into its stages; then the IVF tier on a
    seeded clustered corpus (2,000,000 rows around 1,024 unit centres,
    spread 0.02 per coordinate): its build (nlist auto = 1,024, split into
@@ -349,13 +351,31 @@ def phase_build() -> None:
     log(f"build: {lib.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if kernels.last_build else " (cached)"))
-    name = ""
-    for line in kernels.last_build.get("ptxas", "").splitlines():
+    for name, lines in ptxas_report().items():
+        for line in lines:
+            log(f"  ptxas {name}: {line}")
+
+
+def ptxas_report() -> dict:
+    """{entry function: its ptxas register and spill lines} of the build
+    (its ``ptxas.log``, also when the build was cached)."""
+    out, name = {}, ""
+    log_file = kernels.build().parent / "ptxas.log"
+    for line in log_file.read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif "Used" in line or "spill stores" in line:
-            log(f"  ptxas {name}: " + line.strip().removeprefix(
-                "ptxas info    : "))
+        elif name and ("Used" in line or "spill stores" in line):
+            out.setdefault(name, []).append(
+                line.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def codes_tile_ptxas(qn: int, rounds: int, int4: bool) -> str:
+    """The ptxas lines of the live-prefix instantiation
+    ``cand_kernel_i8<qn, rounds, false, int4>`` (B4, or B7 for int4)."""
+    tag = f"cand_kernel_i8ILi{qn}ELi{rounds}ELb0ELb{int(int4)}E"
+    return "; ".join(line for name, lines in ptxas_report().items()
+                     if tag in name for line in lines)
 
 
 # -- phase 3: kernels vs plain ------------------------------------------------
@@ -684,9 +704,10 @@ def _scan_bound(mirror_bytes: int, query_bytes: int, b: int, kind: str,
 
 def int_mm_ms(codes, q_codes, b: int):
     """The yardstick of an int8 scan's product alone: ``torch._int_mm`` of
-    the codes [N, D] s8 and the query codes [D, B] s8 into [N, B] s32 (the
-    port never calls it; the scans also scale and select). cuBLASLt's int8
-    product takes B a multiple of 8: None below that."""
+    the codes [N, D] s8 (for the int4 scan, its rows unpacked) and the
+    query codes [D, B] s8 into [N, B] s32 (the port never calls it; the
+    scans also scale and select). cuBLASLt's int8 product takes B a
+    multiple of 8: None below that."""
     if b % 8:
         return None
     return cuda_ms(lambda: torch._int_mm(codes, q_codes.t()),
@@ -696,9 +717,10 @@ def int_mm_ms(codes, q_codes, b: int):
 def compare_codes_scan(store, perm, n_rows: int, seed: int,
                        tier: str) -> dict:
     """B4 (int8) or B7 (int4) over the quantized live-prefix mirror at B =
-    1, 64 and 256: winners bit-identical to the plain version. The B = 64
-    result, with every width's under ``at_b``; B4's ``library_ms`` is
-    ``torch._int_mm`` for its product alone (:func:`int_mm_ms`)."""
+    1, 64 and 256: winners bit-identical to the plain version, the ring
+    stages and the tile's ptxas line. The B = 64 result, with every width's
+    under ``at_b``; ``library_ms`` is ``torch._int_mm`` over the int8 codes
+    (B7: the unpacked nibbles) for the product alone (:func:`int_mm_ms`)."""
     quant, kern_fn, ref_fn, name = {
         "int8": (quantize_rows, topk.cand_scan_int8_prefix,
                  topk.cand_scan_int8_prefix_ref, "B4 int8 candidate scan"),
@@ -706,6 +728,9 @@ def compare_codes_scan(store, perm, n_rows: int, seed: int,
                  topk.cand_scan_int4_prefix_ref, "B7 int4 candidate scan"),
     }[tier]
     codes, scales = quant(store[perm.long()])
+    int4 = tier == "int4"
+    # the yardstick's operand: the int8 codes, or the nibbles unpacked
+    unpacked = torch.cat(topk._unpack_nibbles(codes), 1) if int4 else codes
     fetch = 128 if tier == "int8" else 256
     out = {}
     for b in (1, 64, 256):
@@ -723,15 +748,19 @@ def compare_codes_scan(store, perm, n_rows: int, seed: int,
         # int8 codes and f32 scales, rows and queries alike
         out[b].update(_scan_bound(codes.numel() + scales.numel() * 4,
                                   b * (DIM + 4), b, "int8", n_rows),
-                      library_ms=(int_mm_ms(codes, q_codes, b)
-                                  if tier == "int8" else None))
+                      library_ms=int_mm_ms(unpacked, q_codes, b))
         r = out[b]
+        qn = 16 if b <= 16 else 64
+        stages = topk.codes_ring_stages(codes, b, topk.CAND_ROUNDS,
+                                        int4=int4)
         log(f"{name} B={b}: kernel {r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.3f} ms"
             + ("" if r["library_ms"] is None else
-               f", torch._int_mm (product alone) {r['library_ms']:.4f} ms"))
-    del codes, scales
+               f", torch._int_mm (product alone) {r['library_ms']:.4f} ms")
+            + f"; {stages} ring stages, ptxas (QN={qn}): "
+            + codes_tile_ptxas(qn, topk.CAND_ROUNDS, int4))
+    del codes, scales, unpacked
     return dict(out[64], at_b={str(b): _brief(r) for b, r in out.items()})
 
 
@@ -2017,6 +2046,13 @@ if scans:
         row[f"B4 B={b}"] = c.cuda_ms(lambda: c.topk.cand_scan_int8_prefix(
             codes, scales, qc, qs, n_rows, **scan), 20 if b == 1 else 5)
     del codes, scales
+    # B7 at B = 1 and 256 likewise
+    packed, scales = c.quantize_rows_int4(store[perm.long()])
+    for b in (1, 256):
+        qc, qs = c.quantize_rows(c.unit_queries(dev, b, seed + b))
+        row[f"B7 B={b}"] = c.cuda_ms(lambda: c.topk.cand_scan_int4_prefix(
+            packed, scales, qc, qs, n_rows, **scan), 20 if b == 1 else 5)
+    del packed, scales
     # the hatch's exact scans, B9 and B8 over bf16 rows, through the
     # wrappers both trees have, at B = 1 and 64, k = K and HATCH_K
     codes, scales = c.quantize_rows(store)

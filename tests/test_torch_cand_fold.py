@@ -23,6 +23,18 @@ f32 one's; each thread first forms its elements' scores as
 ``fmul_rn(fmul_rn(float32(raw), row_scale), query_scale)``. The int8 cases
 emulate that rounding in numpy float32 and hold the winners against
 ``cand_scan_int8_prefix_ref`` and ``cand_scan_int8_ref``.
+
+The int4 scan (kernel B7, the same tile over packed int4 rows) widens the
+nibbles in registers into ``wgmma``'s A fragment: per 32-bit word of
+packed bytes, ``(w << 4) & 0xF0F0F0F0`` is 16 x the low nibbles and ``w &
+0xF0F0F0F0`` 16 x the high ones, as s8 bytes; each thread feeds its two
+16-byte chunks of a box as k32 steps in its own order, and the query panel
+holds its feature columns in that order. The int4 cases emulate the
+widening over every byte value, the fragments and the panel as the kernel
+builds them (the 128-byte swizzle is an address map that ``wgmma`` undoes,
+so it is left out), the s32 sum (16 x raw), ``raw = acc >> 4``, the score
+and the fold, and hold the winners against ``cand_scan_int4_prefix_ref``
+and, once, the JAX kernel in interpret mode.
 """
 
 import numpy as np
@@ -30,7 +42,10 @@ import pytest
 import torch
 
 from video_quierer_tpu_torch.ops import topk
-from video_quierer_tpu_torch.ops.quantize import quantize_rows
+from video_quierer_tpu_torch.ops.quantize import (
+    quantize_rows,
+    quantize_rows_int4,
+)
 
 TILE = 64
 WARPS = 4
@@ -339,3 +354,223 @@ def test_int8_fold_small_buckets(valid):
                                           valid, **scan)
     assert np.array_equal(got[0], want[0].numpy())
     assert np.array_equal(got[1], want[1].numpy())
+
+
+# -- B7: the int4 rows, widened in registers ------------------------------
+
+KBOX = 128          # packed bytes of a row in one TMA box
+
+
+def widen16(words):
+    """cand_scan_codes.cu:low16 / high16 on uint32 words: 16 x the low
+    nibbles and 16 x the high ones of each byte, as s8 bytes (words of the
+    same shape)."""
+    w = np.asarray(words, np.uint32)
+    return (w << np.uint32(4)) & np.uint32(0xF0F0F0F0), \
+        w & np.uint32(0xF0F0F0F0)
+
+
+def a_fragments(packed):
+    """The s8 values of every k-slot of the kernel's k32 steps for each row
+    ``[rows, kc_n * 256]``, in its step order (box kc, chunk r, step u,
+    slot s). A row's box is its packed bytes, zeros past D/2 (TMA's fill);
+    thread t of a quad loads 16-byte chunk 2 t + r of the box (words m = 0
+    .. 3); step u takes words 2 (u % 2) and + 1, widened low (u < 2) or
+    high, as the fragment's slots 4 t .. 4 t + 3 (a[0]) and 16 + 4 t ..
+    (a[2]), byte i as slot + i."""
+    rows, half = packed.shape
+    kc_n = -(-half // KBOX)
+    box = np.zeros((rows, kc_n * KBOX), np.uint8)
+    box[:, :half] = packed.view(np.uint8)
+    lo, hi = widen16(box.view("<u4"))
+    lo8, hi8 = lo.view(np.int8), hi.view(np.int8)   # 4 bytes a word
+    cols, sides = [], []
+    for kc in range(kc_n):
+        for r in range(2):
+            for u in range(4):
+                for s in range(32):
+                    hs, t, i = s // 16, s % 16 // 4, s % 4
+                    word = kc * 32 + 4 * (2 * t + r) + 2 * (u % 2) + hs
+                    cols.append(4 * word + i)
+                    sides.append(u >= 2)
+    cols, sides = np.array(cols), np.array(sides)
+    return np.where(sides, hi8[:, cols], lo8[:, cols]).astype(np.int64)
+
+
+def query_panel(q_codes, d):
+    """The query panel as the kernel writes it, unswizzled ``[QN, kc_n *
+    256]``: block 2 kc + r, 16-byte piece p, word t holds packed bytes
+    ``128 kc + 32 t + 16 r + 8 (p / 2 % 2) + 4 (p % 2)`` .. + 3 of the row
+    (features j, or j + D/2 for p >= 4), zeros past the row."""
+    qn = q_codes.shape[0]
+    half = d // 2
+    kc_n = -(-half // KBOX)
+    panel = np.zeros((qn, kc_n * 2 * KBOX), np.int64)
+    for blk in range(2 * kc_n):
+        for p in range(8):
+            base = 128 * (blk // 2) + 16 * (blk % 2) + 8 * (p // 2 % 2) + \
+                4 * (p % 2)
+            for t in range(4):
+                j = base + 32 * t
+                if j >= half:
+                    continue
+                f = j + (half if p >= 4 else 0)
+                col = blk * KBOX + 16 * p + 4 * t
+                panel[:, col:col + 4] = q_codes[:, f:f + 4]
+    return panel
+
+
+def emulate_int4(packed, scales, q_codes, qscale, valid, *, n, bucket,
+                 rounds, block_rows):
+    """The int4 kernel's whole selection: the s32 sums of the widened
+    fragments and the panel (16 x raw, exact), ``raw = acc >> 4``, each
+    owned element scored as ``(float32(raw) * row_scale) * query_scale``,
+    then B1's fold."""
+    rows_n, half = packed.shape
+    b = q_codes.shape[0]
+    qpad = np.zeros((n, 2 * half), np.int64)
+    qpad[:b] = q_codes
+    qs = np.zeros(n, np.float32)
+    qs[:b] = qscale[:, 0]
+    acc = a_fragments(packed) @ query_panel(qpad, 2 * half).T
+    assert np.abs(acc).max() < 2 ** 31 and not (acc % 16).any()
+    raw = acc >> 4
+
+    def score(row0):
+        def at(pos, cols):
+            r = raw[row0 + pos, cols].astype(np.float32)
+            return (r * scales[row0 + pos, 0]) * qs[cols]
+        return at
+
+    return fold(score, rows_n, b, valid, n=n, bucket=bucket, rounds=rounds,
+                block_rows=block_rows, perm=None)
+
+
+def test_int4_widening_covers_every_byte():
+    """Every byte value: the widened bytes are 16 x the reference's sign
+    extended nibbles (``(x << 28) >> 28`` and ``x >> 4`` on int32)."""
+    every = np.arange(256, dtype=np.uint8)
+    lo, hi = widen16(every.view("<u4"))
+    want_lo, want_hi = topk._unpack_nibbles(torch.from_numpy(
+        every.view(np.int8)))
+    assert np.array_equal(lo.view(np.int8).astype(np.int64),
+                          16 * want_lo.numpy().astype(np.int64))
+    assert np.array_equal(hi.view(np.int8).astype(np.int64),
+                          16 * want_hi.numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("d", [128, 384, 512, 768])
+def test_int4_k_order_sums_the_split_halves(d):
+    """The fragments' k order and the panel's columns meet: the s32 sum is
+    exactly 16 x the split-halves dot product, for random bytes (every
+    nibble, -8 and 7 included) against query codes at +-127 and random
+    ones; every panel column past the packed row is zero."""
+    rng = np.random.default_rng(d)
+    packed = rng.integers(-128, 128, (64, d // 2)).astype(np.int8)
+    packed[0] = np.int8(-120)                      # 0x88: every nibble -8
+    packed[1] = 0x77                               # every nibble 7
+    q = rng.integers(-127, 128, (16, d)).astype(np.int8)
+    q[0] = 127
+    q[1] = -127
+    panel = query_panel(q.astype(np.int64), d)
+    acc = a_fragments(packed) @ panel.T
+    want = topk._dot_packed(torch.from_numpy(packed), torch.from_numpy(q))
+    assert np.array_equal(acc, 16 * want.numpy().astype(np.int64))
+    # the columns no feature fills: past D/2 in the last box
+    filled = np.zeros(panel.shape[1], bool)
+    ones = query_panel(np.ones((1, d), np.int64), d)[0]
+    filled[ones != 0] = True
+    assert filled.sum() == d
+    assert not panel[:, ~filled].any()
+
+
+def _int4_case(case, rows, b, d, seed):
+    """Packed int4 rows and scales of seeded unit rows (``tied``: a quarter
+    of the rows repeat earlier ones; zero rows, scale 0), and quantized
+    unit queries — the port's quantization."""
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((rows, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    if case == "tied":
+        emb[1::4] = emb[0::4]
+    emb[200:210] = 0
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    packed, scales = quantize_rows_int4(torch.from_numpy(emb))
+    q_codes, qscale = quantize_rows(torch.from_numpy(q))
+    return packed, scales, q_codes, qscale
+
+
+def _check_int4(case, valid, *, rows, b, d, n, seed, **scan):
+    packed, scales, q_codes, qscale = _int4_case(case, rows, b, d, seed)
+    want = topk.cand_scan_int4_prefix_ref(packed, scales, q_codes, qscale,
+                                          valid, **scan)
+    got = emulate_int4(packed.numpy(), scales.numpy(), q_codes.numpy(),
+                       qscale.numpy(), valid, n=n, **scan)
+    assert np.array_equal(got[0], want[0].numpy())
+    assert np.array_equal(got[1], want[1].numpy())
+
+
+INT4_CASES = {"random": 4096, "tied": 4096, "all_dead": 0,
+              "mid_bucket_valid": 1500}
+
+
+@pytest.mark.parametrize("case", list(INT4_CASES))
+@pytest.mark.parametrize("rounds", [1, 2, 4])
+@pytest.mark.parametrize("n,b", [(16, 1), (64, 64), (64, 37)])
+def test_int4_fold_matches_plain_scan(case, rounds, n, b):
+    """B7 as the tile folds it at D = 512, bit-identical to its plain
+    version."""
+    _check_int4(case, INT4_CASES[case], rows=4096, b=b, d=512, n=n,
+                seed=rounds * 100 + b, bucket=1024, rounds=rounds,
+                block_rows=2048)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("n,b", [(16, 1), (64, 37)])
+def test_int4_fold_other_widths(d, n, b):
+    """D = 128 (half a box) and 384 (the second box's far half zeros)."""
+    _check_int4("tied", 2500, rows=4096, b=b, d=d, n=n, seed=d + b,
+                bucket=1024, rounds=2, block_rows=2048)
+
+
+@pytest.mark.parametrize("valid", [0, 100, 1024, 1100])
+def test_int4_fold_small_buckets(valid):
+    """128-row buckets (two tiles), a mid-tile and an edge ``valid``."""
+    _check_int4("random", valid, rows=1024, b=5, d=128, n=16, seed=valid,
+                bucket=128, rounds=2, block_rows=512)
+
+
+def test_int4_fold_matches_jax_kernel(monkeypatch):
+    """The emulated tile's winners, merged in the row-orient order, equal
+    JAX's ``_pallas_cand_scan_int4_prefix`` in interpret mode (which
+    quantizes the f32 queries itself; the port's quantizer gives the same
+    codes and scales)."""
+    import jax.numpy as jnp
+
+    from video_quierer_tpu.ops import topk as jax_topk
+
+    monkeypatch.setenv("VQT_PALLAS_INTERPRET", "1")
+    rows, d, b, fetch, valid = 4 * 4096, 128, 6, 128, 2 * 4096 + 1500
+    rng = np.random.default_rng(13)
+    emb = rng.standard_normal((rows, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    emb[3000:3200] = emb[100:300]
+    emb[9000:9010] = 0
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    perm = rng.permutation(rows).astype(np.int32)
+    packed, scales = quantize_rows_int4(torch.from_numpy(emb))
+    q_codes, qscale = quantize_rows(torch.from_numpy(q))
+    jv, ji = jax_topk._pallas_cand_scan_int4_prefix(
+        jnp.asarray(packed.numpy()), jnp.asarray(scales.numpy()),
+        jnp.asarray(perm), jnp.asarray(q), jnp.int32(valid), fetch=fetch,
+        rounds=2, bucket=128, native=True, orient="row", select="packb",
+        interpret=True)
+    bv, bi = emulate_int4(packed.numpy(), scales.numpy(), q_codes.numpy(),
+                          qscale.numpy(), valid, n=16, bucket=128, rounds=2,
+                          block_rows=topk.CAND_BLOCK_ROWS)
+    tv, ti = topk._cand_merge(torch.from_numpy(bv), torch.from_numpy(bi),
+                              torch.from_numpy(perm), fetch=fetch)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))

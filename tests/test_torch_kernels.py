@@ -725,23 +725,29 @@ def test_cand_scan_int8_perm_kernel(cuda, b, live):
     assert bool(torch.isfinite(kv).any()) == live
 
 
-# -- B4 and B11: the int8 tensor-core tile's route edges -------------------
+# -- B4, B11 and B7: the tensor-core tile's route edges --------------------
 
 def _int8_scan(cuda, b, valid, *, n=4 * 4096, d=512, perm=None,
-               bucket=1024, rounds=2, seed=0, scales_at=0):
-    """B4 (``perm`` None) or B11 over a seeded int8 mirror (ties and zero
-    rows, as ``_codes_mirror``) against the plain version: winners
-    bit-identical, one launch counted. ``scales_at`` shifts the scales'
-    storage by that many floats (a column the tile's TMA cannot take
-    as it is)."""
-    codes, scales = _codes_mirror("int8", seed, n=n, d=d)
+               bucket=1024, rounds=2, seed=0, scales_at=0, tier="int8",
+               mirror=None, queries=None):
+    """B4 (``perm`` None), B11, or B7 (``tier`` "int4") over a seeded
+    mirror (ties and zero rows, as ``_codes_mirror``; or ``mirror``, codes
+    and scales) against the plain version: winners bit-identical, one
+    launch counted. ``scales_at`` shifts the scales' storage by that many
+    floats (a column the tile's TMA cannot take as it is); ``queries``
+    replaces the quantized unit queries (codes and scales)."""
+    codes, scales = mirror or _codes_mirror(tier, seed, n=n, d=d)
     codes = codes.to(cuda)
     flat = torch.zeros(n + scales_at, 1, device=cuda)
     flat[scales_at:] = scales.to(cuda)
     scales = flat[scales_at:]
-    q_codes, qscale = quantize_rows(_unit(100 + seed, (b, d)).to(cuda))
+    q_codes, qscale = (t.to(cuda) for t in queries or quantize_rows(
+        _unit(100 + seed, (b, d)).to(cuda)))
     scan = dict(bucket=bucket, rounds=rounds)
-    if perm is None:
+    if tier == "int4":
+        kern, args = topk.cand_scan_int4_prefix, (codes, scales)
+        ref = topk.cand_scan_int4_prefix_ref
+    elif perm is None:
         kern, args = topk.cand_scan_int8_prefix, (codes, scales)
         ref = topk.cand_scan_int8_prefix_ref
     else:
@@ -754,7 +760,7 @@ def _int8_scan(cuda, b, valid, *, n=4 * 4096, d=512, perm=None,
     kv, ki = kern(*args, q_codes, qscale, valid, **scan)
     torch.cuda.synchronize()
     want = list(counts)
-    want[0 if perm is None else 1] += 1
+    want[2 if tier == "int4" else 0 if perm is None else 1] += 1
     assert [topk.cand_scan_int8_prefix.launches,
             topk.cand_scan_int8.launches,
             topk.cand_scan_int4_prefix.launches] == want
@@ -842,32 +848,90 @@ def test_int8_tile_unaligned_scales(cuda):
 
 @pytest.mark.gpu
 def test_int8_tile_buckets_of_whole_tiles(cuda):
-    """The int8 tile takes buckets of whole 64-row tiles; the int4 tile
-    keeps its 16-row strips (and its own counter)."""
+    """The tile takes buckets of whole 64-row tiles, over int8 codes (B4,
+    B11) and packed int4 rows (B7) alike; a refused call counts no
+    launch."""
     codes = torch.zeros(4096, 512, device=cuda, dtype=torch.int8)
     scales = torch.zeros(4096, 1, device=cuda)
     qc = torch.zeros(2, 512, device=cuda, dtype=torch.int8)
     qs = torch.ones(2, 1, device=cuda)
     perm = torch.arange(4096, dtype=torch.int32, device=cuda)
+    before = _launch_counts()
     with pytest.raises(ValueError):
         topk.cand_scan_int8_prefix(codes, scales, qc, qs, 10, bucket=32,
                                    rounds=2)
     with pytest.raises(ValueError):
         topk.cand_scan_int8(codes, scales, perm, qc, qs, 10, bucket=32,
                             rounds=2)
-    before = (topk.cand_scan_int4_prefix.launches,
-              topk.cand_scan_int8_prefix.launches)
-    kv, ki = topk.cand_scan_int4_prefix(codes[:, :256].contiguous(), scales,
-                                        qc, qs, 10, bucket=32, rounds=2)
-    torch.cuda.synchronize()
-    assert (topk.cand_scan_int4_prefix.launches,
-            topk.cand_scan_int8_prefix.launches) == (before[0] + 1,
-                                                     before[1])
-    pv, pi = topk.cand_scan_int4_prefix_ref(
-        codes[:, :256].contiguous(), scales, qc, qs, 10, bucket=32,
-        rounds=2, block_rows=4096)
-    torch.testing.assert_close(kv, pv, rtol=0, atol=0)
-    assert torch.equal(ki, pi)
+    with pytest.raises(ValueError):
+        topk.cand_scan_int4_prefix(codes[:, :256].contiguous(), scales, qc,
+                                   qs, 10, bucket=32, rounds=2)
+    assert _launch_counts() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [0, 1500, 4 * 4096])
+@pytest.mark.parametrize("b", [1, 16, 17, 64, 65, 256])
+def test_int4_tile_batch_edges(cuda, valid, b):
+    """B7 on both panel widths and the query chunks of B > 64, with no row
+    live, ``valid`` inside the first bucket, and every row live."""
+    kv, _ = _int8_scan(cuda, b, valid, tier="int4", seed=b)
+    assert bool(torch.isfinite(kv).any()) == (valid > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [700, 150 * 1024 + 333, 300 * 1024])
+@pytest.mark.parametrize("b", [1, 64])
+def test_int4_tile_persistent_grid(cuda, valid, b):
+    """B7 over 300 buckets on the card's CTAs, a live prefix shorter than
+    one CTA's range, one ending mid-bucket, and every bucket live."""
+    _int8_scan(cuda, b, valid, n=300 * 1024, tier="int4", seed=7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [1, 2, 3, 4])
+@pytest.mark.parametrize("bucket", [128, 1024])
+@pytest.mark.parametrize("b", [1, 64])
+def test_int4_tile_rounds_and_buckets(cuda, rounds, bucket, b):
+    _int8_scan(cuda, b, 4096 + 777, bucket=bucket, rounds=rounds,
+               tier="int4", seed=b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 384, 768])
+def test_int4_tile_other_widths(cuda, d):
+    """D = 128 (a packed row of 64 bytes: half a box), 384 (192 bytes: the
+    second box's far half arrives as zeros, and the panel's columns past
+    the row are zero) and 768 (three boxes)."""
+    _int8_scan(cuda, 64, 3 * 4096 + 5, d=d, tier="int4", seed=d)
+    _int8_scan(cuda, 5, 3 * 4096 + 5, d=d, tier="int4", seed=d + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 64])
+def test_int4_tile_extreme_nibbles(cuda, b):
+    """Nibbles at -8 and 7 against query codes at +-127: the widest sums
+    (|raw| up to 8 x 127 x 512) and every sign of the widened bytes."""
+    n, d = 4 * 4096, 512
+    rng = np.random.default_rng(b)
+    packed = rng.choice(np.array([0x88, 0x77, 0x78, 0x87, 0x80, 0x07],
+                                 np.uint8), (n, d // 2))
+    packed[:64] = 0x88                          # every nibble -8
+    packed[64:128] = 0x77                       # every nibble 7
+    scales = rng.uniform(0.5, 1.5, (n, 1)).astype(np.float32)
+    q_codes = rng.choice(np.array([-127, 127], np.int8), (b, d))
+    q_codes[0] = -127
+    qscale = rng.uniform(0.5, 1.5, (b, 1)).astype(np.float32)
+    _int8_scan(cuda, b, n - 100, tier="int4", mirror=(
+        torch.from_numpy(packed.view(np.int8)), torch.from_numpy(scales)),
+        queries=(torch.from_numpy(q_codes), torch.from_numpy(qscale)))
+
+
+@pytest.mark.gpu
+def test_int4_tile_unaligned_scales(cuda):
+    """B7's scales 4 bytes off a 16-byte boundary: the wrapper hands the
+    tile an aligned copy."""
+    _int8_scan(cuda, 64, 2 * 4096 + 9, scales_at=1, tier="int4", seed=3)
 
 
 @pytest.mark.gpu

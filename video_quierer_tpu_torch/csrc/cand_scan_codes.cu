@@ -1,5 +1,5 @@
 // Kernels B4, B7 and B11: candidate scans over the quantized mirrors (int8
-// codes, and int4 codes packed two to a byte).
+// codes, and int4 codes packed two to a byte), one kernel template.
 //
 // Replace the TPU kernels video_quierer_tpu/ops/topk.py:
 // _pallas_cand_scan_int8_prefix (B4, kernel body _cand_kernel_int8_prefix)
@@ -22,19 +22,20 @@
 // perm); the s8 products need 2 N D B operations (0.27 ms at 1,979 TOP/s
 // at B = 256).
 //
-// B4 and B11, int8 codes (Hopper: B1's design, cand_scan.cu, on s8). A
+// One tile serves all three (Hopper: B1's design, cand_scan.cu, on s8). A
 // persistent grid of one CTA an SM, each CTA two independent halves over a
 // contiguous range of buckets (half h takes every second bucket of it),
 // each half one warpgroup:
-// - the half's buckets stream as [64 rows, 128 codes] int8 boxes by TMA
-//   (128-byte swizzle; one box is four k32 steps, a 64-row tile at D = 512
-//   four boxes) into the half's ring of 8 KB stages behind full/empty
-//   mbarriers; each tile's 64 row scales (and, for B11, its 64 perm
-//   entries) ride with its first box as 1-D TMA copies. Thread 0 of the
-//   warpgroup issues each refill once all four warps have retired the
-//   stage's products (no producer warp: ptxas budgets registers by whole
-//   warpgroups). Buckets of the live prefix wholly past `valid` are not
-//   read;
+// - the half's buckets stream as [64 rows, 128 bytes] boxes by TMA
+//   (UINT8 tensor map, 128-byte swizzle) into the half's ring of 8 KB
+//   stages behind full/empty mbarriers: 128 int8 codes a row (four k32
+//   steps; a 64-row tile at D = 512 is four boxes), or 128 packed int4
+//   bytes, 256 features (a tile at D = 512 is two boxes); each tile's 64
+//   row scales (and, for B11, its 64 perm entries) ride with its first
+//   box as 1-D TMA copies. Thread 0 of the warpgroup issues each refill
+//   once all four warps are done with the stage (no producer warp: ptxas
+//   budgets registers by whole warpgroups). Buckets of the live prefix
+//   wholly past `valid` are not read;
 // - the int8 query panel (QN = 64 queries, or 16 for B <= 16, zero codes
 //   padding a short chunk) is loaded once per CTA in the swizzled K-major
 //   layout wgmma reads as B; the query scales of a thread's columns stay
@@ -52,22 +53,24 @@
 // B > 64 runs ceil(B / 64) query chunks as the grid's second dimension,
 // each chunk reading the mirror. Buckets are whole 64-row tiles.
 //
-// B7, int4 rows (the first tile, kept: wgmma has no s4 type). The
-// split-halves pack (byte j: feature j in the low nibble, feature j + D/2
-// in the high nibble) is unpacked in registers into two int8 vectors with
-// sign extension (per byte: nibble x -> (x ^ 8) - 8, the same values as
-// the TPU kernel's (x << 28) >> 28 and x >> 4 on int32), and the score is
-// two half-depth s8 dots, low nibbles with q[:, :D/2] and high nibbles
-// with q[:, D/2:], into one accumulator. One CTA per (bucket, chunk of
-// queries), 8 warps scoring 16-row strips with mma.sync m16n8k32 s8; A
-// fragments come straight from the mirror in global memory as 16-byte
-// vectors, B fragments from the query panel in shared memory. The depth
-// index inside each 64-byte chunk is permuted the same way for both
-// operands (thread t of a quad holds bytes 16t..16t+15 of the chunk, half
-// for each of two mma), which keeps every load a 16-byte vector and leaves
-// the integer sum unchanged. Each warp parks its 16 x QB raw sums in
-// shared memory; its lanes apply the scales and fold the keys into their
-// queries' lists.
+// int8 codes (B4, B11): wgmma reads A, the box, from shared memory.
+// int4 (B7; wgmma has no s4 type): the split-halves pack (byte j: feature
+// j in the low nibble, feature j + D/2 in the high nibble) reaches wgmma
+// as A from registers. Each thread of a warp loads its rows' packed bytes
+// from the swizzled stage (rows 16 w + g8 and + 8, 16-byte chunks 2 t4
+// and 2 t4 + 1: conflict-free) and hands the stage back at once; per
+// 32-bit word, w & 0xF0F0F0F0 is 16 x the high nibbles and
+// (w << 4) & 0xF0F0F0F0 16 x the low ones, as s8 bytes, so the s32 sum is
+// 16 x raw, exactly (|16 raw| <= 16 * 8 * 127 * D < 2^31), and raw is
+// acc >> 4. A 16-byte chunk widens into four k32 fragments (low words 0-1,
+// 2-3, high words 0-1, 2-3); a box's eight go out as one wgmma group,
+// which runs while the warpgroup waits for and loads the next box, and
+// the fragments are rewritten once it has retired (one group a box beat
+// two groups a box with two fragment sets). The query panel holds its
+// feature columns in that order (a chunk's four steps are one 128-column
+// panel block; a dot product does not care about the order of its
+// terms), with zeros past the packed row (TMA fills a box past D/2 with
+// zero bytes, which widen to zero).
 #include "cand_select.cuh"
 #include "tma.cuh"
 
@@ -75,10 +78,8 @@
 
 namespace {
 
-using vqt::emit;
 using vqt::gmma_desc;
 using vqt::insert;
-using vqt::insert_key;
 using vqt::mbar_arrive;
 using vqt::mbar_expect;
 using vqt::mbar_init;
@@ -89,191 +90,8 @@ using vqt::smem_u32;
 using vqt::tma_load;
 using vqt::tma_load_1d;
 
-// -- B7: the int4 tile ------------------------------------------------------
-
-constexpr int WARPS = 8;
-constexpr int QPAD = 64;   // query panel row padding (bytes): spreads the
-                           // 16-byte shared loads of 8 queries over banks
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,
-                                       int a3, int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// a_lo: 16 bytes of row g, a_hi: the same bytes of row g + 8, bq: the same
-// bytes of query n; two mma cover the 16 bytes
-__device__ __forceinline__ void mma_chunk(int (&acc)[4], int4 a_lo,
-                                          int4 a_hi, int4 bq) {
-  mma_s8(acc, a_lo.x, a_hi.x, a_lo.y, a_hi.y, bq.x, bq.y);
-  mma_s8(acc, a_lo.z, a_hi.z, a_lo.w, a_hi.w, bq.z, bq.w);
-}
-
-__device__ __forceinline__ int sext_nibbles(unsigned x) {
-  // four nibbles in the low half of each byte -> four sign-extended int8
-  return (int)__vsub4((x & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-
-__device__ __forceinline__ int4 low_nibbles(int4 p) {
-  return make_int4(sext_nibbles(p.x), sext_nibbles(p.y), sext_nibbles(p.z),
-                   sext_nibbles(p.w));
-}
-
-__device__ __forceinline__ int4 high_nibbles(int4 p) {
-  return make_int4(sext_nibbles((unsigned)p.x >> 4),
-                   sext_nibbles((unsigned)p.y >> 4),
-                   sext_nibbles((unsigned)p.z >> 4),
-                   sext_nibbles((unsigned)p.w >> 4));
-}
-
-// QB queries per CTA (NT = QB / 8 n-tiles of the mma); packed rows of d / 2
-// bytes. `perm` is always null: the tile keeps the parameter list it had
-// when it also served int8 codes, so that it compiles as it did (dropping
-// an unused parameter from a kept tile has moved its time before: B8's FMA
-// tile lost 8% at B = 1)
-template <int QB>
-__global__ void __launch_bounds__(WARPS * 32)
-cand_kernel_int4(const int8_t* __restrict__ codes,
-                 const float* __restrict__ scales,
-                 const int* __restrict__ perm,
-                 const int8_t* __restrict__ q,
-                 const float* __restrict__ qscale, float* __restrict__ vals,
-                 int* __restrict__ idxs, int d, int b, int valid,
-                 int bucket, int rounds, int nb, int lowmask) {
-  constexpr int NT = QB / 8;
-  constexpr int QT = (QB + 31) / 32;       // queries per lane
-  constexpr int LDS = QB + 4;              // raw-sum strip row stride
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldq = d + QPAD;
-  int8_t* qs = reinterpret_cast<int8_t*>(smem_raw);          // [QB][ldq]
-  int* sw = reinterpret_cast<int*>(smem_raw + (size_t)QB * ldq);
-  int* red = sw + WARPS * 16 * LDS;                          // [W][QB][R]
-  float* qsc = reinterpret_cast<float*>(red + WARPS * QB * MAXR);  // [QB]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = blockIdx.x;
-  const int q0 = blockIdx.y * QB;
-  const size_t row0 = (size_t)g * bucket;
-
-  // query panel, zero-padded to QB queries; 16-byte vectors
-  const int vecs = d / 16;
-  for (int i = tid; i < QB * vecs; i += blockDim.x) {
-    const int c = i / vecs, v = i % vecs;
-    int4 x = make_int4(0, 0, 0, 0);
-    if (q0 + c < b)
-      x = reinterpret_cast<const int4*>(q + (size_t)(q0 + c) * d)[v];
-    *reinterpret_cast<int4*>(qs + (size_t)c * ldq + 16 * v) = x;
-  }
-  for (int i = tid; i < QB; i += blockDim.x)
-    qsc[i] = q0 + i < b ? qscale[q0 + i] : 0.f;
-  __syncthreads();
-
-  int top[QT][MAXR];
-#pragma unroll
-  for (int t = 0; t < QT; ++t)
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) top[t][r] = INT_MIN;
-
-  const int gid = lane >> 2, tig = lane & 3;
-  const int row_bytes = d / 2;
-  int* strip = sw + warp * 16 * LDS;
-  for (int t0 = warp * 16; t0 < bucket; t0 += WARPS * 16) {
-    int acc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-    const int8_t* ra = codes + (row0 + t0 + gid) * row_bytes + 16 * tig;
-    const int8_t* rb = ra + 8 * (size_t)row_bytes;
-    const int8_t* qa = qs + (size_t)gid * ldq + 16 * tig;
-    for (int kc = 0; kc < row_bytes; kc += 64) {
-      const int4 pa = *reinterpret_cast<const int4*>(ra + kc);
-      const int4 pb = *reinterpret_cast<const int4*>(rb + kc);
-      const int4 la = low_nibbles(pa), lb = low_nibbles(pb);
-      const int4 ha = high_nibbles(pa), hb = high_nibbles(pb);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int8_t* qj = qa + (size_t)j * 8 * ldq + kc;
-        mma_chunk(acc[j], la, lb, *reinterpret_cast<const int4*>(qj));
-        mma_chunk(acc[j], ha, hb,
-                  *reinterpret_cast<const int4*>(qj + d / 2));
-      }
-    }
-    // C fragment: rows gid / gid + 8, queries 8j + 2 tig + {0, 1}
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = 8 * j + 2 * tig;
-      strip[gid * LDS + c] = acc[j][0];
-      strip[gid * LDS + c + 1] = acc[j][1];
-      strip[(gid + 8) * LDS + c] = acc[j][2];
-      strip[(gid + 8) * LDS + c + 1] = acc[j][3];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < QT; ++t) {
-      const int c = lane + 32 * t;
-      if (c < QB) {
-        const float qsv = qsc[c];
-        for (int r = 0; r < 16; ++r) {
-          const int pos = t0 + r;
-          const size_t row = row0 + pos;
-          const float sc = __fmul_rn(
-              __fmul_rn((float)strip[r * LDS + c], __ldg(scales + row)),
-              qsv);
-          insert_key(top[t], row_key(sc, row < (size_t)valid, pos, lowmask),
-                     rounds);
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int t = 0; t < QT; ++t) {
-    const int c = lane + 32 * t;
-    if (c < QB)
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r)
-        red[((size_t)warp * QB + c) * MAXR + r] = top[t][r];
-  }
-  __syncthreads();
-  if (tid < QB && q0 + tid < b)
-    emit(red, WARPS, QB, tid, q0, b, row0, g, nb, rounds, lowmask, vals,
-         idxs);
-}
-
-template <int QB>
-int launch_int4(const void* packed, const void* scales, const void* q,
-                const void* qscale, void* vals, void* idxs, int n_pad, int d,
-                int b, int valid, int bucket, int rounds, int block_rows,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)QB * (d + QPAD) +
-                      (size_t)WARPS * 16 * (QB + 4) * sizeof(int) +
-                      (size_t)WARPS * QB * MAXR * sizeof(int) +
-                      (size_t)QB * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cand_kernel_int4<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(n_pad / bucket, (b + QB - 1) / QB);
-  cand_kernel_int4<QB><<<grid, WARPS * 32, smem, stream>>>(
-      (const int8_t*)packed, (const float*)scales, nullptr,
-      (const int8_t*)q, (const float*)qscale, (float*)vals, (int*)idxs, d,
-      b, valid, bucket, rounds, block_rows / bucket,
-      vqt::bucket_lowmask(bucket));
-  return (int)cudaGetLastError();
-}
-
-// -- B4 and B11: the int8 tensor-core tile ----------------------------------
-
 constexpr int TILE = 64;                    // mirror rows of one wgmma tile
-constexpr int KBOX = 128;                   // codes (bytes) of one TMA box
+constexpr int KBOX = 128;                   // bytes of a row in one TMA box
 constexpr int STAGE_BYTES = TILE * KBOX;    // one ring stage: 8 KB
 constexpr int HALVES = 2;                   // warpgroups of a CTA
 constexpr int CWARPS = 4;                   // warps of a warpgroup
@@ -316,16 +134,94 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[8], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Shared memory: the query panel [kc_n][QN][128 B] (128-byte swizzled),
-// the halves' rings [HALVES][stages][8 KB], beside each slot the row
+// The same with A from registers (the int4 rows): a[0] row g, k-slots
+// 4 t .. 4 t + 3; a[1] row g + 8, the same slots; a[2], a[3] slots 16 on
+// (g = lane / 4 + 16 x the warp of the warpgroup, t = lane % 4)
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// 16 x the low and the high nibbles of four packed bytes, as s8 bytes
+__device__ __forceinline__ uint32_t low16(uint32_t w) {
+  return (w << 4) & 0xF0F0F0F0u;
+}
+__device__ __forceinline__ uint32_t high16(uint32_t w) {
+  return w & 0xF0F0F0F0u;
+}
+
+// One box of packed int4 rows into the tile's sum, as one wgmma group:
+// x0, x1 this thread's 16-byte chunks of row g, y0, y1 the same bytes of
+// row g + 8. Each chunk widens into four k32 steps (the low nibbles of
+// words 0-1 and 2-3, then the high ones), which read the four 32-column
+// steps of its panel block (chunk 0's at bq, chunk 1's at bq + block).
+// The fragments `a` must not be rewritten before the group has retired.
+template <int NA>
+__device__ __forceinline__ void box_products(int (&acc)[NA],
+                                             uint32_t (&a)[8][4], uint4 x0,
+                                             uint4 y0, uint4 x1, uint4 y1,
+                                             uint32_t bq, uint32_t block,
+                                             int first) {
+  const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+  const uint32_t yw[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const int u = v % 4, m = 4 * (v / 4) + 2 * (u % 2);
+    a[v][0] = u < 2 ? low16(xw[m]) : high16(xw[m]);
+    a[v][1] = u < 2 ? low16(yw[m]) : high16(yw[m]);
+    a[v][2] = u < 2 ? low16(xw[m + 1]) : high16(xw[m + 1]);
+    a[v][3] = u < 2 ? low16(yw[m + 1]) : high16(yw[m + 1]);
+  }
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+    wgmma_s8(acc, a[v],
+             gmma_desc(bq + (v / 4) * block + (v % 4) * 32, 16, 1024),
+             first | v);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Shared memory: the query panel [pblocks][QN][128 B] (128-byte swizzled;
+// a block a box for int8 codes, two for int4), the halves' rings
+// [HALVES][stages][8 KB], beside each slot the row
 // scales [HALVES][stages][TILE] f32 and (B11) the perm entries
 // [HALVES][stages][TILE] i32 of the tile whose first box it holds, the
 // cross-warp lists [HALVES][2][CWARPS][QN][R], the full and empty
 // mbarriers [HALVES][stages] each. Warps 0-3 and 4-7 are the halves'
 // warpgroups; warp wl of a warpgroup holds rows 16 wl + g8 and + 8 of each
 // tile, query columns 8 j + 2 t4 (+ 1), j < QN / 8 (g8 = lane / 4, t4 =
-// lane % 4).
-template <int QN, int R, bool PERM>
+// lane % 4). I4: the rows are packed int4 (d features, d / 2 bytes).
+template <int QN, int R, bool PERM, bool I4>
 __global__ void __launch_bounds__(THREADS, 1)
 cand_kernel_i8(const __grid_constant__ CUtensorMap cmap,
                const __grid_constant__ CUtensorMap smap,
@@ -341,8 +237,8 @@ cand_kernel_i8(const __grid_constant__ CUtensorMap cmap,
   // (not an address rounded as an integer) keeps every access a
   // shared-memory one
   uint8_t* panel = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const int kc_n = (d + KBOX - 1) / KBOX;   // ring stages of a tile
-  uint8_t* ring = panel + (size_t)kc_n * QN * 128;
+  const int kc_n = ((I4 ? d / 2 : d) + KBOX - 1) / KBOX;  // boxes a tile
+  uint8_t* ring = panel + (size_t)(I4 ? 2 * kc_n : kc_n) * QN * 128;
   float* sbuf = reinterpret_cast<float*>(ring + (size_t)HALVES * stages *
                                                     STAGE_BYTES);
   int* pbuf = reinterpret_cast<int*>(sbuf + HALVES * stages * TILE);
@@ -375,9 +271,33 @@ cand_kernel_i8(const __grid_constant__ CUtensorMap cmap,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the query panel: query c's 16-byte piece p (codes 16 p ..) at chunk
-  // p % 8 ^ (c % 8) of row c of column block p / 8; zeros past b and d
-  {
+  if constexpr (I4) {
+    // the query panel: block 2 kc + r holds the features of chunk r of box
+    // kc, in the order box_products feeds them: its 16-byte piece p (of
+    // query c, at chunk p ^ (c % 8) of row c) is step p / 2's k-slots
+    // 16 (p % 2) .., four bytes for each t = 0..3, i.e. packed bytes j =
+    // 128 kc + 32 t + 16 r + 8 (p / 2 % 2) + 4 (p % 2) .. + 3: features j
+    // (steps 0, 1) or j + d / 2 (steps 2, 3); zeros past b and the row
+    const int half = d / 2, pieces = kc_n * 16;
+    for (int i = tid; i < QN * pieces; i += THREADS) {
+      const int c = i / pieces, blk = i % pieces / 8, p = i % 8;
+      const int base = 128 * (blk / 2) + 16 * (blk % 2) + 8 * (p / 2 % 2) +
+                       4 * (p % 2);
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (q0 + c < b && base + 32 * t < half)
+          w[t] = __ldg(reinterpret_cast<const uint32_t*>(
+              q + (size_t)(q0 + c) * d + base + 32 * t +
+              (p >= 4 ? half : 0)));
+      *reinterpret_cast<uint4*>(panel + (size_t)blk * QN * 128 + c * 128 +
+                                ((p ^ (c % 8)) << 4)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  } else {
+    // the query panel: query c's 16-byte piece p (codes 16 p ..) at chunk
+    // p % 8 ^ (c % 8) of row c of column block p / 8; zeros past b and d
     const int pieces = kc_n * 8, d16 = d / 16;
     for (int i = tid; i < QN * pieces; i += THREADS) {
       const int c = i / pieces, p = i % pieces;
@@ -436,14 +356,15 @@ cand_kernel_i8(const __grid_constant__ CUtensorMap cmap,
   };
   if (ct == 0)
     while (issued < stages && issued < total) issue();
-  // the stage in slot s is done (its products retired): hand it back, and
-  // refill the ring
+  // the stage in slot s is done (its products retired, or, for int4 rows,
+  // its bytes in registers): hand it back, and refill the ring
   auto release = [&](int s) {
     if (lane == 0) mbar_arrive(&empty[h * stages + s]);
     if (ct == 0 && issued < total) issue();
   };
 
   int acc[QN / 2] = {};
+  uint32_t frag[8][4];                      // int4: a box's A fragments
   int top[NC][R];
   int c_slot = 0, c_phase = 0;              // the consumers' next stage
   int lists = 0;                            // buckets merged
@@ -488,38 +409,60 @@ cand_kernel_i8(const __grid_constant__ CUtensorMap cmap,
             live1 = row0 + pos + 8 < valid;
           }
         }
-        const uint32_t a = smem_u32(ring + (size_t)slot * STAGE_BYTES);
-        const uint32_t bq = smem_u32(panel + (size_t)kc * QN * 128);
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        if constexpr (I4) {
+          // this thread's packed bytes of rows pos and pos + 8: 16-byte
+          // chunks 2 t4 and 2 t4 + 1, swizzled by the row (g8)
+          const uint8_t* x =
+              ring + (size_t)slot * STAGE_BYTES + (wl * 16 + g8) * 128;
+          const int k0 = ((2 * t4) ^ g8) << 4, k1 = ((2 * t4 + 1) ^ g8) << 4;
+          const uint4 x0 = *reinterpret_cast<const uint4*>(x + k0);
+          const uint4 x1 = *reinterpret_cast<const uint4*>(x + k1);
+          const uint4 y0 = *reinterpret_cast<const uint4*>(x + 1024 + k0);
+          const uint4 y1 = *reinterpret_cast<const uint4*>(x + 1024 + k1);
+          // every lane's loads are done: the stage goes back
+          __syncwarp();
+          release(c_slot);
+          // the previous box's group, the fragments' last reader, has run
+          // meanwhile; once it retires, this box's group follows
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          box_products(acc, frag, x0, y0, x1, y1,
+                       smem_u32(panel + (size_t)2 * kc * QN * 128), QN * 128,
+                       kc);
+        } else {
+          const uint32_t a = smem_u32(ring + (size_t)slot * STAGE_BYTES);
+          const uint32_t bq = smem_u32(panel + (size_t)kc * QN * 128);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int kk = 0; kk < KBOX / 32; ++kk)
-          // 32 codes = 32 bytes along the swizzled rows of A and B
-          wgmma_s8(acc, gmma_desc(a + kk * 32, 16, 1024),
-                   gmma_desc(bq + kk * 32, 16, 1024), kc | kk);
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        // the previous stage's products are done
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        if (kc > 0) release(prev);
-        prev = c_slot;
+          for (int kk = 0; kk < KBOX / 32; ++kk)
+            // 32 codes = 32 bytes along the swizzled rows of A and B
+            wgmma_s8(acc, gmma_desc(a + kk * 32, 16, 1024),
+                     gmma_desc(bq + kk * 32, 16, 1024), kc | kk);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          // the previous stage's products are done
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          if (kc > 0) release(prev);
+          prev = c_slot;
+        }
         if (++c_slot == stages) {
           c_slot = 0;
           c_phase ^= 1;
         }
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      release(prev);
+      if constexpr (!I4) release(prev);
       // fold the tile: acc[4 j + e] is (row pos, column 8 j + 2 t4 + e),
-      // acc[4 j + 2 + e] the same column at row pos + 8; the score is
-      // float(raw) * row_scale * query_scale, each multiply rounded
+      // acc[4 j + 2 + e] the same column at row pos + 8 (16 x raw for
+      // int4 rows); the score is float(raw) * row_scale * query_scale,
+      // each multiply rounded
 #pragma unroll
       for (int j = 0; j < QN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float qs = qsc[2 * j + e];
-          const float s0 =
-              __fmul_rn(__fmul_rn((float)acc[4 * j + e], scale0), qs);
-          const float s1 =
-              __fmul_rn(__fmul_rn((float)acc[4 * j + 2 + e], scale1), qs);
+          const int raw0 = I4 ? acc[4 * j + e] >> 4 : acc[4 * j + e];
+          const int raw1 = I4 ? acc[4 * j + 2 + e] >> 4 : acc[4 * j + 2 + e];
+          const float s0 = __fmul_rn(__fmul_rn((float)raw0, scale0), qs);
+          const float s1 = __fmul_rn(__fmul_rn((float)raw1, scale1), qs);
           insert<R>(top[2 * j + e], row_key(s0, live0, pos, lowmask));
           insert<R>(top[2 * j + e], row_key(s1, live1, pos + 8, lowmask));
         }
@@ -572,83 +515,105 @@ cand_kernel_i8(const __grid_constant__ CUtensorMap cmap,
   }
 }
 
-template <int QN, int R, bool PERM>
-int launch_i8(const void* codes, const void* scales, const void* perm,
-              const void* q, const void* qscale, float* vals, int* idxs,
-              int n_pad, int d, int b, int valid, int bucket, int nb,
-              int lowmask, cudaStream_t stream) {
+// The ring stages of each half (at most MAX_STAGES; below 2, D is too
+// wide) for rows of d features (int8 codes, or packed int4), a panel of qn
+// queries and r rounds, in smem_optin bytes of shared memory; *smem, when
+// given, the bytes the launch asks for
+int codes_stages(bool perm, bool i4, int d, int qn, int r, int smem_optin,
+                 size_t* smem) {
+  const int kc_n = ((i4 ? d / 2 : d) + KBOX - 1) / KBOX;
+  const size_t fixed = 1024 + (size_t)(i4 ? 2 * kc_n : kc_n) * qn * 128 +
+                       (size_t)HALVES * 2 * CWARPS * qn * r * sizeof(int);
+  // a slot: the box, its tile's scales (and perm entries), two mbarriers
+  const size_t per_stage =
+      HALVES * (STAGE_BYTES + TILE * 4 * (perm ? 2 : 1) +
+                2 * sizeof(uint64_t));
+  const long long room = (long long)smem_optin - (long long)fixed;
+  const int stages = (int)std::min<long long>(MAX_STAGES, room / per_stage);
+  if (smem != nullptr) *smem = fixed + (size_t)stages * per_stage;
+  return stages;
+}
+
+// the card's SM count and shared memory a block may opt in to (cached)
+bool device_limits(int* sms, int* smem_optin) {
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
-    return (int)cudaErrorInvalidDevice;
-  static int sm_count[MAX_DEVICES], smem_optin[MAX_DEVICES];
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES) return false;
+  static int sm_count[MAX_DEVICES], optin[MAX_DEVICES];
   if (sm_count[dev] == 0) {
-    cudaDeviceGetAttribute(&smem_optin[dev],
+    cudaDeviceGetAttribute(&optin[dev],
                            cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount,
                            dev);
   }
+  *sms = sm_count[dev];
+  *smem_optin = optin[dev];
+  return true;
+}
+
+template <int QN, int R, bool PERM, bool I4>
+int launch_codes(const void* codes, const void* scales, const void* perm,
+                 const void* q, const void* qscale, float* vals, int* idxs,
+                 int n_pad, int d, int b, int valid, int bucket, int nb,
+                 int lowmask, cudaStream_t stream) {
+  int sms = 0, smem_optin = 0;
+  if (!device_limits(&sms, &smem_optin)) return (int)cudaErrorInvalidDevice;
   CUtensorMap cmap, smap, pmap = {};
-  if (!vqt::tensor_map(&cmap, codes, n_pad, d, TILE,
+  if (!vqt::tensor_map(&cmap, codes, n_pad, I4 ? d / 2 : d, TILE,
                        CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
       !vqt::tensor_map_1d(&smap, scales, n_pad, TILE) ||
       (PERM && !vqt::tensor_map_1d(&pmap, perm, n_pad, TILE,
                                    CU_TENSOR_MAP_DATA_TYPE_INT32)))
     return (int)cudaErrorInvalidValue;
-  const int kc_n = (d + KBOX - 1) / KBOX;
-  const size_t fixed = 1024 + (size_t)kc_n * QN * 128 +
-                       (size_t)HALVES * 2 * CWARPS * QN * R * sizeof(int);
-  // a slot: the box, its tile's scales (and perm entries), two mbarriers
-  const size_t per_stage =
-      HALVES * (STAGE_BYTES + TILE * 4 * (PERM ? 2 : 1) +
-                2 * sizeof(uint64_t));
-  const long long room = (long long)smem_optin[dev] - (long long)fixed;
-  const int stages = (int)std::min<long long>(MAX_STAGES, room / per_stage);
+  size_t smem = 0;
+  const int stages = codes_stages(PERM, I4, d, QN, R, smem_optin, &smem);
   if (stages < 2) return (int)cudaErrorInvalidValue;   // D too wide
-  const size_t smem = fixed + (size_t)stages * per_stage;
   cudaError_t e = cudaFuncSetAttribute(
-      cand_kernel_i8<QN, R, PERM>,
+      cand_kernel_i8<QN, R, PERM, I4>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_buckets = n_pad / bucket;
   const int chunks = (b + QN - 1) / QN;
-  const int ctas =
-      std::max(1, std::min(n_buckets, sm_count[dev] / chunks));
-  cand_kernel_i8<QN, R, PERM><<<dim3(ctas, chunks), THREADS, smem, stream>>>(
-      cmap, smap, pmap, (const int8_t*)q, (const float*)qscale, vals, idxs,
-      d, b, valid, bucket, nb, lowmask, n_buckets, stages);
+  const int ctas = std::max(1, std::min(n_buckets, sms / chunks));
+  cand_kernel_i8<QN, R, PERM, I4>
+      <<<dim3(ctas, chunks), THREADS, smem, stream>>>(
+          cmap, smap, pmap, (const int8_t*)q, (const float*)qscale, vals,
+          idxs, d, b, valid, bucket, nb, lowmask, n_buckets, stages);
   return (int)cudaGetLastError();
 }
 
-template <int QN, bool PERM>
-int i8_by_rounds(const void* codes, const void* scales, const void* perm,
-                 const void* q, const void* qscale, float* vals, int* idxs,
-                 int n_pad, int d, int b, int valid, int bucket, int rounds,
-                 int nb, int lowmask, cudaStream_t s) {
+template <int QN, bool PERM, bool I4>
+int codes_by_rounds(const void* codes, const void* scales, const void* perm,
+                    const void* q, const void* qscale, float* vals,
+                    int* idxs, int n_pad, int d, int b, int valid,
+                    int bucket, int rounds, int nb, int lowmask,
+                    cudaStream_t s) {
   switch (rounds) {
-    case 1: return launch_i8<QN, 1, PERM>(codes, scales, perm, q, qscale,
-                                          vals, idxs, n_pad, d, b, valid,
-                                          bucket, nb, lowmask, s);
-    case 2: return launch_i8<QN, 2, PERM>(codes, scales, perm, q, qscale,
-                                          vals, idxs, n_pad, d, b, valid,
-                                          bucket, nb, lowmask, s);
-    case 3: return launch_i8<QN, 3, PERM>(codes, scales, perm, q, qscale,
-                                          vals, idxs, n_pad, d, b, valid,
-                                          bucket, nb, lowmask, s);
-    default: return launch_i8<QN, 4, PERM>(codes, scales, perm, q, qscale,
-                                           vals, idxs, n_pad, d, b, valid,
-                                           bucket, nb, lowmask, s);
+    case 1: return launch_codes<QN, 1, PERM, I4>(
+        codes, scales, perm, q, qscale, vals, idxs, n_pad, d, b, valid,
+        bucket, nb, lowmask, s);
+    case 2: return launch_codes<QN, 2, PERM, I4>(
+        codes, scales, perm, q, qscale, vals, idxs, n_pad, d, b, valid,
+        bucket, nb, lowmask, s);
+    case 3: return launch_codes<QN, 3, PERM, I4>(
+        codes, scales, perm, q, qscale, vals, idxs, n_pad, d, b, valid,
+        bucket, nb, lowmask, s);
+    default: return launch_codes<QN, 4, PERM, I4>(
+        codes, scales, perm, q, qscale, vals, idxs, n_pad, d, b, valid,
+        bucket, nb, lowmask, s);
   }
 }
 
-template <bool PERM>
-int scan_int8(const void* codes, const void* scales, const void* perm,
-              const void* q, const void* qscale, void* vals, void* idxs,
-              int n_pad, int d, int b, int valid, int bucket, int rounds,
-              int block_rows, void* stream) {
-  // TMA: a 16-byte aligned mirror with 16-byte rows, 16-byte aligned
-  // scales (and perm); 16-byte query loads; buckets of whole 64-row tiles
-  if (n_pad <= 0 || b <= 0 || d <= 0 || d % 16 || bucket <= 0 ||
-      bucket % TILE ||
+// int8 codes [n_pad, d], or (I4) packed int4 rows [n_pad, d / 2]
+template <bool PERM, bool I4>
+int scan_codes(const void* codes, const void* scales, const void* perm,
+               const void* q, const void* qscale, void* vals, void* idxs,
+               int n_pad, int d, int b, int valid, int bucket, int rounds,
+               int block_rows, void* stream) {
+  // TMA: a 16-byte aligned mirror with 16-byte rows (int4: rows of whole
+  // 64-byte chunks), 16-byte aligned scales (and perm); 16-byte query
+  // loads; buckets of whole 64-row tiles
+  if (n_pad <= 0 || b <= 0 || d <= 0 || d % 16 || (I4 && (d / 2) % 64) ||
+      bucket <= 0 || bucket % TILE ||
       block_rows % bucket || n_pad % block_rows || rounds < 1 ||
       rounds > MAXR ||
       (((uintptr_t)codes | (uintptr_t)scales | (uintptr_t)perm |
@@ -658,12 +623,12 @@ int scan_int8(const void* codes, const void* scales, const void* perm,
   const int nb = block_rows / bucket;
   cudaStream_t s = (cudaStream_t)stream;
   if (b <= 16)  // single queries and small batches: a 16-wide panel
-    return i8_by_rounds<16, PERM>(codes, scales, perm, q, qscale,
-                                  (float*)vals, (int*)idxs, n_pad, d, b,
-                                  valid, bucket, rounds, nb, lowmask, s);
-  return i8_by_rounds<64, PERM>(codes, scales, perm, q, qscale, (float*)vals,
-                                (int*)idxs, n_pad, d, b, valid, bucket,
-                                rounds, nb, lowmask, s);
+    return codes_by_rounds<16, PERM, I4>(
+        codes, scales, perm, q, qscale, (float*)vals, (int*)idxs, n_pad, d,
+        b, valid, bucket, rounds, nb, lowmask, s);
+  return codes_by_rounds<64, PERM, I4>(
+      codes, scales, perm, q, qscale, (float*)vals, (int*)idxs, n_pad, d, b,
+      valid, bucket, rounds, nb, lowmask, s);
 }
 
 }  // namespace
@@ -675,9 +640,9 @@ extern "C" int vqt_cand_scan_int8_prefix(const void* codes,
                                          void* idxs, int n_pad, int d, int b,
                                          int valid, int bucket, int rounds,
                                          int block_rows, void* stream) {
-  return scan_int8<false>(codes, scales, nullptr, q_codes, qscale, vals,
-                          idxs, n_pad, d, b, valid, bucket, rounds,
-                          block_rows, stream);
+  return scan_codes<false, false>(codes, scales, nullptr, q_codes, qscale,
+                                  vals, idxs, n_pad, d, b, valid, bucket,
+                                  rounds, block_rows, stream);
 }
 
 extern "C" int vqt_cand_scan_int4_prefix(const void* packed,
@@ -687,21 +652,9 @@ extern "C" int vqt_cand_scan_int4_prefix(const void* packed,
                                          void* idxs, int n_pad, int d, int b,
                                          int valid, int bucket, int rounds,
                                          int block_rows, void* stream) {
-  // 16-byte vectors of whole 64-byte chunks of each packed row and query;
-  // 16-row strips
-  if (n_pad <= 0 || b <= 0 || (d / 2) % 64 || d % 16 || bucket <= 0 ||
-      bucket % 16 ||
-      block_rows % bucket || n_pad % block_rows || rounds < 1 ||
-      rounds > MAXR || bucket < rounds || ((uintptr_t)packed & 15) ||
-      ((uintptr_t)q_codes & 15))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (b <= 16)  // single queries and small batches: 16-query chunks
-    return launch_int4<16>(packed, scales, q_codes, qscale, vals, idxs,
-                           n_pad, d, b, valid, bucket, rounds, block_rows,
-                           s);
-  return launch_int4<64>(packed, scales, q_codes, qscale, vals, idxs, n_pad,
-                         d, b, valid, bucket, rounds, block_rows, s);
+  return scan_codes<false, true>(packed, scales, nullptr, q_codes, qscale,
+                                 vals, idxs, n_pad, d, b, valid, bucket,
+                                 rounds, block_rows, stream);
 }
 
 extern "C" int vqt_cand_scan_int8(const void* codes, const void* scales,
@@ -711,7 +664,20 @@ extern "C" int vqt_cand_scan_int8(const void* codes, const void* scales,
                                   int bucket, int rounds, int block_rows,
                                   void* stream) {
   if (perm == nullptr) return (int)cudaErrorInvalidValue;
-  return scan_int8<true>(codes, scales, perm, q_codes, qscale, vals, idxs,
-                         n_pad, d, b, valid, bucket, rounds, block_rows,
-                         stream);
+  return scan_codes<true, false>(codes, scales, perm, q_codes, qscale, vals,
+                                 idxs, n_pad, d, b, valid, bucket, rounds,
+                                 block_rows, stream);
+}
+
+// the ring stages of each half that the live-prefix scan of b queries and
+// `rounds` takes over int8 codes (int4 0) or packed int4 rows (int4 1) of
+// d features; -1 for operands it refuses
+extern "C" int vqt_cand_scan_codes_stages(int d, int b, int rounds,
+                                          int int4) {
+  int sms = 0, smem_optin = 0;
+  if (d <= 0 || b <= 0 || rounds < 1 || rounds > MAXR ||
+      !device_limits(&sms, &smem_optin))
+    return -1;
+  return codes_stages(false, int4 != 0, d, b <= 16 ? 16 : 64, rounds,
+                      smem_optin, nullptr);
 }

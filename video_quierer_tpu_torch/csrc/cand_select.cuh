@@ -24,20 +24,6 @@ namespace vqt {
 
 constexpr int MAXR = 4;    // most rounds a launch takes
 
-__device__ __forceinline__ void insert_key(int (&top)[MAXR], int key,
-                                           int rounds) {
-  // top[0..rounds) sorted descending; keys are unique. Static indices only,
-  // so the list stays in registers.
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < rounds && key > top[r]) {
-      const int t = top[r];
-      top[r] = key;
-      key = t;
-    }
-  }
-}
-
 // The R-key list top[0..R) of the tensor-core scans (R a compile-time
 // count, so the list stays in registers) stays sorted descending; keys are
 // unique, and INT_MIN pads sort last
@@ -58,29 +44,6 @@ __device__ __forceinline__ int row_key(float score, bool live, int pos,
                                        int lowmask) {
   const int bits = live ? __float_as_int(__fadd_rn(score, 2.0f)) : 0;
   return (bits & ~lowmask) + (lowmask - pos);
-}
-
-// Writes the merged winners of query q0 + c: `lists` holds `n_lists` lists
-// of MAXR keys for each of the CTA's QB queries ([list][QB][MAXR]).
-__device__ __forceinline__ void emit(const int* lists, int n_lists, int qb,
-                                     int c, int q0, int b, size_t row0,
-                                     int g, int nb, int rounds, int lowmask,
-                                     float* vals, int* idxs) {
-  int best[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) best[r] = INT_MIN;
-  for (int l = 0; l < n_lists; ++l)
-    for (int r = 0; r < rounds; ++r)
-      insert_key(best, lists[((size_t)l * qb + c) * MAXR + r], rounds);
-  const int blk = g / nb, jb = g % nb;
-  const size_t w = (size_t)rounds * nb;
-  for (int r = 0; r < rounds; ++r) {
-    const int wk = best[r];
-    const int vb = wk & ~lowmask;
-    const size_t o = ((size_t)blk * w + (size_t)r * nb + jb) * b + q0 + c;
-    vals[o] = vb == 0 ? -INFINITY : __int_as_float(vb) - 2.0f;
-    idxs[o] = (int)(row0 + (lowmask - (wk & lowmask)));
-  }
 }
 
 // lowmask of a bucket: 2^max(ceil_log2(bucket), 1) - 1

@@ -57,6 +57,7 @@ _SIGNATURES = {
                                   _I, _I, _I, _P),
     "vqt_block_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "vqt_block_scan_stages": (_I, _I, _I, _I),
+    "vqt_cand_scan_codes_stages": (_I, _I, _I, _I),
     "vqt_probe_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P),
     "vqt_probe_scan_scratch": (_I, _I, _I),

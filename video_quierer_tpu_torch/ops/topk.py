@@ -327,12 +327,10 @@ def _cand_scan_codes(fn_name: str, wrapper, ref, codes: torch.Tensor,
                      scales: torch.Tensor, q_codes: torch.Tensor,
                      qscale: torch.Tensor, valid: int, *, bucket: int,
                      rounds: int, block_rows: Optional[int], d: int,
-                     tile_rows: int,
                      perm: Optional[torch.Tensor] = None) -> Pair:
     """The quantized candidate scans: B4/B7 (``perm`` None, live prefix)
     or B11 (perm layout); the plain version ``ref`` for CPU tensors.
-    Buckets are whole ``tile_rows``-row tiles of the kernel (64: the int8
-    tensor-core tile; 16: the int4 strips)."""
+    Buckets are whole 64-row tiles of the kernels' tensor-core tile."""
     block_rows = block_rows or CAND_BLOCK_ROWS
     head = (codes, scales) + (() if perm is None else (perm,))
     if codes.device.type == "cpu":
@@ -349,18 +347,17 @@ def _cand_scan_codes(fn_name: str, wrapper, ref, codes: torch.Tensor,
     if q_codes.ndim != 2 or q_codes.shape[1] != d \
             or scales.shape != (n_pad, 1) or qscale.shape != (b, 1) \
             or codes.shape[1] % 64 or n_pad % block_rows \
-            or block_rows % bucket or bucket % tile_rows \
+            or block_rows % bucket or bucket % 64 \
             or not 1 <= rounds <= 4 or codes.data_ptr() % 16 \
             or q_codes.data_ptr() % 16:
         raise ValueError(f"unsupported candidate scan: rows {codes.shape} "
                          f"D={d} B={b} bucket={bucket} rounds={rounds} "
                          "(row bytes a multiple of 64, buckets of whole "
-                         f"{tile_rows}-row tiles, codes and queries 16-byte "
-                         "aligned)")
+                         "64-row tiles, codes and queries 16-byte aligned)")
     if perm is not None:
         _check_perm(perm, n_pad)
-    # the int8 tile copies each tile's scales (and perm entries) by TMA,
-    # which takes 16-byte aligned columns
+    # the tile copies each tile's scales (and perm entries) by TMA, which
+    # takes 16-byte aligned columns
     scales = scales if scales.data_ptr() % 16 == 0 else scales.clone()
     if perm is not None and perm.data_ptr() % 16:
         perm = perm.clone()
@@ -388,7 +385,7 @@ def cand_scan_int8_prefix(codes: torch.Tensor, scales: torch.Tensor,
         "vqt_cand_scan_int8_prefix", cand_scan_int8_prefix,
         cand_scan_int8_prefix_ref, codes, scales, q_codes, qscale, valid,
         bucket=bucket, rounds=rounds, block_rows=block_rows,
-        d=codes.shape[1], tile_rows=64)
+        d=codes.shape[1])
 
 
 cand_scan_int8_prefix.launches = 0
@@ -404,10 +401,22 @@ def cand_scan_int4_prefix(packed: torch.Tensor, scales: torch.Tensor,
         "vqt_cand_scan_int4_prefix", cand_scan_int4_prefix,
         cand_scan_int4_prefix_ref, packed, scales, q_codes, qscale, valid,
         bucket=bucket, rounds=rounds, block_rows=block_rows,
-        d=2 * packed.shape[1], tile_rows=16)
+        d=2 * packed.shape[1])
 
 
 cand_scan_int4_prefix.launches = 0
+
+
+def codes_ring_stages(codes: torch.Tensor, b: int, rounds: int, *,
+                      int4: bool) -> int:
+    """The ring stages a warpgroup of B4 (int8 ``codes`` ``[N, D]``) or B7
+    (``int4``: packed rows ``[N, D/2]``) takes for ``b`` queries and
+    ``rounds`` (chosen at launch from the shared memory the panel and
+    lists leave)."""
+    d = codes.shape[1] * (2 if int4 else 1)
+    with torch.cuda.device(codes.device):
+        return kernels.lib().vqt_cand_scan_codes_stages(d, b, rounds,
+                                                        int(int4))
 
 
 def cand_scan_int8(codes: torch.Tensor, scales: torch.Tensor,
@@ -420,7 +429,7 @@ def cand_scan_int8(codes: torch.Tensor, scales: torch.Tensor,
     return _cand_scan_codes(
         "vqt_cand_scan_int8", cand_scan_int8, cand_scan_int8_ref, codes,
         scales, q_codes, qscale, valid, bucket=bucket, rounds=rounds,
-        block_rows=block_rows, d=codes.shape[1], tile_rows=64, perm=perm)
+        block_rows=block_rows, d=codes.shape[1], perm=perm)
 
 
 cand_scan_int8.launches = 0
