@@ -63,7 +63,14 @@ last line):
    hatch's fetch at k = 10), over the 2M-row identity mirror: their
    per-span lists (8,192 rows a span, the reference's macro) against the
    plain version's at the same span, the merged top-10's scores against
-   host f64, and the ring stages each launch takes;
+   host f64, and the ring stages each launch takes; then the SigLIP
+   kernels (``siglip-base-patch16-224``, seeded, bf16): B5 non-causal and
+   B6 with tanh-GELU on one text layer at a fused flush of 64 queries x
+   64 tokens, B3 at S = 64 (B = 1 and 64) and at the vision tower's 256
+   frames x 12 heads x S = 196 beside SDPA, the whole text encode (B =
+   64, fused) and vision encode (256 frames, module tower) against the
+   same encodes on the plain versions, and B1 over a 2,000,000 x 768 bf16
+   mirror at B = 1 and 64 with its ring stages;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512) written once as the pickle v1.0 cache; for each mirror
    dtype (bfloat16, then float32, int8 and int4), and then for the IVF
@@ -112,11 +119,24 @@ last line):
    (B10 over the whole corpus). Served rows equal the host exact top-10
    (IVF: the host's probed-exact top-10); each path's scan kernel launched
    and the single-card candidate kernels (B1, B4) not;
-6. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+6. the SigLIP engine (``model.family = "siglip"``, bf16 tier, the phase-3
+   towers injected; ``index.embed_dim`` widens to 768): a seeded cache of
+   10,000 videos x 200 frames x 768 (drawn on the card), ``startup()``,
+   an ingest of 20 x 200 seeded frames (the module vision tower: B3; the
+   mirror checked bit for bit), then over HTTP 16 singles (module text
+   tower: B3), 64 coalesced clients and a batch of 64 (fused text encode:
+   B5 + B6 with tanh-GELU), every single and batch row held against the
+   host exact top-10 over the grown f32 corpus; the launch counters from
+   just before the searches to just after: B1 once a search dispatch,
+   12 B3 a module-tower encode, 12 B5 and 12 B6 a fused flush, no other
+   kernel, both fallback counters 0; single p50, batch ms and ingest
+   frames/s printed with the card's name and power limit;
+7. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
-   the mesh at both B), the
+   the mesh at both B; the SigLIP path's B6 with tanh-GELU, B5, B3 at S =
+   196 and B1 at D = 768, each with its SigLIP-engine launches), the
    nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -161,14 +181,22 @@ from video_quierer_tpu_torch.index.device_index import (
     _device_exact_rerank,
     _round_capacity,
 )
+from video_quierer_tpu_torch.models.clip import model as clip_model
 from video_quierer_tpu_torch.models.clip.embedder import (
     CLIPEmbedder,
     trim_text_ids,
 )
+from video_quierer_tpu_torch.models.siglip.embedder import SigLIPEmbedder
+from video_quierer_tpu_torch.models.siglip.fused import \
+    fused_siglip_text_encode
 from video_quierer_tpu_torch.ops import fused_layer as fl
 from video_quierer_tpu_torch.ops import kernels, topk
 from video_quierer_tpu_torch.ops.attention import attention, attention_ref
-from video_quierer_tpu_torch.ops.preprocess import normalize_images
+from video_quierer_tpu_torch.ops.preprocess import (
+    SIGLIP_MEAN,
+    SIGLIP_STD,
+    normalize_images,
+)
 from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows,
     quantize_rows_int4,
@@ -178,6 +206,7 @@ from video_quierer_tpu_torch.utils import stageprof
 
 ROOT = Path(__file__).resolve().parent
 DIM = 512
+SIGLIP_DIM = 768        # siglip-base-patch16-224's rows (no projection)
 K = 10
 RESPONSE_KEYS = {"results", "search_time_ms", "from_cache", "query_id",
                  "performance"}
@@ -239,6 +268,17 @@ EXTRA = (("mesh bfloat16", "bfloat16", "exact", MESH_SHARDS, False,
           "cand_scan"))
 FPS = 30.0
 IMAGE = 224
+# B3's shapes: (B, S, heads, causal). CLIP's text (8 heads, causal) and
+# ViT-B/32 vision tower (S = 50); SigLIP's text singles and fused-batch
+# width (S = 64, non-causal) and vision tower (S = 196, no class token)
+ATTN_SHAPES = ((1, 8, 8, True), (64, 8, 8, True), (1, 77, 8, True),
+               (64, 77, 8, True), (256, 50, 12, False))
+SIGLIP_ATTN_SHAPES = ((1, 64, 12, False), (64, 64, 12, False),
+                      (256, 196, 12, False))
+# the SigLIP engine's serving path: B1 on every search; per search the text
+# tower once, either the module tower (12 B3 launches) or the fused encode
+# (12 B5 and 12 B6 launches); its ingest runs the module vision tower (B3)
+SIGLIP_PATH = ("cand_scan_prefix", "attention", "attn_half", "mlp_half")
 # /api/search queries shaped like image URIs that hold no image (no
 # OpenCV on the card's machine decodes one either): searched as text
 IMAGE_SHAPED_TEXT = ("data:image", "data:imagex,abc")
@@ -380,14 +420,13 @@ def codes_tile_ptxas(qn: int, rounds: int, int4: bool) -> str:
 
 # -- phase 3: kernels vs plain ------------------------------------------------
 
-def compare_attention(dev) -> dict:
-    """B3 against its plain version and SDPA: the text shapes (8 heads,
-    causal; the kernels-line row is B = 64, S = 77) and the vision
-    tower's (B = 256 frames, S = 50, 12 heads, non-causal)."""
+def compare_attention(dev, shapes=ATTN_SHAPES, row=(64, 77)) -> dict:
+    """B3 against its plain version and SDPA at ``shapes`` (by default
+    the CLIP text shapes, 8 heads, causal, and the vision tower's, B = 256
+    frames, S = 50, 12 heads, non-causal); returns the ``row`` = (B, S)
+    result, the kernels line's."""
     out = {}
-    for b, s, heads, causal in ((1, 8, 8, True), (64, 8, 8, True),
-                                (1, 77, 8, True), (64, 77, 8, True),
-                                (256, 50, 12, False)):
+    for b, s, heads, causal in shapes:
         d = 64 * heads
         g = torch.Generator(device=dev).manual_seed(1000 * s + b)
         q, k, v = ((0.5 * torch.randn(b, s, d, generator=g, device=dev))
@@ -427,7 +466,7 @@ def compare_attention(dev) -> dict:
             f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
         out[(b, s)] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                        **lim, "library_ms": lms}
-    return out[(64, 77)]
+    return out[row]
 
 
 def compare_fused_layer(embedder: CLIPEmbedder, seed: int) -> dict:
@@ -485,21 +524,14 @@ def compare_layer_halves(embedder: CLIPEmbedder, seed: int,
     x = torch.randn(t, d, generator=g, device=embedder.device).bfloat16()
     kw = {"s": s, "heads": c.num_heads, "eps": c.layer_norm_eps,
           "causal": False}
+    b5, b6 = half_bounds(t, d, f, s)
     halves = {
-        "B5 attention half": (
-            lambda: fl.attn_half(x, ops, **kw),
-            lambda: fl.attn_half_ref(x, ops, **kw),
-            # x read, out written; wqkv, wout and the biases read (bf16),
-            # the LN rows (f32); QKV and out-proj GEMMs plus QK^T and PV
-            bound(2 * 2 * t * d + 2 * (4 * d * d + 4 * d) + 4 * 4 * d,
-                  8 * t * d * d + 4 * t * s * d, "bf16")),
-        "B6 MLP half": (
-            lambda: fl.mlp_half(x, ops, eps=c.layer_norm_eps),
-            lambda: fl.mlp_half_ref(x, ops, eps=c.layer_norm_eps),
-            bound(2 * 2 * t * d + 2 * (2 * d * f + f + d) + 4 * 4 * d,
-                  4 * t * f * d, "bf16")),
+        "B5 attention half": (lambda: fl.attn_half(x, ops, **kw),
+                              lambda: fl.attn_half_ref(x, ops, **kw), b5),
+        "B6 MLP half": (lambda: fl.mlp_half(x, ops, eps=c.layer_norm_eps),
+                        lambda: fl.mlp_half_ref(x, ops, eps=c.layer_norm_eps),
+                        b6),
     }
-    out = []
     with torch.inference_mode():
         # the GEMM core's yardstick: cuBLAS on B6's two bare products
         # (bf16, no LN or epilogue; used nowhere in the port)
@@ -512,16 +544,35 @@ def compare_layer_halves(embedder: CLIPEmbedder, seed: int,
             f"{mm[0] + mm[1]:.3f} ms (bound "
             f"{1e3 * 4 * t * f * d / PEAK_OPS_S['bf16']:.4f} ms)")
         del h
+        return time_halves(halves, f"B={b} frames (T={t}, D={d}, S={s})")
+
+
+def half_bounds(t: int, d: int, f: int, s: int) -> tuple:
+    """Bounds of B5 and B6 over ``t`` tokens of items of ``s``: x read and
+    out written (bf16), the half's weights and biases read (bf16) and the
+    LN rows (f32); B5's QKV and out-proj GEMMs plus QK^T and PV, B6's two
+    GEMMs."""
+    return (bound(2 * 2 * t * d + 2 * (4 * d * d + 4 * d) + 4 * 4 * d,
+                  8 * t * d * d + 4 * t * s * d, "bf16"),
+            bound(2 * 2 * t * d + 2 * (2 * d * f + f + d) + 4 * 4 * d,
+                  4 * t * f * d, "bf16"))
+
+
+def time_halves(halves: dict, shape: str) -> tuple:
+    """Each layer half against its plain version (max_abs_err within
+    LAYER_ATOL) and timed: ``{name: (kernel, plain, bound)}`` -> their
+    kernels-line numbers, in order."""
+    out = []
+    with torch.inference_mode():
         for name, (kern, plain, lim) in halves.items():
             err = (kern().float() - plain().float()).abs().max().item()
-            require(err <= LAYER_ATOL, f"{name} B={b}: max_abs_err {err}")
+            require(err <= LAYER_ATOL, f"{name} {shape}: max_abs_err {err}")
             ms, eager = graph_ms(kern, 10), cuda_ms(kern, 10)
             pms = cuda_ms(plain, 10)
-            log(f"{name} B={b} frames (T={t}, D={d}, S={s}): max_abs_err "
-                f"{err:.3e} (atol {LAYER_ATOL}) kernel {ms:.3f} ms "
-                f"(device, graph replay; eager {eager:.3f}) plain "
-                f"{pms:.3f} ms bound {lim['bound_ms']:.4f} ms "
-                f"({lim['bound_by']})")
+            log(f"{name} {shape}: max_abs_err {err:.3e} (atol {LAYER_ATOL}) "
+                f"kernel {ms:.3f} ms (device, graph replay; eager "
+                f"{eager:.3f}) plain {pms:.3f} ms bound "
+                f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
             out.append({"max_abs_err": err, "ms": ms, "plain_ms": pms,
                         **lim, "library_ms": None})
     return tuple(out)
@@ -612,13 +663,13 @@ def ingest_split(embedder: CLIPEmbedder, seed: int, device,
         + f"; total {sum(t.values()):.3f}")
 
 
-def corpus_on_card(dev, n_rows: int, seed: int):
+def corpus_on_card(dev, n_rows: int, seed: int, dim: int = DIM):
     """The scans' operands at the serving size: ``store`` (f32 unit rows,
     zero past ``n_rows``: the exact scan's matrix and the re-rank store)
     and ``perm`` (live-prefix mirror position -> host row)."""
     n_pad = _round_capacity(n_rows)
     g = torch.Generator(device=dev).manual_seed(seed)
-    store = torch.randn(n_pad, DIM, generator=g, device=dev)
+    store = torch.randn(n_pad, dim, generator=g, device=dev)
     store /= torch.linalg.vector_norm(store, dim=-1, keepdim=True)
     store[n_rows:] = 0
     perm = torch.cat([
@@ -627,9 +678,9 @@ def corpus_on_card(dev, n_rows: int, seed: int):
     return store, perm
 
 
-def unit_queries(dev, b: int, seed: int) -> torch.Tensor:
+def unit_queries(dev, b: int, seed: int, dim: int = DIM) -> torch.Tensor:
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(b, DIM, generator=g, device=dev)
+    q = torch.randn(b, dim, generator=g, device=dev)
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
 
@@ -662,15 +713,20 @@ def compare_winners(name: str, b: int, kern, plain, merge, store, perm,
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
 
 
-def compare_cand_scan(store, perm, n_rows: int, seed: int) -> dict:
-    """B1 over the bf16 live-prefix mirror at B = 1, 64 and 256: the B = 64
-    result, with every width's under ``at_b``."""
+def compare_cand_scan(store, perm, n_rows: int, seed: int,
+                      widths=(1, 64, 256)) -> dict:
+    """B1 over the bf16 live-prefix mirror (as wide as ``store``) at B in
+    ``widths``, with the ring stages each launch takes: the B = 64 result,
+    with every width's under ``at_b``."""
     mirror = store[perm.long()].bfloat16()
+    dim = store.shape[1]
     out = {}
-    for b in (1, 64, 256):
-        q = unit_queries(store.device, b, seed + b)
+    for b in widths:
+        q = unit_queries(store.device, b, seed + b, dim)
+        stages = topk.cand_ring_stages(mirror, b, topk.CAND_ROUNDS)
+        log(f"B1 candidate scan D={dim} B={b}: {stages} ring stages")
         out[b] = compare_winners(
-            "B1 candidate scan", b,
+            f"B1 candidate scan D={dim}", b,
             lambda: topk.cand_scan_prefix(mirror, q, n_rows,
                                           bucket=topk.CAND_BUCKET,
                                           rounds=topk.CAND_ROUNDS),
@@ -678,8 +734,9 @@ def compare_cand_scan(store, perm, n_rows: int, seed: int) -> dict:
                 mirror, q, n_rows, bucket=topk.CAND_BUCKET,
                 rounds=topk.CAND_ROUNDS, block_rows=topk.CAND_BLOCK_ROWS),
             topk._cand_merge_cols, store, perm, q, n_rows, 128, False)
-        out[b].update(_scan_bound(mirror.numel() * 2, b * DIM * 2, b,
-                                  "bf16", n_rows), library_ms=None)
+        out[b].update(_scan_bound(mirror.numel() * 2, b * dim * 2, b,
+                                  "bf16", n_rows, dim), library_ms=None,
+                      stages=stages)
     del mirror
     return dict(out[64], at_b={str(b): _brief(r) for b, r in out.items()})
 
@@ -687,19 +744,19 @@ def compare_cand_scan(store, perm, n_rows: int, seed: int) -> dict:
 def _brief(result: dict) -> dict:
     """The numbers of one width or layout beside a kernels-line entry."""
     return {k: result[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "max_abs_err", "device_ms")
+                                   "max_abs_err", "device_ms", "stages")
             if k in result}
 
 
 def _scan_bound(mirror_bytes: int, query_bytes: int, b: int, kind: str,
-                n_rows: int) -> dict:
+                n_rows: int, dim: int = DIM) -> dict:
     """Bound of a candidate scan: the mirror (and its scales) and the
     queries read once, the winners written once; 2 D operations per row
     and query."""
     n_pad = _round_capacity(n_rows)
     w = topk.CAND_ROUNDS * n_pad // topk.CAND_BUCKET
     return bound(mirror_bytes + query_bytes + w * b * 8,
-                 2 * n_pad * DIM * b, kind)
+                 2 * n_pad * dim * b, kind)
 
 
 def int_mm_ms(codes, q_codes, b: int):
@@ -1195,6 +1252,159 @@ def compare_probe_scan(dev, n_rows: int, seed: int) -> dict:
                                  "shard": shard})
 
 
+# -- phase 3: the SigLIP kernels ----------------------------------------------
+
+def compare_siglip_halves(embedder: SigLIPEmbedder, seed: int,
+                          b: int = 64) -> tuple:
+    """B5 (non-causal) and B6 (tanh-GELU) against their plain versions on
+    one layer of the seeded SigLIP text tower, bf16, at a fused flush of
+    ``b`` queries x 64 tokens (N(0, 1) activations, as the CLIP halves)."""
+    c = embedder.cfg.text
+    ops = embedder._layer_ops(embedder.params)[0]
+    d, f, s = c.hidden_size, c.hidden_size * c.mlp_ratio, c.context_length
+    t = b * s
+    g = torch.Generator(device=embedder.device).manual_seed(seed + 5)
+    x = torch.randn(t, d, generator=g, device=embedder.device).bfloat16()
+    kw = {"s": s, "heads": c.num_heads, "eps": c.layer_norm_eps,
+          "causal": False}
+    mkw = {"eps": c.layer_norm_eps, "act": "gelu_tanh"}
+    b5, b6 = half_bounds(t, d, f, s)
+    shape = f"B={b} queries (T={t}, D={d}, S={s})"
+    out = time_halves({
+        "B5 attention half (SigLIP text, non-causal)": (
+            lambda: fl.attn_half(x, ops, **kw),
+            lambda: fl.attn_half_ref(x, ops, **kw), b5),
+        "B6 MLP half (SigLIP text, tanh-GELU)": (
+            lambda: fl.mlp_half(x, ops, **mkw),
+            lambda: fl.mlp_half_ref(x, ops, **mkw), b6),
+    }, shape)
+    # what the tanh epilogue costs: the quick-GELU instantiation on the
+    # same operands
+    with torch.inference_mode():
+        quick = graph_ms(lambda: fl.mlp_half(x, ops, eps=c.layer_norm_eps),
+                         10)
+    log(f"B6 MLP half with quick-GELU at the same {shape}: {quick:.3f} ms "
+        f"(device, graph replay) against tanh-GELU's {out[1]['ms']:.3f}")
+    return out
+
+
+def plain_attention(q, k, v, *, num_heads: int, valid_len=None,
+                    causal: bool = False) -> torch.Tensor:
+    """B3's plain version behind ``attention``'s interface (q pre-scaled
+    in f32 and rounded back, as the kernel loads it)."""
+    hd = q.shape[-1] // num_heads
+    qs = (q.float() * hd ** -0.5).to(q.dtype)
+    return attention_ref(qs, k, v, num_heads=num_heads,
+                         valid_len=q.shape[1] if valid_len is None
+                         else valid_len, causal=causal)
+
+
+@contextlib.contextmanager
+def module_attention_plain():
+    """The module towers' attention on its plain version, for the
+    comparisons only (the serving path never takes it)."""
+    clip_model.attention = plain_attention
+    try:
+        yield
+    finally:
+        clip_model.attention = attention
+
+
+def compare_siglip_encodes(embedder: SigLIPEmbedder, seed: int,
+                           b_text: int = 64, b_frames: int = 256) -> None:
+    """The whole SigLIP text encode of ``b_text`` queries (the fused encode:
+    B5 + B6 with tanh-GELU) and vision encode of ``b_frames`` seeded frames
+    (the module tower: B3 and cuBLAS) against the same encodes on the plain
+    versions: rows at per-row cosine >= MIN_COS, unit-norm within
+    UNIT_ATOL."""
+    model = embedder.params
+    ops = embedder._layer_ops(model)
+    rng = np.random.default_rng(seed + 3)
+    ids = embedder.prepare_text_ids(embedder.tokenizer(
+        [words(rng, 4) for _ in range(b_text)]))
+    c = embedder.cfg
+    require(ids.shape == (b_text, c.text.context_length),
+            f"SigLIP ids shape {ids.shape}")
+    ids_t = embedder.ids_tensor(ids)
+    frames = torch.from_numpy(seeded_frames(seed, 10_002, b_frames)).to(
+        embedder.device)
+
+    def plain_image():
+        with module_attention_plain():
+            return model.encode_image(pixels)
+
+    vops = embedder._layer_ops(model, "vision")
+
+    def halves_image():
+        """The vision tower on the layer halves (B5, B6 tanh-GELU): not
+        the serving route (the module tower is, as in the JAX package),
+        timed to show what the halves would give at S = 196."""
+        v = model.vision
+        x2 = v.embed(pixels).reshape(-1, v.cfg.hidden_size).contiguous()
+        for o in vops:
+            x2 = fl.attn_half(x2, o, s=v.cfg.num_patches,
+                              heads=v.cfg.num_heads,
+                              eps=v.cfg.layer_norm_eps, causal=False)
+            x2 = fl.mlp_half(x2, o, eps=v.cfg.layer_norm_eps,
+                             act="gelu_tanh")
+        feats = v.pool(x2.reshape(b_frames, v.cfg.num_patches, -1))
+        return feats.float() / torch.linalg.vector_norm(
+            feats.float(), dim=-1, keepdim=True)
+
+    with torch.inference_mode():
+        pixels = normalize_images(frames, dtype=embedder.dtype,
+                                  mean=SIGLIP_MEAN, std=SIGLIP_STD)
+        encodes = (
+            (f"SigLIP text encode B={b_text} S={ids.shape[1]} x"
+             f"{len(ops)} layers (fused: B5 + B6 tanh-GELU)", b_text, "rows",
+             lambda: fused_siglip_text_encode(model, ids_t, ops),
+             lambda: fused_siglip_text_encode(model, ids_t, ops,
+                                              attn=fl.attn_half_ref,
+                                              mlp=fl.mlp_half_ref), 10),
+            (f"SigLIP vision encode B={b_frames} frames S="
+             f"{c.vision.num_patches} x{c.vision.num_layers} layers (module "
+             "tower: B3)", b_frames, "frames",
+             lambda: model.encode_image(pixels), plain_image, 3))
+        for name, n, unit, kern, plain, iters in encodes:
+            a, p = kern(), plain()
+            cos = torch.nn.functional.cosine_similarity(a, p, dim=-1).min()
+            norm = (torch.linalg.vector_norm(a, dim=-1) - 1).abs().max()
+            require(a.shape == (n, c.vision.hidden_size)
+                    and bool(torch.isfinite(a).all()), f"{name}: output")
+            require(cos.item() >= MIN_COS, f"{name}: min cosine {cos}")
+            require(norm.item() <= UNIT_ATOL, f"{name}: norm error {norm}")
+            ms, pms = cuda_ms(kern, iters), cuda_ms(plain, iters)
+            log(f"{name} (bf16): min cosine {cos.item():.6f} (>= {MIN_COS}) "
+                f"vs the plain versions, max |norm - 1| {norm.item():.2e} "
+                f"(<= {UNIT_ATOL}); kernels {ms:.3f} ms plain {pms:.3f} ms "
+                f"= {n / ms * 1e3:.0f} {unit}/s on the kernels")
+        a, h = model.encode_image(pixels), halves_image()
+        cos = torch.nn.functional.cosine_similarity(a, h, dim=-1).min()
+        require(cos.item() >= MIN_COS, f"SigLIP vision on the halves: {cos}")
+        ms = cuda_ms(halves_image, 3)
+        log(f"SigLIP vision encode B={b_frames} frames on the layer halves "
+            f"(B5 + B6 tanh-GELU; not the serving route): {ms:.3f} ms = "
+            f"{b_frames / ms * 1e3:.0f} frames/s, min cosine "
+            f"{cos.item():.6f} against the module tower")
+
+
+def phase_siglip_kernels(embedder: SigLIPEmbedder, args, device) -> dict:
+    """Phase 3's SigLIP part: B5/B6 at the text shape, B3 at the SigLIP
+    shapes beside SDPA, both encodes, and B1 over a 2,000,000 x 768 bf16
+    mirror at B = 1 and 64; returns their kernels-line numbers."""
+    b5, b6 = compare_siglip_halves(embedder, args.seed)
+    b3 = compare_attention(device, SIGLIP_ATTN_SHAPES, row=(256, 196))
+    compare_siglip_encodes(embedder, args.seed)
+    n_rows = args.videos * args.frames
+    store, perm = corpus_on_card(device, n_rows, args.seed + 11, SIGLIP_DIM)
+    b1 = compare_cand_scan(store, perm, n_rows, args.seed + 11, (1, 64))
+    del store, perm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"attn_half": b5, "mlp_half": b6, "attention": b3,
+            "cand_scan_prefix": b1}
+
+
 # -- phases 4 and 5: end to end -----------------------------------------------
 
 def build_corpus(seed: int, n_videos: int, n_frames: int) -> np.ndarray:
@@ -1210,7 +1420,7 @@ def video_name(v: int) -> str:
 
 
 def write_cache(corpus: np.ndarray, n_frames: int, path: Path) -> None:
-    idx = DeviceVideoIndex(dim=DIM, device_dtype="bfloat16",
+    idx = DeviceVideoIndex(dim=corpus.shape[1], device_dtype="bfloat16",
                            device="cpu")            # host store only
     idx.reserve(len(corpus))
     stamps = [0.5 * t for t in range(n_frames)]
@@ -1546,13 +1756,15 @@ def seeded_extract(path: Path, *, seed: int, n: int, mode: str):
 
 
 def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
-                device, n_videos: int = INGEST_VIDEOS, tag: str = "") -> dict:
+                device, n_videos: int = INGEST_VIDEOS, tag: str = "",
+                path: tuple = INGEST) -> dict:
     """``n_videos`` seeded videos through ``batched_frames`` and the
     engine's ingest loop onto the loaded corpus (placeholder video files
     in the videos dir, so the hashes are recorded; removed again
     afterwards), then the checks: host rows and metadata, the mirror
     against the host path bit for bit, 16 ingested frames as queries,
-    launch and fallback counts. ``tag`` names the engine in the log."""
+    launch and fallback counts (the kernels of ``path`` once per layer and
+    embed batch, no other). ``tag`` names the engine in the log."""
     tag = tag or dtype
     index, api, ing = engine.index, engine.config.api, engine.config.ingest
     n0, n = len(index), n_videos * args.frames
@@ -1603,7 +1815,7 @@ def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
     require(added == n and len(index) == n0 + n, "ingest row count")
     layers = engine._get_embedder().cfg.vision.num_layers
     for name, count in launches.items():
-        want = layers * len(batches) if name in INGEST else 0
+        want = layers * len(batches) if name in path else 0
         require(count == want, f"[{tag}] ingest: {name} launched {count} "
                 f"times, not {want} ({layers} layers x {len(batches)} embed "
                 "batches)")
@@ -1746,13 +1958,14 @@ def search_batch(base, rng):
     return batch, [r["results"] for r in body["results"]], t
 
 
-def drive(base, dtype, rng):
+def drive(base, dtype, rng, timings: dict = None):
     """The path of one mirror dtype over HTTP, and nothing else: 16 single
     queries (B=1, module tower: attention kernel B3; bfloat16: then the
     IMAGE_SHAPED_TEXT queries), coalesced rounds of 64 concurrent clients
     (fused layer kernel B2 once a flush holds >= 32; bfloat16: three short
     rounds and one of 77 tokens, attention at S=77), and one batch of 64
-    (B2). Returns the single and batch queries and rows."""
+    (B2). Returns the single and batch queries and rows; ``timings``, when
+    given, gets the single p50 and the batch's ms."""
     status, health, _ = http(base, "GET", "/api/health")
     require(status == 200 and health["status"] == "healthy", "health")
     status, stats, _ = http(base, "GET", "/api/stats")
@@ -1790,6 +2003,9 @@ def drive(base, dtype, rng):
     batch, batch_rows, t = search_batch(base, rng)
     log(f"[{dtype}] e2e batch: 64 queries in one request, {1e3 * t:.2f} ms "
         f"= {64 / t:.1f} searches/s")
+    if timings is not None:
+        timings.update(single_p50_ms=1e3 * float(np.median(lat)),
+                       batch_ms=1e3 * t)
     return singles, single_rows, batch, batch_rows
 
 
@@ -1801,7 +2017,8 @@ def served_vectors(embedder: CLIPEmbedder, singles, batch) -> tuple:
     with torch.inference_mode():
         q_batch = embedder.text_encode_fn(
             embedder.params, embedder.ids_tensor(
-                trim_text_ids(embedder.tokenizer(batch)))).cpu().numpy()
+                embedder.prepare_text_ids(embedder.tokenizer(batch)))
+        ).cpu().numpy()
     return q_single, q_batch
 
 
@@ -1957,6 +2174,123 @@ def check_served(dtype, embedder, corpus, name_of, served, device,
             f"{len(rows)} queries: {recall:.4f}")
         if dtype == "int8":
             require(recall == 1.0, f"int8 recall@{K} {recall}")
+
+
+# -- phase 6: the SigLIP engine -----------------------------------------------
+
+def siglip_corpus(dev, seed: int, n_rows: int) -> np.ndarray:
+    """The SigLIP engine's seeded corpus: ``n_rows`` unit rows x 768, drawn
+    on the card (numpy's generator is the slow part of phase 4's corpus)
+    and fetched once."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn(n_rows, SIGLIP_DIM, generator=g, device=dev)
+    rows /= torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+    out = rows.cpu().numpy()
+    del rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_siglip_launches(engine: VideoSearchEngine, launches: dict) -> int:
+    """The SigLIP search path launched B1 once a search dispatch, and per
+    dispatch the text tower once: the module tower (12 B3 launches) or
+    the fused encode (12 B5 and 12 B6), at least once each; no other
+    kernel; both fallback counters 0. Returns the fused flushes."""
+    log(f"[siglip] launches during the path: {launches}")
+    layers = engine._get_embedder().cfg.text.num_layers
+    b1, b3 = launches["cand_scan_prefix"], launches["attention"]
+    b5, b6 = launches["attn_half"], launches["mlp_half"]
+    for name, count in launches.items():
+        if name not in SIGLIP_PATH:
+            require(count == 0, f"[siglip] {name} launched {count} times")
+    require(b3 > 0 and b3 % layers == 0, f"[siglip] B3 launches {b3}")
+    require(b5 > 0 and b5 == b6 and b5 % layers == 0,
+            f"[siglip] B5/B6 launches {b5}/{b6}")
+    require(b1 == b3 // layers + b5 // layers,
+            f"[siglip] B1 launches {b1} != one a search dispatch "
+            f"({b3 // layers} module-tower + {b5 // layers} fused)")
+    for name in ("embed_fallbacks", "fused_search_fallbacks"):
+        count = engine.metrics.counter(name)
+        require(count == 0, f"[siglip] {name} = {count}")
+    log(f"[siglip] {b5 // layers} fused flushes x {layers} B5 + {layers} B6 "
+        f"(tanh-GELU), {b3 // layers} module-tower encodes x {layers} B3, "
+        f"{b1} B1 scans (one a search dispatch); fallback counters: "
+        "embed_fallbacks 0, fused_search_fallbacks 0")
+    return b5 // layers
+
+
+def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
+                        smi: str) -> tuple:
+    """``model.family = "siglip"`` at full width, bf16 tier: a seeded cache
+    of ``args.videos`` x ``args.frames`` rows x 768 (pickle v1.0), then
+    ``engine.startup()``, an ingest of INGEST_VIDEOS seeded videos through
+    the decode pipeline and the module vision tower (mirror checked bit for
+    bit), then the HTTP server: 16 singles, 64 coalesced clients and a
+    batch of 64, rows held against the host exact top-K over the grown
+    f32 corpus. Returns the search path's and the ingest's launches."""
+    n = args.videos * args.frames
+    t0 = time.perf_counter()
+    corpus = siglip_corpus(device, args.seed + 7, n)
+    log(f"[siglip] corpus: {n} rows x {SIGLIP_DIM} from seed "
+        f"{args.seed + 7} in {time.perf_counter() - t0:.1f} s")
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(args.seed + 2)
+    timings = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as videos:
+        t0 = time.perf_counter()
+        write_cache(corpus, args.frames,
+                    Path(videos) / "video_search_cache.pkl")
+        log(f"[siglip] pickle v1.0 cache written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del corpus
+        config = EngineConfig()
+        config.model.family = "siglip"
+        config.index.device_dtype = "bfloat16"
+        engine = VideoSearchEngine(videos, config=config, embedder=embedder,
+                                   device=device)
+        require(config.index.embed_dim == SIGLIP_DIM,
+                f"[siglip] index.embed_dim {config.index.embed_dim}")
+        t0 = time.perf_counter()
+        engine.startup()
+        require(len(engine.index) == n, "[siglip] startup row count")
+        mode = engine.accuracy_mode()
+        require(mode == "exact-f32-rerank", f"[siglip] mode {mode}")
+        log(f"[siglip] engine.startup(): {len(engine.index)} rows x "
+            f"{engine.index.dim}, bf16 mirror + re-rank store on the card, "
+            f"in {time.perf_counter() - t0:.1f} s ({mode})")
+        ingested = ingest_tier(engine, "bfloat16", videos, args, device,
+                               tag="siglip", path=("attention",))
+        corpus = engine.index._emb[: len(engine.index)]
+
+        def name_of(row: int) -> str:
+            if row < n:
+                return video_name(row // args.frames)
+            return ingest_name((row - n) // args.frames)
+
+        server = create_server(engine, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            for wrapper in WRAPPERS.values():
+                wrapper.launches = 0
+            served = drive(base, "siglip", rng, timings)
+            launches = {name: w.launches for name, w in WRAPPERS.items()}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(30)
+            engine.close()
+        check_siglip_launches(engine, launches)
+        check_served("siglip", embedder, corpus, name_of, served, device)
+        del engine, server, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[siglip] on {smi}: single p50 {timings['single_p50_ms']:.2f} ms, "
+        f"batch of 64 {timings['batch_ms']:.2f} ms, ingest "
+        f"{ingested['frames_s']:.1f} frames/s")
+    return launches, ingested
 
 
 # one A/B run: the text and vision kernel phases (and the search-tier
@@ -2227,9 +2561,15 @@ def main() -> int:
         b12 = compare_probe_scan(device, n_rows, args.seed)
         gc.collect()
         torch.cuda.empty_cache()
+    with timed("3, SigLIP kernels"):
+        siglip = SigLIPEmbedder(dtype=torch.bfloat16, device=device,
+                                seed=args.seed)
+        sk = phase_siglip_kernels(siglip, args, device)
     # the serving path's stage spans: phase 5 splits its batches by them
     stageprof.ENABLED = True
     launches, ingested, extra = phase_end_to_end(embedder, args, device)
+    with timed("6, SigLIP engine"):
+        sl, si = phase_siglip_engine(siglip, args, device, smi)
     src = "video_quierer_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {"name": "cand_scan_prefix", "route": "cuda",
@@ -2284,6 +2624,23 @@ def main() -> int:
          "source": src + "block_scan.cu",
          "replaces": "video_quierer_tpu/ops/topk.py:319",
          "launches": extra["hatch bfloat16"]["block_scan_bf16"], **b8h},
+        # the SigLIP engine's path (model.family = "siglip", 768 wide)
+        {"name": "mlp_half_gelu_tanh", "route": "cuda",
+         "source": src + "fused_layer.cu",
+         "replaces": "video_quierer_tpu/ops/fused_layer.py:462",
+         "launches": sl["mlp_half"], **sk["mlp_half"]},
+        {"name": "attn_half_siglip_text", "route": "cuda",
+         "source": src + "fused_layer.cu",
+         "replaces": "video_quierer_tpu/ops/fused_layer.py:425",
+         "launches": sl["attn_half"], **sk["attn_half"]},
+        {"name": "attention_siglip_vision", "route": "cuda",
+         "source": src + "attention.cu",
+         "replaces": "video_quierer_tpu/ops/attention.py:143",
+         "launches": si["launches"]["attention"], **sk["attention"]},
+        {"name": "cand_scan_prefix_d768", "route": "cuda",
+         "source": src + "cand_scan.cu",
+         "replaces": "video_quierer_tpu/ops/topk.py:1419",
+         "launches": sl["cand_scan_prefix"], **sk["cand_scan_prefix"]},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)

@@ -1,6 +1,7 @@
 """The port imports torch and numpy only: in a fresh interpreter, importing
 every module of video_quierer_tpu_torch (the corpus-mesh modules
-``parallel/mesh.py`` and ``index/sharded.py`` among them) leaves jax,
+``parallel/mesh.py`` and ``index/sharded.py`` and the SigLIP family's
+``models/siglip`` among them) leaves jax,
 flax, aiohttp, pydantic and cv2 out of ``sys.modules``, and builds no
 kernel."""
 
@@ -50,6 +51,12 @@ def test_mesh_modules_are_walked(report):
     for name in ("parallel", "parallel.mesh", "index.sharded",
                  "index.device_index", "index.ivf"):
         assert f"video_quierer_tpu_torch.{name}" in report["modules"]
+
+
+def test_siglip_modules_are_walked(report):
+    for name in ("model", "bridge", "fused", "embedder", "spm"):
+        assert f"video_quierer_tpu_torch.models.siglip.{name}" in \
+            report["modules"]
 
 
 def test_mesh_entry_points_default_to_the_card(monkeypatch):

@@ -14,7 +14,10 @@ in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2; B5 and B6
 (one layer half at ViT-B/32 widths, N(0, 1) activations) f32 atol 1e-4
 (sums of up to 3,072 products in another order), bf16 within two bf16
 ulps at the largest input magnitude (a GEMM output may round to the
-other side of a tie, and the bf16 softmax and residual carry it); the
+other side of a tie, and the bf16 softmax and residual carry it); B6
+with tanh-GELU and fc1 outputs far below -10 as B6, at the larger of the
+input's and the output's magnitude (the far negative tail bit for bit),
+B2 with it per-row cosine as B2; the
 whole vision encode per-row cosine as B2; B4 and B7
 bit-identical (integer dot products are exact, and both versions multiply
 the scales in the same order); B8 rows identical and scores equal on
@@ -157,6 +160,27 @@ def test_cpu_tensors_take_the_plain_versions():
     ops = [fl._layer_operands(b, torch.float32) for b in model.vision.layers]
     out = fl.fused_vision_encode(model, _exact(3, (32, 32, 32, 3)), ops)
     assert out.shape == (32, 64)
+    assert _launch_counts() == counts
+
+
+def test_gelu_tanh_routes_to_the_plain_version_on_cpu():
+    """``act`` reaches the plain versions on CPU tensors (no launch), and
+    an unknown activation raises before anything runs."""
+    counts = _launch_counts()
+    ops = _layer(128, 512, "cpu", seed=0, dtype=torch.float32)
+    x = torch.randn(64, 128, generator=torch.Generator().manual_seed(0))
+    want = fl.mlp_half_ref(x, ops, eps=1e-6, act="gelu_tanh")
+    assert torch.equal(fl.mlp_half(x, ops, eps=1e-6, act="gelu_tanh"), want)
+    assert not torch.equal(fl.mlp_half(x, ops, eps=1e-6), want)
+    got = fl.fused_layer(x, ops, s=16, heads=2, eps=1e-6, act="gelu_tanh")
+    x3 = fl.attn_half_ref(x, ops, s=16, heads=2, eps=1e-6, causal=True)
+    assert torch.equal(got, fl.mlp_half_ref(x3, ops, eps=1e-6,
+                                            act="gelu_tanh"))
+    for call in (lambda: fl.mlp_half(x, ops, eps=1e-6, act="relu"),
+                 lambda: fl.fused_layer(x, ops, s=16, heads=2, eps=1e-6,
+                                        act="gelu")):
+        with pytest.raises(ValueError, match="activation"):
+            call()
     assert _launch_counts() == counts
 
 
@@ -320,6 +344,27 @@ def test_attention_tensor_core_shapes(cuda, b, s, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 32, 256])
+def test_attention_siglip_vision_shape(cuda, dtype, b):
+    """B3 at the SigLIP vision tower's shape: S = 196 (no class token:
+    keys in three 80-key chunks, the last 36 wide, so the two-pass
+    branch), 12 heads, non-causal, every key valid."""
+    q, k, v = (torch.randn(b, 196, 768, generator=torch.Generator()
+                           .manual_seed(30 + i)).mul(0.5).to(cuda, dtype)
+               for i in range(3))
+    before = attention.launches
+    got = attention(q, k, v, num_heads=12, causal=False)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    qs = (q.float() * 64 ** -0.5).to(dtype)
+    want = attention_ref(qs, k, v, num_heads=12, valid_len=196,
+                         causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s,heads", [(16, 8), (50, 12), (77, 8)])
 def test_attention_strided_qkv_layout(cuda, s, heads, causal):
@@ -392,6 +437,99 @@ def test_layer_gemm_shapes(cuda, d, m):
         cos = torch.nn.functional.cosine_similarity(got.float(),
                                                     want.float(), dim=-1)
         assert cos.min().item() >= MIN_COS[torch.bfloat16]
+
+
+def _gelu_tanh_layer(d, t, device, dtype, seed):
+    """``t`` tokens and one layer's operands at width ``d`` (F = 4 d) with
+    fc1 scaled 8x, so that LN2's unit rows give fc1 outputs of std ~8:
+    many below -10, where the kernel form's exp(-2u) overflows to inf and
+    the activation is -0."""
+    ops = list(_layer(d, 4 * d, device, seed=seed, dtype=dtype))
+    ops[5] = ops[5] * 8
+    x = torch.randn(t, d, generator=torch.Generator().manual_seed(seed))
+    return x.to(device, dtype), tuple(ops)
+
+
+def _wide_atol(x, want):
+    """f32: 1e-4 a unit of magnitude (sums of up to 3,072 products in
+    another order); bf16: two bf16 ulps at the larger of the input's and
+    the output's largest magnitude (the tanh-GELU outputs reach ~30)."""
+    top = max(x.float().abs().max().item(), want.float().abs().max().item())
+    if x.dtype == torch.float32:
+        return 1e-4 * max(1.0, top)
+    return 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,t", [(128, 200), (128, 4096), (768, 200),
+                                 (768, 4096)])
+def test_mlp_half_gelu_tanh_kernel(cuda, dtype, d, t):
+    """B6 with tanh-GELU at the SigLIP text shape (T = 64 queries x 64
+    tokens, D = 768) and the tiny test width, with fc1 outputs far below
+    -10: against its plain version, element by element."""
+    x, ops = _gelu_tanh_layer(d, t, cuda, dtype, seed=d + t)
+    z = fl._ln_f32(x, ops[0][2], ops[0][3], 1e-6, dtype)
+    h = fl._dot(z, ops[5], ops[6]).float()
+    assert (h < -10).float().mean().item() > 0.05
+    before = fl.mlp_half.launches
+    got = fl.mlp_half(x, ops, eps=1e-6, act="gelu_tanh")
+    torch.cuda.synchronize()
+    assert fl.mlp_half.launches == before + 1
+    want = fl.mlp_half_ref(x, ops, eps=1e-6, act="gelu_tanh")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_wide_atol(x, want))
+    quick = fl.mlp_half(x, ops, eps=1e-6)
+    assert not torch.equal(quick, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [128, 768])
+def test_fused_layer_gelu_tanh_kernel(cuda, dtype, d):
+    """B2 (the causal block in one C call) with tanh-GELU, 64 items of S =
+    16, fc1 outputs far below -10: per-row cosine as B2's test."""
+    x, ops = _gelu_tanh_layer(d, 64 * 16, cuda, dtype, seed=d)
+    before = fl.fused_layer.launches
+    got = fl.fused_layer(x, ops, s=16, heads=d // 64, eps=1e-6,
+                         act="gelu_tanh")
+    torch.cuda.synchronize()
+    assert fl.fused_layer.launches == before + 1
+    want = fl.fused_layer_ref(x, ops, s=16, heads=d // 64, eps=1e-6,
+                              act="gelu_tanh")
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(),
+                                                dim=-1)
+    assert cos.min().item() >= MIN_COS[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gelu_tanh_kernel_negative_tail(cuda, dtype):
+    """The epilogue on a known range: LN2 of a ramp, fc1 = 64 I and fc2 =
+    I with zero biases, so the output is ``x + GELU(h)`` element by
+    element with h spanning about -110 .. 110. Below -10 exp(-2u)
+    overflows, the activation is -0 and the output is x, bit for bit;
+    everywhere against the plain version."""
+    d = 128
+    ops = list(_layer(d, d, cuda, seed=1, dtype=dtype))
+    ops[0] = torch.tensor([[1.0] * d, [0.0] * d] * 2, device=cuda)
+    eye = torch.eye(d, device=cuda, dtype=dtype)
+    zero = torch.zeros(d, device=cuda, dtype=dtype)
+    ops[5:] = [eye * 64, zero, eye, zero]
+    ops = tuple(o.contiguous() for o in ops)
+    x = torch.linspace(-1, 1, d, device=cuda).repeat(64, 1).to(dtype)
+    got = fl.mlp_half(x, ops, eps=1e-6, act="gelu_tanh")
+    want = fl.mlp_half_ref(x, ops, eps=1e-6, act="gelu_tanh")
+    torch.cuda.synchronize()
+    h = fl._dot(fl._ln_f32(x, ops[0][2], ops[0][3], 1e-6, dtype), ops[5],
+                ops[6]).float()
+    tail = h < -10
+    assert tail.float().mean().item() > 0.3
+    assert torch.equal(got[tail], x[tail])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_wide_atol(x, want))
 
 
 @pytest.mark.gpu
@@ -474,6 +612,20 @@ def test_cand_scan_duplicate_rows(cuda, b):
     emb = emb.to(cuda, torch.bfloat16)
     q = _exact(10, (b, 512)).to(cuda)
     _check_cand_prefix(emb, q, 3 * 4096, 1024, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 16, 17, 64, 65, 256])
+def test_cand_scan_siglip_width(cuda, b):
+    """B1 over a 768-wide bf16 mirror (SigLIP's rows: twelve 64-column
+    boxes a tile, a 64 x 768 query panel of 96 KB, so fewer ring stages):
+    winners bit-identical on exact inputs."""
+    emb = _exact(b, (4 * 4096, 768)).to(cuda, torch.bfloat16)
+    q = _exact(200 + b, (b, 768)).to(cuda)
+    _check_cand_prefix(emb, q, 3 * 4096 + 700, 1024, 2)
+    stages = topk.cand_ring_stages(emb, b, 2)
+    assert 2 <= stages < topk.cand_ring_stages(emb[:, :512].contiguous(),
+                                               b, 2) or b <= 16
 
 
 @pytest.mark.gpu

@@ -316,6 +316,23 @@ cand_kernel(const __grid_constant__ CUtensorMap emap,
   }
 }
 
+// Shared memory a CTA takes besides its ring (the query panel of kc_n
+// 64-column boxes and both halves' key lists), and the ring stages of a
+// half that the opt-in leaves (at most MAX_STAGES; < 2: D too wide).
+size_t fixed_smem(int d, int qn, int rounds) {
+  const int kc_n = (d + KBOX - 1) / KBOX;
+  return 1024 + (size_t)kc_n * qn * 128 +
+         (size_t)HALVES * 2 * CWARPS * qn * rounds * sizeof(int);
+}
+
+constexpr size_t PER_STAGE = HALVES * (STAGE_BYTES + 2 * sizeof(uint64_t));
+
+int ring_stages(int d, int qn, int rounds, int smem_optin) {
+  const long long room =
+      (long long)smem_optin - (long long)fixed_smem(d, qn, rounds);
+  return (int)std::min<long long>(MAX_STAGES, room / (long long)PER_STAGE);
+}
+
 template <int QN, int R, bool PERM>
 int launch(const void* emb, const int* perm, const void* q, float* vals,
            int* idxs, int n_pad, int d, int b, int valid, int bucket,
@@ -333,14 +350,9 @@ int launch(const void* emb, const int* perm, const void* q, float* vals,
   CUtensorMap map;
   if (!vqt::tensor_map(&map, emb, n_pad, d, TILE))
     return (int)cudaErrorInvalidValue;
-  const int kc_n = (d + KBOX - 1) / KBOX;
-  const size_t fixed = 1024 + (size_t)kc_n * QN * 128 +
-                       (size_t)HALVES * 2 * CWARPS * QN * R * sizeof(int);
-  const size_t per_stage = HALVES * (STAGE_BYTES + 2 * sizeof(uint64_t));
-  const long long room = (long long)smem_optin[dev] - (long long)fixed;
-  const int stages = (int)std::min<long long>(MAX_STAGES, room / per_stage);
+  const int stages = ring_stages(d, QN, R, smem_optin[dev]);
   if (stages < 2) return (int)cudaErrorInvalidValue;   // D too wide
-  const size_t smem = fixed + (size_t)stages * per_stage;
+  const size_t smem = fixed_smem(d, QN, R) + (size_t)stages * PER_STAGE;
   cudaError_t e = cudaFuncSetAttribute(
       cand_kernel<QN, R, PERM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -401,6 +413,19 @@ extern "C" int vqt_cand_scan_prefix(const void* emb, const void* queries,
                                     int block_rows, void* stream) {
   return cand_scan<false>(emb, nullptr, queries, vals, idxs, n_pad, d, b,
                           valid, bucket, rounds, block_rows, stream);
+}
+
+// The ring stages a warpgroup of B1/B10 takes for b queries of d features
+// and `rounds` on the current device; -1 for operands it refuses
+extern "C" int vqt_cand_scan_stages(int d, int b, int rounds) {
+  int dev = 0, smem_optin = 0;
+  if (d <= 0 || d % 16 || b <= 0 || rounds < 1 || rounds > vqt::MAXR ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_optin,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return ring_stages(d, b <= 16 ? 16 : 64, rounds, smem_optin);
 }
 
 extern "C" int vqt_cand_scan(const void* emb, const void* perm,

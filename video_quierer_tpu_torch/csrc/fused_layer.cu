@@ -6,7 +6,8 @@
 //   non-causal for the ViT-B/32 vision tower at S=50) -> out-proj + bias ->
 //   residual;
 // - B6 _mlp_half_call (kernel _mlp_half_kernel = _mlp_math): LN2 -> fc1 +
-//   bias -> quick-GELU -> fc2 + bias -> residual;
+//   bias -> quick-GELU (CLIP) or tanh-GELU (SigLIP) -> fc2 + bias ->
+//   residual;
 // - B2 _fused_layer_call (kernel _layer_kernel = both): the causal text
 //   block, here B5 followed by B6 in one C call (vqt_text_layer);
 // all on the flat [B*S, D] token matrix.
@@ -20,7 +21,7 @@
 //         (attention.cu; the TPU kernel's cross-item mask over a shared
 //         tile is TPU redundancy, not semantics)                     -> attn
 //      3. GEMM, bias + residual epilogue                             -> x3
-//   B6 4. GEMM with LayerNorm-2 prologue, bias + quick-GELU epilogue -> h
+//   B6 4. GEMM with LayerNorm-2 prologue, bias + GELU epilogue       -> h
 //      5. GEMM, bias + residual epilogue                             -> out
 // The weights keep _layer_operands' layout: [in, out] row-major with q/k/v
 // concatenated along out (wqkv [D, 3D]). Item boundaries (S = 50 for the
@@ -28,8 +29,10 @@
 // per token, only the attention step sees items.
 //
 // The GEMM keeps the reference's bf16 rounding points in its prologue
-// (LN output rounded to T) and epilogue (T(acc), + bias in T, quick-GELU
-// in T, + residual in T) around an f32 accumulate:
+// (LN output rounded to T) and epilogue (T(acc), + bias in T, the GELU
+// in T, + residual in T) around an f32 accumulate. The activation is a
+// template parameter (ACT_NONE, ACT_QUICK_GELU, ACT_GELU_TANH) of both
+// GEMMs, picked once per C call, so no tile carries a runtime branch:
 // - bf16 (the serving towers): LayerNorm runs first as its own small kernel
 //   (ln_bf16, one warp a row, f32 statistics) into a scratch [T, D] bf16
 //   buffer, so the GEMM's A operand is a plain TMA copy; then gemm_wgmma: a
@@ -113,27 +116,40 @@ __device__ __forceinline__ float a_elem(const T* __restrict__ A, int M, int K,
                           : a;
 }
 
+// the epilogue's activation (ops/fused_layer.py:ACT_CODES)
+constexpr int ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU_TANH = 2;
+
 // Epilogue of one output from its f32 accumulator, before the residual:
-// T(acc) + bias in T, then quick-GELU x / (1 + exp(c x)) in T with c the
-// reference's weakly typed -1.702 rounded to T.
-template <typename T>
-__device__ __forceinline__ float epilogue(float acc, float bias, int gelu) {
+// T(acc) + bias in T, then the activation in T, every step rounded to T
+// with the reference's weakly typed constants rounded to T (_mlp_math):
+// - quick-GELU: x / (1 + exp(-1.702 x));
+// - tanh-GELU: u = c1 (x + c2 ((x x) x)), then x (1 / (1 + exp(-2 u))),
+//   c1 = sqrt(2 / pi), c2 = 0.044715 (bf16: 0.796875, 0.044677734375).
+//   For large negative x, exp gives inf and the output is -0.
+template <typename T, int ACT>
+__device__ __forceinline__ float epilogue(float acc, float bias) {
   float t = rnd<T>(acc);
   t = rnd<T>(t + bias);
-  if (gelu) {
+  if constexpr (ACT == ACT_QUICK_GELU) {
     const float e = rnd<T>(expf(rnd<T>(rnd<T>(-1.702f) * t)));
+    t = rnd<T>(t * rnd<T>(1.f / rnd<T>(1.f + e)));
+  } else if constexpr (ACT == ACT_GELU_TANH) {
+    const float cube = rnd<T>(rnd<T>(t * t) * t);
+    const float inner = rnd<T>(t + rnd<T>(rnd<T>(0.044715f) * cube));
+    const float u = rnd<T>(rnd<T>(0.7978845608028654f) * inner);
+    const float e = rnd<T>(expf(rnd<T>(-2.f * u)));
     t = rnd<T>(t * rnd<T>(1.f / rnd<T>(1.f + e)));
   }
   return t;
 }
 
 // ... then + residual in T, stored
-template <typename T>
+template <typename T, int ACT>
 __device__ __forceinline__ void store_out(float acc, int m, int n, int N,
                                           const T* __restrict__ bias,
                                           const T* __restrict__ res,
-                                          int gelu, T* __restrict__ C) {
-  float t = epilogue<T>(acc, to_f(bias[n]), gelu);
+                                          T* __restrict__ C) {
+  float t = epilogue<T, ACT>(acc, to_f(bias[n]));
   if (res != nullptr) t = rnd<T>(to_f(res[(size_t)m * N + n]) + t);
   C[(size_t)m * N + n] = from_f<T>(t);
 }
@@ -141,11 +157,12 @@ __device__ __forceinline__ void store_out(float acc, int m, int n, int N,
 // f32: C[M, N] = epilogue(prologue(A)[M, K] @ W[K, N]) on the CUDA cores
 constexpr int F_BK = 16, F_TM = 4, F_TN = 4, F_THREADS = 256;
 
+template <int ACT>
 __global__ void __launch_bounds__(F_THREADS)
 gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
          const float* __restrict__ bias, const float* __restrict__ gamma,
          const float* __restrict__ beta, const float* __restrict__ res,
-         float* __restrict__ C, int M, int N, int K, float eps, int gelu) {
+         float* __restrict__ C, int M, int N, int K, float eps) {
   __shared__ float As[F_BK][BM + 4];
   __shared__ float Ws[F_BK][BN];
   __shared__ float mu[BM], rs[BM];
@@ -190,19 +207,21 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < F_TN; ++j)
-      store_out(acc[i][j], m, n0 + tx + 16 * j, N, bias, res, gelu, C);
+      store_out<float, ACT>(acc[i][j], m, n0 + tx + 16 * j, N, bias, res,
+                            C);
   }
 }
 
 // f32: launch gemm_f32 (LayerNorm fused when gamma is given)
+template <int ACT>
 int gemm_f32_launch(const float* a, const float* w, const float* bias,
                     const float* gamma, const float* beta, const float* res,
-                    float* c, int m, int n, int k, float eps, int gelu,
+                    float* c, int m, int n, int k, float eps,
                     cudaStream_t stream) {
   if (n % BN || k % F_BK) return (int)cudaErrorInvalidValue;
   dim3 grid(n / BN, (m + BM - 1) / BM);
-  gemm_f32<<<grid, F_THREADS, 0, stream>>>(a, w, bias, gamma, beta, res, c,
-                                           m, n, k, eps, gelu);
+  gemm_f32<ACT><<<grid, F_THREADS, 0, stream>>>(a, w, bias, gamma, beta,
+                                                res, c, m, n, k, eps);
   return (int)cudaGetLastError();
 }
 
@@ -357,12 +376,12 @@ constexpr size_t wgmma_smem() {
 // consumer warpgroups (rows 64 wg .. of the tile), the last warp the
 // producer. Stage s holds A [BM][64] (K-major) and W as BN/64 atoms of
 // [64 K][64 N] (MN-major), each 128-byte swizzled by TMA.
-template <int BM, int BN>
+template <int BM, int BN, int ACT>
 __global__ void __launch_bounds__(BM * 2 + 32, 2)
 gemm_wgmma(const __grid_constant__ CUtensorMap amap,
            const __grid_constant__ CUtensorMap wmap,
            const bf16* __restrict__ bias, const bf16* __restrict__ res,
-           bf16* __restrict__ C, int M, int N, int K, int gelu) {
+           bf16* __restrict__ C, int M, int N, int K) {
   constexpr int CONS = BM / 64, A_BYTES = BM * G_BK * 2,
                 STAGE = (BM + BN) * G_BK * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -435,9 +454,9 @@ gemm_wgmma(const __grid_constant__ CUtensorMap amap,
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
       if (r >= M) continue;
-      float v0 = epilogue<bf16>(acc[4 * j + 2 * h], __low2float(bb), gelu);
+      float v0 = epilogue<bf16, ACT>(acc[4 * j + 2 * h], __low2float(bb));
       float v1 =
-          epilogue<bf16>(acc[4 * j + 2 * h + 1], __high2float(bb), gelu);
+          epilogue<bf16, ACT>(acc[4 * j + 2 * h + 1], __high2float(bb));
       const size_t o = (size_t)r * N + c;
       if (res != nullptr) {
         const __nv_bfloat162 rr =
@@ -451,10 +470,10 @@ gemm_wgmma(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-template <int BM, int BN>
+template <int BM, int BN, int ACT>
 int launch_wgmma(const bf16* a, const bf16* w, const bf16* bias,
-                 const bf16* res, bf16* c, int m, int n, int k, int gelu,
-                 int dev, cudaStream_t stream) {
+                 const bf16* res, bf16* c, int m, int n, int k, int dev,
+                 cudaStream_t stream) {
   CUtensorMap amap, wmap;
   if (!tensor_map(&amap, a, m, k, BM) || !tensor_map(&wmap, w, k, n, 64))
     return (int)cudaErrorInvalidValue;
@@ -463,14 +482,14 @@ int launch_wgmma(const bf16* a, const bf16* w, const bf16* bias,
   static bool opted[MAX_DEVICES];
   if (!opted[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemm_wgmma<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_wgmma<BM, BN, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted[dev] = true;
   }
   dim3 grid(n / BN, (m + BM - 1) / BM);
-  gemm_wgmma<BM, BN><<<grid, BM * 2 + 32, smem, stream>>>(
-      amap, wmap, bias, res, c, m, n, k, gelu);
+  gemm_wgmma<BM, BN, ACT><<<grid, BM * 2 + 32, smem, stream>>>(
+      amap, wmap, bias, res, c, m, n, k);
   return (int)cudaGetLastError();
 }
 
@@ -478,8 +497,9 @@ int launch_wgmma(const bf16* a, const bf16* w, const bf16* bias,
 // SM at least one CTA (N % 128 for the first). 128x256 with 4 stages, one
 // CTA an SM, read 0.60 ms for B6 at 256 frames against 0.42 for 128x128:
 // its epilogue idles the tensor cores.
+template <int ACT>
 int gemm_bf16(const bf16* a, const bf16* w, const bf16* bias, const bf16* res,
-              bf16* c, int m, int n, int k, int gelu, cudaStream_t stream) {
+              bf16* c, int m, int n, int k, cudaStream_t stream) {
   // TMA: 16-byte aligned bases and row strides; whole 64-wide W atoms
   if (n % 64 || k % 8 || (((uintptr_t)a | (uintptr_t)w) & 15))
     return (int)cudaErrorInvalidValue;
@@ -492,36 +512,35 @@ int gemm_bf16(const bf16* a, const bf16* w, const bf16* bias, const bf16* res,
                            dev);
   const long rows128 = (m + 127) / 128, sms = sm_count[dev];
   if (n % 128 == 0 && rows128 * (n / 128) >= sms)
-    return launch_wgmma<128, 128>(a, w, bias, res, c, m, n, k, gelu, dev,
-                                  stream);
+    return launch_wgmma<128, 128, ACT>(a, w, bias, res, c, m, n, k, dev,
+                                       stream);
   if (rows128 * (n / 64) >= sms)
-    return launch_wgmma<128, 64>(a, w, bias, res, c, m, n, k, gelu, dev,
-                                 stream);
-  return launch_wgmma<64, 64>(a, w, bias, res, c, m, n, k, gelu, dev,
-                              stream);
+    return launch_wgmma<128, 64, ACT>(a, w, bias, res, c, m, n, k, dev,
+                                      stream);
+  return launch_wgmma<64, 64, ACT>(a, w, bias, res, c, m, n, k, dev, stream);
 }
 
 // One GEMM of a block: C = epilogue(LN?(A) @ W). f32: gemm_f32 with the
 // LayerNorm fused; bf16: ln_bf16 into `lnbuf` ([m, k], when gamma is given),
 // then gemm_wgmma.
-template <typename T>
+template <typename T, int ACT>
 int layer_gemm(const void* a, const void* w, const void* bias,
                const float* gamma, const float* beta, void* lnbuf,
                const void* res, void* c, int m, int n, int k, float eps,
-               int gelu, cudaStream_t stream) {
+               cudaStream_t stream) {
   if (sizeof(T) == 4)
-    return gemm_f32_launch((const float*)a, (const float*)w,
-                           (const float*)bias, gamma, beta,
-                           (const float*)res, (float*)c, m, n, k, eps, gelu,
-                           stream);
+    return gemm_f32_launch<ACT>((const float*)a, (const float*)w,
+                                (const float*)bias, gamma, beta,
+                                (const float*)res, (float*)c, m, n, k, eps,
+                                stream);
   if (gamma != nullptr) {
     const int e = ln_launch((const bf16*)a, gamma, beta, (bf16*)lnbuf, m, k,
                             eps, stream);
     if (e) return e;
     a = lnbuf;
   }
-  return gemm_bf16((const bf16*)a, (const bf16*)w, (const bf16*)bias,
-                   (const bf16*)res, (bf16*)c, m, n, k, gelu, stream);
+  return gemm_bf16<ACT>((const bf16*)a, (const bf16*)w, (const bf16*)bias,
+                        (const bf16*)res, (bf16*)c, m, n, k, stream);
 }
 
 // B5: LN1 -> QKV -> per-item attention -> out-proj + residual (launches 1-3)
@@ -532,8 +551,8 @@ int attn_half(const void* x, void* out, void* qkv, void* attn,
               int heads, float eps, int causal, int dtype, cudaStream_t s) {
   int e;
   // 1. LN1 -> QKV (bf16: LN1 into attn, free until step 2)
-  if ((e = layer_gemm<T>(x, wqkv, bqkv, ln, ln + d, attn, nullptr, qkv,
-                         tokens, 3 * d, d, eps, 0, s)))
+  if ((e = layer_gemm<T, ACT_NONE>(x, wqkv, bqkv, ln, ln + d, attn, nullptr,
+                                   qkv, tokens, 3 * d, d, eps, s)))
     return e;
   // 2. per-item attention over the q/k/v column blocks (row stride 3D);
   //    q is not pre-scaled: the f32 logits take hd^-0.5 (_attn_math)
@@ -545,24 +564,39 @@ int attn_half(const void* x, void* out, void* qkv, void* attn,
                          s)))
     return e;
   // 3. out-proj + residual
-  return layer_gemm<T>(attn, wout, bout, nullptr, nullptr, nullptr, x, out,
-                       tokens, d, d, eps, 0, s);
+  return layer_gemm<T, ACT_NONE>(attn, wout, bout, nullptr, nullptr, nullptr,
+                                 x, out, tokens, d, d, eps, s);
 }
 
-// B6: LN2 (ln rows 2-3) -> fc1 -> quick-GELU -> fc2 + residual (launches 4-5)
-template <typename T>
+// B6: LN2 (ln rows 2-3) -> fc1 -> GELU -> fc2 + residual (launches 4-5)
+template <typename T, int ACT>
 int mlp_half(const void* x3, void* out, void* h, const float* ln,
              const void* wfc1, const void* bfc1, const void* wfc2,
              const void* bfc2, int tokens, int d, int f, float eps,
              cudaStream_t s) {
   int e;
-  // 4. LN2 -> fc1 -> quick-GELU (bf16: LN2 into out, free until step 5)
-  if ((e = layer_gemm<T>(x3, wfc1, bfc1, ln + 2 * d, ln + 3 * d, out,
-                         nullptr, h, tokens, f, d, eps, 1, s)))
+  // 4. LN2 -> fc1 -> GELU (bf16: LN2 into out, free until step 5)
+  if ((e = layer_gemm<T, ACT>(x3, wfc1, bfc1, ln + 2 * d, ln + 3 * d, out,
+                              nullptr, h, tokens, f, d, eps, s)))
     return e;
   // 5. fc2 + residual
-  return layer_gemm<T>(h, wfc2, bfc2, nullptr, nullptr, nullptr, x3, out,
-                       tokens, d, f, eps, 0, s);
+  return layer_gemm<T, ACT_NONE>(h, wfc2, bfc2, nullptr, nullptr, nullptr,
+                                 x3, out, tokens, d, f, eps, s);
+}
+
+// B6 with its activation picked once, for the whole call
+template <typename T>
+int mlp_half_act(const void* x3, void* out, void* h, const float* ln,
+                 const void* wfc1, const void* bfc1, const void* wfc2,
+                 const void* bfc2, int tokens, int d, int f, float eps,
+                 int act, cudaStream_t s) {
+  if (act == ACT_QUICK_GELU)
+    return mlp_half<T, ACT_QUICK_GELU>(x3, out, h, ln, wfc1, bfc1, wfc2,
+                                       bfc2, tokens, d, f, eps, s);
+  if (act == ACT_GELU_TANH)
+    return mlp_half<T, ACT_GELU_TANH>(x3, out, h, ln, wfc1, bfc1, wfc2,
+                                      bfc2, tokens, d, f, eps, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 bool bad_shape(int tokens, int seq, int d, int heads) {
@@ -589,24 +623,25 @@ extern "C" int vqt_attn_half(const void* x, void* out, void* qkv, void* attn,
   return (int)cudaErrorInvalidValue;
 }
 
+// B6; act: ACT_QUICK_GELU (CLIP) or ACT_GELU_TANH (SigLIP)
 extern "C" int vqt_mlp_half(const void* x3, void* out, void* h,
                             const void* ln, const void* wfc1,
                             const void* bfc1, const void* wfc2,
                             const void* bfc2, int tokens, int d, int f,
-                            float eps, int dtype, void* stream) {
+                            float eps, int act, int dtype, void* stream) {
   if (tokens <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* lnf = (const float*)ln;
   if (dtype == vqt::DT_BF16)
-    return mlp_half<bf16>(x3, out, h, lnf, wfc1, bfc1, wfc2, bfc2, tokens, d,
-                          f, eps, s);
+    return mlp_half_act<bf16>(x3, out, h, lnf, wfc1, bfc1, wfc2, bfc2,
+                              tokens, d, f, eps, act, s);
   if (dtype == vqt::DT_F32)
-    return mlp_half<float>(x3, out, h, lnf, wfc1, bfc1, wfc2, bfc2, tokens,
-                           d, f, eps, s);
+    return mlp_half_act<float>(x3, out, h, lnf, wfc1, bfc1, wfc2, bfc2,
+                               tokens, d, f, eps, act, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// B2: the whole causal text block = B5 (causal) then B6
+// B2: the whole causal text block = B5 (causal) then B6 with `act`
 extern "C" int vqt_text_layer(const void* x, void* out, void* qkv,
                               void* attn, void* x3, void* h, const void* ln,
                               const void* wqkv, const void* bqkv,
@@ -614,11 +649,13 @@ extern "C" int vqt_text_layer(const void* x, void* out, void* qkv,
                               const void* wfc1, const void* bfc1,
                               const void* wfc2, const void* bfc2, int tokens,
                               int seq, int d, int heads, int f, float eps,
-                              int dtype, void* stream) {
+                              int act, int dtype, void* stream) {
+  if (act != ACT_QUICK_GELU && act != ACT_GELU_TANH)
+    return (int)cudaErrorInvalidValue;
   int e;
   if ((e = vqt_attn_half(x, x3, qkv, attn, ln, wqkv, bqkv, wout, bout,
                          tokens, seq, d, heads, eps, 1, dtype, stream)))
     return e;
   return vqt_mlp_half(x3, out, h, ln, wfc1, bfc1, wfc2, bfc2, tokens, d, f,
-                      eps, dtype, stream);
+                      eps, act, dtype, stream);
 }

@@ -12,8 +12,10 @@ fields included (``index.kind = "ivf"``, ``ivf_nlist``, ``ivf_nprobe``,
 ``ivf_min_rows``: the engine serves through ``index/ivf.py``) and the
 corpus mesh's (``index.corpus_shards``, ``index.corpus_slices``,
 ``VQT_CORPUS_SHARDS``/``VQT_CORPUS_SLICES``: the engine shards its index,
-``parallel/mesh.py``); fields the port does not act on yet (SigLIP,
-pipeline parallelism) keep their names and validation so one
+``parallel/mesh.py``) and the model family's (``model.family`` "clip" or
+"siglip", ``VQT_MODEL_FAMILY``: the engine builds that family's seeded
+towers); fields the port does not act on yet (checkpoints, pipeline
+parallelism) keep their names and validation so one
 ``config.json``/``engine.yaml`` serves both packages.
 Ingest samples by the reference's interval rule only: the adaptive and
 hybrid samplers and the quality filter (``ingest/samplers.py``) are not

@@ -11,9 +11,13 @@ multi-slice one, where it keeps one replica on the first device):
   md5(name, size, mtime), ingest the new and changed videos (all of them
   without a cache) and save the cache; then bring the device mirrors up
   to date;
+- the towers: ``model.family`` "clip" (``models/clip``) or "siglip"
+  (``models/siglip``: 768-wide rows, so ``index.embed_dim`` 512 becomes
+  768), seeded;
 - ingest (``_ingest``, ``process_video``): the threaded decode pipeline
   (``ingest/pipeline.py``) yields cross-video batches of 256 frames; each
-  is embedded on the device (the fused vision encode, kernels B5 + B6),
+  is embedded on the device (CLIP: the fused vision encode, kernels B5 +
+  B6; SigLIP: the module tower),
   appended to the host store per video, and streamed into the device
   mirrors from the embedder's device output in one step per batch
   (``DeviceVideoIndex.stream_rows_device``);
@@ -106,6 +110,10 @@ class VideoSearchEngine:
         split into ``index.corpus_slices`` slices when > 1)."""
         self.config = config or load_engine_config()
         check_cache_ported(self.config.cache)
+        if self.config.model.family == "siglip" and \
+                self.config.index.embed_dim == 512:
+            # SigLIP towers are 768-wide (no projection head)
+            self.config.index.embed_dim = 768
         self.device = resolve_device(device)
         self.videos_dir = Path(videos_dir or self.config.videos_dir)
         self.videos_dir.mkdir(parents=True, exist_ok=True)
@@ -154,16 +162,26 @@ class VideoSearchEngine:
                 "use_clip=false (the keyword encoder) is not yet ported")
         if self._embedder is None:
             m = self.config.model
-            if m.family != "clip" or m.checkpoint_dir \
-                    or m.orbax_checkpoint or m.parallel != "none":
+            if m.checkpoint_dir or m.orbax_checkpoint:
                 raise NotImplementedError(
-                    "only the seeded CLIP towers are ported (no SigLIP, "
-                    "checkpoints or pipeline parallelism yet)")
-            from video_quierer_tpu_torch.models.clip.embedder import \
-                CLIPEmbedder
-            self._embedder = CLIPEmbedder(model_name=m.name,
-                                          dtype=_DTYPES[m.dtype],
-                                          device=self.device)
+                    "model.checkpoint_dir / model.orbax_checkpoint: the "
+                    "port serves seeded towers only (the CLIP and SigLIP "
+                    "checkpoint converters are not ported yet)")
+            if m.parallel != "none":
+                raise NotImplementedError(
+                    f"model.parallel={m.parallel!r}: pipeline parallelism "
+                    "of the towers is not ported")
+            if m.family == "siglip":
+                from video_quierer_tpu_torch.models.siglip.embedder import \
+                    SigLIPEmbedder
+                self._embedder = SigLIPEmbedder(dtype=_DTYPES[m.dtype],
+                                                device=self.device)
+            else:
+                from video_quierer_tpu_torch.models.clip.embedder import \
+                    CLIPEmbedder
+                self._embedder = CLIPEmbedder(model_name=m.name,
+                                              dtype=_DTYPES[m.dtype],
+                                              device=self.device)
         return self._embedder
 
     def embed_frames(self, frames_u8: np.ndarray) -> np.ndarray:

@@ -193,7 +193,7 @@ class CLIPEmbedder:
             step = TEXT_BUCKETS[-1]
             return np.concatenate([self.embed_texts(texts[i:i + step])
                                    for i in range(0, len(texts), step)])
-        ids = trim_text_ids(self.tokenizer(texts))
+        ids = self.prepare_text_ids(self.tokenizer(texts))
         n = ids.shape[0]
         bucket = _bucket_for(n, TEXT_BUCKETS)
         if n < bucket:

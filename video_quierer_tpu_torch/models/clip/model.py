@@ -22,6 +22,8 @@ ported.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -37,6 +39,20 @@ from video_quierer_tpu_torch.ops.fused_layer import _const, _ln_f32
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's activation: ``x * sigmoid(1.702 x)`` (not tanh-GELU)."""
     return x * torch.sigmoid(_const(1.702, x.dtype) * x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """SigLIP's activation, ``jax.nn.gelu(approximate=True)``'s chain:
+    ``x · (0.5·(1 + tanh(√(2/π)·(x + 0.044715·x³))))`` with √(2/π) cast
+    to the dtype. The fused kernels' sigmoid form is another chain
+    (``ops/fused_layer.py:gelu_kernel_form``)."""
+    dt = x.dtype
+    c = _const(math.sqrt(2 / math.pi), dt)
+    inner = c * (x + _const(0.044715, dt) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu_tanh": gelu_tanh}
 
 
 class LayerNorm(nn.Module):
@@ -71,26 +87,28 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, d: int, ratio: int):
+    def __init__(self, d: int, ratio: int, act: str = "quick_gelu"):
         super().__init__()
+        self.act = ACTIVATIONS[act]
         self.fc1 = nn.Linear(d, d * ratio)
         self.fc2 = nn.Linear(d * ratio, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class EncoderBlock(nn.Module):
     """Pre-LN block; ``causal`` comes from its tower (text True, vision
-    False)."""
+    False), ``act`` from its family (CLIP quick-GELU, SigLIP tanh-GELU)."""
 
-    def __init__(self, c: CLIPTextConfig | CLIPVisionConfig, causal: bool):
+    def __init__(self, c: CLIPTextConfig | CLIPVisionConfig, causal: bool,
+                 act: str = "quick_gelu"):
         super().__init__()
         d = c.hidden_size
         self.layer_norm1 = LayerNorm(d, c.layer_norm_eps)
         self.attn = Attention(d, c.num_heads, causal=causal)
         self.layer_norm2 = LayerNorm(d, c.layer_norm_eps)
-        self.mlp = MLP(d, c.mlp_ratio)
+        self.mlp = MLP(d, c.mlp_ratio, act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.layer_norm1(x))

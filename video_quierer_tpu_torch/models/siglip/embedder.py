@@ -1,0 +1,128 @@
+"""SigLIP embedder (counterpart of
+``video_quierer_tpu/models/siglip/embedder.py``): the CLIP embedder's
+interface, so the engine swaps families through ``model.family``.
+
+- Frames: the CLIP embedder's buckets and device path
+  (``embed_frames_device``), normalised to SigLIP's ``[-1, 1]`` (mean =
+  std = 0.5) and encoded by the module tower (kernel B3 and
+  ``torch.matmul``), as the JAX package routes SigLIP vision.
+- Text: the ids go in whole (``prepare_text_ids`` is the identity:
+  trimming pad columns would change a non-causal tower's output), padded
+  to a batch bucket; ``B·S >= MIN_TOKENS`` (from the 8-query bucket up at
+  64 tokens) takes :func:`fused_siglip_text_encode` (kernels B5 and B6
+  with tanh-GELU), smaller batches the module tower.
+- Tokenizer: SentencePiece (``spm.py``) when a ``spiece.model`` is found
+  (``VQT_SIGLIP_SPIECE``), else the hash tokenizer at SigLIP's geometry
+  (64-token context, 32k vocab).
+- ``embed_dim`` is the tower width (768): SigLIP has no projection.
+
+Weights: a state dict handed in (e.g. from ``bridge.params_from_jax``),
+else the port's seeded init (``bridge.init_params``). Checkpoints are not
+loaded yet.
+"""
+
+from __future__ import annotations
+
+import logging
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from video_quierer_tpu_torch.models.clip.embedder import CLIPEmbedder
+from video_quierer_tpu_torch.models.clip.tokenizer import HashTokenizer
+from video_quierer_tpu_torch.models.siglip.bridge import init_params
+from video_quierer_tpu_torch.models.siglip.fused import (
+    fused_siglip_text_encode,
+)
+from video_quierer_tpu_torch.models.siglip.model import (
+    SigLIP,
+    SigLIPConfig,
+    siglip_base_patch16,
+)
+from video_quierer_tpu_torch.models.siglip.spm import (
+    SigLIPSPTokenizer,
+    find_spiece_model,
+)
+from video_quierer_tpu_torch.ops.fused_layer import (
+    LayerOps,
+    fused_batch_eligible,
+    fused_text_tower_eligible,
+)
+from video_quierer_tpu_torch.ops.preprocess import (
+    SIGLIP_MEAN,
+    SIGLIP_STD,
+    normalize_images,
+)
+from video_quierer_tpu_torch.utils.env import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+def siglip_tokenizer(cfg: Optional[SigLIPConfig] = None,
+                     checkpoint_dir: Optional[Path] = None):
+    """SentencePiece when a ``spiece.model`` is found
+    (``VQT_SIGLIP_SPIECE`` or beside the checkpoint); otherwise the hash
+    tokenizer at SigLIP's text geometry."""
+    t = (cfg or siglip_base_patch16()).text
+    spiece = find_spiece_model(checkpoint_dir)
+    if spiece is not None:
+        logger.info("SigLIP text: SentencePiece tokenizer from %s", spiece)
+        return SigLIPSPTokenizer(spiece, context_length=t.context_length)
+    return HashTokenizer(context_length=t.context_length,
+                         vocab_size=t.vocab_size,
+                         sot=t.vocab_size - 2, eot=t.vocab_size - 1)
+
+
+class SigLIPEmbedder(CLIPEmbedder):
+    """SigLIP image and text encoder with the CLIP embedder's bucketed
+    batching on one device."""
+
+    def __init__(self, cfg: Optional[SigLIPConfig] = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 device: str | torch.device = "cuda",
+                 seed: int = 0,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+        self.cfg = cfg or siglip_base_patch16()
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        if state_dict is None:
+            state_dict = init_params(self.cfg,
+                                     torch.Generator().manual_seed(seed))
+        model = SigLIP(self.cfg)
+        model.load_state_dict(state_dict)
+        self.params = model.to(device=self.device, dtype=dtype).eval()
+        self.pretrained = False
+        self.tokenizer = siglip_tokenizer(self.cfg)
+        self._fused_text = fused_text_tower_eligible(self.cfg.text)
+        self._ops: Dict[tuple, List[LayerOps]] = {}
+        self.text_encode_fn = self._encode_text_fn
+
+    @property
+    def embed_dim(self) -> int:
+        return self.cfg.vision.hidden_size
+
+    def _encode_image_fn(self, params: SigLIP,
+                         frames_u8: torch.Tensor) -> torch.Tensor:
+        """``[B, H, W, 3]`` uint8 on the device → ``[B, hidden]`` f32 unit
+        rows, on the module tower."""
+        with torch.inference_mode():
+            pixels = normalize_images(frames_u8, dtype=self.dtype,
+                                      mean=SIGLIP_MEAN, std=SIGLIP_STD)
+            return params.encode_image(pixels)
+
+    def _encode_text_fn(self, params: SigLIP,
+                        input_ids: torch.Tensor) -> torch.Tensor:
+        """``[B, S]`` ids on the device → ``[B, hidden]`` f32 unit rows."""
+        with torch.inference_mode():
+            if self._fused_text and fused_batch_eligible(*input_ids.shape):
+                return fused_siglip_text_encode(params, input_ids,
+                                                self._layer_ops(params))
+            return params.encode_text(input_ids)
+
+    @staticmethod
+    def prepare_text_ids(ids: np.ndarray) -> np.ndarray:
+        """The ids as the tokenizer gives them: the tower is non-causal
+        and pools the last position, so no pad column may go."""
+        return ids

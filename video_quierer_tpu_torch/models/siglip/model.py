@@ -1,0 +1,191 @@
+"""SigLIP in PyTorch (counterpart of
+``video_quierer_tpu/models/siglip/model.py``).
+
+Architecture of ``google/siglip-base-patch16-224``, both towers, serving
+only (no logit scale or bias, no sigmoid loss):
+
+- tanh-GELU activation, LayerNorm eps 1e-6;
+- vision: a biased conv patchify (the flax conv as a matmul over NHWC
+  patches, with bias), NO class token and NO pre-LN, learned positions,
+  non-causal encoder blocks, post-LN over every token, then the MAP head
+  (a learned probe attends over the tokens, then ``x + MLP(LN(x))``),
+  pooled at the probe;
+- text: token + learned position embedding, NON-causal encoder blocks,
+  final LayerNorm, pooled at the LAST position (``x[:, -1]``), a linear
+  head;
+- no projection to a shared width: both towers give ``hidden_size``-wide
+  rows, L2 normalised in f32.
+
+The encoder blocks are the CLIP port's (``models/clip/model.py``, with
+``act="gelu_tanh"``); their attention is kernel B3. The MAP head's one
+query attends in plain PyTorch, as the flax head's einsums. Module and
+parameter names follow the flax tree (``models/siglip/bridge.py`` maps
+one onto the other).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from video_quierer_tpu_torch.models.clip.model import (
+    MLP,
+    EncoderBlock,
+    LayerNorm,
+    _normalize_f32,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 16
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    layer_norm_eps: float = 1e-6
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLIPTextConfig:
+    vocab_size: int = 32_000
+    context_length: int = 64
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    layer_norm_eps: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLIPConfig:
+    name: str = "siglip-base-patch16-224"
+    vision: SigLIPVisionConfig = dataclasses.field(
+        default_factory=SigLIPVisionConfig)
+    text: SigLIPTextConfig = dataclasses.field(
+        default_factory=SigLIPTextConfig)
+
+
+def siglip_base_patch16() -> SigLIPConfig:
+    return SigLIPConfig()
+
+
+class MAPHead(nn.Module):
+    """Multi-head attention pooling: a learned probe attends over the
+    tokens (f32 logits, softmax, weights cast to the dtype), out-proj,
+    then ``x + MLP(LN(x))``; returns the probe's row ``[B, D]``."""
+
+    def __init__(self, d: int, num_heads: int, mlp_ratio: int, eps: float):
+        super().__init__()
+        self.num_heads = num_heads
+        self.probe = nn.Parameter(torch.zeros(1, 1, d))
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+        self.layernorm = LayerNorm(d, eps)
+        self.mlp = MLP(d, mlp_ratio, "gelu_tanh")
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        b, s, d = tokens.shape
+        h = self.num_heads
+        hd = d // h
+        q = self.q_proj(self.probe.expand(b, 1, d))
+        k, v = self.k_proj(tokens), self.v_proj(tokens)
+        qh = (q * hd ** -0.5).reshape(b, 1, h, hd)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
+                              k.reshape(b, s, h, hd).float())
+        weights = torch.softmax(logits, dim=-1).to(tokens.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.float(),
+                           v.reshape(b, s, h, hd).float())
+        x = self.out_proj(out.to(tokens.dtype).reshape(b, 1, d))
+        x = x + self.mlp(self.layernorm(x))
+        return x[:, 0]
+
+
+class SigLIPVisionTower(nn.Module):
+    def __init__(self, c: SigLIPVisionConfig):
+        super().__init__()
+        self.cfg = c
+        d, p = c.hidden_size, c.patch_size
+        # the flax conv kernel [p, p, 3, D] (HWIO) as a [D, p*p*3] matrix
+        # over patches flattened in (row, column, channel) order, + bias
+        self.patch_embedding = nn.Linear(p * p * 3, d)
+        self.position_embedding = nn.Parameter(
+            torch.zeros(c.num_patches, d))
+        self.layers = nn.ModuleList(
+            EncoderBlock(c, causal=False, act="gelu_tanh")
+            for _ in range(c.num_layers))
+        self.post_layernorm = LayerNorm(d, c.layer_norm_eps)
+        self.head = MAPHead(d, c.num_heads, c.mlp_ratio, c.layer_norm_eps)
+
+    def embed(self, pixels: torch.Tensor) -> torch.Tensor:
+        """NHWC ``[B, H, W, 3]`` normalised pixels → tokens ``[B, S, D]``:
+        patchify (with bias) and positions."""
+        c = self.cfg
+        b = pixels.shape[0]
+        p, g = c.patch_size, c.image_size // c.patch_size
+        dtype = self.position_embedding.dtype
+        patches = (pixels.to(dtype).reshape(b, g, p, g, p, 3)
+                   .permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3))
+        return self.patch_embedding(patches) + self.position_embedding[None]
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """Encoded tokens ``[B, S, D]`` → post-LN → the MAP head's row."""
+        return self.head(self.post_layernorm(x))
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """NHWC ``[B, H, W, 3]`` normalised pixels → pooled features
+        ``[B, hidden]`` in the tower dtype."""
+        x = self.embed(pixels)
+        for block in self.layers:
+            x = block(x)
+        return self.pool(x)
+
+
+class SigLIPTextTower(nn.Module):
+    def __init__(self, c: SigLIPTextConfig):
+        super().__init__()
+        self.cfg = c
+        self.token_embedding = nn.Embedding(c.vocab_size, c.hidden_size)
+        self.position_embedding = nn.Parameter(
+            torch.zeros(c.context_length, c.hidden_size))
+        self.layers = nn.ModuleList(
+            EncoderBlock(c, causal=False, act="gelu_tanh")
+            for _ in range(c.num_layers))
+        self.final_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps)
+        self.head = nn.Linear(c.hidden_size, c.hidden_size)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """``[B, S]`` ids → head features ``[B, hidden]``, pooled at the
+        last position."""
+        x = self.token_embedding(input_ids) \
+            + self.position_embedding[: input_ids.shape[1]][None]
+        for block in self.layers:
+            x = block(x)
+        return self.head(self.final_layer_norm(x)[:, -1])
+
+
+class SigLIP(nn.Module):
+    """Dual-tower SigLIP (serving only)."""
+
+    def __init__(self, cfg: SigLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision = SigLIPVisionTower(cfg.vision)
+        self.text = SigLIPTextTower(cfg.text)
+
+    def encode_image(self, pixels: torch.Tensor,
+                     normalize: bool = True) -> torch.Tensor:
+        return _normalize_f32(self.vision(pixels), normalize)
+
+    def encode_text(self, input_ids: torch.Tensor,
+                    normalize: bool = True) -> torch.Tensor:
+        return _normalize_f32(self.text(input_ids), normalize)

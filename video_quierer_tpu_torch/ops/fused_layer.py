@@ -8,15 +8,20 @@ its plain version on a CPU tensor:
   :func:`attn_half_ref`): LN1 → QKV → per-item attention (causal for
   text, non-causal for the vision tower) → out-proj → residual;
 - :func:`mlp_half` (kernel B6; plain :func:`mlp_half_ref`): LN2 → fc1 →
-  quick-GELU → fc2 → residual;
+  GELU → fc2 → residual;
 - :func:`fused_layer` (kernel B2; plain :func:`fused_layer_ref`): the
   causal text block, B5 then B6 inside one C call.
 
 All follow the TPU kernels' math and bf16 rounding points: LayerNorm with
 f32 statistics, ``T(x @ w)`` then ``+ bias`` in T, attention with the
 attention kernel's softmax contract and the ``hd**-0.5`` scale on the f32
-logits, quick-GELU as ``x / (1 + exp(-1.702 x))`` in T, residual adds in
-T.
+logits, the GELU in T, residual adds in T. The GELU is ``act``: CLIP's
+``"quick_gelu"``, ``x / (1 + exp(-1.702 x))``, or SigLIP's
+``"gelu_tanh"`` in the TPU kernel's sigmoid form, ``u = c1·(x +
+c2·((x·x)·x))`` then ``x · (1 / (1 + exp(-2u)))`` (``_mlp_math``), each
+constant rounded to T and every step rounded to T. On the card the
+activation is a template parameter of the GEMM epilogue, chosen once per
+call (``ACT_CODES``).
 
 :func:`fused_text_encode` is the drop-in for ``CLIP.encode_text`` on
 coalesced batches (token + position embedding → blocks → EOT pooling →
@@ -49,6 +54,12 @@ MIN_TOKENS = 256
 BF16_MAX_WIDTH = 1024
 
 LayerOps = Tuple[torch.Tensor, ...]
+
+# the GEMM epilogue's activation codes (csrc/fused_layer.cu:ACT_*)
+ACT_CODES = {"quick_gelu": 1, "gelu_tanh": 2}
+# sqrt(2 / pi) and the cubic coefficient of tanh-GELU (_mlp_math)
+GELU_TANH_C1 = 0.7978845608028654
+GELU_TANH_C2 = 0.044715
 
 
 def _width_eligible(d: int, heads: int) -> bool:
@@ -141,22 +152,42 @@ def attn_half_ref(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
     return x2 + _dot(attn.reshape(t, d), wout, bout)
 
 
-def mlp_half_ref(x3: torch.Tensor, ops: LayerOps, *, eps: float
-                 ) -> torch.Tensor:
-    """Plain PyTorch version of B6: LN2 → fc1 → quick-GELU → fc2 →
+def _act_code(act: str) -> int:
+    try:
+        return ACT_CODES[act]
+    except KeyError:
+        raise ValueError(f"unsupported fused-layer activation {act!r}; "
+                         f"known: {sorted(ACT_CODES)}") from None
+
+
+def gelu_kernel_form(h: torch.Tensor, act: str) -> torch.Tensor:
+    """The TPU kernel's activation (``_mlp_math``) in ``h``'s dtype, every
+    operation rounded to it: quick-GELU ``h / (1 + exp(-1.702 h))``, or
+    tanh-GELU as ``h · σ(2u)``, ``u = c1·(h + c2·((h·h)·h))``."""
+    _act_code(act)
+    dt = h.dtype
+    if act == "quick_gelu":
+        return h * (1.0 / (1.0 + torch.exp(_const(-1.702, dt) * h)))
+    u = _const(GELU_TANH_C1, dt) * (h + _const(GELU_TANH_C2, dt)
+                                    * (h * h * h))
+    return h * (1.0 / (1.0 + torch.exp(-2.0 * u)))
+
+
+def mlp_half_ref(x3: torch.Tensor, ops: LayerOps, *, eps: float,
+                 act: str = "quick_gelu") -> torch.Tensor:
+    """Plain PyTorch version of B6: LN2 → fc1 → GELU (``act``) → fc2 →
     residual."""
     ln, wfc1, bfc1, wfc2, bfc2 = ops[0], *ops[5:]
     z = _ln_f32(x3, ln[2], ln[3], eps, x3.dtype)
-    h1 = _dot(z, wfc1, bfc1)
-    h1 = h1 * (1.0 / (1.0 + torch.exp(_const(-1.702, x3.dtype) * h1)))
+    h1 = gelu_kernel_form(_dot(z, wfc1, bfc1), act)
     return x3 + _dot(h1, wfc2, bfc2)
 
 
 def fused_layer_ref(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
-                    eps: float) -> torch.Tensor:
+                    eps: float, act: str = "quick_gelu") -> torch.Tensor:
     """Plain PyTorch version of B2: one causal text block."""
     x3 = attn_half_ref(x2, ops, s=s, heads=heads, eps=eps, causal=True)
-    return mlp_half_ref(x3, ops, eps=eps)
+    return mlp_half_ref(x3, ops, eps=eps, act=act)
 
 
 def _check_operands(x2: torch.Tensor, ops: LayerOps, *, s: int = 1,
@@ -210,12 +241,14 @@ def attn_half(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
 attn_half.launches = 0
 
 
-def mlp_half(x3: torch.Tensor, ops: LayerOps, *, eps: float
-             ) -> torch.Tensor:
+def mlp_half(x3: torch.Tensor, ops: LayerOps, *, eps: float,
+             act: str = "quick_gelu") -> torch.Tensor:
     """Second half of an encoder block: kernel B6 on a CUDA tensor,
-    :func:`mlp_half_ref` on a CPU tensor."""
+    :func:`mlp_half_ref` on a CPU tensor. ``act``: ``"quick_gelu"``
+    (CLIP) or ``"gelu_tanh"`` (SigLIP)."""
     if x3.device.type == "cpu":
-        return mlp_half_ref(x3, ops, eps=eps)
+        return mlp_half_ref(x3, ops, eps=eps, act=act)
+    code = _act_code(act)
     dev = _check_operands(x3, ops)
     ln, wfc1, bfc1, wfc2, bfc2 = ops[0], *ops[5:]
     t, d = x3.shape
@@ -226,7 +259,7 @@ def mlp_half(x3: torch.Tensor, ops: LayerOps, *, eps: float
     with torch.cuda.device(dev):
         kernels.check(kernels.lib().vqt_mlp_half(
             p(x3), p(out), p(h), p(ln), p(wfc1), p(bfc1), p(wfc2), p(bfc2),
-            t, d, f, float(eps), kernels.dtype_code(x3),
+            t, d, f, float(eps), code, kernels.dtype_code(x3),
             kernels.stream(dev)), "MLP half")
     kernels.count_launch(mlp_half)
     return out
@@ -236,12 +269,13 @@ mlp_half.launches = 0
 
 
 def fused_layer(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
-                eps: float) -> torch.Tensor:
+                eps: float, act: str = "quick_gelu") -> torch.Tensor:
     """One causal text block over flat ``[B·S, D]`` tokens: kernel B2 (B5
     then B6 in one C call) on a CUDA tensor, :func:`fused_layer_ref` on a
     CPU tensor."""
     if x2.device.type == "cpu":
-        return fused_layer_ref(x2, ops, s=s, heads=heads, eps=eps)
+        return fused_layer_ref(x2, ops, s=s, heads=heads, eps=eps, act=act)
+    code = _act_code(act)
     dev = _check_operands(x2, ops, s=s, heads=heads)
     ln, wqkv, bqkv, wout, bout, wfc1, bfc1, wfc2, bfc2 = ops
     t, d = x2.shape
@@ -256,7 +290,7 @@ def fused_layer(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
         kernels.check(kernels.lib().vqt_text_layer(
             p(x2), p(out), p(qkv), p(attn), p(x3), p(h), p(ln), p(wqkv),
             p(bqkv), p(wout), p(bout), p(wfc1), p(bfc1), p(wfc2), p(bfc2),
-            t, s, d, heads, f, float(eps), kernels.dtype_code(x2),
+            t, s, d, heads, f, float(eps), code, kernels.dtype_code(x2),
             kernels.stream(dev)), "fused text layer")
     kernels.count_launch(fused_layer)
     return out

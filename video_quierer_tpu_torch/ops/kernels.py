@@ -58,17 +58,18 @@ _SIGNATURES = {
     "vqt_block_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "vqt_block_scan_stages": (_I, _I, _I, _I),
     "vqt_cand_scan_codes_stages": (_I, _I, _I, _I),
+    "vqt_cand_scan_stages": (_I, _I, _I),
     "vqt_probe_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P),
     "vqt_probe_scan_scratch": (_I, _I, _I),
     "vqt_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P),
     "vqt_text_layer": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+                       _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     "vqt_attn_half": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _I, _I, _P),
     "vqt_mlp_half": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                     _P),
+                     _I, _P),
 }
 
 # return types other than the launchers' int error code

@@ -1,4 +1,4 @@
-"""Image preprocessing for the CLIP vision tower (counterpart of
+"""Image preprocessing for the vision towers (counterpart of
 ``video_quierer_tpu/ops/preprocess.py``).
 
 The host decodes and resizes (OpenCV); the uint8 ``[B, 224, 224, 3]`` RGB
@@ -7,7 +7,8 @@ cast + scale + CLIP mean/std normalisation as one multiply-add. The
 rounding is the JAX package's: the scale and shift are rounded to the
 tower dtype, then ``x.to(dtype) * scale - shift`` in that dtype.
 
-Constants are CLIP's published normalisation. ``cv2`` is imported inside
+Constants are CLIP's published normalisation and SigLIP's ``[-1, 1]``
+one (mean = std = 0.5). ``cv2`` is imported inside
 :func:`resize_shorter_side_and_crop` only: the port imports no OpenCV
 until a frame is decoded.
 """
@@ -19,6 +20,8 @@ import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+SIGLIP_MEAN = (0.5, 0.5, 0.5)
+SIGLIP_STD = (0.5, 0.5, 0.5)
 
 
 def normalize_images(frames_u8: torch.Tensor, dtype=torch.float32,

@@ -407,6 +407,14 @@ def cand_scan_int4_prefix(packed: torch.Tensor, scales: torch.Tensor,
 cand_scan_int4_prefix.launches = 0
 
 
+def cand_ring_stages(emb: torch.Tensor, b: int, rounds: int) -> int:
+    """The ring stages a warpgroup of B1 or B10 takes for ``b`` queries
+    and ``rounds`` over the bf16 mirror ``emb`` ``[N, D]`` (chosen at
+    launch from the shared memory the query panel and lists leave)."""
+    with torch.cuda.device(emb.device):
+        return kernels.lib().vqt_cand_scan_stages(emb.shape[1], b, rounds)
+
+
 def codes_ring_stages(codes: torch.Tensor, b: int, rounds: int, *,
                       int4: bool) -> int:
     """The ring stages a warpgroup of B4 (int8 ``codes`` ``[N, D]``) or B7
