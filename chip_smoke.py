@@ -131,7 +131,27 @@ last line):
    12 B3 a module-tower encode, 12 B5 and 12 B6 a fused flush, no other
    kernel, both fallback counters 0; single p50, batch ms and ingest
    frames/s printed with the card's name and power limit;
-7. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+7. the query and maintenance surface over HTTP, on engines already
+   running: on phase 4's bf16, f32 and int8 engines (after their own
+   launch counts were read) and on phase 5's bf16 mesh (behind a server
+   of its own), 8 ``/api/search/videos`` at k = 10 (rows against the host
+   exact ranking: f64 sums of each video's f32 rows, f32 means,
+   normalised, stable order, best frame = the lowest row with the
+   video's highest f64 score; the device ranking's counter 8 on the
+   single-card engines, 0 on the mesh, whose ranking runs on the host),
+   8 ``/api/search/similar`` seeds (the host exact top-10 of the seed's
+   row, the seed left out) and 8 ``/api/search/vector`` queries (the host
+   exact top-10); on bf16 also ``/search`` against ``/api/search``,
+   ``/api/cache/warm`` then cached searches, the video listings and the
+   system routes. The launch counters are set to 0 just before and read
+   just after: the engine's scan and B3 launched, no other kernel. Each
+   route's host-clock p50 and the device ranking's CUDA-event time are
+   printed. Then a small bf16 engine of its own (the 20 seeded videos,
+   4,000 rows, ingested at startup) takes index save and load, cache
+   export and import, a video delete, config set and reset, cache stats,
+   health, rebuild (the rows bit for bit the first ingest's; B5/B6
+   counted) and clear;
+8. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
@@ -159,6 +179,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -168,6 +189,7 @@ import torch
 
 from video_quierer_tpu_torch import evaluation
 from video_quierer_tpu_torch.api.server import create_server
+from video_quierer_tpu_torch.engine import system as engine_system
 from video_quierer_tpu_torch.engine.config import EngineConfig
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
 from video_quierer_tpu_torch.ingest.frames import (
@@ -180,6 +202,7 @@ from video_quierer_tpu_torch.index.device_index import (
     DeviceVideoIndex,
     _device_exact_rerank,
     _round_capacity,
+    video_rank_device,
 )
 from video_quierer_tpu_torch.models.clip import model as clip_model
 from video_quierer_tpu_torch.models.clip.embedder import (
@@ -1534,26 +1557,31 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> tuple:
                     Path(videos) / "video_search_cache.pkl")
         log(f"pickle v1.0 cache written in {time.perf_counter() - t0:.1f} s")
         del corpus
+        surface = {}
         for tier in SCANS:
             with timed(f"4, {tier} engine"):
                 launches[tier], ingested[tier] = serve_dtype(
-                    tier, videos, embedder, args, rng, device)
+                    tier, videos, embedder, args, rng, device, surface)
         extra = {}
         for spec in EXTRA:
             with timed(f"5, {spec[0]} engine"):
                 extra[spec[0]] = serve_extra(spec, videos, embedder, args,
-                                             rng, device)
-    return launches, ingested, extra
+                                             rng, device, surface)
+    with timed("7, maintenance engine"):
+        surface["maintenance"] = phase_maintenance(embedder, args, device,
+                                                   scratch)
+    return launches, ingested, extra, surface
 
 
 def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
-                rng, device) -> tuple:
+                rng, device, surface: dict) -> tuple:
     """One engine with ``index.device_dtype = dtype`` (``"ivf"``: the IVF
     tier over the bf16 mirror): it ingests, then serves behind the HTTP
     server. The launch counters are set to 0 just before the ingest and
     read just after it, then set to 0 just before the searches and read
     just after the last response, before the script's own reference
-    encodes."""
+    encodes; then phase 7 (bf16, f32, int8) drives the query surface on
+    the same server, its results going to ``surface[dtype]``."""
     config = EngineConfig()
     config.index.device_dtype = "bfloat16" if dtype == "ivf" else dtype
     if dtype == "ivf":
@@ -1600,6 +1628,11 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
         launches = {name: w.launches for name, w in WRAPPERS.items()}
         if dtype == "ivf":
             ivf_split(engine, rng, device)
+        if dtype in SURFACE_SCANS:
+            with timed(f"7, {dtype} engine surface"):
+                surface[dtype] = phase_surface(
+                    dtype, base, engine, embedder, name_of, args.frames,
+                    rng, device, full=dtype == "bfloat16")
     finally:
         server.shutdown()
         server.server_close()
@@ -1635,7 +1668,7 @@ def check_launches(tag: str, engine: VideoSearchEngine, launches: dict,
 
 
 def serve_extra(spec: tuple, videos: str, embedder: CLIPEmbedder, args,
-                rng, device) -> dict:
+                rng, device, surface: dict) -> dict:
     """One phase-5 engine over the cache (see EXTRA): startup, for the
     bf16 mesh first an ingest of MESH_INGEST_VIDEOS seeded videos, then 8
     single searches and one batch of 64 through the engine's own entry
@@ -1690,6 +1723,11 @@ def serve_extra(spec: tuple, videos: str, embedder: CLIPEmbedder, args,
         torch.cuda.synchronize()
         launches = {name: w.launches for name, w in WRAPPERS.items()}
         check_launches(tag, engine, launches, scan)
+        if tag in SURFACE_SCANS:
+            with timed(f"7, {tag} engine surface"):
+                surface[tag] = serve_surface(tag, engine, embedder,
+                                             name_of, args.frames, rng,
+                                             device)
         if kind == "ivf":
             check_probed(engine, embedder, corpus, name_of, served, device,
                          tag)
@@ -1703,6 +1741,25 @@ def serve_extra(spec: tuple, videos: str, embedder: CLIPEmbedder, args,
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def serve_surface(tag: str, engine: VideoSearchEngine,
+                  embedder: CLIPEmbedder, name_of, frames: int, rng,
+                  device) -> dict:
+    """Phase 7 on a phase-5 engine: behind a server of its own for the
+    routes' run."""
+    server = create_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        return phase_surface(tag, f"http://127.0.0.1:"
+                             f"{server.server_address[1]}", engine,
+                             embedder, name_of, frames, rng, device,
+                             full=False)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
 
 
 def drive_engine(engine: VideoSearchEngine, tag: str, rng) -> tuple:
@@ -2176,6 +2233,483 @@ def check_served(dtype, embedder, corpus, name_of, served, device,
             require(recall == 1.0, f"int8 recall@{K} {recall}")
 
 
+# -- phase 7: the query and maintenance surface ------------------------------
+
+# the kernels phase 7's routes launch on each engine: its scan (the
+# vector, similar and text searches) and B3 (the text tower of
+# /api/search/videos, /search, /api/search and the cache warm-up)
+SURFACE_SCANS = {"bfloat16": "cand_scan_prefix", "float32": "block_scan",
+                 "int8": "cand_scan_int8_prefix",
+                 "mesh bfloat16": "cand_scan"}
+SURFACE_QUERIES = 8
+VIDEO_KEYS = {"video_name", "score", "frame_count", "best_timestamp"}
+# two rows of one video whose f64 scores lie this close are a tie that
+# f32 rounding may resolve either way (the best frame may then differ)
+BEST_TIE = 1e-6
+
+
+def request(base: str, method: str, path: str, body=None, headers=None):
+    """``(status, headers, body bytes, seconds)`` of one request, whatever
+    its status; a dict or list ``body`` goes as JSON."""
+    if isinstance(body, (dict, list)):
+        body = json.dumps(body).encode()
+        headers = {"Content-Type": "application/json", **(headers or {})}
+    req = urllib.request.Request(base + path, data=body, method=method,
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        out = e.code, e.headers, e.read()
+    return (*out, time.perf_counter() - t0)
+
+
+def call(base: str, method: str, path: str, body=None, headers=None,
+         status: int = 200, times: dict = None):
+    """One request that must answer ``status`` with the CORS headers;
+    returns its JSON body (raw bytes for other content types); its time
+    goes to ``times[path without the query]``."""
+    st, hd, data, t = request(base, method, path, body, headers)
+    require(st == status, f"{method} {path}: status {st}, not {status} "
+            f"({data[:300]!r})")
+    require(hd.get("Access-Control-Allow-Origin") == "*",
+            f"{method} {path}: no CORS headers")
+    if times is not None:
+        times.setdefault(f"{method} {path.split('?')[0]}", []).append(t)
+    if (hd.get("Content-Type") or "").startswith("application/json"):
+        return json.loads(data)
+    return data
+
+
+def multipart_body(name: str, filename: str, data: bytes) -> tuple:
+    boundary = f"vqt-{os.getpid()}-{time.monotonic_ns()}"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="{name}"; filename="{filename}"\r\nContent-Type: '
+            "application/octet-stream\r\n\r\n").encode() + data + \
+        f"\r\n--{boundary}--\r\n".encode()
+    return body, {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def unit_means(corpus: np.ndarray, frames: int) -> np.ndarray:
+    """The host reference's video means, from the corpus alone (video j:
+    rows ``j * frames`` to ``(j + 1) * frames``, as the cache and the
+    ingest lay them out): f64 sums of each video's f32 rows, f32 means,
+    normalised."""
+    sums = np.add.reduce(corpus.reshape(-1, frames, corpus.shape[1]),
+                         axis=1, dtype=np.float64)
+    means = (sums / frames).astype(np.float32)
+    return means / np.maximum(np.linalg.norm(means, axis=-1, keepdims=True),
+                              1e-10)
+
+
+def check_video_rows(tag: str, corpus: np.ndarray, means: np.ndarray,
+                     frames: int, name_of, timestamps: np.ndarray,
+                     q: np.ndarray, rows: list, k: int) -> tuple:
+    """Served ``/api/search/videos`` rows == the host exact ranking: stable
+    order of the ``unit_means`` scores against the unit query; each
+    winner's best frame = its lowest row with the highest f64 score (a
+    served best frame within ``BEST_TIE`` of it is a tie, and counted).
+    Returns (max score error, ties)."""
+    qn = q / (np.linalg.norm(q) + 1e-10)
+    scores = means @ qn
+    order = np.argsort(-scores, kind="stable")[:k]
+    require(len(rows) == len(order), f"[{tag}] {len(rows)} video rows, "
+            f"not {len(order)}")
+    worst, ties = 0.0, 0
+    for r, v in zip(rows, order):
+        own = np.arange(v * frames, (v + 1) * frames)
+        require(set(r) == VIDEO_KEYS, f"[{tag}] video row keys {set(r)}")
+        require(r["video_name"] == name_of(int(own[0]))
+                and r["frame_count"] == frames,
+                f"[{tag}] video {r['video_name']} != host "
+                f"{name_of(int(own[0]))} ({frames} frames)")
+        worst = max(worst, abs(r["score"] - float(scores[v])))
+        s64 = corpus[own].astype(np.float64) @ qn.astype(np.float64)
+        best = int(np.argmax(s64))
+        if r["best_timestamp"] != float(timestamps[own[best]]):
+            served = np.flatnonzero(timestamps[own] == r["best_timestamp"])
+            require(len(served) == 1
+                    and s64[best] - s64[served[0]] <= BEST_TIE,
+                    f"[{tag}] {r['video_name']}: best frame at "
+                    f"{r['best_timestamp']} s, host "
+                    f"{timestamps[own[best]]} s")
+            ties += 1
+    require(worst <= SCORE_ATOL, f"[{tag}] video score error {worst}")
+    return worst, ties
+
+
+def top_rows(scores: np.ndarray, n: int) -> np.ndarray:
+    """The top ``n`` rows of one query's scores: (score desc, row asc)."""
+    top = np.argpartition(-scores, n)[:n]
+    return top[np.lexsort((top, -scores[top]))]
+
+
+def check_tops(tag: str, corpus: np.ndarray, name_of, queries: np.ndarray,
+               rows_per_query, drop=None) -> float:
+    """Served rows == the host exact top-K of each query (one pass over
+    the corpus for all of them), ``drop[j]`` (the seed of a similar
+    search) left out; returns the max score error."""
+    qn = queries / (np.linalg.norm(queries, axis=1, keepdims=True) + 1e-10)
+    scores = corpus @ qn.T
+    worst = 0.0
+    for j, rows in enumerate(rows_per_query):
+        top = top_rows(scores[:, j], K + 1)
+        top = [int(t) for t in top if drop is None or t != drop[j]][:K]
+        got = [r["frame_id"] for r in rows]
+        require(got == top, f"[{tag}] rows {got} != host exact top-{K} "
+                f"{top}")
+        require([r["video_name"] for r in rows] == [name_of(t) for t in top],
+                f"[{tag}] video names")
+        err = np.abs(np.array([r["score"] for r in rows])
+                     - scores[top, j]).max()
+        require(err <= SCORE_ATOL, f"[{tag}] score error {err}")
+        worst = max(worst, float(err))
+    return worst
+
+
+def seed_row(corpus_frames: int, name_of, timestamps: np.ndarray,
+             n_rows: int, name: str, t: float) -> int:
+    """The host's seed of a similar search: the row of video ``name``
+    (found by its first row's name) whose timestamp is nearest ``t``."""
+    for lo in range(0, n_rows, corpus_frames):
+        if name_of(lo) == name:
+            own = np.arange(lo, lo + corpus_frames)
+            return int(own[np.argmin(np.abs(timestamps[own] - t))])
+    raise AssertionError(f"no rows of {name}")
+
+
+def p50_ms(times: dict) -> dict:
+    return {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+
+
+def time_video_ranking(index: DeviceVideoIndex, device) -> tuple:
+    """The device ranking's CUDA-event time at k = K over the index's
+    exact f32 rows, and the least time for the bytes it must read (the
+    live f32 rows, the id column and the means, once)."""
+    with index._sync_lock:
+        rows = index._video_rank_rows()
+        vid_ids, means, counts = index._sync_video_state_locked()
+    q = torch.from_numpy(index.normalize_query(
+        np.random.default_rng(3).standard_normal(index.dim)
+        .astype(np.float32))).to(device)
+    count = len(index)
+    ms = cuda_ms(lambda: video_rank_device(rows, vid_ids, means, counts, q,
+                                           count, K), 20)
+    moved = count * index.dim * 4 + count * 4 + means.numel() * 4
+    return ms, bound(moved, 2 * count * index.dim, "f32")["bound_ms"]
+
+
+def phase_surface(tag: str, base: str, engine: VideoSearchEngine,
+                  embedder: CLIPEmbedder, name_of, frames: int, rng, device,
+                  full: bool) -> dict:
+    """Phase 7 on a running engine behind the server at ``base``: 8
+    ``/api/search/videos`` at k = K, 8 ``/api/search/similar`` seeds and 8
+    ``/api/search/vector`` queries (``full``: then ``/search`` against
+    ``/api/search``, the cache warm-up and a cached search, the video
+    listings and the system routes), the launch counters and the device
+    ranking's counter set to 0 just before and read just after; then the
+    rows against the host's exact computations, the counters against the
+    engine's path, and each route's host-clock p50."""
+    index = engine.index
+    corpus = index._emb[: len(index)]
+    scan = SURFACE_SCANS[tag]
+    device_ranking = index._video_rank_on_device()
+    times: dict = {}
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    video_rank_device.launches = 0
+    torch.cuda.synchronize()
+    queries = [words(rng, 4) for _ in range(SURFACE_QUERIES)]
+    video_rows = []
+    for q in queries:
+        body = call(base, "POST", "/api/search/videos",
+                    {"query": q, "k": K}, times=times)
+        require(set(body) == {"results", "search_time_ms", "query_id",
+                              "performance"}, f"[{tag}] keys {set(body)}")
+        video_rows.append(body["results"])
+    seeds = [(name_of(int(v) * frames), float(t)) for v, t in zip(
+        rng.integers(0, len(corpus) // frames, SURFACE_QUERIES),
+        rng.uniform(0, 100, SURFACE_QUERIES))]
+    similar = [call(base, "POST", "/api/search/similar",
+                    {"video_name": n, "timestamp": t, "k": K,
+                     "use_cache": False}, times=times)["results"]
+               for n, t in seeds]
+    vectors = rng.standard_normal((SURFACE_QUERIES, index.dim)).astype(
+        np.float32)
+    vector_rows = [call(base, "POST", "/api/search/vector",
+                        {"vector": v.tolist(), "k": K, "use_cache": False},
+                        times=times)["results"] for v in vectors]
+    extra = surface_routes(tag, base, engine, rng, times) if full else None
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    ranked = video_rank_device.launches
+    log(f"[{tag}] 7, launches during the surface routes: {launches}; "
+        f"device video rankings {ranked}")
+    for name, count in launches.items():
+        if name in (scan, "attention"):
+            require(count > 0, f"[{tag}] 7: kernel {name} not launched")
+        else:
+            require(count == 0, f"[{tag}] 7: {name} launched {count} times")
+    require(ranked == (SURFACE_QUERIES if device_ranking else 0),
+            f"[{tag}] 7: {ranked} device rankings, device path "
+            f"{device_ranking}")
+    for name in ("embed_fallbacks", "fused_search_fallbacks"):
+        require(engine.metrics.counter(name) == 0, f"[{tag}] {name}")
+    # the references (the port's text tower again: the same vectors)
+    t0 = time.perf_counter()
+    stamps = index._timestamps[: len(index)]
+    means = unit_means(corpus, frames)
+    worst, ties = 0.0, 0
+    for q, rows in zip(queries, video_rows):
+        err, tie = check_video_rows(tag, corpus, means, frames, name_of,
+                                    stamps, embedder.embed_text(q), rows, K)
+        worst, ties = max(worst, err), ties + tie
+    seeds_rows = [seed_row(frames, name_of, stamps, len(index), n, t)
+                  for n, t in seeds]
+    qs = np.concatenate([corpus[seeds_rows], vectors] + (
+        [np.stack([embedder.embed_text(q) for q in extra["queries"]])]
+        if extra is not None else []))
+    served = similar + vector_rows + (extra["rows"] if extra else [])
+    drop = seeds_rows + [-1] * (len(served) - len(seeds_rows))
+    err_top = check_tops(tag, corpus, name_of, qs, served, drop)
+    log(f"[{tag}] 7: {SURFACE_QUERIES} /api/search/videos over "
+        f"{len(index)} rows and {len(corpus) // frames} videos ("
+        f"{'device' if device_ranking else 'host'} ranking) equal the host "
+        f"exact ranking (max score error {worst:.2e}, {ties} best-frame "
+        f"ties); {SURFACE_QUERIES} /similar (the seed left out), "
+        f"{SURFACE_QUERIES} /vector"
+        + (f" and {len(extra['rows'])} /api/search" if extra else "")
+        + f" equal the host exact top-{K} (max score error {err_top:.2e}); "
+        f"checked in {time.perf_counter() - t0:.1f} s")
+    p50 = p50_ms(times)
+    log(f"[{tag}] 7, host-clock p50 per route (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in p50.items()))
+    out = {"p50_ms": p50, "launches": launches, "rankings": ranked}
+    if device_ranking:
+        out["ranking_ms"], out["ranking_bound_ms"] = time_video_ranking(
+            index, device)
+        log(f"[{tag}] 7, device video ranking (k = {K}): "
+            f"{out['ranking_ms']:.4f} ms (CUDA events), bound "
+            f"{out['ranking_bound_ms']:.4f} ms")
+    return out
+
+
+def surface_routes(tag: str, base: str, engine: VideoSearchEngine, rng,
+                   times: dict) -> dict:
+    """The rest of phase 7 on the bf16 engine: ``/search`` against
+    ``/api/search``, ``/api/cache/warm`` then a cached search, the video
+    listings, and the system routes. Returns the text queries and rows
+    for the host check."""
+    index = engine.index
+    queries, rows = [words(rng, 4) for _ in range(4)], []
+    for q in queries:
+        legacy = call(base, "POST", "/search", {"query": q, "k": K,
+                                                "use_cache": False},
+                      times=times)
+        api = call(base, "POST", "/api/search", {"query": q, "k": K,
+                                                 "use_cache": False},
+                   times=times)
+        require(legacy["success"] and legacy["query"] == q, "/search body")
+        require([(r["frame_id"], r["score"]) for r in legacy["results"]]
+                == [(r["frame_id"], r["score"]) for r in api["results"]],
+                f"[{tag}] /search and /api/search disagree")
+        rows.append(api["results"])
+    warm = [words(rng, 3) for _ in range(3)]
+    body = call(base, "POST", "/api/cache/warm", {"queries": warm, "k": K},
+                times=times)
+    require(body == {"success": True, "warmed": 3}, f"warm {body}")
+    for q in warm:
+        body = call(base, "POST", "/api/search", {"query": q, "k": K},
+                    times=times)
+        require(body["from_cache"] is True and len(body["results"]) == K,
+                f"[{tag}] a warmed query was not answered from the cache")
+    counts = index.video_frame_counts()
+    names = list(counts)
+    offset = len(names) - 520
+    body = call(base, "GET", f"/api/videos?limit=1000&offset={offset}",
+                times=times)
+    require(body["count"] == 520 and [v["filename"] for v in body["videos"]]
+            == names[offset:] and body["limit"] == 1000
+            and body["offset"] == offset, f"[{tag}] /api/videos page")
+    body = call(base, "GET", "/api/videos?limit=1000", times=times)
+    require(body["count"] == 1000 and all(
+        v["frame_count"] == counts[v["filename"]] for v in body["videos"]),
+        f"[{tag}] /api/videos first page")
+    call(base, "GET", "/api/videos?limit=1001", status=400)
+    body = call(base, "GET", "/api/videos/video_00042", times=times)
+    require(body == {"video_id": "video_00042",
+                     "filename": "video_00042.mp4", "exists": False,
+                     "frame_count": counts["video_00042.mp4"]},
+            f"/api/videos/video_00042: {body}")
+    call(base, "GET", "/api/videos/no_such_video", status=404)
+    body = call(base, "GET", "/videos", times=times)
+    require([v["name"] for v in body["videos"]] == index.video_names(),
+            "/videos")
+    body = call(base, "GET", "/api", times=times)
+    require(body["version"] == "2.1.0", "/api")
+    text = call(base, "GET", "/metrics", times=times).decode()
+    require("video_search_video_search_latency_ms_count "
+            f"{SURFACE_QUERIES}" in text, "/metrics")
+    body = call(base, "GET", "/api/metrics", times=times)
+    require(body["histograms"]["video_search_latency_ms"]["count"]
+            == SURFACE_QUERIES, "/api/metrics")
+    body = call(base, "GET", "/api/config", times=times)
+    require(body["success"] and body["config"]
+            == engine.config.api.to_dict(), "/api/config")
+    log(f"[{tag}] 7: /search == /api/search on {len(queries)} queries; "
+        f"3 warmed queries answered from the cache; /api/videos pages "
+        f"(limit 1000, offset {offset}: 520 videos), /api/videos/{{id}}, "
+        "/videos, /api, /metrics, /api/metrics, /api/config: as the "
+        "reference shapes them")
+    return {"queries": queries, "rows": rows}
+
+
+def phase_maintenance(embedder: CLIPEmbedder, args, device,
+                      scratch: Path) -> dict:
+    """Phase 7's maintenance routes on a small bf16 engine of its own: 20
+    seeded videos x 200 frames ingested at startup (the decode stage
+    replaced by ``seeded_extract``, as phase 4's ingest), then over HTTP:
+    index save and load, cache export and import, a video delete (its rows
+    never come back), config set and reset, cache stats and health, cache
+    rebuild (the host rows bit for bit the first ingest's; B5/B6 counted)
+    and last cache clear."""
+    api_mode = EngineConfig().api.sampling_mode
+    extract = functools.partial(seeded_extract, seed=args.seed,
+                                n=args.frames, mode=api_mode)
+    real = engine_system.batched_frames
+    engine_system.batched_frames = functools.partial(real,
+                                                     extract_fn=extract)
+    times: dict = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=scratch) as videos:
+            vdir = Path(videos)
+            for v in range(INGEST_VIDEOS):
+                (vdir / ingest_name(v)).write_bytes(b"seeded frames")
+            engine = VideoSearchEngine(vdir, config=EngineConfig(),
+                                       embedder=embedder, device=device)
+            engine.startup()
+            index, n = engine.index, INGEST_VIDEOS * args.frames
+            require(len(index) == n, f"maintenance startup rows "
+                    f"{len(index)}")
+            first = index._emb[:n].copy()
+            meta = index.to_cache_dict()["metadata"]
+            server = create_server(engine, "127.0.0.1", 0,
+                                   config_path=vdir / "config.json")
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                maintenance_routes(base, engine, vdir, first, meta, times)
+                rebuild = maintenance_rebuild(base, engine, first, meta,
+                                              times)
+                body = call(base, "POST", "/api/cache/clear", times=times)
+                require(body["success"] and body["stats"][
+                    "embeddings_count"] == 0 and len(index) == 0
+                    and not engine.cache_path.exists(), f"clear {body}")
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(30)
+                engine.close()
+    finally:
+        engine_system.batched_frames = real
+    p50 = p50_ms(times)
+    log("[maintenance] 7, host-clock p50 per route (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in p50.items()))
+    return {"p50_ms": p50, **rebuild}
+
+
+def maintenance_routes(base: str, engine: VideoSearchEngine, vdir: Path,
+                       first: np.ndarray, meta: list, times: dict) -> None:
+    index, n = engine.index, len(first)
+    probe = first[3 * (n // INGEST_VIDEOS) + 17]
+    before = call(base, "POST", "/api/search/vector",
+                  {"vector": probe.tolist(), "k": K, "use_cache": False})
+    body = call(base, "POST", "/api/index/save?filepath=snapshot.pkl",
+                times=times)
+    require(body == {"status": "saved", "filepath": "snapshot.pkl"}
+            and (vdir / "snapshot.pkl").exists(), f"save {body}")
+    call(base, "POST", "/api/index/save?filepath=/etc/x.pkl", status=403)
+    body = call(base, "POST", "/api/index/load?filepath=snapshot.pkl",
+                times=times)
+    require(body["status"] == "loaded" and np.array_equal(
+        index._emb[:n], first) and index.to_cache_dict()["metadata"] == meta,
+        "index load: rows or metadata changed")
+    after = call(base, "POST", "/api/search/vector",
+                 {"vector": probe.tolist(), "k": K, "use_cache": False})
+    require(after["results"] == before["results"], "rows after load")
+    data = call(base, "GET", "/api/cache/export", times=times)
+    require(data == engine.cache_path.read_bytes(), "export bytes")
+    body, headers = multipart_body("file", "export.pkl", data)
+    body = call(base, "POST", "/api/cache/import", body, headers,
+                times=times)
+    require(body["success"] and body["stats"]["embeddings_count"] == n
+            and len(index) == n, f"import {body}")
+    gone = ingest_name(3)
+    body = call(base, "DELETE", f"/api/videos/{gone[:-4]}", times=times)
+    require(body == {"status": "deleted", "video_id": gone[:-4],
+                     "filename": gone}, f"delete {body}")
+    require(gone not in index.video_names()
+            and len(index) == n - n // INGEST_VIDEOS, "delete rows")
+    rows = call(base, "POST", "/api/search/vector",
+                {"vector": probe.tolist(), "k": K,
+                 "use_cache": False})["results"]
+    videos = call(base, "POST", "/api/search/videos",
+                  {"query": "seeded frames", "k": INGEST_VIDEOS})["results"]
+    require(rows and gone not in {r["video_name"] for r in rows + videos}
+            and len(videos) == INGEST_VIDEOS - 1,
+            "a deleted video's rows came back")
+    (vdir / gone).write_bytes(b"seeded frames")     # for the rebuild
+    body = call(base, "POST", "/api/config",
+                {"max_frames": 150, "sampling_mode": "medium"}, times=times)
+    written = json.loads((vdir / "config.json").read_text())
+    require(body["success"] and written["max_frames"] == 150
+            and engine.config.api.sampling_mode == "medium", "config set")
+    call(base, "POST", "/api/config", {"max_frames": 0}, status=422)
+    body = call(base, "POST", "/api/config/reset", times=times)
+    require(body["success"] and json.loads((vdir / "config.json")
+                                           .read_text())
+            == EngineConfig().api.to_dict(), "config reset")
+    body = call(base, "GET", "/api/cache/stats", times=times)
+    require(body["success"] and body["embeddings"] == len(index)
+            and body["videos"] == INGEST_VIDEOS - 1, f"stats {body}")
+    body = call(base, "GET", "/api/cache/health", times=times)
+    require(body["success"] and body["passed_checks"] == 5,
+            f"health {body}")
+    log(f"[maintenance] 7: index save/load (rows and metadata unchanged, "
+        f"403 outside the videos dir), cache export ({len(data)} bytes = "
+        "the cache file) and import, delete of "
+        f"{gone} (its rows never come back), config set/refused/reset "
+        "(config.json written), cache stats and health: as the reference")
+
+
+def maintenance_rebuild(base: str, engine: VideoSearchEngine,
+                        first: np.ndarray, meta: list, times: dict) -> dict:
+    index, n = engine.index, len(first)
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    body = call(base, "POST", "/api/cache/rebuild", times=times)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    require(body["success"] and body["stats"]["embeddings_count"] == n,
+            f"rebuild {body}")
+    require(np.array_equal(index._emb[:n], first)
+            and index.to_cache_dict()["metadata"] == meta,
+            "rebuild: host rows differ from the first ingest's")
+    layers = engine._get_embedder().cfg.vision.num_layers
+    batches = -(-n // engine.config.ingest.batch_size)
+    for name, count in launches.items():
+        want = layers * batches if name in INGEST else 0
+        require(count == want, f"rebuild: {name} launched {count} times, "
+                f"not {want}")
+    log(f"[maintenance] 7: cache rebuild re-ingested {n} rows, bit for bit "
+        f"the first ingest's; launches {launches}")
+    return {"rebuild_launches": launches}
+
+
 # -- phase 6: the SigLIP engine -----------------------------------------------
 
 def siglip_corpus(dev, seed: int, n_rows: int) -> np.ndarray:
@@ -2567,7 +3101,8 @@ def main() -> int:
         sk = phase_siglip_kernels(siglip, args, device)
     # the serving path's stage spans: phase 5 splits its batches by them
     stageprof.ENABLED = True
-    launches, ingested, extra = phase_end_to_end(embedder, args, device)
+    launches, ingested, extra, surface = phase_end_to_end(embedder, args,
+                                                          device)
     with timed("6, SigLIP engine"):
         sl, si = phase_siglip_engine(siglip, args, device, smi)
     src = "video_quierer_tpu_torch/csrc/"
@@ -2642,6 +3177,8 @@ def main() -> int:
          "replaces": "video_quierer_tpu/ops/topk.py:1419",
          "launches": sl["cand_scan_prefix"], **sk["cand_scan_prefix"]},
     ]}
+    log(f"phase 7 summary ({smi}; host-clock p50 ms per route, device "
+        "ranking ms by CUDA events): " + json.dumps(surface))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)

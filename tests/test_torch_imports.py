@@ -1,7 +1,7 @@
 """The port imports torch and numpy only: in a fresh interpreter, importing
 every module of video_quierer_tpu_torch (the corpus-mesh modules
-``parallel/mesh.py`` and ``index/sharded.py`` and the SigLIP family's
-``models/siglip`` among them) leaves jax,
+``parallel/mesh.py`` and ``index/sharded.py``, the SigLIP family's
+``models/siglip`` and the HTTP API's ``api/`` among them) leaves jax,
 flax, aiohttp, pydantic and cv2 out of ``sys.modules``, and builds no
 kernel."""
 
@@ -57,6 +57,12 @@ def test_siglip_modules_are_walked(report):
     for name in ("model", "bridge", "fused", "embedder", "spm"):
         assert f"video_quierer_tpu_torch.models.siglip.{name}" in \
             report["modules"]
+
+
+def test_api_modules_are_walked(report):
+    for name in ("server", "routes", "schemas", "multipart", "web",
+                 "__main__"):
+        assert f"video_quierer_tpu_torch.api.{name}" in report["modules"]
 
 
 def test_mesh_entry_points_default_to_the_card(monkeypatch):

@@ -41,7 +41,8 @@ import numpy as np
 import pytest
 import torch
 
-from video_quierer_tpu_torch.index import ivf
+from video_quierer_tpu_torch.api.multipart import parse_multipart
+from video_quierer_tpu_torch.index import device_index, ivf
 from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
 from video_quierer_tpu_torch.models.clip.bridge import init_params
 from video_quierer_tpu_torch.models.clip.config import (
@@ -1602,3 +1603,98 @@ def test_mesh_ivf_across_cards(cuda):
         assert np.array_equal(i0, i1) and np.array_equal(v0, v1)
         _, i2 = built.search(q[:b], k=10)
         assert np.array_equal(np.sort(i0, axis=1), np.sort(i2, axis=1))
+
+
+def _video_corpus(seed, n_videos=300, frames=700, d=512):
+    """Clustered unit rows: each video's frames around its own centre;
+    video 1 a copy of video 0 (a tie of videos) and frame 9 of each a copy
+    of frame 4 (a tie of best frames)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((n_videos, 1, d)).astype(np.float32)
+    rows = centres + 2.0 * rng.standard_normal(
+        (n_videos, frames, d)).astype(np.float32)
+    rows[1] = rows[0]
+    rows[:, 9] = rows[:, 4]
+    rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+    return rows
+
+
+def _fill_videos(index, rows):
+    for v, frames in enumerate(rows):
+        index.add_batch(frames, f"video_{v}.mp4",
+                        [0.5 * t for t in range(len(frames))])
+
+
+def _video_queries(rows, seed):
+    rng = np.random.default_rng(seed)
+    n, frames = rows.shape[:2]
+    picks = [rows[v % n, t % frames]
+             for v, t in ((0, 4), (5, 100), (77, 3), (299, 9))]
+    return picks + [rows[1].mean(0)] + [
+        rng.standard_normal(rows.shape[-1]).astype(np.float32)
+        for _ in range(11)]
+
+
+def _same_videos(got, want):
+    assert [(r["video_name"], r["frame_count"], r["best_timestamp"])
+            for r in got] == [(r["video_name"], r["frame_count"],
+                               r["best_timestamp"]) for r in want]
+    np.testing.assert_allclose([r["score"] for r in got],
+                               [r["score"] for r in want], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kw,device_path", [
+    ("float32", {}, True), ("bfloat16", {}, True),
+    ("int8", {"device_rerank": "on"}, True),
+    ("int8", {"device_rerank": "off"}, False),
+    ("bfloat16", {"rerank_store_dtype": "bfloat16"}, False)])
+def test_video_ranking_on_the_card(cuda, dtype, kw, device_path):
+    """``search_videos`` on a CUDA index ranks on the card exactly where
+    the reference's rule says (the f32 mirror, or the f32 re-rank store
+    while the device re-rank is on; its counter moves once a search) and
+    gives the host path's rows on the same index: the same videos in the
+    same order, frame counts and best timestamps, scores within 1e-5;
+    after a removal and an append, too."""
+    rows = _video_corpus(5)
+    index = DeviceVideoIndex(dim=512, device_dtype=dtype, device=cuda, **kw)
+    _fill_videos(index, rows)
+    for step in range(2):
+        before = device_index.video_rank_device.launches
+        queries = _video_queries(rows, step)
+        for k in (1, 10, 64):
+            for q in queries:
+                want = index._search_videos_host(index.normalize_query(q),
+                                                 k)
+                _same_videos(index.search_videos(q, k), want)
+        ran = device_index.video_rank_device.launches - before
+        assert ran == (3 * len(queries) if device_path else 0)
+        index.remove_video("video_77.mp4")
+        index.add_batch(rows[77, :50], "late.mp4",
+                        [0.5 * t for t in range(50)])
+
+
+@pytest.mark.gpu
+def test_multipart_pickle_part_loads_on_the_card(cuda):
+    """A cache pickle sent as the binary ``.pkl`` part of a multipart body
+    (the import route's upload) parses byte for byte and loads into a
+    CUDA index, whose device video ranking then matches the writer's."""
+    import pickle
+    rows = _video_corpus(6, n_videos=40, frames=100)
+    src = DeviceVideoIndex(dim=512, device_dtype="float32", device=cuda)
+    _fill_videos(src, rows)
+    payload = pickle.dumps(src.to_cache_dict())
+    boundary = "vqt-boundary-7f3a"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="file"; filename="cache.pkl"\r\nContent-Type: '
+            f"application/octet-stream\r\n\r\n").encode() + payload + \
+        f"\r\n--{boundary}--\r\n".encode()
+    parts = parse_multipart(body, f"multipart/form-data; boundary={boundary}")
+    assert [(p.name, p.filename) for p in parts] == [("file", "cache.pkl")]
+    assert parts[0].data == payload
+    dst = DeviceVideoIndex(dim=512, device_dtype="float32", device=cuda)
+    dst.load_cache_dict(device_index.safe_pickle_loads(parts[0].data))
+    for q in _video_queries(rows, 3):
+        assert dst.search_videos(q, 10) == src.search_videos(q, 10)
+

@@ -1,18 +1,22 @@
-"""Serve HTTP text search from the port:
+"""Serve the HTTP API from the port:
 
     python -m video_quierer_tpu_torch.api --port 5001 --videos-dir DIR
 
 ``engine.startup()`` loads the pickle cache in DIR
 (``video_search_cache.pkl``), ingests the videos in DIR that are new or
 changed (decoding needs OpenCV) and saves the cache; then the server
-runs until interrupted. ``--device`` defaults to ``cuda``; without a CUDA
-card that raises rather than serving on the CPU.
+runs until interrupted, and on the way out saves the cache again when
+``api.auto_save`` is set and the index holds rows. ``--config`` is the
+flat ``config.json`` read at start and written by ``POST /api/config``.
+``--device`` defaults to ``cuda``; without a CUDA card that raises rather
+than serving on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+from pathlib import Path
 
 import torch
 
@@ -27,8 +31,9 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=5001)
     ap.add_argument("--videos-dir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--config", type=Path, default=Path("config.json"))
     args = ap.parse_args(argv)
-    cfg = load_engine_config()
+    cfg = load_engine_config(args.config)
     logging.basicConfig(level=cfg.api.log_level)
     # exact f32 re-rank: no TF32 in f32 matmuls (cuDNN allows it by default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -36,15 +41,19 @@ def main(argv=None) -> None:
     engine = VideoSearchEngine(videos_dir=args.videos_dir, config=cfg,
                                device=args.device)
     engine.startup()
-    server = create_server(engine, args.host, args.port)
-    logging.getLogger(__name__).info("serving on %s:%d", args.host,
-                                     server.server_address[1])
+    server = create_server(engine, args.host, args.port,
+                           config_path=args.config)
+    log = logging.getLogger(__name__)
+    log.info("serving on %s:%d", args.host, server.server_address[1])
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+        if engine.config.api.auto_save and len(engine.index):
+            engine.save()
+            log.info("auto-saved index on shutdown")
         engine.close()
 
 

@@ -146,7 +146,10 @@ class ApiConfig:
         return cls(**{k: v for k, v in data.items() if k in known})
 
     def to_dict(self) -> dict:
+        """The nine keys in pydantic's ``model_dump`` order."""
         return dataclasses.asdict(self)
+
+    model_dump = to_dict
 
 
 def load_api_config(path: Path = Path("config.json")) -> ApiConfig:
@@ -160,6 +163,18 @@ def load_api_config(path: Path = Path("config.json")) -> ApiConfig:
     except (OSError, ValueError, TypeError) as e:
         logger.error("Failed to load config %s: %s", path, e)
         return ApiConfig()
+
+
+def save_api_config(config: ApiConfig,
+                    path: Path = Path("config.json")) -> bool:
+    """Write the flat API config as ``config.json`` (indent 2, as the
+    reference's); False, logged, when the write fails."""
+    try:
+        Path(path).write_text(json.dumps(config.to_dict(), indent=2))
+    except OSError as e:
+        logger.error("Failed to save config %s: %s", path, e)
+        return False
+    return True
 
 
 @dataclasses.dataclass

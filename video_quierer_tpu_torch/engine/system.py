@@ -28,7 +28,12 @@ multi-slice one, where it keeps one replica on the first device):
 - ``search_ex`` (one query), ``search_coalesced_ex`` (through the request
   coalescer), ``search_batch`` (one device pass for many queries),
   ``search_by_vector_ex`` (a query vector), ``search_by_image_ex`` (an
-  RGB image: resized and embedded by the vision tower);
+  RGB image: resized and embedded by the vision tower),
+  ``search_similar_ex`` (an indexed frame's own row as the query, the
+  frame itself left out), ``search_videos`` (whole videos ranked by their
+  mean rows, ``DeviceVideoIndex.search_videos``), and ``warm_cache``;
+- maintenance: ``rebuild`` (clear and re-ingest the videos dir),
+  ``clear``, ``save`` and ``load`` of the pickle cache;
 - the IVF tier (``index.kind = "ivf"``, ``index/ivf.py``): built at the
   end of ``startup`` once the corpus holds ``ivf_min_rows`` rows, rebuilt
   after a removal, fed appended rows through its fresh buffer (rebuilt
@@ -192,6 +197,11 @@ class VideoSearchEngine:
         """``(feats_dev, feats_np)``: the device-resident features and
         their host copy (one fetch); raises on failure."""
         return self._get_embedder().embed_frames_device(frames_u8)
+
+    def encode_text(self, query: str) -> np.ndarray:
+        """A text query → its ``[D]`` f32 embedding (the module text
+        tower; raises on failure)."""
+        return self._get_embedder().embed_text(query)
 
     # ------------------------------------------------------------------
     # Startup / ingest
@@ -510,6 +520,10 @@ class VideoSearchEngine:
                                       [dict(r) for r in results])
         return results[offset: offset + k], False
 
+    def search(self, query: str, k: int = 5, use_cache: bool = True,
+               dedup_videos: bool = False, offset: int = 0) -> List[Dict]:
+        return self.search_ex(query, k, use_cache, dedup_videos, offset)[0]
+
     def _search_ann(self, q: np.ndarray, k: int) -> List[Dict]:
         """One query vector through the IVF tier; rows through the
         index's metadata, as the mirror's scan gives them."""
@@ -633,6 +647,103 @@ class VideoSearchEngine:
             self._coalescer = SearchCoalescer(
                 self, max_batch=self.config.coalesce_width)
         return self._coalescer.search_ex(query, k, use_cache)
+
+    def search_coalesced(self, query: str, k: int = 5,
+                         use_cache: bool = True) -> List[Dict]:
+        return self.search_coalesced_ex(query, k, use_cache)[0]
+
+    def warm_cache(self, queries: Sequence[str], k: int = 5) -> int:
+        """Put each query's rows in the query cache; returns the count."""
+        for q in queries:
+            self.search(q, k=k, use_cache=True)
+        return len(queries)
+
+    def search_similar_ex(self, video_name: str, timestamp: float,
+                          k: int = 5, use_cache: bool = True
+                          ) -> Tuple[List[Dict], bool]:
+        """'More like this': a vector search with the f32 row of
+        ``video_name``'s indexed frame nearest ``timestamp`` as the query,
+        that frame left out of the results. Raises ``KeyError`` when the
+        video has no live rows."""
+        with self.lock.read():
+            row = self.index.nearest_frame(video_name, timestamp)
+            if row is None:
+                raise KeyError(video_name)
+            vec = self.index.frame_embedding(row)
+            seed = self.index.frame_info(row)
+        # one more, so that dropping the seed still leaves k; the vector
+        # search takes its own read lock (reads do not nest across a
+        # waiting writer)
+        results, from_cache = self.search_by_vector_ex(vec, k + 1,
+                                                       use_cache)
+        out = [r for r in results
+               if not (r["video_name"] == seed["video_name"]
+                       and r["frame_id"] == seed["frame_id"])][:k]
+        self.metrics.inc("similar_searches")
+        return out, from_cache
+
+    def search_similar(self, video_name: str, timestamp: float,
+                       k: int = 5, use_cache: bool = True) -> List[Dict]:
+        return self.search_similar_ex(video_name, timestamp, k,
+                                      use_cache)[0]
+
+    def search_videos(self, query: str, k: int = 5) -> List[Dict]:
+        """Whole videos ranked by the cosine of the query with their mean
+        frame embedding: ``[{video_name, score, frame_count,
+        best_timestamp}]``."""
+        self.metrics.inc("searches")
+        with self.lock.read(), self.metrics.timer("video_search_latency"):
+            q = self.encode_text(query)
+            return self.index.search_videos(q, k)
+
+    # ------------------------------------------------------------------
+    # Maintenance
+    # ------------------------------------------------------------------
+
+    def rebuild(self) -> int:
+        """Clear the index and ingest the videos dir anew with the current
+        config, then save the cache; returns the frames added. The IVF
+        tier goes with the rows (rebuilt by the ingest when due)."""
+        with self.lock:
+            self.index.clear()
+            self._ivf = None
+            self._ivf_rows = 0
+            self.query_cache.invalidate_all()
+            added = self._ingest(self.current_videos())
+            self.index.save_to_disk(self.cache_path)
+        return added
+
+    def clear(self) -> None:
+        """Empty the index, the IVF tier and the query cache, and delete
+        the cache file."""
+        with self.lock:
+            self.index.clear()
+            self._ivf = None
+            self._ivf_rows = 0
+            self.query_cache.invalidate_all()
+            if self.cache_path.exists():
+                self.cache_path.unlink()
+        self.metrics.set_gauge("frames_indexed", 0)
+
+    def save(self, path: Optional[Path] = None) -> bool:
+        """Write the pickle cache (to ``path``, else the videos dir's)."""
+        with self.lock:
+            return self.index.save_to_disk(Path(path) if path
+                                           else self.cache_path)
+
+    def load(self, path: Optional[Path] = None) -> bool:
+        """Load a pickle cache (from ``path``, else the videos dir's):
+        the IVF tier is rebuilt and the query cache dropped. False when
+        it does not load (the index is then left as it was)."""
+        with self.lock:
+            ok = self.index.load_from_disk(Path(path) if path
+                                           else self.cache_path)
+            if ok:
+                self._maybe_build_ivf()
+        if ok:
+            self.query_cache.invalidate_all()
+            self.metrics.set_gauge("frames_indexed", len(self.index))
+        return ok
 
     def close(self) -> None:
         """Stop the coalescer's threads."""

@@ -55,7 +55,16 @@ result is bit-identical to the host sync path's. The index's device
 tensors are always made and updated outside ``torch.inference_mode``, so
 an append may come from inside it or not.
 
-The video-level search is a later port.
+Video-level search (:meth:`search_videos`): per-video f64 embedding
+sums and frame counts are kept at every append, removal and load, as the
+reference keeps them; the videos rank by the cosine of the query with
+their mean rows, and each winner's best frame is its highest-scoring row.
+On one device with exact f32 rows on the card (the f32 mirror, or the
+f32 re-rank store of the quantized tiers while the device re-rank is
+active) the ranking and the best frames run on the device
+(:func:`video_rank_device`: two GEMVs, a stable sort, masked first-max
+argmaxes); elsewhere (a corpus mesh, a bf16 store, the re-rank on the
+host) on the host over the means and each winner's own rows.
 """
 
 from __future__ import annotations
@@ -116,6 +125,10 @@ _NEG_INF = float("-inf")
 DEVICE_DTYPES = ("float32", "bfloat16", "int8", "int4")
 
 
+# video-table padding granularity of the device ranking (the reference's)
+_LANES_PAD = 128
+
+
 def _round_capacity(n: int, granularity: int = _CHUNK) -> int:
     return max(granularity, -(-n // granularity) * granularity)
 
@@ -167,6 +180,72 @@ def _device_exact_rerank(rows_store: torch.Tensor, q: torch.Tensor,
     # (score desc, row asc)
     sc_f, order = torch.sort(sc_s, dim=-1, descending=True, stable=True)
     return sc_f[:, :k], torch.gather(ids_s, 1, order)[:, :k]
+
+
+def _sequential_sums(rows: np.ndarray, ids: np.ndarray, n_groups: int
+                     ) -> np.ndarray:
+    """``[n_groups, D]`` f64 sums of ``rows [N, D]`` (f32) by group
+    ``ids [N]``, each the sequential sum of its group's rows in row order
+    from 0.0 — what ``np.add.at(sums, ids, rows.astype(np.float64))``
+    computes, bit for bit, without its f64 copy of the rows or its
+    per-element loop. The rows fall into runs of one group; the k-th run of
+    every group is summed in round k, onto the group's sum so far, one row
+    position of all the round's runs at a time."""
+    sums = np.zeros((n_groups, rows.shape[1]), np.float64)
+    if len(ids) == 0:
+        return sums
+    starts = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
+    lens = np.diff(np.r_[starts, len(ids)])
+    group = ids[starts]
+    # each run's round: how many runs of its group come before it
+    order = np.argsort(group, kind="stable")
+    firsts = np.r_[True, group[order][1:] != group[order][:-1]]
+    rank = np.arange(len(order))
+    run_round = np.empty(len(order), np.int64)
+    run_round[order] = rank - np.maximum.accumulate(np.where(firsts, rank,
+                                                             0))
+    for k in range(int(run_round.max()) + 1):
+        sel = np.flatnonzero(run_round == k)
+        st, ln, g = starts[sel], lens[sel], group[sel]
+        acc = sums[g]
+        for j in range(int(ln.max())):
+            live = np.flatnonzero(ln > j)
+            if len(live) == len(ln):
+                acc += rows[st + j]
+            else:
+                acc[live] += rows[st[live] + j]
+        sums[g] = acc
+    return sums
+
+
+@torch.inference_mode()
+def video_rank_device(rows: torch.Tensor, vid_ids: torch.Tensor,
+                      means: torch.Tensor, counts: torch.Tensor,
+                      q: torch.Tensor, valid: int, k: int):
+    """The device video ranking (the reference's ``_video_rank_device``,
+    a jitted XLA function, as plain torch ops): normalise the per-video
+    means, score them against the unit query ``q`` (videos without rows
+    score ``-inf``), take the top ``k`` by a stable descending sort (ties:
+    lowest video id first, as ``lax.top_k``), score every exact f32 row
+    ``rows [cap, D]`` (rows at ``valid`` and above: ``-inf``) and take each
+    winner's first-max row among its own (``vid_ids [cap]``, -1 past the
+    live rows). Returns ``(top scores [k], top video ids [k], best rows
+    [k])`` on the device. ``launches`` counts the calls."""
+    video_rank_device.launches += 1
+    mnorm = means / torch.clamp(
+        torch.linalg.vector_norm(means, dim=-1, keepdim=True), min=1e-10)
+    vscores = (mnorm @ q).masked_fill(counts <= 0, _NEG_INF)
+    top_vals, top_vids = torch.sort(vscores, descending=True, stable=True)
+    top_vals, top_vids = top_vals[:k], top_vids[:k]
+    fscores = rows @ q
+    live = torch.arange(fscores.shape[0], device=rows.device) < valid
+    fscores = torch.where(live, fscores, _NEG_INF)
+    own = vid_ids[None, :] == top_vids[:, None].to(vid_ids.dtype)
+    best = torch.argmax(torch.where(own, fscores[None, :], _NEG_INF), dim=1)
+    return top_vals, top_vids, best
+
+
+video_rank_device.launches = 0
 
 
 class DeviceVideoIndex:
@@ -231,6 +310,17 @@ class DeviceVideoIndex:
         self._count = 0
         self._video_names: List[str] = []
         self._video_name_to_id: Dict[str, int] = {}
+        # per-video embedding sums (f64) and frame counts, kept at every
+        # append, removal and load; ``_video_rev`` moves with them
+        self._video_sums = np.zeros((8, self.dim), dtype=np.float64)
+        self._video_counts = np.zeros(8, dtype=np.int64)
+        self._video_rev = 0
+        # the device ranking's copy: means, counts and the row -> video id
+        # column, uploaded whole when ``_video_rev`` moved
+        self._dev_video_rev = -1
+        self._dev_means: Optional[torch.Tensor] = None
+        self._dev_counts: Optional[torch.Tensor] = None
+        self._dev_vid_ids: Optional[torch.Tensor] = None
         # device mirror (rows or codes), the codes' per-row scales, and
         # the perm column of the prefix and perm layouts (on a mesh: lists
         # of per-shard tensors); the layout they were placed in
@@ -269,6 +359,13 @@ class DeviceVideoIndex:
             vid = len(self._video_names)
             self._video_names.append(video_name)
             self._video_name_to_id[video_name] = vid
+            if vid >= self._video_sums.shape[0]:
+                grow = max(8, 2 * self._video_sums.shape[0])
+                self._video_sums = np.concatenate(
+                    [self._video_sums,
+                     np.zeros((grow, self.dim), np.float64)])
+                self._video_counts = np.concatenate(
+                    [self._video_counts, np.zeros(grow, np.int64)])
         return vid
 
     def __len__(self) -> int:
@@ -283,10 +380,53 @@ class DeviceVideoIndex:
         live = set(self._video_ids[: self._count].tolist())
         return [n for i, n in enumerate(self._video_names) if i in live]
 
+    def video_frame_counts(self) -> Dict[str, int]:
+        """Live frame count of each video present, in one O(N) pass."""
+        counts = np.bincount(self._video_ids[: self._count],
+                             minlength=len(self._video_names))
+        return {name: int(counts[i])
+                for i, name in enumerate(self._video_names)
+                if i < len(counts) and counts[i] > 0}
+
+    def nearest_frame(self, video_name: str, timestamp: float
+                      ) -> Optional[int]:
+        """Host row of ``video_name``'s frame nearest ``timestamp`` (the
+        first on a tie); None when the video has no live rows."""
+        vid = self._video_name_to_id.get(video_name)
+        if vid is None:
+            return None
+        rows = np.nonzero(self._video_ids[: self._count] == vid)[0]
+        if rows.size == 0:
+            return None
+        return int(rows[np.argmin(np.abs(self._timestamps[rows]
+                                         - float(timestamp)))])
+
+    def frame_embedding(self, row: int) -> np.ndarray:
+        """A copy of live host row ``row``'s f32 embedding."""
+        if not 0 <= row < self._count:
+            raise IndexError(f"row {row} out of range [0, {self._count})")
+        return self._emb[row].astype(np.float32, copy=True)
+
+    def frame_info(self, row: int) -> Dict:
+        """Live host row ``row``'s video name, timestamp and frame id."""
+        if not 0 <= row < self._count:
+            raise IndexError(f"row {row} out of range [0, {self._count})")
+        return {
+            "video_name": self._video_names[int(self._video_ids[row])],
+            "timestamp": float(self._timestamps[row]),
+            "frame_id": int(self._frame_ids[row]),
+        }
+
     def reserve(self, n_rows: int) -> None:
         """Pre-size host capacity to at least ``n_rows`` (large builds
         then never re-grow mid-build)."""
         self._ensure_capacity(int(n_rows))
+
+    def add_frame(self, embedding: np.ndarray, video_name: str,
+                  timestamp: float) -> None:
+        """Append one frame."""
+        self.add_batch(np.asarray(embedding, np.float32)[None, :],
+                       video_name, [timestamp])
 
     def add_batch(self, embeddings: np.ndarray, video_name: str,
                   timestamps: Sequence[float]) -> None:
@@ -308,6 +448,10 @@ class DeviceVideoIndex:
         # frame_id = insertion position, as in the reference
         self._frame_ids[lo:hi] = np.arange(lo, hi, dtype=np.int64)
         self._count = hi
+        vid = self._video_ids[lo]
+        self._video_sums[vid] += embeddings.sum(axis=0, dtype=np.float64)
+        self._video_counts[vid] += n
+        self._video_rev += 1
 
     def remove_video(self, video_name: str) -> int:
         """Drop all frames of a video, compacting rows (surviving rows keep
@@ -331,6 +475,9 @@ class DeviceVideoIndex:
             self._device_f32 = None
             self._f32_rows = 0
             self._f32_cap = 0
+            self._video_sums[vid] = 0.0
+            self._video_counts[vid] = 0
+            self._video_rev += 1
         self.video_hashes.pop(video_name, None)
         return removed
 
@@ -855,6 +1002,10 @@ class DeviceVideoIndex:
         scan = multislice_cosine_topk if ms else sharded_cosine_topk
         return scan(emb, q, live, k=k, mesh=self.mesh, impl=impl, perm=perm)
 
+    def search(self, query_embedding: np.ndarray, k: int = 5) -> List[Dict]:
+        """One query vector: :meth:`search_batch`'s rows for it."""
+        return self.search_batch(np.asarray(query_embedding)[None, :], k)[0]
+
     def search_batch(self, queries: np.ndarray, k: int = 5
                      ) -> List[List[Dict]]:
         """Batched vector search: the exact f32 scan's rows, or the
@@ -969,6 +1120,132 @@ class DeviceVideoIndex:
         return out
 
     # ------------------------------------------------------------------
+    # Video-level search
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode(False)
+    def _sync_video_state_locked(self) -> tuple:
+        """Upload the per-video means (f32, padded to a multiple of 128
+        videos, count 0 past the last) and counts, and the capacity-long
+        row -> video id column (-1 past the live rows), when
+        ``_video_rev`` moved or the capacity changed (callers hold
+        ``_sync_lock``). Returns ``(vid_ids, means, counts)``."""
+        cap = self._emb.shape[0]
+        if (self._dev_video_rev != self._video_rev
+                or self._dev_vid_ids is None
+                or self._dev_vid_ids.shape[0] != cap):
+            v = len(self._video_names)
+            v_pad = max(_LANES_PAD,
+                        -(-max(v, 1) // _LANES_PAD) * _LANES_PAD)
+            counts = self._video_counts[:v]
+            means = np.zeros((v_pad, self.dim), np.float32)
+            means[:v] = (self._video_sums[:v]
+                         / np.maximum(counts, 1)[:, None]).astype(np.float32)
+            cnt = np.zeros(v_pad, np.int32)
+            cnt[:v] = counts
+            ids = np.full(cap, -1, np.int32)
+            ids[: self._count] = self._video_ids[: self._count]
+            self._dev_means = torch.from_numpy(means).to(self.device)
+            self._dev_counts = torch.from_numpy(cnt).to(self.device)
+            self._dev_vid_ids = torch.from_numpy(ids).to(self.device)
+            self._dev_video_rev = self._video_rev
+        return self._dev_vid_ids, self._dev_means, self._dev_counts
+
+    def _video_rank_on_device(self) -> bool:
+        """Whether :meth:`search_videos` ranks on the device — the
+        reference's rule: on one device with exact f32 rows there (the f32
+        mirror, or the identity-layout f32 re-rank store of a quantized
+        tier while the device re-rank is active); not on a mesh, with a
+        bf16 store or with the re-rank on the host."""
+        if self.mesh is not None:
+            return False
+        if self.device_dtype == "float32":
+            return True
+        return (self._device_rerank_active()
+                and self.rerank_store_dtype == "float32")
+
+    def _video_rank_rows(self) -> Optional[torch.Tensor]:
+        """The synced exact f32 rows the device ranking reads, None on
+        the host path (callers hold ``_sync_lock``)."""
+        if not self._video_rank_on_device():
+            return None
+        if self.device_dtype == "float32":
+            self._sync_device_locked()
+            return self._device_emb
+        return self._sync_device_f32()
+
+    def search_videos(self, query_embedding: np.ndarray, k: int = 5
+                      ) -> List[Dict]:
+        """Rank whole videos by the cosine of the query with their mean
+        frame embedding: ``[{video_name, score, frame_count,
+        best_timestamp}]``, best frame = the video's highest-scoring row
+        (the lowest on a tie). On the device where exact f32 rows live
+        there (:meth:`_video_rank_on_device`), else on the host; a failure
+        on the device raises."""
+        if self._count == 0:
+            return []
+        k = max(1, min(int(k), MAX_K))
+        q = self.normalize_query(query_embedding)
+        with self._sync_lock:
+            rows = self._video_rank_rows()
+            if rows is not None:
+                vid_ids, means, counts = self._sync_video_state_locked()
+        if rows is None:
+            return self._search_videos_host(q, k)
+        tv, tvid, best = video_rank_device(
+            rows, vid_ids, means, counts, torch.from_numpy(q).to(self.device),
+            self._count, k)
+        return self._video_rows(tv.cpu().numpy(), tvid.cpu().numpy(),
+                                best.cpu().numpy())
+
+    def _search_videos_host(self, q: np.ndarray, k: int) -> List[Dict]:
+        """The exact f32 ranking on the host: the means rank the videos,
+        each winner's best frame comes from its own rows."""
+        v = len(self._video_names)
+        counts = self._video_counts[:v]
+        means = (self._video_sums[:v]
+                 / np.maximum(counts, 1)[:, None]).astype(np.float32)
+        means /= np.maximum(
+            np.linalg.norm(means, axis=-1, keepdims=True), 1e-10)
+        scores = means @ q
+        scores = np.where(counts > 0, scores, -np.inf)
+        order = np.argsort(-scores, kind="stable")[:k]
+        best = self._best_frames_host(q, order)
+        return self._video_rows(scores[order], order, best)
+
+    def _best_frames_host(self, q: np.ndarray, vids: np.ndarray
+                          ) -> np.ndarray:
+        """Each video's highest-scoring live row (the lowest on a tie),
+        from its own rows only."""
+        ids = self._video_ids[: self._count]
+        best = []
+        for vid in vids:
+            rows = np.nonzero(ids == int(vid))[0]
+            if rows.size == 0:
+                best.append(0)
+                continue
+            s = self._emb[rows] @ q
+            best.append(int(rows[np.argmax(s)]))
+        return np.asarray(best, np.int64)
+
+    def _video_rows(self, vals: np.ndarray, vids: np.ndarray,
+                    best_rows: np.ndarray) -> List[Dict]:
+        """Result rows; non-finite scores (videos without rows, k above
+        the live videos) are dropped."""
+        out: List[Dict] = []
+        for score, vid, row in zip(vals, vids, best_rows):
+            if not np.isfinite(score):
+                continue
+            vid = int(vid)
+            out.append({
+                "video_name": self._video_names[vid],
+                "score": float(score),
+                "frame_count": int(self._video_counts[vid]),
+                "best_timestamp": float(self._timestamps[int(row)]),
+            })
+        return out
+
+    # ------------------------------------------------------------------
     # Persistence — pickle v1.0 (exact parity with the reference)
     # ------------------------------------------------------------------
 
@@ -1020,6 +1297,21 @@ class DeviceVideoIndex:
         self._video_names, self._video_name_to_id = names, name_to_id
         self.video_hashes = hashes
         self._count = n
+        self._rebuild_video_stats()
+
+    def _rebuild_video_stats(self) -> None:
+        """Recompute the per-video sums and counts from the rows (the load
+        paths; appends and removals keep them incrementally): the
+        reference's ``np.add.at`` sums, bit for bit
+        (:func:`_sequential_sums`)."""
+        v = max(8, len(self._video_names))
+        self._video_counts = np.zeros(v, np.int64)
+        n = self._count
+        ids = self._video_ids[:n]
+        self._video_sums = _sequential_sums(self._emb[:n], ids, v)
+        if n:
+            self._video_counts[:] = np.bincount(ids, minlength=v)
+        self._video_rev += 1
 
     @staticmethod
     def _sidecar(cache_path: Path) -> Path:
@@ -1066,3 +1358,38 @@ class DeviceVideoIndex:
             return False
         logger.info("Loaded %d embeddings from %s", self._count, cache_path)
         return True
+
+    # -- native persistence: one compressed .npz, either package's --------
+
+    def save_native(self, path: Path) -> None:
+        """Write the live rows, metadata columns, video names and hashes
+        as one compressed ``.npz`` (the reference's layout)."""
+        np.savez_compressed(
+            path,
+            embeddings=self._emb[: self._count],
+            video_ids=self._video_ids[: self._count],
+            timestamps=self._timestamps[: self._count],
+            frame_ids=self._frame_ids[: self._count],
+            video_names=np.array(self._video_names, dtype=object),
+            video_hashes=np.array([list(self.video_hashes.keys()),
+                                   list(self.video_hashes.values())],
+                                  dtype=object),
+        )
+
+    def load_native(self, path: Path) -> None:
+        """Replace the contents with a :meth:`save_native` file."""
+        data = np.load(path, allow_pickle=True)
+        self.clear()
+        n = data["embeddings"].shape[0]
+        self._ensure_capacity(n)
+        self._emb[:n] = data["embeddings"]
+        self._video_ids[:n] = data["video_ids"]
+        self._timestamps[:n] = data["timestamps"]
+        self._frame_ids[:n] = data["frame_ids"]
+        self._video_names = list(data["video_names"])
+        self._video_name_to_id = {name: i for i, name in
+                                  enumerate(self._video_names)}
+        keys, vals = data["video_hashes"]
+        self.video_hashes = dict(zip(keys, vals))
+        self._count = n
+        self._rebuild_video_stats()
