@@ -151,13 +151,39 @@ last line):
    export and import, a video delete, config set and reset, cache stats,
    health, rebuild (the rows bit for bit the first ingest's; B5/B6
    counted) and clear;
-8. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+8. the ingest and introspection surface (the decode again replaced by
+   ``seeded_extract``): on phase 4's bf16 engine once phase 5 is done,
+   ``POST /api/config`` turns ``api.use_clip`` off, and 16 keyword and
+   unknown queries go over HTTP one at a time (each the host exact top-10
+   of the keyword encoder's vector; B1 once a search, no tower kernel, no
+   fallback; ``processor_type`` "Visual"); ``POST /api/config`` turns
+   CLIP on again; a 64 MB ``/api/videos/upload`` with ``?upload_id=`` and
+   its SSE stream opened first (the record and the events end at "done",
+   every byte received, 200 frames; B5 and B6 12 times; the phases'
+   arrival times printed; the save rewrites the whole pickle, split by
+   its stage spans); then the
+   profiler route traces 8 singles, a batch of 64 and 64 coalesced
+   clients (after an untraced round): the trace must name B1's, B2's
+   and B3's kernels; the ten device kernels that took the most time and
+   the device-busy share of the window are printed; then
+   ``/api/openapi.json``, ``/api/docs``, ``/`` and ``/static/index.html``
+   answer 200. On phase 7's 4,000-row engine: a 64 MB upload over HTTP
+   with its SSE stream (B5 and B6 12 times and nothing else; the mirror
+   bit for bit; three uploaded frames found first by their own rows), a
+   lowered ``MAX_FILE_SIZE``'s 413 leaving no file, the video deleted.
+   Then a bf16 engine with ``ingest.stream_mirror = false`` and
+   ``cache.frame_memo_size = 4096`` that builds its own tower (wrapped
+   in ``MemoizedEmbedder``): two ``/api/cache/rebuild``s of the 20
+   seeded videos, the first all misses (B5 and B6 192 times), the second
+   4,000 hits, no kernel launched, the rows bit for bit the first's;
+9. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
    the mesh at both B; the SigLIP path's B6 with tanh-GELU, B5, B3 at S =
-   196 and B1 at D = 768, each with its SigLIP-engine launches), the
-   nvidia-smi line, and the result line
+   196 and B1 at D = 768, each with its SigLIP-engine launches; B1, B2,
+   B3, B5 and B6 with their phase-8 launches under ``phase8_launches``),
+   the nvidia-smi line, and the result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Every phase prints its time. Needs one CUDA card; without one it exits
@@ -188,9 +214,11 @@ import numpy as np
 import torch
 
 from video_quierer_tpu_torch import evaluation
+from video_quierer_tpu_torch.api import routes as api_routes
 from video_quierer_tpu_torch.api.server import create_server
 from video_quierer_tpu_torch.engine import system as engine_system
 from video_quierer_tpu_torch.engine.config import EngineConfig
+from video_quierer_tpu_torch.engine.fallback import KeywordQueryEncoder
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
 from video_quierer_tpu_torch.ingest.frames import (
     sampling_interval,
@@ -207,6 +235,7 @@ from video_quierer_tpu_torch.index.device_index import (
 from video_quierer_tpu_torch.models.clip import model as clip_model
 from video_quierer_tpu_torch.models.clip.embedder import (
     CLIPEmbedder,
+    MemoizedEmbedder,
     trim_text_ids,
 )
 from video_quierer_tpu_torch.models.siglip.embedder import SigLIPEmbedder
@@ -1537,7 +1566,8 @@ def check_order(rows_per_query) -> None:
         require(s == sorted(s), "rows not in (score desc, row asc) order")
 
 
-def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> tuple:
+def phase_end_to_end(embedder: CLIPEmbedder, args, device, smi: str
+                     ) -> tuple:
     """Every mirror dtype: ingest onto one pickle cache, then the HTTP
     server; then the corpus-mesh and hatch engines (phase 5) over the same
     cache. Returns each dtype's launch counts on its search path and on
@@ -1560,16 +1590,28 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device) -> tuple:
         surface = {}
         for tier in SCANS:
             with timed(f"4, {tier} engine"):
-                launches[tier], ingested[tier] = serve_dtype(
+                launches[tier], ingested[tier], kept = serve_dtype(
                     tier, videos, embedder, args, rng, device, surface)
+            if kept is not None:
+                bf16_engine = kept
         extra = {}
         for spec in EXTRA:
             with timed(f"5, {spec[0]} engine"):
                 extra[spec[0]] = serve_extra(spec, videos, embedder, args,
                                              rng, device, surface)
+        # phase 4's bf16 engine again: its upload rewrites the cache, so
+        # after every phase that reads it
+        with timed("8, phase 4's bf16 engine: keyword, upload, profiler"):
+            surface["2m"] = phase_big_engine(bf16_engine, videos, embedder,
+                                             args, rng, device, scratch, smi)
+        del bf16_engine
+        gc.collect()
+        torch.cuda.empty_cache()
     with timed("7, maintenance engine"):
         surface["maintenance"] = phase_maintenance(embedder, args, device,
                                                    scratch)
+    with timed("8, frame memo engine"):
+        surface["memo"] = phase_memo(args, device, scratch)
     return launches, ingested, extra, surface
 
 
@@ -1581,7 +1623,9 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
     read just after it, then set to 0 just before the searches and read
     just after the last response, before the script's own reference
     encodes; then phase 7 (bf16, f32, int8) drives the query surface on
-    the same server, its results going to ``surface[dtype]``."""
+    the same server, its results going to ``surface[dtype]``. Returns the
+    launch counts and, for bf16, the engine itself (phase 8 runs on it
+    once every engine that loads the cache has run)."""
     config = EngineConfig()
     config.index.device_dtype = "bfloat16" if dtype == "ivf" else dtype
     if dtype == "ivf":
@@ -1643,10 +1687,11 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
         check_probed(engine, embedder, corpus, name_of, served, device)
     else:
         check_served(dtype, embedder, corpus, name_of, served, device)
+    kept = engine if dtype == "bfloat16" else None
     del engine, server, corpus
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, ingested
+    return launches, ingested, kept
 
 
 def check_launches(tag: str, engine: VideoSearchEngine, launches: dict,
@@ -2282,15 +2327,6 @@ def call(base: str, method: str, path: str, body=None, headers=None,
     return data
 
 
-def multipart_body(name: str, filename: str, data: bytes) -> tuple:
-    boundary = f"vqt-{os.getpid()}-{time.monotonic_ns()}"
-    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
-            f'name="{name}"; filename="{filename}"\r\nContent-Type: '
-            "application/octet-stream\r\n\r\n").encode() + data + \
-        f"\r\n--{boundary}--\r\n".encode()
-    return body, {"Content-Type": f"multipart/form-data; boundary={boundary}"}
-
-
 def unit_means(corpus: np.ndarray, frames: int) -> np.ndarray:
     """The host reference's video means, from the corpus alone (video j:
     rows ``j * frames`` to ``(j + 1) * frames``, as the cache and the
@@ -2574,12 +2610,7 @@ def phase_maintenance(embedder: CLIPEmbedder, args, device,
     never come back), config set and reset, cache stats and health, cache
     rebuild (the host rows bit for bit the first ingest's; B5/B6 counted)
     and last cache clear."""
-    api_mode = EngineConfig().api.sampling_mode
-    extract = functools.partial(seeded_extract, seed=args.seed,
-                                n=args.frames, mode=api_mode)
-    real = engine_system.batched_frames
-    engine_system.batched_frames = functools.partial(real,
-                                                     extract_fn=extract)
+    real = seeded_decode(args)
     times: dict = {}
     try:
         with tempfile.TemporaryDirectory(dir=scratch) as videos:
@@ -2604,6 +2635,9 @@ def phase_maintenance(embedder: CLIPEmbedder, args, device,
                 maintenance_routes(base, engine, vdir, first, meta, times)
                 rebuild = maintenance_rebuild(base, engine, first, meta,
                                               times)
+                with timed("8, upload on the maintenance engine"):
+                    upload = maintenance_upload(base, engine, vdir, args,
+                                                device, times)
                 body = call(base, "POST", "/api/cache/clear", times=times)
                 require(body["success"] and body["stats"][
                     "embeddings_count"] == 0 and len(index) == 0
@@ -2618,7 +2652,24 @@ def phase_maintenance(embedder: CLIPEmbedder, args, device,
     p50 = p50_ms(times)
     log("[maintenance] 7, host-clock p50 per route (ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in p50.items()))
-    return {"p50_ms": p50, **rebuild}
+    return {"p50_ms": p50, **rebuild, "upload": upload}
+
+
+def seeded_decode(args):
+    """Patch ``engine/system.py:batched_frames`` so that every ingest of
+    the engine decodes through ``seeded_extract`` (the engine passes its
+    own ``extract_fn``, None under the interval rule); returns the real
+    function, to be put back."""
+    extract = functools.partial(seeded_extract, seed=args.seed,
+                                n=args.frames,
+                                mode=EngineConfig().api.sampling_mode)
+    real = engine_system.batched_frames
+
+    def seeded(*a, **kw):
+        return real(*a, **{**kw, "extract_fn": extract})
+
+    engine_system.batched_frames = seeded
+    return real
 
 
 def maintenance_routes(base: str, engine: VideoSearchEngine, vdir: Path,
@@ -2642,7 +2693,7 @@ def maintenance_routes(base: str, engine: VideoSearchEngine, vdir: Path,
     require(after["results"] == before["results"], "rows after load")
     data = call(base, "GET", "/api/cache/export", times=times)
     require(data == engine.cache_path.read_bytes(), "export bytes")
-    body, headers = multipart_body("file", "export.pkl", data)
+    body, headers = multipart_fields([("file", "export.pkl", data)])
     body = call(base, "POST", "/api/cache/import", body, headers,
                 times=times)
     require(body["success"] and body["stats"]["embeddings_count"] == n
@@ -2708,6 +2759,456 @@ def maintenance_rebuild(base: str, engine: VideoSearchEngine,
     log(f"[maintenance] 7: cache rebuild re-ingested {n} rows, bit for bit "
         f"the first ingest's; launches {launches}")
     return {"rebuild_launches": launches}
+
+
+# -- phase 8: upload, keyword engine, frame memo, profiler, docs and UI -------
+
+UPLOAD_BYTES = 64 << 20     # the upload's file part
+UPLOAD_CAP = 1 << 20        # the lowered MAX_FILE_SIZE of the 413 check
+MEMO_SIZE = 4096            # >= the memo engine's 4,000 frames
+KEYWORD_QUERIES = ("bright", "a dog", "dark street", "new phone app",
+                   "red car", "football goal", "vehicle at night",
+                   "bright car phone")
+# the kernels each profiled path must show in the trace, by name
+TRACE_KERNELS = {"B1 cand_scan_prefix": ("cand_kernel",),
+                 "B2 fused text layer": ("gemm_wgmma", "ln_bf16"),
+                 "B3 attention": ("attn_bf16",)}
+
+
+def multipart_fields(fields) -> tuple:
+    """A ``multipart/form-data`` body of ``(name, filename or None, bytes)``
+    parts, and its content type header."""
+    boundary = f"vqt-{os.getpid()}-{time.monotonic_ns()}"
+    out = []
+    for name, filename, data in fields:
+        disp = f'form-data; name="{name}"'
+        if filename is not None:
+            disp += f'; filename="{filename}"'
+        out.append(f"--{boundary}\r\nContent-Disposition: {disp}\r\n"
+                   "Content-Type: application/octet-stream\r\n\r\n"
+                   .encode())
+        out.append(data)
+        out.append(b"\r\n")
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), {"Content-Type":
+                           f"multipart/form-data; boundary={boundary}"}
+
+
+def follow_progress(base: str, upload_id: str, box: list) -> None:
+    """Read the upload's server-sent events into ``box`` as ``(seconds,
+    event, data)``, the time taken as each event arrives."""
+    req = urllib.request.Request(
+        f"{base}/api/videos/upload/progress/{upload_id}/stream")
+    with urllib.request.urlopen(req, timeout=900) as r:
+        event = None
+        for raw in r:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: "):
+                box.append((time.perf_counter(), event,
+                            json.loads(line[6:])))
+
+
+def upload_video(base: str, video_id: str, filename: str,
+                 upload_id: str) -> dict:
+    """POST ``UPLOAD_BYTES`` bytes as ``filename`` with ``?upload_id=``,
+    the SSE stream opened first; returns the answer, the events, the
+    progress record and, for each phase the events showed, the seconds
+    from the POST's start to its first event (the stream polls the record
+    every 0.15 s, so a shorter phase may not show)."""
+    body, headers = multipart_fields([("video_id", None, video_id.encode()),
+                                      ("file", filename,
+                                       bytes(UPLOAD_BYTES))])
+    events: list = []
+    reader = threading.Thread(target=follow_progress,
+                              args=(base, upload_id, events), daemon=True)
+    reader.start()
+    time.sleep(0.2)
+    t0 = time.perf_counter()
+    st, hd, data, wall = request(base, "POST",
+                                 f"/api/videos/upload?upload_id={upload_id}",
+                                 body, headers)
+    reader.join(60)
+    require(not reader.is_alive(), "the SSE stream did not end")
+    record = call(base, "GET", f"/api/videos/upload/progress/{upload_id}")
+    phases = {}
+    for t, _, d in events:
+        phases.setdefault(d["phase"], t - t0)
+    return {"status": st, "headers": hd, "body": json.loads(data),
+            "wall": wall, "events": events, "record": record,
+            "phases_s": phases, "body_bytes": len(body)}
+
+
+def check_upload(tag: str, up: dict, frames: int, size: int) -> None:
+    """The answer, the record and the SSE events of a finished upload."""
+    body, rec = up["body"], up["record"]
+    require(up["status"] == 200 and body["status"] == "success"
+            and body["frames_indexed"] == frames, f"[{tag}] upload {body}")
+    require(up["headers"].get("Access-Control-Allow-Origin") == "*",
+            f"[{tag}] upload: no CORS headers")
+    require(rec["phase"] == "done" and rec["done"]
+            and rec["bytes_received"] == size
+            and rec["total_bytes"] == up["body_bytes"]
+            and rec["frames_indexed"] == frames, f"[{tag}] record {rec}")
+    kinds = {e for _, e, _ in up["events"]}
+    require(kinds == {"progress"} and up["events"][-1][2]["phase"] == "done",
+            f"[{tag}] SSE events "
+            f"{[(e, d['phase']) for _, e, d in up['events']]}")
+
+
+def maintenance_upload(base: str, engine: VideoSearchEngine, vdir: Path,
+                       args, device, times: dict) -> dict:
+    """Phase 8 on the maintenance engine: a 64 MB upload over HTTP with
+    its SSE stream (the frames from ``seeded_extract``), the launches
+    counted around it (B5 and B6 once per layer and embed batch, nothing
+    else), the mirror bit for bit, an uploaded frame found first by its
+    own row, a lowered cap's 413 leaving no file, and the video deleted."""
+    index = engine.index
+    n0 = len(index)
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    up = upload_video(base, "ingest", f"{INGEST_VIDEOS:02d}.mp4", "smoke-up")
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    name = ingest_name(INGEST_VIDEOS)
+    check_upload("upload", up, args.frames, UPLOAD_BYTES)
+    require(len(index) == n0 + args.frames and (vdir / name).exists(),
+            "upload rows or file")
+    layers = engine._tower().cfg.vision.num_layers
+    batches = -(-args.frames // engine.config.ingest.batch_size)
+    for kname, count in launches.items():
+        want = layers * batches if kname in INGEST else 0
+        require(count == want, f"upload: {kname} launched {count} times, "
+                f"not {want}")
+    check_mirror(index, "bfloat16", device, "upload")
+    for j in (0, args.frames // 2, args.frames - 1):
+        rows = call(base, "POST", "/api/search/vector",
+                    {"vector": index._emb[n0 + j].tolist(), "k": K,
+                     "use_cache": False}, times=times)["results"]
+        require(rows[0]["frame_id"] == n0 + j and rows[0]["video_name"]
+                == name, f"uploaded frame {n0 + j}: first {rows[0]}")
+    real_cap = api_routes.MAX_FILE_SIZE
+    api_routes.MAX_FILE_SIZE = UPLOAD_CAP
+    try:
+        big = upload_video(base, "ingest", f"{INGEST_VIDEOS + 1:02d}.mp4",
+                           "smoke-big")
+    finally:
+        api_routes.MAX_FILE_SIZE = real_cap
+    require(big["status"] == 413 and big["body"] == {
+        "detail": "File too large (max 1GB)"}
+        and "Access-Control-Allow-Origin" not in big["headers"],
+        f"413 {big['status']} {big['body']}")
+    require(big["record"]["phase"] == "error"
+            and big["events"][-1][2]["phase"] == "error", "413 record")
+    require(not list(vdir.glob(".upload_*"))
+            and not (vdir / ingest_name(INGEST_VIDEOS + 1)).exists()
+            and len(index) == n0 + args.frames, "413 left a file or rows")
+    body = call(base, "DELETE", f"/api/videos/{name[:-4]}", times=times)
+    require(body["status"] == "deleted" and len(index) == n0
+            and not (vdir / name).exists(), f"delete upload {body}")
+    log(f"[maintenance] 8: upload of {UPLOAD_BYTES} bytes (+ the SSE "
+        f"stream): 200 in {up['wall']:.3f} s, {args.frames} frames, phases "
+        f"first seen {fmt_s(up['phases_s'])}; launches {launches}; the "
+        "mirror bit for bit; 3 uploaded frames found first by their rows; "
+        f"413 past a {UPLOAD_CAP}-byte cap in {big['wall']:.3f} s with no "
+        "file left; the video deleted")
+    return {"launches": launches, "wall_s": up["wall"],
+            "phases_s": up["phases_s"]}
+
+
+def fmt_s(phases: dict) -> str:
+    return ", ".join(f"{k} at {v:.3f} s" for k, v in phases.items())
+
+
+def keyword_searches(base: str, engine: VideoSearchEngine, corpus,
+                     name_of, rng) -> dict:
+    """16 keyword and unknown queries one at a time over HTTP on the
+    ``use_clip = false`` engine: the rows equal the host exact top-K of
+    the keyword encoder's vectors (the encoder's draws followed in
+    order); B1 once per search, no tower kernel, no fallback."""
+    queries = []
+    for q in KEYWORD_QUERIES:
+        queries += [q, words(rng, 3)]
+    encoder = KeywordQueryEncoder(dim=engine.index.dim)
+    vectors = np.stack([encoder.embed_text(q) for q in queries])
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    rows, lat = [], []
+    for q in queries:
+        status, body, t = http(base, "POST", "/api/search",
+                               {"query": q, "k": K, "use_cache": False})
+        check_search_response(status, body, K)
+        rows.append(body["results"])
+        lat.append(t)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    for name, count in launches.items():
+        want = len(queries) if name == "cand_scan_prefix" else 0
+        require(count == want, f"keyword: {name} launched {count} times, "
+                f"not {want}")
+    require(engine.metrics.counter("embed_fallbacks") == 0,
+            "keyword: embed_fallbacks")
+    err = check_exact(corpus, name_of, vectors, rows)
+    stats = call(base, "GET", "/api/stats")
+    require(stats["feature_extraction"] == {"processor_type": "Visual"},
+            f"keyword stats {stats['feature_extraction']}")
+    p50 = 1e3 * float(np.median(lat))
+    log(f"[keyword] 8: {len(queries)} keyword and unknown queries over "
+        f"{len(corpus)} rows, one at a time: each the host exact top-{K} of "
+        f"the encoder's vector (max score error {err:.2e}); launches "
+        f"{launches}; embed_fallbacks 0; processor_type Visual; host-clock "
+        f"p50 {p50:.2f} ms")
+    return {"launches": launches, "p50_ms": p50}
+
+
+def profile_round(base: str, rng) -> None:
+    """8 single queries, a batch of 64 and 64 coalesced clients."""
+    for _ in range(8):
+        status, body, _ = http(base, "POST", "/api/search",
+                               {"query": words(rng, 4), "k": K,
+                                "use_cache": False})
+        check_search_response(status, body, K)
+    status, body, _ = http(base, "POST", "/api/search/batch",
+                           {"queries": [words(rng, 5) for _ in range(64)],
+                            "k": K})
+    require(status == 200 and body["query_count"] == 64, "batch")
+    concurrent_phase(base, "[profiled] 64 coalesced clients",
+                     [words(rng, 4) for _ in range(64)], K)
+
+
+def read_trace(path: Path) -> dict:
+    """The device kernels of a Chrome trace, by name (count, total us),
+    and the share of the traced window in which the device was busy
+    (the union of its kernel, copy and set intervals)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    require(spans, f"trace {path} holds no complete events")
+    lo = min(float(e["ts"]) for e in spans)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in spans
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, lo
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels: dict = {}
+    for e in spans:
+        if e.get("cat") == "kernel":
+            c = kernels.setdefault(e["name"], [0, 0.0])
+            c[0] += 1
+            c[1] += float(e["dur"])
+    return {"kernels": kernels, "busy": busy / (hi - lo),
+            "window_ms": (hi - lo) / 1e3, "events": len(spans)}
+
+
+def profile_engine(base: str, trace_dir: Path, rng, smi: str) -> dict:
+    """The profiler route around one round of searches (after an untraced
+    one): the trace names B1, B2 and B3, whose counters also moved; the
+    ten device kernels that took the most time and the device-busy
+    share of the traced window are printed."""
+    profile_round(base, rng)                 # first-call costs untraced
+    body = call(base, "POST", "/api/profiler/start",
+                {"trace_dir": str(trace_dir)})
+    require(body == {"success": True, "trace_dir": str(trace_dir)},
+            f"profiler start {body}")
+    st = request(base, "POST", "/api/profiler/start",
+                 {"trace_dir": str(trace_dir)})[0]
+    require(st == 409, f"a second profiler start answered {st}")
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    profile_round(base, rng)
+    torch.cuda.synchronize()
+    traced = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    body = call(base, "POST", "/api/profiler/stop")
+    require(body["success"], f"profiler stop {body}")
+    st = request(base, "POST", "/api/profiler/stop")[0]
+    require(st == 409, f"a second profiler stop answered {st}")
+    traces = sorted(trace_dir.glob("vqt_trace_*.json"))
+    require(len(traces) == 1, f"traces {traces}")
+    tr = read_trace(traces[0])
+    names = list(tr["kernels"])
+    for what, parts in TRACE_KERNELS.items():
+        for part in parts:
+            require(any(part in n for n in names),
+                    f"the trace names no {part} kernel ({what})")
+    for name in ("cand_scan_prefix", "fused_layer", "attention"):
+        require(launches[name] > 0, f"profiled: {name} not launched")
+    top = sorted(tr["kernels"].items(), key=lambda kv: -kv[1][1])[:10]
+    log(f"[profiler] 8 ({smi}): a trace of 8 singles, a batch of 64 and 64 "
+        f"coalesced clients ({traced:.3f} s of host clock; trace window "
+        f"{tr['window_ms']:.1f} ms, {tr['events']} events, "
+        f"{traces[0].stat().st_size} bytes): device busy "
+        f"{100 * tr['busy']:.2f}% of the window; the kernels of B1, B2 and "
+        f"B3 named; launches {launches}")
+    for name, (count, us) in top:
+        log(f"[profiler]   {us / 1e3:9.3f} ms  {count:5d} x  {name[:110]}")
+    return {"busy_share": tr["busy"], "window_ms": tr["window_ms"],
+            "launches": launches,
+            "top10": [[n[:110], c, us / 1e3] for n, (c, us) in top]}
+
+
+def check_docs_and_ui(base: str) -> None:
+    spec = call(base, "GET", "/api/openapi.json")
+    require(spec["openapi"] == "3.1.0" and "/api/videos/upload"
+            in spec["paths"], "openapi.json")
+    for path in ("/api/docs", "/", "/static/index.html"):
+        data = call(base, "GET", path)
+        require(len(data) > 0, f"{path} empty")
+    log("[2m] 8: /api/openapi.json, /api/docs, / and /static/index.html "
+        "answer 200")
+
+
+def phase_big_engine(engine: VideoSearchEngine, videos: str,
+                     embedder: CLIPEmbedder, args, rng, device,
+                     scratch: Path, smi: str) -> dict:
+    """Phase 8 on phase 4's bf16 engine (2,000,000 cached rows and its
+    4,000 ingested ones), behind a server of its own: ``POST /api/config``
+    turns ``use_clip`` off (the keyword encoder: no tower) for 16 keyword
+    and unknown queries, and on again; one 64 MB upload goes in (its
+    receiving, processing and saving phases timed, the save split by the
+    stage spans: the whole pickle is rewritten); then the profiler route
+    traces a round of searches; then the docs and UI routes."""
+    n = len(engine.index)
+    n_base = args.videos * args.frames
+    corpus = engine.index._emb[:n]
+
+    def name_of(row: int) -> str:
+        if row < n_base:
+            return video_name(row // args.frames)
+        return ingest_name((row - n_base) // args.frames)
+
+    server = create_server(engine, "127.0.0.1", 0,
+                           config_path=Path(videos) / "config.json")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    real = seeded_decode(args)
+    out = {}
+    try:
+        body = call(base, "POST", "/api/config", {"use_clip": False})
+        require(body["config"]["use_clip"] is False and not engine.use_clip
+                and engine._get_embedder() is None, "use_clip off")
+        out["keyword"] = keyword_searches(base, engine, corpus, name_of, rng)
+        body = call(base, "POST", "/api/config", {"use_clip": True})
+        require(body["config"]["use_clip"] is True and engine.use_clip,
+                "use_clip back on")
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        spans = stageprof.snapshot()
+        up = upload_video(base, "ingest", f"{INGEST_VIDEOS + 2:02d}.mp4",
+                          "smoke-2m")
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in WRAPPERS.items()}
+        save = {k: v / 1e3 for k, v in stage_ms(
+            spans, stageprof.snapshot()).items() if k.startswith("save_")}
+        check_upload("2m upload", up, args.frames, UPLOAD_BYTES)
+        require(len(engine.index) == n + args.frames, "2M upload rows")
+        layers = embedder.cfg.vision.num_layers
+        for kname, count in launches.items():
+            want = layers if kname in INGEST else 0
+            require(count == want, f"2M upload: {kname} {count} != {want}")
+        size = engine.cache_path.stat().st_size
+        log(f"[2m] 8 ({smi}): upload of {UPLOAD_BYTES} bytes onto "
+            f"{n} rows: 200 in {up['wall']:.3f} s; phases first seen in "
+            f"the SSE events {fmt_s(up['phases_s'])}; processing_time "
+            f"{up['body']['processing_time']:.3f} s (the save: the whole "
+            f"{size}-byte pickle rewritten; its spans, s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in save.items())
+            + f"); launches {launches}")
+        out["upload"] = {"launches": launches, "wall_s": up["wall"],
+                         "phases_s": up["phases_s"], "save_s": save,
+                         "cache_bytes": size}
+        out["profiler"] = profile_engine(base, scratch / "trace", rng, smi)
+        check_docs_and_ui(base)
+    finally:
+        engine_system.batched_frames = real
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        engine.close()
+    del server, corpus
+    return out
+
+
+def phase_memo(args, device, scratch: Path) -> dict:
+    """Phase 8's frame memo: a bf16 engine with ``ingest.stream_mirror =
+    false`` and ``cache.frame_memo_size = 4096`` builds its own tower and
+    wraps it; over HTTP two ``/api/cache/rebuild``s of the 20 seeded
+    videos: the first embeds all 4,000 frames (misses; B5 and B6 once per
+    layer and embed batch), the second none (4,000 hits, no kernel
+    launched) and gives the first's rows bit for bit."""
+    real = seeded_decode(args)
+    try:
+        with tempfile.TemporaryDirectory(dir=scratch) as videos:
+            vdir = Path(videos)
+            config = EngineConfig()
+            config.ingest.stream_mirror = False
+            config.cache.frame_memo_size = MEMO_SIZE
+            engine = VideoSearchEngine(vdir, config=config, device=device)
+            engine.startup()
+            memo = engine._get_embedder()
+            require(isinstance(memo, MemoizedEmbedder)
+                    and memo.max_size == MEMO_SIZE, f"memo {memo!r}")
+            for v in range(INGEST_VIDEOS):
+                (vdir / ingest_name(v)).write_bytes(b"seeded frames")
+            server = create_server(engine, "127.0.0.1", 0,
+                                   config_path=vdir / "config.json")
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            n = INGEST_VIDEOS * args.frames
+            layers = engine._tower().cfg.vision.num_layers
+            batches = -(-n // config.ingest.batch_size)
+            runs = []
+            try:
+                for want_embeds in (True, False):
+                    hits, misses = memo.hits, memo.misses
+                    for wrapper in WRAPPERS.values():
+                        wrapper.launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    body = call(base, "POST", "/api/cache/rebuild")
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = {k: w.launches for k, w in WRAPPERS.items()}
+                    require(body["success"] and len(engine.index) == n,
+                            f"memo rebuild {body}")
+                    for kname, count in launches.items():
+                        want = (layers * batches
+                                if want_embeds and kname in INGEST else 0)
+                        require(count == want, f"memo rebuild: {kname} "
+                                f"launched {count} times, not {want}")
+                    got = (memo.hits - hits, memo.misses - misses)
+                    require(got == ((0, n) if want_embeds else (n, 0)),
+                            f"memo hits, misses {got}")
+                    runs.append({"launches": launches, "wall_s": wall,
+                                 "hits": got[0], "misses": got[1],
+                                 "rows": engine.index._emb[:n].copy()})
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(30)
+                engine.close()
+            require(np.array_equal(runs[0]["rows"], runs[1]["rows"]),
+                    "memo: the second rebuild's rows differ")
+    finally:
+        engine_system.batched_frames = real
+    log(f"[memo] 8: rebuild 1 embedded {n} frames in {runs[0]['wall_s']:.3f}"
+        f" s (misses {runs[0]['misses']}; launches {runs[0]['launches']}); "
+        f"rebuild 2 in {runs[1]['wall_s']:.3f} s: {runs[1]['hits']} hits, "
+        "no kernel launched, rows bit for bit the first's")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: [{kk: vv for kk, vv in r.items() if kk != "rows"}
+                for r in runs] for k in ("rebuilds",)}
 
 
 # -- phase 6: the SigLIP engine -----------------------------------------------
@@ -3102,7 +3603,7 @@ def main() -> int:
     # the serving path's stage spans: phase 5 splits its batches by them
     stageprof.ENABLED = True
     launches, ingested, extra, surface = phase_end_to_end(embedder, args,
-                                                          device)
+                                                          device, smi)
     with timed("6, SigLIP engine"):
         sl, si = phase_siglip_engine(siglip, args, device, smi)
     src = "video_quierer_tpu_torch/csrc/"
@@ -3177,7 +3678,25 @@ def main() -> int:
          "replaces": "video_quierer_tpu/ops/topk.py:1419",
          "launches": sl["cand_scan_prefix"], **sk["cand_scan_prefix"]},
     ]}
-    log(f"phase 7 summary ({smi}; host-clock p50 ms per route, device "
+    # phase 8's launches, beside each kernel's main-path count
+    big, maint = surface["2m"], surface["maintenance"]
+    slice_launches = {
+        "cand_scan_prefix": {
+            "keyword_engine": big["keyword"]["launches"]["cand_scan_prefix"],
+            "profiled": big["profiler"]["launches"]["cand_scan_prefix"]},
+        "fused_text_layer": {
+            "profiled": big["profiler"]["launches"]["fused_layer"]},
+        "attention": {"profiled": big["profiler"]["launches"]["attention"]}}
+    for name in INGEST:
+        slice_launches[name] = {
+            "upload": maint["upload"]["launches"][name],
+            "upload_2m": big["upload"]["launches"][name],
+            "memo_rebuilds": [r["launches"][name]
+                              for r in surface["memo"]["rebuilds"]]}
+    for entry in kernels_line["kernels"]:
+        if entry["name"] in slice_launches:
+            entry["phase8_launches"] = slice_launches[entry["name"]]
+    log(f"phase 7 and 8 summary ({smi}; host-clock p50 ms per route, device "
         "ranking ms by CUDA events): " + json.dumps(surface))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)

@@ -7,9 +7,9 @@ must accept it as the same value of the same type, or both refuse it
 with the same pydantic error type. The same holds for a whole
 ``config.json`` (``load_api_config``: a coercible file is read, not
 dropped to the defaults) and for the ``api`` section of the nested
-engine config (``_apply_nested``). ``cache.frame_memo_size > 0`` is
-refused by the port (its ``MemoizedEmbedder`` is not ported), where the
-JAX package memoises.
+engine config (``_apply_nested``). ``cache.frame_memo_size > 0``
+validates in both packages, and the engine wraps the tower it builds in
+the frame memo (``MemoizedEmbedder``), as the JAX engine does.
 """
 
 import json
@@ -92,16 +92,31 @@ def test_api_override_path_matches(section, ok):
     assert pcfg.api.to_dict() == jcfg.api.model_dump()
 
 
-def test_frame_memo_is_refused(tmp_path):
+def test_frame_memo_validates_and_builds_the_wrapper(tmp_path):
+    from video_quierer_tpu_torch.models.clip.embedder import (
+        CLIPEmbedder,
+        MemoizedEmbedder,
+    )
+    from tests.torch_parity import TINY
     cfg = torch_config.EngineConfig(videos_dir=str(tmp_path))
     cfg.cache.frame_memo_size = 64
-    with pytest.raises(NotImplementedError, match="MemoizedEmbedder"):
-        cfg.validate()
-    with pytest.raises(NotImplementedError, match="MemoizedEmbedder"):
-        VideoSearchEngine(tmp_path, config=cfg, device="cpu")
-    # the JAX package takes the setting (it memoises frame embeddings)
+    cfg.model.name = TINY
+    cfg.model.dtype = "float32"
+    cfg.validate()
     jcfg = jax_config.EngineConfig()
     jcfg.cache.frame_memo_size = 64
     jcfg.validate()
+    engine = VideoSearchEngine(tmp_path, config=cfg, device="cpu")
+    emb = engine._get_embedder()
+    assert isinstance(emb, MemoizedEmbedder) and emb.max_size == 64
+    assert isinstance(emb.inner, CLIPEmbedder) and engine._tower() is emb.inner
+    assert engine._get_embedder() is emb
+    # an injected tower is served as given (the JAX engine wraps only the
+    # tower it builds)
+    injected = VideoSearchEngine(tmp_path, config=cfg, embedder=emb.inner,
+                                 device="cpu")
+    assert injected._get_embedder() is emb.inner
     cfg.cache.frame_memo_size = 0
-    cfg.validate()
+    assert not isinstance(VideoSearchEngine(tmp_path, config=cfg,
+                                            device="cpu")._get_embedder(),
+                          MemoizedEmbedder)

@@ -1,7 +1,7 @@
 """Port engine surfaces vs the JAX package's: the config (same nine
 ``config.json`` keys and defaults, same engine defaults and ``VQT_*``
-mapping, same validation), startup's refusal to ingest through samplers
-that are not ported or to run on a missing card, and the coalescer's
+mapping, same validation), startup's refusal to run on a missing card,
+and the coalescer's
 failure contract (errors reach every waiter; nothing falls back). The
 ingest path itself is held against the JAX engine in
 ``tests/test_torch_ingest.py``."""
@@ -88,22 +88,6 @@ def _engine(tmp_path, embedder=None):
     cfg.index.embed_dim = 64
     return VideoSearchEngine(tmp_path, config=cfg, embedder=embedder,
                              device="cpu")
-
-
-@pytest.mark.parametrize("field,value", [("sampling_strategy", "adaptive"),
-                                         ("quality_filter", True)])
-def test_startup_refuses_videos_that_need_ingest(tmp_path, field, value):
-    """Videos that need ingest through the adaptive/hybrid samplers or
-    the quality filter are refused: ``ingest/samplers.py`` is not
-    ported."""
-    (tmp_path / "clip.mp4").write_bytes(b"not really a video")
-    engine = _engine(tmp_path)
-    setattr(engine.config.ingest, field, value)
-    with pytest.raises(NotImplementedError, match="ingest/samplers.py"):
-        engine.startup()
-    assert not engine.ready
-    with pytest.raises(NotImplementedError, match="ingest/samplers.py"):
-        engine.config.validate()
 
 
 def test_startup_skips_an_unreadable_video(tmp_path):

@@ -288,3 +288,64 @@ def test_corpus_shards_still_raise(tmp_path, kind):
     engine = VideoSearchEngine(str(tmp_path), config=cfg, device="cpu",
                                corpus_mesh=corpus_mesh(2, devices=["cpu"] * 2))
     assert engine.index.mesh.n_shards == 2
+
+
+def test_rebuild_after_a_removed_video_rebuilds_the_tier(tmp_path):
+    """``rebuild()`` on an IVF engine above ``ivf_min_rows`` once a video
+    file is gone: the tier is rebuilt on the new rows (none of the old
+    corpus's ids left), and a search's rows equal the exact scan over the
+    rows the tier probes (the same clusters by the same numpy rule, the
+    same tile budget). The JAX engine keeps its old tier there (its ingest
+    feeds the old tiles only rows past the old count); the port does not
+    copy that."""
+    jax_emb = JaxEmbedder(TINY_224_FULL_VOCAB, dtype=jnp.float32, seed=3)
+    port_emb = CLIPEmbedder(TINY_224_FULL_VOCAB, dtype=torch.float32,
+                            device="cpu",
+                            state_dict=port_state_dict(jax_emb.params,
+                                                       TINY_224_FULL_VOCAB))
+    engines = []
+    for name, mod, cls, kw in (
+            ("jax", jax_config, JaxEngine, {"embedder": jax_emb}),
+            ("port", torch_config, VideoSearchEngine,
+             {"embedder": port_emb, "device": "cpu"})):
+        videos = tmp_path / name
+        videos.mkdir()
+        for i in range(4):
+            make_synthetic_video(videos / f"vid{i}.mp4", n_frames=40, seed=i)
+        cfg = _config(mod, videos, ivf_min_rows=16, ivf_nlist=4,
+                      ivf_nprobe=2)
+        cfg.ingest.batch_size = 16
+        engine = cls(str(videos), config=cfg, **kw)
+        engine.startup()
+        assert engine._ivf is not None and engine._ivf_rows == 40
+        (videos / "vid1.mp4").unlink()
+        assert engine.rebuild() == 30
+        engines.append(engine)
+    jax_engine, port = engines
+    assert jax_engine._ivf_rows == 40          # the reference's stale tier
+    tier = port._ivf
+    assert tier is not None and port._ivf_rows == tier._n_built == 30
+    assert port.ann_stats()["rows"] == 30 and tier._fresh is None
+    ids = tier._row_ids[tier._row_ids >= 0]
+    assert sorted(ids.tolist()) == list(range(30))
+    assert "vid1.mp4" not in port.index.video_names()
+    corpus = port.index._emb[:30]
+    budget = tier.tile_budget()
+    nprobe = min(tier.nprobe, tier.nlist)
+    for query in QUERIES:
+        rows = port.search_ex(query, k=8, use_cache=False)[0]
+        q = port.index.normalize_query(port.encode_text(query))
+        csims = q @ tier._centroids_np.T
+        clusters = np.argpartition(-csims, nprobe - 1)[:nprobe]
+        cand = np.concatenate([
+            tier._row_ids[s: s + min(c, budget)].ravel() for s, c in zip(
+                tier._tile_start_np[clusters],
+                tier._tile_counts_np[clusters])])
+        cand = cand[cand >= 0]
+        sc = corpus[cand] @ q
+        top = np.lexsort((cand, -sc))[:8]
+        assert [r["frame_id"] for r in rows] == cand[top].tolist()
+        np.testing.assert_allclose([r["score"] for r in rows], sc[top],
+                                   atol=1e-5)
+        assert all(r["video_name"] != "vid1.mp4" for r in rows)
+    port.close()

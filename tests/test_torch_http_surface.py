@@ -10,7 +10,9 @@ the legacy ``/search``) with their refusals (a junk or fractional ``k``,
 an empty query, an unknown video, a non-image upload), the video listing,
 info and file routes, ``/api/index/save`` outside the videos dir (403),
 the unknown path (404), a known path with another method (405) and
-``OPTIONS``. Then one sequence of maintenance requests runs on both:
+``OPTIONS``, and the routes the port answered 404 to until it served them
+(upload, progress, frame preview, YouTube, OpenAPI and docs, profiler,
+UI). Then one sequence of maintenance requests runs on both:
 index save, video delete, index load, cache export (the file's bytes),
 import (a bad ``.pkl`` and a wrong file type included), config set,
 refused and reset, cache clear and rebuild. Last, ``search_timeout``: a
@@ -53,8 +55,9 @@ CORS = "Access-Control-Allow-Origin"
 
 
 @contextlib.contextmanager
-def port_server(engine, config_path):
-    server = create_server(engine, "127.0.0.1", 0, config_path=config_path)
+def port_server(engine, config_path, static_dir=None):
+    server = create_server(engine, "127.0.0.1", 0, config_path=config_path,
+                           static_dir=static_dir)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -150,7 +153,7 @@ def servers(tmp_path_factory, cache_file, embedders):  # noqa: F811
         for name, data in PLACEHOLDERS.items():
             (engine.videos_dir / name).write_bytes(data)
     with _jax_app(jax_engine, root) as jax_base, \
-            port_server(port, root / "port_cfg.json") as port_base:
+            port_server(port, root / "port_cfg.json", root) as port_base:
         yield (jax_base, jax_engine), (port_base, port)
     port.close()
 
@@ -291,21 +294,51 @@ def test_image_upload_matches_jax(servers, form):
         assert got[0] == 200 and json.loads(got[2])["results"]
 
 
-UNPORTED = [("POST", "/api/videos/upload"),
-            ("POST", "/api/videos/download-youtube"),
-            ("GET", "/api/videos/upload/progress/x"),
-            ("GET", "/api/video/v1/frame?timestamp=1"),
-            ("GET", "/api/openapi.json"), ("GET", "/api/docs"),
-            ("POST", "/api/profiler/start"), ("GET", "/"),
-            ("GET", "/static/index.html")]
+# the routes the port answered 404 to before its upload, profiler, docs
+# and UI routes (their full parity cases: tests/test_torch_upload.py)
+FORMERLY_UNPORTED = [("POST", "/api/videos/upload"),
+                     ("POST", "/api/videos/download-youtube"),
+                     ("GET", "/api/videos/upload/progress/x"),
+                     ("GET", "/api/video/v1/frame?timestamp=1"),
+                     ("GET", "/api/openapi.json"), ("GET", "/api/docs"),
+                     ("POST", "/api/profiler/start"), ("GET", "/"),
+                     ("GET", "/static/index.html")]
 
 
-@pytest.mark.parametrize("method,path", UNPORTED)
-def test_unported_routes_answer_404(servers, method, path):
-    """The routes left for a later port answer as an unknown path."""
-    status, headers, body = send(servers[1][0], method, path, b"")
-    assert (status, body) == (404, b"404: Not Found")
-    assert CORS not in headers
+def _named_by_package(path, body):
+    """The bodies that name their package: the spec's info and the
+    profiler's summary, the docs' profiler."""
+    if path == "/api/openapi.json":
+        spec = json.loads(body)
+        spec.pop("info")
+        spec["paths"]["/api/profiler/start"]["post"].pop("summary")
+        return spec
+    return body.replace(b"jax.profiler", b"torch.profiler")
+
+
+@pytest.mark.parametrize("method,path", FORMERLY_UNPORTED)
+def test_formerly_unported_routes_match_jax(servers, method, path):
+    """Each route answers as the JAX app does (an empty body: the upload
+    fails to parse, 500; download-youtube 400; the progress of an unknown
+    id 404; a placeholder video that does not decode; the spec and docs;
+    a profiler trace started and stopped; no UI in the test's static
+    dir)."""
+    (jax_base, _), (port_base, _) = servers
+    want = send(jax_base, method, path, b"")
+    got = send(port_base, method, path, b"")
+    if path.startswith("/api/profiler"):
+        for base in (jax_base, port_base):
+            assert send(base, "POST", "/api/profiler/stop", b"")[0] == 200
+    assert got[0] == want[0], (got, want)
+    assert got[1].get("Content-Type") == want[1].get("Content-Type")
+    assert (CORS in got[1]) == (CORS in want[1])
+    if path in ("/api/openapi.json", "/api/docs"):
+        assert _named_by_package(path, got[2]) == \
+            _named_by_package(path, want[2])
+    elif (want[1].get("Content-Type") or "").startswith("application/json"):
+        same_json(strip(json.loads(got[2])), strip(json.loads(want[2])))
+    else:
+        assert got[2] == want[2]
 
 
 def test_metrics_snapshot_matches_jax(servers):
@@ -482,8 +515,9 @@ def test_entry_point_auto_saves_on_shutdown(tmp_path, monkeypatch,
         def server_close(self):
             served["closed"] = True
 
-    def fake_server(engine, host, port, config_path):
+    def fake_server(engine, host, port, config_path, static_dir):
         served["engine"], served["config_path"] = engine, config_path
+        served["static_dir"] = static_dir
         return Interrupted()
 
     monkeypatch.setattr(entry, "create_server", fake_server)
@@ -492,4 +526,5 @@ def test_entry_point_auto_saves_on_shutdown(tmp_path, monkeypatch,
                 "--config", str(config)])
     assert served["engine_rows"] == 4 and served["closed"]
     assert served["config_path"] == config
+    assert served["static_dir"] is None        # the repo's static/
     assert Path(str(cache) + ".sha256").exists() is auto_save

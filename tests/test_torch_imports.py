@@ -1,8 +1,9 @@
 """The port imports torch and numpy only: in a fresh interpreter, importing
 every module of video_quierer_tpu_torch (the corpus-mesh modules
 ``parallel/mesh.py`` and ``index/sharded.py``, the SigLIP family's
-``models/siglip`` and the HTTP API's ``api/`` among them) leaves jax,
-flax, aiohttp, pydantic and cv2 out of ``sys.modules``, and builds no
+``models/siglip``, the HTTP API's ``api/``, the samplers, the
+``use_clip = false`` encoders and the CLI among them) leaves jax, flax,
+aiohttp, pydantic, cv2 and yt_dlp out of ``sys.modules``, and builds no
 kernel."""
 
 import json
@@ -13,7 +14,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "aiohttp", "pydantic", "cv2")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "aiohttp", "pydantic", "cv2",
+             "yt_dlp")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
@@ -61,8 +63,14 @@ def test_siglip_modules_are_walked(report):
 
 def test_api_modules_are_walked(report):
     for name in ("server", "routes", "schemas", "multipart", "web",
-                 "__main__"):
+                 "openapi", "__main__"):
         assert f"video_quierer_tpu_torch.api.{name}" in report["modules"]
+
+
+def test_ingest_fallback_and_cli_modules_are_walked(report):
+    for name in ("ingest.samplers", "ingest.frames", "ingest.pipeline",
+                 "engine.fallback", "cli"):
+        assert f"video_quierer_tpu_torch.{name}" in report["modules"]
 
 
 def test_mesh_entry_points_default_to_the_card(monkeypatch):

@@ -7,7 +7,8 @@
 changed (decoding needs OpenCV) and saves the cache; then the server
 runs until interrupted, and on the way out saves the cache again when
 ``api.auto_save`` is set and the index holds rows. ``--config`` is the
-flat ``config.json`` read at start and written by ``POST /api/config``.
+flat ``config.json`` read at start and written by ``POST /api/config``;
+``--static-dir`` the UI's files (default: the repo's ``static/``).
 ``--device`` defaults to ``cuda``; without a CUDA card that raises rather
 than serving on the CPU.
 """
@@ -32,6 +33,7 @@ def main(argv=None) -> None:
     ap.add_argument("--videos-dir", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--config", type=Path, default=Path("config.json"))
+    ap.add_argument("--static-dir", type=Path, default=None)
     args = ap.parse_args(argv)
     cfg = load_engine_config(args.config)
     logging.basicConfig(level=cfg.api.log_level)
@@ -42,7 +44,8 @@ def main(argv=None) -> None:
                                device=args.device)
     engine.startup()
     server = create_server(engine, args.host, args.port,
-                           config_path=args.config)
+                           config_path=args.config,
+                           static_dir=args.static_dir)
     log = logging.getLogger(__name__)
     log.info("serving on %s:%d", args.host, server.server_address[1])
     try:

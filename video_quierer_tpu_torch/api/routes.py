@@ -3,7 +3,11 @@
 texts and body shapes.
 
 - system: ``GET /api`` (the API's index), ``/health``, ``/api/health``,
-  ``/api/stats``, ``/metrics`` (Prometheus text), ``/api/metrics``;
+  ``/api/stats``, ``/metrics`` (Prometheus text), ``/api/metrics``,
+  ``/api/openapi.json`` and ``/api/docs`` (``api/openapi.py``), ``POST
+  /api/profiler/start|stop`` (a ``torch.profiler`` trace of the CPU and,
+  on a card, CUDA activity, written as a Chrome trace into
+  ``trace_dir``; 409 when a trace runs already, or none does);
 - search: ``POST /api/search`` (``{query, k=5 (1..50), use_cache=true,
   dedup_videos=false, offset=0 (0..63)}``; a ``data:image/...;base64``
   query that decodes to an image searches by that image, any other query
@@ -13,44 +17,60 @@ texts and body shapes.
   vector), ``/api/search/similar`` (an indexed frame's neighbours),
   ``/api/search/image`` (a multipart image upload) and the legacy
   ``/search``;
-- videos: ``GET /api/videos`` (``?limit=&offset=``), ``GET /videos``,
-  ``GET /api/videos/{video_id}`` (substring match), ``DELETE
-  /api/videos/{video_id}`` (file, rows, then the cache saved), ``GET
-  /videos/{filename}`` (the file);
+- videos: ``POST /api/videos/upload`` (multipart, the file part
+  streamed to disk under ``MAX_FILE_SIZE``: 413 past it; then ingested
+  and the cache saved; ``?upload_id=`` keeps a progress record, read by
+  ``GET /api/videos/upload/progress/{upload_id}`` and streamed as
+  server-sent events by ``.../stream``), ``POST
+  /api/videos/download-youtube`` (needs ``yt_dlp``), ``GET /api/videos``
+  (``?limit=&offset=``), ``GET /videos``, ``GET /api/videos/{video_id}``
+  (substring match), ``DELETE /api/videos/{video_id}`` (file, rows, then
+  the cache saved), ``GET /videos/{filename}`` (the file), ``GET
+  /api/video/{video_id}/frame?timestamp=`` (one frame as a base64 JPEG);
 - ``POST /api/index/save|load?filepath=`` (contained to the videos dir or
   ``VQT_INDEX_IO_DIR``: 403 elsewhere);
 - ``GET/POST /api/config``, ``POST /api/config/reset`` (``config.json``
   written);
-- ``/api/cache/stats|rebuild|clear|health|warm|export|import``.
+- ``/api/cache/stats|rebuild|clear|health|warm|export|import``;
+- the UI: ``GET /`` (``index.html`` of the static dir) and the files
+  under ``/static``.
 
-Not ported yet, answered 404 as any unknown path: video upload and its
-progress routes, the frame preview, ``download-youtube``,
-``/api/openapi.json`` and ``/api/docs``, the profiler, the UI (``/``,
-``/static``).
+OpenCV (the frame preview, image queries) and ``yt_dlp`` are imported
+inside the routes that use them.
 """
 
 from __future__ import annotations
 
 import base64
 import functools
+import json
 import logging
 import os
+import tempfile
 import threading
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from video_quierer_tpu_torch.api import schemas
-from video_quierer_tpu_torch.api.multipart import parse_multipart
+from video_quierer_tpu_torch.api.multipart import (
+    MultipartReader,
+    parse_multipart,
+)
+from video_quierer_tpu_torch.api.openapi import docs_html, openapi_spec
 from video_quierer_tpu_torch.api.schemas import RequestError, parse_k
 from video_quierer_tpu_torch.api.web import (
     Request,
+    Response,
     Router,
     error,
     file_response,
+    stream_response,
     text_response,
 )
 from video_quierer_tpu_torch.engine.config import ApiConfig, save_api_config
@@ -63,9 +83,94 @@ from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
 logger = logging.getLogger(__name__)
 
 API_VERSION = "2.1.0"
-# the routes of the reference whose path a ported route's pattern also
-# matches: 404 as the other unported routes, not the router's 405
-_UNPORTED_POSTS = ("/api/videos/upload", "/api/videos/download-youtube")
+MAX_FILE_SIZE = 1024 * 1024 * 1024  # 1 GB, read at request time
+# progress records kept after completion, so that a client can read the
+# final state; the oldest goes first
+_MAX_UPLOAD_ENTRIES = 256
+# the profiler's trace directory when the request names none
+DEFAULT_TRACE_DIR = os.path.join(tempfile.gettempdir(), "vqt_profile")
+# the static dir when the server is given none: the repo's static/
+DEFAULT_STATIC_DIR = Path(__file__).resolve().parents[2] / "static"
+
+
+def sanitize_filename(filename: str) -> str:
+    """A client's file name without path components ("..", separators)."""
+    name = Path(filename.replace("\\", "/")).name
+    return name.replace("..", "_").strip(". ") or "upload"
+
+
+def _frame_to_data_uri(frame_bgr: np.ndarray) -> str:
+    """A BGR frame as a JPEG (quality 85) base64 data URI; "" when it
+    does not encode."""
+    import cv2
+    ok, buf = cv2.imencode(".jpg", frame_bgr,
+                           [int(cv2.IMWRITE_JPEG_QUALITY), 85])
+    if not ok:
+        return ""
+    return "data:image/jpeg;base64," + \
+        base64.b64encode(buf.tobytes()).decode()
+
+
+def _all_threads():
+    """A profiler config that records the CPU ops of every thread (the
+    searches run on the server's request threads), where this torch has
+    the option; None (the calling thread's ops) where it has not."""
+    from torch._C._profiler import _ExperimentalConfig
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
+class TraceRecorder:
+    """One ``torch.profiler`` trace at a time: the CPU activity and, on a
+    card, the CUDA activity of the whole process (every thread's kernels),
+    written at :meth:`stop` as a Chrome trace into the start's directory.
+    The profiler must start and stop on one thread, so a thread of its own
+    runs both for whichever request thread asks."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._prof = None
+        self._dir: Optional[Path] = None
+        self._thread = ThreadPoolExecutor(1, thread_name_prefix="profiler")
+
+    def _on_own_thread(self, fn):
+        return self._thread.submit(fn).result()
+
+    def start(self, trace_dir: str) -> None:
+        with self._lock:
+            if self._prof is not None:
+                raise RuntimeError("a trace is already running")
+            path = Path(trace_dir)
+            path.mkdir(parents=True, exist_ok=True)
+
+            def begin():
+                import torch.profiler as tp
+                activities = [tp.ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    activities.append(tp.ProfilerActivity.CUDA)
+                prof = tp.profile(activities=activities,
+                                  experimental_config=_all_threads())
+                prof.start()
+                return prof
+
+            self._prof, self._dir = self._on_own_thread(begin), path
+
+    def stop(self) -> Path:
+        with self._lock:
+            prof, self._prof = self._prof, None
+            if prof is None:
+                raise RuntimeError("No profile started")
+            out = self._dir / f"vqt_trace_{os.getpid()}_{time.time_ns()}" \
+                ".pt.trace.json"
+
+            def end():
+                prof.stop()
+                prof.export_chrome_trace(str(out))
+
+            self._on_own_thread(end)
+            return out
 
 
 def _decode_image_query(query: str) -> Optional[np.ndarray]:
@@ -189,8 +294,15 @@ def _bounded(fn, timeout: float):
 
 
 def build_router(engine: VideoSearchEngine, config_path: Path,
-                 started: float) -> Router:
+                 started: float, static_dir: Optional[Path] = None
+                 ) -> Router:
     router = Router()
+    static_dir = Path(static_dir) if static_dir is not None \
+        else DEFAULT_STATIC_DIR
+    uploads: Dict[str, dict] = {}
+    uploads_lock = threading.Lock()
+    profiler = TraceRecorder()
+    profiler_dir: Dict[str, str] = {}
 
     def route(method: str, path: str):
         def add(fn):
@@ -227,6 +339,15 @@ def build_router(engine: VideoSearchEngine, config_path: Path,
                 "metrics": "/metrics",
             },
         }
+
+    @route("GET", "/api/openapi.json")
+    def openapi_json(_req):
+        return openapi_spec(API_VERSION)
+
+    @route("GET", "/api/docs")
+    def api_docs(_req):
+        return Response(200, docs_html(API_VERSION).encode(),
+                        "text/html; charset=utf-8")
 
     @route("GET", "/health")
     def health(_req):
@@ -267,6 +388,24 @@ def build_router(engine: VideoSearchEngine, config_path: Path,
     @route("GET", "/api/metrics")
     def metrics_json(_req):
         return engine.metrics.snapshot()
+
+    @route("POST", "/api/profiler/start")
+    def profiler_start(req):
+        trace_dir = _lenient_body(req).get("trace_dir") or DEFAULT_TRACE_DIR
+        try:
+            profiler.start(trace_dir)
+        except Exception as e:  # the reference answers 409
+            return error(409, f"profiler start failed: {e}")
+        profiler_dir["dir"] = trace_dir
+        return {"success": True, "trace_dir": trace_dir}
+
+    @route("POST", "/api/profiler/stop")
+    def profiler_stop(_req):
+        try:
+            profiler.stop()
+        except Exception as e:  # the reference answers 409
+            return error(409, f"profiler stop failed: {e}")
+        return {"success": True, "trace_dir": profiler_dir.get("dir")}
 
     # -- search ----------------------------------------------------------
 
@@ -404,6 +543,215 @@ def build_router(engine: VideoSearchEngine, config_path: Path,
 
     # -- videos ----------------------------------------------------------
 
+    def progress_entry(req: Request) -> Optional[dict]:
+        """A progress record, registered when the client passed
+        ``?upload_id=``."""
+        upload_id = req.query.get("upload_id")
+        if not upload_id:
+            return None
+        entry = {
+            "upload_id": upload_id,
+            "phase": "receiving",
+            "bytes_received": 0,
+            "total_bytes": req.content_length,
+            "frames_indexed": None,
+            "error": None,
+            "done": False,
+            "updated_at": time.time(),
+        }
+        with uploads_lock:
+            while len(uploads) >= _MAX_UPLOAD_ENTRIES:
+                uploads.pop(next(iter(uploads)))
+            uploads[upload_id] = entry
+        return entry
+
+    def progress(entry: Optional[dict], **kw) -> None:
+        if entry is not None:
+            entry.update(kw, updated_at=time.time())
+
+    @route("POST", "/api/videos/upload")
+    def upload_video(req):
+        reader = MultipartReader(req.read, req.headers.get("Content-Type"))
+        video_id = None
+        tmp_path: Optional[Path] = None
+        saved_path: Optional[Path] = None
+        filename = None
+        prog = progress_entry(req)
+
+        def reject(msg: str):
+            progress(prog, phase="error", done=True, error=msg)
+            return error(400, msg)
+
+        def remove_partial():
+            for p in (tmp_path, saved_path):
+                if p is not None and p.exists():
+                    p.unlink()
+
+        try:
+            # the file goes to a temporary name first: the video_id part
+            # may come before or after the file part
+            for part in reader:
+                if part.name == "video_id":
+                    video_id = sanitize_filename(part.text().strip()) \
+                        or None
+                elif part.name == "file":
+                    filename = part.filename
+                    if not filename:
+                        return reject("No file provided")
+                    filename = sanitize_filename(filename)
+                    ext = Path(filename).suffix.lower()
+                    if ext not in VIDEO_EXTENSIONS:
+                        return reject(f"Unsupported file type: {ext}")
+                    tmp_path = engine.videos_dir / \
+                        f".upload_{uuid.uuid4().hex}{ext}"
+                    size = 0
+                    with open(tmp_path, "wb") as f:
+                        while True:
+                            chunk = part.read_chunk(1 << 20)
+                            if not chunk:
+                                break
+                            size += len(chunk)
+                            progress(prog, bytes_received=size)
+                            if size > MAX_FILE_SIZE:
+                                # raised, as the reference's: no CORS
+                                raise RequestError(
+                                    413, "File too large (max 1GB)",
+                                    cors=False)
+                            f.write(chunk)
+            if tmp_path is None:
+                return reject("No file provided")
+            video_id = video_id or str(uuid.uuid4())
+            saved_path = engine.videos_dir / f"{video_id}_{filename}"
+            tmp_path.replace(saved_path)
+            tmp_path = None
+            t0 = time.time()
+            progress(prog, phase="processing")
+            frames = engine.process_video(saved_path)
+            progress(prog, phase="saving", frames_indexed=frames)
+            engine.save()
+            dt = time.time() - t0
+            progress(prog, phase="done", done=True)
+            return {
+                "video_id": video_id,
+                "status": "success",
+                "frames_indexed": frames,
+                "processing_time": dt,
+                "performance": {
+                    "frames_per_second": frames / dt if dt > 0 else 0},
+            }
+        except RequestError as e:
+            progress(prog, phase="error", done=True,
+                     error=json.dumps({"detail": e.detail}))
+            remove_partial()
+            raise
+        except Exception as e:  # the reference answers 500
+            logger.exception("Upload failed")
+            progress(prog, phase="error", done=True, error=str(e))
+            remove_partial()
+            return error(500, f"Upload failed: {e}")
+
+    @route("GET", "/api/videos/upload/progress/{upload_id}")
+    def upload_progress(req):
+        entry = uploads.get(req.params["upload_id"])
+        if entry is None:
+            return error(404, "Unknown upload_id")
+        return dict(entry)
+
+    @route("GET", "/api/videos/upload/progress/{upload_id}/stream")
+    def upload_progress_stream(req):
+        """Server-sent events: one ``progress`` event per change of the
+        record until the upload is done or fails; an id not registered
+        within a 10 s grace window gets one ``error`` event."""
+        upload_id = req.params["upload_id"]
+
+        def events():
+            last = None
+            deadline = time.time() + 600
+            grace = time.time() + 10
+            while time.time() < deadline:
+                entry = uploads.get(upload_id)
+                if entry is None:
+                    if time.time() < grace:
+                        time.sleep(0.1)
+                        continue
+                    yield (b"event: error\n"
+                           b"data: {\"detail\": \"Unknown upload_id\"}\n\n")
+                    break
+                snap = json.dumps(entry, default=str)
+                if snap != last:
+                    last = snap
+                    yield f"event: progress\ndata: {snap}\n\n".encode()
+                if entry.get("done"):
+                    break
+                time.sleep(0.15)
+
+        return stream_response(events(), "text/event-stream",
+                               (("Cache-Control", "no-cache"),), cors=False)
+
+    @route("POST", "/api/videos/download-youtube")
+    def download_youtube(req):
+        body = _lenient_body(req)
+        url = str(body.get("url", "")).strip()
+        quality = body.get("quality", "best")
+        overrides = body.get("config", {}) or {}
+        if not url:
+            return error(400, "No URL provided")
+        if "youtube.com/watch" not in url and "youtu.be/" not in url:
+            return error(400, "Invalid YouTube URL")
+        try:
+            import yt_dlp  # noqa: F401
+        except ImportError:
+            return error(500, "yt-dlp not installed. "
+                         "Install with: pip install yt-dlp")
+        video_id = str(uuid.uuid4())
+        t0 = time.time()
+        try:
+            fmt = {
+                "best": "best[ext=mp4]/best",
+                "720p": "best[height<=720][ext=mp4]/best[height<=720]",
+                "480p": "best[height<=480][ext=mp4]/best[height<=480]",
+                "360p": "best[height<=360][ext=mp4]/best[height<=360]",
+                "worst": "worst[ext=mp4]/worst",
+            }.get(quality, "best[ext=mp4]/best")
+            opts = {
+                "format": fmt,
+                "outtmpl": str(engine.videos_dir /
+                               f"{video_id}_%(title)s.%(ext)s"),
+                "restrictfilenames": True,
+                "no_warnings": True,
+            }
+            with yt_dlp.YoutubeDL(opts) as ydl:
+                info = ydl.extract_info(url, download=False)
+                title = info.get("title", "Unknown")
+                ydl.download([url])
+            files = list(engine.videos_dir.glob(f"{video_id}_*"))
+            if not files:
+                return error(500, "Download completed but file not found")
+            video_path = files[0]
+            cfg = None
+            if overrides:
+                cfg = schemas.api_config_request(
+                    {**engine.config.api.model_dump(), **overrides})
+            frames = engine.process_video(video_path, cfg)
+            engine.save()
+            dt = time.time() - t0
+            return {
+                "video_id": video_id,
+                "status": "success",
+                "title": title,
+                "filename": video_path.name,
+                "frames_indexed": frames,
+                "processing_time": dt,
+                "quality": quality,
+                "url": url,
+                "performance": {
+                    "frames_per_second": frames / dt if dt > 0 else 0},
+            }
+        except Exception as e:  # the reference answers 500
+            for f in engine.videos_dir.glob(f"{video_id}_*"):
+                f.unlink()
+            return error(500, f"YouTube download failed: {e}")
+
     @route("GET", "/api/videos")
     def list_videos(req):
         try:
@@ -466,10 +814,6 @@ def build_router(engine: VideoSearchEngine, config_path: Path,
         return {"status": "deleted", "video_id": video_id,
                 "filename": name}
 
-    for path in _UNPORTED_POSTS:
-        router.add("POST", path, lambda _req: text_response(
-            "404: Not Found", 404, cors=False))
-
     @route("GET", "/videos/{filename}")
     def serve_video(req):
         filename = req.params["filename"]
@@ -478,6 +822,34 @@ def build_router(engine: VideoSearchEngine, config_path: Path,
                 or path.parent != engine.videos_dir:
             return error(404, f"Video not found: {filename}")
         return file_response(path)
+
+    @route("GET", "/api/video/{video_id}/frame")
+    def video_frame(req):
+        video_id = req.params["video_id"]
+        try:
+            timestamp = float(req.query["timestamp"])
+        except (KeyError, ValueError):
+            return error(422, "timestamp query parameter required")
+
+        def failed(msg: str, name: str):
+            return {"success": False, "error": msg, "frame_data": None,
+                    "timestamp": timestamp, "video_name": name}
+
+        name = _find_video_by_id(engine, video_id)
+        if name is None:
+            return failed("Video not found", "unknown")
+        path = engine.videos_dir / name
+        if not path.exists():
+            return failed("Video file not found on disk", name)
+        from video_quierer_tpu_torch.ingest.frames import frame_at_timestamp
+        frame = frame_at_timestamp(path, timestamp)
+        if frame is None:
+            return failed("Failed to extract frame at timestamp", name)
+        data = _frame_to_data_uri(frame)
+        if not data:
+            return failed("Failed to encode frame", name)
+        return {"success": True, "frame_data": data, "error": None,
+                "timestamp": timestamp, "video_name": name}
 
     # -- index persistence -----------------------------------------------
 
@@ -631,5 +1003,35 @@ def build_router(engine: VideoSearchEngine, config_path: Path,
             ok, schemas.cache_stats(engine),
             "Cache imported successfully" if ok
             else "Failed to import cache")
+
+    # -- UI ----------------------------------------------------------------
+
+    @route("GET", "/")
+    def ui_root(_req):
+        index = static_dir / "index.html"
+        if index.exists():
+            return file_response(index)
+        return Response(
+            200, b"<h1>UI not found</h1><p>static/index.html missing.</p>",
+            "text/html; charset=utf-8")
+
+    if static_dir.exists():
+        root = static_dir.resolve()
+
+        def forbidden(_req=None):
+            return text_response("403: Forbidden", 403, cors=False)
+
+        @route("GET", "/static/{filename:path}")
+        def static_file(req):
+            target = (static_dir / req.params["filename"]).resolve()
+            if target != root and root not in target.parents:
+                return text_response("404: Not Found", 404, cors=False)
+            if target.is_dir():
+                return forbidden()
+            if not target.is_file():     # aiohttp's FileResponse 404
+                return Response(404, content_type="application/octet-stream")
+            return file_response(target)
+
+        router.add("GET", "/static", forbidden)
 
     return router

@@ -17,10 +17,6 @@ corpus mesh's (``index.corpus_shards``, ``index.corpus_slices``,
 towers); fields the port does not act on yet (checkpoints, pipeline
 parallelism) keep their names and validation so one
 ``config.json``/``engine.yaml`` serves both packages.
-Ingest samples by the reference's interval rule only: the adaptive and
-hybrid samplers and the quality filter (``ingest/samplers.py``) are not
-ported, and asking for them raises ``NotImplementedError``; so does
-``cache.frame_memo_size > 0`` (the frame-embedding memo is not ported).
 """
 
 from __future__ import annotations
@@ -252,7 +248,6 @@ class EngineConfig:
         if self.ingest.sampling_strategy not in SAMPLING_STRATEGIES:
             raise ValueError(
                 f"sampling_strategy must be one of {SAMPLING_STRATEGIES}")
-        check_sampling_ported(self.ingest)
         if self.index.kind not in ("exact", "ivf"):
             raise ValueError("index.kind must be 'exact' or 'ivf'")
         if self.index.device_dtype not in ("float32", "bfloat16",
@@ -273,7 +268,6 @@ class EngineConfig:
                              "'float32' or 'bfloat16'")
         if self.index.ivf_nprobe <= 0:
             raise ValueError("ivf_nprobe must be positive")
-        check_cache_ported(self.cache)
         if self.model.dtype not in ("float32", "bfloat16"):
             raise ValueError("model.dtype must be 'float32' or 'bfloat16'")
         if self.model.parallel not in ("none", "pp"):
@@ -285,25 +279,6 @@ class EngineConfig:
             raise ValueError("pipeline_microbatches must be positive")
         if self.coalesce_width <= 0:
             raise ValueError("coalesce_width must be positive")
-
-
-def check_sampling_ported(ingest: IngestConfig) -> None:
-    """Refuse the ingest options whose module is not ported yet."""
-    if ingest.sampling_strategy != "interval" or ingest.quality_filter:
-        raise NotImplementedError(
-            "ingest.sampling_strategy other than 'interval' and "
-            "ingest.quality_filter need ingest/samplers.py, which is not "
-            "yet ported")
-
-
-def check_cache_ported(cache: CacheConfig) -> None:
-    """Refuse the frame-embedding memo (``frame_memo_size > 0``): its
-    ``MemoizedEmbedder`` is not ported yet, and ignoring the setting would
-    serve other rows than the reference's."""
-    if cache.frame_memo_size > 0:
-        raise NotImplementedError(
-            "cache.frame_memo_size > 0 needs the frame-embedding memo "
-            "(MemoizedEmbedder), which is not yet ported")
 
 
 def _flag(v: str) -> bool:

@@ -15,12 +15,17 @@ multi-slice one, where it keeps one replica on the first device):
   (``models/siglip``: 768-wide rows, so ``index.embed_dim`` 512 becomes
   768), seeded;
 - ingest (``_ingest``, ``process_video``): the threaded decode pipeline
-  (``ingest/pipeline.py``) yields cross-video batches of 256 frames; each
+  (``ingest/pipeline.py``) yields cross-video batches of 256 frames, the
+  frames sampled by the interval rule or, with ``ingest.sampling_strategy``
+  other than "interval" or ``ingest.quality_filter`` set, by
+  ``ingest/samplers.py`` (``strategy_extract``); each
   is embedded on the device (CLIP: the fused vision encode, kernels B5 +
   B6; SigLIP: the module tower),
   appended to the host store per video, and streamed into the device
   mirrors from the embedder's device output in one step per batch
-  (``DeviceVideoIndex.stream_rows_device``);
+  (``DeviceVideoIndex.stream_rows_device``); ``cache.frame_memo_size > 0``
+  wraps the tower in the frame memo (``MemoizedEmbedder``, which serves
+  the host path, ``ingest.stream_mirror = false``);
 - text search: tokenize on the host → the embedder's text tower, the
   candidate scan and the exact re-rank on the device
   (``DeviceVideoIndex.search_batch_fused_async``) → reference rows
@@ -40,16 +45,22 @@ multi-slice one, where it keeps one replica on the first device):
   once that outgrows ``rebuild_fraction``); while it is live every search
   routes through it — the text tower, then the probe scan (kernel B12) —
   instead of the mirror's scan. The coalescer's flushes take that route
-  too: it is chosen before dispatch (``_dispatch_batch``).
+  too: it is chosen before dispatch (``_dispatch_batch``);
+- ``api.use_clip = false``: no tower; frames are embedded by the
+  visual-statistics embedder and queries by the keyword encoder
+  (``engine/fallback.py``), on the host; text searches take the index's
+  vector search (``DeviceVideoIndex.search_batch``) or the IVF tier.
 
-Unlike the JAX engine, a failed encode or dispatch is not degraded to the
-keyword encoder, the visual-statistics embedder or a two-step path: it
-raises. The ``embed_fallbacks`` and ``fused_search_fallbacks`` counters
-stay for parity and read 0.
+The keyword and visual-statistics encoders serve ``use_clip = false``
+only. Unlike the JAX engine, a failed CLIP encode or dispatch is not
+degraded to them or to a two-step path: it raises. The
+``embed_fallbacks`` and ``fused_search_fallbacks`` counters stay for
+parity and read 0.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import logging
 from pathlib import Path
@@ -62,9 +73,11 @@ from video_quierer_tpu_torch.engine.cache import QueryResultCache
 from video_quierer_tpu_torch.engine.config import (
     ApiConfig,
     EngineConfig,
-    check_cache_ported,
-    check_sampling_ported,
     load_engine_config,
+)
+from video_quierer_tpu_torch.engine.fallback import (
+    KeywordQueryEncoder,
+    VisualStatsEmbedder,
 )
 from video_quierer_tpu_torch.engine.metrics import SystemMetrics
 from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
@@ -74,6 +87,7 @@ from video_quierer_tpu_torch.ingest.pipeline import (
     FrameBatch,
     batched_frames,
     group_by_video,
+    strategy_extract,
 )
 from video_quierer_tpu_torch.models.clip.embedder import (
     TEXT_BUCKETS,
@@ -114,7 +128,6 @@ class VideoSearchEngine:
         ``index.corpus_shards`` (> 0: the first that many CUDA devices,
         split into ``index.corpus_slices`` slices when > 1)."""
         self.config = config or load_engine_config()
-        check_cache_ported(self.config.cache)
         if self.config.model.family == "siglip" and \
                 self.config.index.embed_dim == 512:
             # SigLIP towers are 768-wide (no projection head)
@@ -143,6 +156,8 @@ class VideoSearchEngine:
             ttl_seconds=self.config.cache.query_cache_ttl_s,
             similarity_threshold=self.config.cache.similarity_threshold)
         self._embedder = embedder        # injected (tests) or lazy CLIP
+        self._fallback_visual = VisualStatsEmbedder(dim=idx.embed_dim)
+        self._fallback_text = KeywordQueryEncoder(dim=idx.embed_dim)
         self._ready = False
         self._coalescer = None
         # the ANN tier (index.kind == "ivf"): built on the mutation paths
@@ -162,9 +177,11 @@ class VideoSearchEngine:
         return bool(self.config.api.use_clip)
 
     def _get_embedder(self):
+        """The tower (None when ``use_clip`` is false), built on first use
+        unless one was injected; a built one is wrapped in the frame memo
+        when ``cache.frame_memo_size > 0``, as the JAX engine does."""
         if not self.use_clip:
-            raise NotImplementedError(
-                "use_clip=false (the keyword encoder) is not yet ported")
+            return None
         if self._embedder is None:
             m = self.config.model
             if m.checkpoint_dir or m.orbax_checkpoint:
@@ -187,21 +204,53 @@ class VideoSearchEngine:
                 self._embedder = CLIPEmbedder(model_name=m.name,
                                               dtype=_DTYPES[m.dtype],
                                               device=self.device)
+            if self.config.cache.frame_memo_size > 0:
+                from video_quierer_tpu_torch.models.clip.embedder import \
+                    MemoizedEmbedder
+                self._embedder = MemoizedEmbedder(
+                    self._embedder,
+                    max_size=self.config.cache.frame_memo_size)
         return self._embedder
 
+    def _tower(self):
+        """The tower the fused search paths drive (the frame memo
+        unwrapped)."""
+        emb = self._get_embedder()
+        return getattr(emb, "inner", emb)
+
     def embed_frames(self, frames_u8: np.ndarray) -> np.ndarray:
-        """Frames → ``[N, D]`` f32 unit rows (raises on failure)."""
-        return self._get_embedder().embed_frames(frames_u8)
+        """Frames → ``[N, D]`` f32 unit rows (the visual statistics when
+        ``use_clip`` is false; raises on failure)."""
+        emb = self._get_embedder()
+        if emb is None:
+            return self._fallback_visual.embed_frames(frames_u8)
+        return emb.embed_frames(frames_u8)
 
     def embed_frames_device(self, frames_u8: np.ndarray):
         """``(feats_dev, feats_np)``: the device-resident features and
-        their host copy (one fetch); raises on failure."""
-        return self._get_embedder().embed_frames_device(frames_u8)
+        their host copy (one fetch); ``feats_dev`` is None when
+        ``use_clip`` is false (the ingest then syncs the mirrors from the
+        host); raises on failure."""
+        emb = self._get_embedder()
+        if emb is None:
+            return None, self._fallback_visual.embed_frames(frames_u8)
+        return emb.embed_frames_device(frames_u8)
 
     def encode_text(self, query: str) -> np.ndarray:
         """A text query → its ``[D]`` f32 embedding (the module text
-        tower; raises on failure)."""
-        return self._get_embedder().embed_text(query)
+        tower, or the keyword encoder when ``use_clip`` is false; raises
+        on failure)."""
+        emb = self._get_embedder()
+        if emb is None:
+            return self._fallback_text.embed_text(query)
+        return emb.embed_text(query)
+
+    def _encode_texts(self, queries: Sequence[str]) -> np.ndarray:
+        """:meth:`encode_text` of each query, batched through the tower."""
+        emb = self._get_embedder()
+        if emb is None:
+            return self._fallback_text.embed_texts(queries)
+        return emb.embed_texts(list(queries))
 
     # ------------------------------------------------------------------
     # Startup / ingest
@@ -297,7 +346,16 @@ class VideoSearchEngine:
             return 0
         cfg = api_cfg or self.config.api
         ing = self.config.ingest
-        check_sampling_ported(ing)
+        # the samplers (ingest/samplers.py) where the strategy or the
+        # quality gate asks for them; a partial of a module-level function,
+        # so that the process-pool decode tier can pickle it
+        extract_fn = None
+        if ing.sampling_strategy != "interval" or ing.quality_filter:
+            extract_fn = functools.partial(
+                strategy_extract, strategy=ing.sampling_strategy,
+                max_frames=cfg.max_frames, sampling_mode=cfg.sampling_mode,
+                target_size=ing.target_size,
+                quality_filter=ing.quality_filter)
         with self.lock, self.metrics.timer("ingest"):
             removed = 0
             for video in videos:
@@ -306,7 +364,7 @@ class VideoSearchEngine:
                 list(videos), max_frames=cfg.max_frames,
                 sampling_mode=cfg.sampling_mode, batch_size=ing.batch_size,
                 num_workers=ing.num_decode_workers,
-                prefetch=ing.prefetch_videos,
+                prefetch=ing.prefetch_videos, extract_fn=extract_fn,
                 num_procs=ing.num_decode_procs))
             for video in videos:
                 if Path(video).exists():
@@ -323,8 +381,9 @@ class VideoSearchEngine:
         each batch on the device, append its per-video runs to the host
         store, then stream the batch into the device mirrors from the
         embedder's output in one step (``ingest.stream_mirror``, the
-        default) — or leave the mirrors to sync at the next search.
-        Returns the frames added."""
+        default; without a device output, ``use_clip = false``, the
+        mirrors sync from the host store each batch) — or leave the
+        mirrors to sync at the next search. Returns the frames added."""
         stream = self.config.ingest.stream_mirror
         added = 0
         for batch in batches:
@@ -344,6 +403,8 @@ class VideoSearchEngine:
             if feats_dev is not None:
                 self.index.stream_rows_device(feats_dev, offset=0, n=pos,
                                               lo=lo)
+            elif stream:
+                self.index.sync_mirror()
             added += len(batch)
             self.metrics.inc("frames_embedded", len(batch))
         return added
@@ -501,12 +562,14 @@ class VideoSearchEngine:
         else:
             fetch_k = min(k * 2, MAX_K) if dedup_videos else k
         with self.lock.read(), self.metrics.timer("search_latency"):
-            emb = self._get_embedder()
-            if self._ivf is not None:
+            emb = self._tower()
+            if self._ivf is not None or emb is None:
                 with self.metrics.timer("text_encode"):
-                    q = emb.embed_text(query)
+                    q = self.encode_text(query)
                 with self.metrics.timer("index_scan"):
-                    results = self._search_ann(q, fetch_k)
+                    results = (self._search_ann(q, fetch_k)
+                               if self._ivf is not None
+                               else self.index.search(q, fetch_k))
             else:
                 ids = emb.prepare_text_ids(emb.tokenizer([query]))
                 results = self.index.search_batch_fused(
@@ -542,20 +605,24 @@ class VideoSearchEngine:
     def _dispatch_batch(self, queries: Sequence[str], k: int
                         ) -> Callable[[], List[List[Dict]]]:
         """Dispatch phase of batched text search on the serving route —
-        the IVF tier while it is live, else the mirror's fused scan —
-        returning ``resolve() -> rows`` (unformatted, trimmed to ``k``).
-        The caller holds the engine read lock from this call through
-        ``resolve()``."""
+        the IVF tier while it is live, else the mirror's fused scan, or
+        with ``use_clip`` false the keyword vectors through the index's
+        vector search — returning ``resolve() -> rows`` (unformatted,
+        trimmed to ``k``). The caller holds the engine read lock from this
+        call through ``resolve()``."""
         if self._ivf is not None:
             return self._dispatch_batch_ivf(queries, k)
+        if not self.use_clip:
+            q = self._encode_texts(queries)
+            return lambda: self.index.search_batch(q, k)
         return self._dispatch_batch_fused(queries, k)
 
     def _dispatch_batch_ivf(self, queries: Sequence[str], k: int
                             ) -> Callable[[], List[List[Dict]]]:
-        """The IVF route: the text tower now (``embed_texts``: host
+        """The IVF route: the query vectors now (``_encode_texts``: host
         vectors); ``resolve()`` normalizes them, probes the tier and
         builds the rows."""
-        q = self._get_embedder().embed_texts(list(queries))
+        q = self._encode_texts(queries)
         ivf = self._ivf
 
         def resolve() -> List[List[Dict]]:
@@ -572,7 +639,7 @@ class VideoSearchEngine:
         widest) and enqueue each chunk's device work. Returns ``resolve()
         -> rows`` (unformatted, trimmed to ``k``). The caller holds the
         engine read lock from this call through ``resolve()``."""
-        emb = self._get_embedder()
+        emb = self._tower()
         step = TEXT_BUCKETS[-1]
         parts = []
         for lo in range(0, len(queries), step):

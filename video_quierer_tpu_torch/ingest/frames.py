@@ -125,3 +125,21 @@ def extract_frames(video_path: Path, max_frames: int = 300,
     if not frames:
         return np.zeros((0, target_size, target_size, 3), np.uint8), []
     return np.stack(frames), stamps
+
+
+def frame_at_timestamp(video_path: Path, timestamp: float
+                       ) -> Optional[np.ndarray]:
+    """Seek and read one full-resolution BGR frame (the frame preview
+    route): the frame at ``int(timestamp * fps)``, None when the video
+    does not open or the read fails."""
+    import cv2
+    cap = cv2.VideoCapture(str(video_path))
+    if not cap.isOpened():
+        return None
+    try:
+        fps = cap.get(cv2.CAP_PROP_FPS)
+        cap.set(cv2.CAP_PROP_POS_FRAMES, int(timestamp * fps))
+        ok, frame = cap.read()
+        return frame if ok else None
+    finally:
+        cap.release()

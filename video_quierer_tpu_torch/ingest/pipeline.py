@@ -39,6 +39,14 @@ def _interval_extract(path: Path, max_frames: int, sampling_mode: str):
                           sampling_mode=sampling_mode)
 
 
+def strategy_extract(path: Path, **kw):
+    """Module-level strategy extractor (picklable, as the process pool
+    needs): ``ingest/samplers.py:extract_frames_strategy``."""
+    from video_quierer_tpu_torch.ingest.samplers import \
+        extract_frames_strategy
+    return extract_frames_strategy(path, **kw)
+
+
 def _make_pool(num_workers: int, num_procs: int, extract_fn):
     """Decode pool: threads by default, or a spawn-context PROCESS pool
     when ``num_procs > 0`` (spawned workers import no CUDA state; decode

@@ -15,6 +15,9 @@ text (counterpart of ``video_quierer_tpu/models/clip/embedder.py``).
   queries, small batches, the 77 bucket — takes the module tower
   (attention kernel B3).
 
+``MemoizedEmbedder`` wraps any embedder in a frame-embedding memo
+(``cache.frame_memo_size > 0``).
+
 Weights: a state dict handed in (e.g. from ``bridge.params_from_jax``),
 else the port's seeded init (``bridge.init_params`` from a
 ``torch.Generator``). Real checkpoints and the BPE vocab are not loaded
@@ -23,6 +26,8 @@ yet; the tokenizer is the deterministic ``HashTokenizer``.
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -203,3 +208,85 @@ class CLIPEmbedder:
 
     def embed_text(self, text: str) -> np.ndarray:
         return self.embed_texts([text])[0]
+
+
+class MemoizedEmbedder:
+    """Frame-embedding memo around any embedder (a copy of the JAX
+    package's ``MemoizedEmbedder``).
+
+    Keys frames by the md5 of every 16th pixel in each direction, so
+    re-processing unchanged content (``/api/cache/rebuild`` with the same
+    videos) skips the device; the least recently used entries go first
+    past ``max_size``. ``hits`` and ``misses`` count frames.
+    ``embed_frames_device`` passes straight through (the streamed mirror
+    needs the features on the device), so the memo serves the host path
+    (``ingest.stream_mirror = false``) only.
+    """
+
+    def __init__(self, inner, max_size: int = 50_000):
+        self.inner = inner
+        self.max_size = max_size
+        self._memo: "OrderedDict[bytes, np.ndarray]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    @property
+    def pretrained(self):
+        return getattr(self.inner, "pretrained", False)
+
+    @staticmethod
+    def _key(frame: np.ndarray) -> bytes:
+        return hashlib.md5(
+            np.ascontiguousarray(frame[::16, ::16]).tobytes()).digest()
+
+    def embed_frames(self, frames_u8: np.ndarray) -> np.ndarray:
+        frames_u8 = np.asarray(frames_u8, np.uint8)
+        n = frames_u8.shape[0]
+        if n == 0:
+            return self.inner.embed_frames(frames_u8)
+        keys = [self._key(frames_u8[i]) for i in range(n)]
+        dim = getattr(self.inner, "embed_dim", None)
+        if dim is None:  # from any cached entry, else from this batch
+            dim = (len(next(iter(self._memo.values())))
+                   if self._memo else None)
+        if dim is None:
+            feats = self.inner.embed_frames(frames_u8)
+            self.misses += n
+            for i, key in enumerate(keys):
+                self._memo[key] = feats[i]
+            while len(self._memo) > self.max_size:
+                self._memo.popitem(last=False)
+            return feats
+        out = np.empty((n, dim), np.float32)
+        missing = []
+        for i, key in enumerate(keys):
+            cached = self._memo.get(key)
+            if cached is not None:
+                out[i] = cached
+                self._memo.move_to_end(key)
+                self.hits += 1
+            else:
+                missing.append(i)
+                self.misses += 1
+        if missing:
+            feats = self.inner.embed_frames(frames_u8[missing])
+            for j, i in enumerate(missing):
+                out[i] = feats[j]
+                self._memo[keys[i]] = feats[j]
+            while len(self._memo) > self.max_size:
+                self._memo.popitem(last=False)
+        return out
+
+    def embed_frames_device(self, frames_u8: np.ndarray):
+        """The inner embedder's ``(feats_dev, feats_np)``, not memoized;
+        ``(None, embed_frames(...))`` when it has no device path."""
+        fn = getattr(self.inner, "embed_frames_device", None)
+        if fn is None:
+            return None, self.embed_frames(frames_u8)
+        return fn(frames_u8)
+
+    def embed_text(self, text: str) -> np.ndarray:
+        return self.inner.embed_text(text)
+
+    def embed_texts(self, texts) -> np.ndarray:
+        return self.inner.embed_texts(texts)

@@ -31,6 +31,11 @@ device):
   results        device-to-host copies and row building
 and engine/system.py:_warm_up:
   warm_up        startup's run of the fused search path
+and index/device_index.py:save_to_disk (the pickle cache's write):
+  save_payload   the v1.0 payload (a row array and a dict per frame)
+  save_pickle    pickle.dumps of it
+  save_write     the file written
+  save_checksum  its SHA-256 sidecar
 
 ``snapshot()`` returns {name: (calls, seconds)}; serving_bench prints
 per-phase deltas as µs/query.
