@@ -5,6 +5,7 @@ GPU — the quickest proof that the port still starts on the card.
     python3 chip_smoke.py [--seed 0] [--videos 10000] [--frames 200]
     python3 chip_smoke.py --ab DIR [--ab-scans]
     python3 chip_smoke.py --exact-scans
+    python3 chip_smoke.py --checkpoints
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
@@ -17,7 +18,9 @@ of the checkout in
 DIR (say the parent commit, unpacked with ``git archive``) against this
 one, in the order DIR, this, this, DIR, and prints each kernel's ms per
 run. ``--exact-scans`` runs phases 1 and 2, then only the hatch's exact
-scans against their plain versions (phase 3's last part), timed.
+scans against their plain versions (phase 3's last part), timed;
+``--checkpoints`` runs phases 1 and 2, then only phase 3's ViT-L/14 part
+and phase 9.
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -70,7 +73,11 @@ last line):
    frames x 12 heads x S = 196 beside SDPA, the whole text encode (B =
    64, fused) and vision encode (256 frames, module tower) against the
    same encodes on the plain versions, and B1 over a 2,000,000 x 768 bf16
-   mirror at B = 1 and 64 with its ring stages;
+   mirror at B = 1 and 64 with its ring stages; then the ViT-L/14 kernels
+   (``openai/clip-vit-large-patch14``, seeded, bf16): B3 at 256 frames x
+   16 heads x S = 257 beside SDPA, B5 and B6 on one vision layer at 256
+   frames (T = 65,792, D = 1,024, F = 4,096; cuBLAS's two bare GEMMs
+   beside B6) and B2 on the 768-wide, 12-head text tower at B = 64;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512) written once as the pickle v1.0 cache; for each mirror
    dtype (bfloat16, then float32, int8 and int4), and then for the IVF
@@ -176,18 +183,42 @@ last line):
    in ``MemoizedEmbedder``): two ``/api/cache/rebuild``s of the 20
    seeded videos, the first all misses (B5 and B6 192 times), the second
    4,000 hits, no kernel launched, the rows bit for bit the first's;
-9. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+9. checkpoints: the seeded towers' f32 weights written as HF checkpoint
+   directories (HF's names and layouts, the conv as ``[D, 3, p, p]``,
+   the ``position_ids`` buffers of older checkpoints; ``model.safetensors``
+   written by hand, ``pytorch_model.bin`` by ``torch.save``; CLIP with a
+   small ``vocab.json``/``merges.txt`` pair) and served by engines that
+   build their own towers from them: ViT-B/32 through
+   ``VQT_CLIP_CHECKPOINT`` (the operator's route), then once more from
+   ``pytorch_model.bin`` (the load checks only); SigLIP base/16 through
+   ``model.checkpoint_dir``; ViT-L/14 at full width (428M parameters,
+   768-wide rows; first its fused vision encode at 256 frames against
+   the module tower and the plain halves). Each: ``stats()["pretrained"]``
+   true, the checkpoint's tokenizer, every parameter bit for bit the
+   seeded tower's, text vectors bit for bit on the same ids, the load's
+   seconds by stage; then a 2M-row seeded corpus, an ingest (20 videos;
+   ViT-L/14 10) checked as phase 4's, and over HTTP 16 singles, 64
+   coalesced clients and a batch of 64 (two-word queries: the
+   character-level vocabulary keeps them in the 32-token bucket), rows
+   against the host exact top-10, launches counted (B1, B2, B3 and the
+   ingest's B5, B6; SigLIP: B1, B3, B5, B6);
+10. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
    the mesh at both B; the SigLIP path's B6 with tanh-GELU, B5, B3 at S =
    196 and B1 at D = 768, each with its SigLIP-engine launches; B1, B2,
-   B3, B5 and B6 with their phase-8 launches under ``phase8_launches``),
-   the nvidia-smi line, and the result line
+   B3, B5 and B6 with their phase-8 launches under ``phase8_launches`` and
+   their phase-9 ViT-B/32 launches under ``phase9_launches``; the
+   ViT-L/14 path's B3 at S = 257 (launched inside B5), B5, B6 and B2 at
+   768 wide, with their phase-9 launches), the nvidia-smi line, and the
+   result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-Every phase prints its time. Needs one CUDA card; without one it exits
-non-zero and prints no result.
+Every phase prints its time. Every seeded engine of phases 4-8 must
+report ``stats()["pretrained"]`` false: no checkpoint found by discovery
+may swap its weights. Needs one CUDA card; without one it exits non-zero
+and prints no result.
 Uses no network beyond its own localhost server, and stops what it starts.
 """
 
@@ -200,6 +231,8 @@ import gc
 import json
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -217,7 +250,10 @@ from video_quierer_tpu_torch import evaluation
 from video_quierer_tpu_torch.api import routes as api_routes
 from video_quierer_tpu_torch.api.server import create_server
 from video_quierer_tpu_torch.engine import system as engine_system
-from video_quierer_tpu_torch.engine.config import EngineConfig
+from video_quierer_tpu_torch.engine.config import (
+    EngineConfig,
+    apply_env_overrides,
+)
 from video_quierer_tpu_torch.engine.fallback import KeywordQueryEncoder
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
 from video_quierer_tpu_torch.ingest.frames import (
@@ -232,12 +268,18 @@ from video_quierer_tpu_torch.index.device_index import (
     _round_capacity,
     video_rank_device,
 )
+from video_quierer_tpu_torch.models.clip import bridge as clip_bridge
 from video_quierer_tpu_torch.models.clip import model as clip_model
 from video_quierer_tpu_torch.models.clip.embedder import (
     CLIPEmbedder,
     MemoizedEmbedder,
     trim_text_ids,
 )
+from video_quierer_tpu_torch.models.clip.tokenizer import (
+    CLIPBPETokenizer,
+    HashTokenizer,
+)
+from video_quierer_tpu_torch.models.siglip import bridge as siglip_bridge
 from video_quierer_tpu_torch.models.siglip.embedder import SigLIPEmbedder
 from video_quierer_tpu_torch.models.siglip.fused import \
     fused_siglip_text_encode
@@ -550,11 +592,11 @@ def compare_fused_layer(embedder: CLIPEmbedder, seed: int) -> dict:
         # per layer: 12 W^2 bf16 weights read once and 2 x 12 W^2 flops a
         # token (q/k/v, out, fc1, fc2) plus causal attention; the stack's
         # input and output once
-        t, layers = 64 * s, len(ops)
-        lim = bound(layers * 12 * DIM * DIM * 2 + 2 * t * DIM * 2,
-                    layers * (2 * t * 12 * DIM * DIM
-                              + 4 * 64 * DIM * s * (s + 1) / 2), "bf16")
-        log(f"B2 fused text encode B=64 S={s} x{layers} layers: min "
+        t, layers, w = 64 * s, len(ops), embedder.cfg.text.hidden_size
+        lim = bound(layers * 12 * w * w * 2 + 2 * t * w * 2,
+                    layers * (2 * t * 12 * w * w
+                              + 4 * 64 * w * s * (s + 1) / 2), "bf16")
+        log(f"B2 fused text encode B=64 S={s} W={w} x{layers} layers: min "
             f"cosine {cos.min().item():.6f} (>= {MIN_COS}) max_abs_err "
             f"{err:.3e} kernel {ms:.3f} ms (device, graph replay; eager "
             f"{eager:.3f}) plain {pms:.3f} ms bound {lim['bound_ms']:.4f} "
@@ -1634,6 +1676,7 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
                                device=device)
     t0 = time.perf_counter()
     engine.startup()
+    require_seeded(dtype, engine)
     n_base = args.videos * args.frames
     require(len(engine.index) == n_base, "startup row count")
     mode = engine.stats()["index"]["accuracy_mode"]
@@ -1694,6 +1737,13 @@ def serve_dtype(dtype: str, videos: str, embedder: CLIPEmbedder, args,
     return launches, ingested, kept
 
 
+def require_seeded(tag: str, engine: VideoSearchEngine) -> None:
+    """A seeded engine serves its seeded tower: no checkpoint found by
+    discovery may swap its weights."""
+    pretrained = engine.stats()["pretrained"]
+    require(pretrained is False, f"[{tag}] pretrained {pretrained}")
+
+
 def check_launches(tag: str, engine: VideoSearchEngine, launches: dict,
                    scan: str) -> None:
     """The search path launched its scan kernel and the text kernels (B2,
@@ -1736,6 +1786,7 @@ def serve_extra(spec: tuple, videos: str, embedder: CLIPEmbedder, args,
                                    device=device, corpus_mesh=mesh)
         t0 = time.perf_counter()
         engine.startup()
+        require_seeded(tag, engine)
         index, n_base = engine.index, args.videos * args.frames
         require(len(index) == n_base, f"[{tag}] startup row count")
         mode = engine.accuracy_mode()
@@ -2038,8 +2089,8 @@ def search_ingested(index: DeviceVideoIndex, dtype: str, n0: int, n: int,
         f"{n} ingested rows: min {lo:.4f} median {mid:.4f} max {hi:.6f}")
 
 
-def search_singles(base, rng, n: int = 16):
-    singles = [words(rng, 4) for _ in range(n)]
+def search_singles(base, rng, n: int = 16, n_words: int = 4):
+    singles = [words(rng, n_words) for _ in range(n)]
     rows, lat = [], []
     for q in singles:
         status, body, t = http(base, "POST", "/api/search",
@@ -2050,9 +2101,9 @@ def search_singles(base, rng, n: int = 16):
     return singles, rows, lat
 
 
-def search_batch(base, rng):
+def search_batch(base, rng, n_words: int = 4):
     """One ``/api/search/batch`` of 64; returns its queries and rows."""
-    batch = [words(rng, 4) for _ in range(64)]
+    batch = [words(rng, n_words) for _ in range(64)]
     status, body, t = http(base, "POST", "/api/search/batch",
                            {"queries": batch, "k": K})
     require(status == 200 and body["query_count"] == 64
@@ -2060,14 +2111,16 @@ def search_batch(base, rng):
     return batch, [r["results"] for r in body["results"]], t
 
 
-def drive(base, dtype, rng, timings: dict = None):
+def drive(base, dtype, rng, timings: dict = None, n_words: int = 4):
     """The path of one mirror dtype over HTTP, and nothing else: 16 single
     queries (B=1, module tower: attention kernel B3; bfloat16: then the
     IMAGE_SHAPED_TEXT queries), coalesced rounds of 64 concurrent clients
     (fused layer kernel B2 once a flush holds >= 32; bfloat16: three short
     rounds and one of 77 tokens, attention at S=77), and one batch of 64
-    (B2). Returns the single and batch queries and rows; ``timings``, when
-    given, gets the single p50 and the batch's ms."""
+    (B2), each query ``n_words`` random words. Returns the single and batch
+    queries and rows; ``timings``, when given, gets the single p50 and the
+    batch's ms. ``dtype`` also tags the log (another tag than a mirror
+    dtype: the exact-f32-rerank mode, no bfloat16 extras)."""
     status, health, _ = http(base, "GET", "/api/health")
     require(status == 200 and health["status"] == "healthy", "health")
     status, stats, _ = http(base, "GET", "/api/stats")
@@ -2075,7 +2128,7 @@ def drive(base, dtype, rng, timings: dict = None):
     require(status == 200 and mode == MODES.get(dtype, "exact-f32-rerank"),
             f"/api/stats accuracy_mode {mode}")
     log(f"[{dtype}] /api/stats: accuracy_mode {mode}")
-    singles, single_rows, lat = search_singles(base, rng)
+    singles, single_rows, lat = search_singles(base, rng, n_words=n_words)
     log(f"[{dtype}] e2e single: 16 sequential searches, p50 latency "
         f"{1e3 * float(np.median(lat)):.2f} ms (first "
         f"{1e3 * lat[0]:.2f} ms), {1 / float(np.median(lat)):.1f} "
@@ -2094,7 +2147,7 @@ def drive(base, dtype, rng, timings: dict = None):
             f"{list(IMAGE_SHAPED_TEXT)}: 200, {K} rows each")
     # the flushes' composition (and so the encode path) is not known
     # here: the concurrent rows are held to their schema and order
-    rounds = [(f"coalesced short, round {r}", 4)
+    rounds = [(f"coalesced short, round {r}", n_words)
               for r in range(3 if dtype == "bfloat16" else 1)]
     if dtype == "bfloat16":
         rounds.append(("coalesced 77-token", 90))
@@ -2102,7 +2155,7 @@ def drive(base, dtype, rng, timings: dict = None):
         check_order(concurrent_phase(base, f"[{dtype}] {name}",
                                      [words(rng, n_words) for _ in range(64)],
                                      K))
-    batch, batch_rows, t = search_batch(base, rng)
+    batch, batch_rows, t = search_batch(base, rng, n_words)
     log(f"[{dtype}] e2e batch: 64 queries in one request, {1e3 * t:.2f} ms "
         f"= {64 / t:.1f} searches/s")
     if timings is not None:
@@ -2620,6 +2673,7 @@ def phase_maintenance(embedder: CLIPEmbedder, args, device,
             engine = VideoSearchEngine(vdir, config=EngineConfig(),
                                        embedder=embedder, device=device)
             engine.startup()
+            require_seeded("maintenance", engine)
             index, n = engine.index, INGEST_VIDEOS * args.frames
             require(len(index) == n, f"maintenance startup rows "
                     f"{len(index)}")
@@ -3155,6 +3209,7 @@ def phase_memo(args, device, scratch: Path) -> dict:
             memo = engine._get_embedder()
             require(isinstance(memo, MemoizedEmbedder)
                     and memo.max_size == MEMO_SIZE, f"memo {memo!r}")
+            require_seeded("memo", engine)
             for v in range(INGEST_VIDEOS):
                 (vdir / ingest_name(v)).write_bytes(b"seeded frames")
             server = create_server(engine, "127.0.0.1", 0,
@@ -3213,12 +3268,13 @@ def phase_memo(args, device, scratch: Path) -> dict:
 
 # -- phase 6: the SigLIP engine -----------------------------------------------
 
-def siglip_corpus(dev, seed: int, n_rows: int) -> np.ndarray:
-    """The SigLIP engine's seeded corpus: ``n_rows`` unit rows x 768, drawn
-    on the card (numpy's generator is the slow part of phase 4's corpus)
-    and fetched once."""
+def corpus_on_card_rows(dev, seed: int, n_rows: int,
+                        dim: int = SIGLIP_DIM) -> np.ndarray:
+    """A seeded corpus of ``n_rows`` unit rows x ``dim`` (the SigLIP
+    engine's: 768), drawn on the card (numpy's generator is the slow part
+    of phase 4's corpus) and fetched once."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    rows = torch.randn(n_rows, SIGLIP_DIM, generator=g, device=dev)
+    rows = torch.randn(n_rows, dim, generator=g, device=dev)
     rows /= torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
     out = rows.cpu().numpy()
     del rows
@@ -3265,7 +3321,7 @@ def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
     f32 corpus. Returns the search path's and the ingest's launches."""
     n = args.videos * args.frames
     t0 = time.perf_counter()
-    corpus = siglip_corpus(device, args.seed + 7, n)
+    corpus = corpus_on_card_rows(device, args.seed + 7, n)
     log(f"[siglip] corpus: {n} rows x {SIGLIP_DIM} from seed "
         f"{args.seed + 7} in {time.perf_counter() - t0:.1f} s")
     scratch = ROOT / "build" / "smoke"
@@ -3288,6 +3344,7 @@ def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
                 f"[siglip] index.embed_dim {config.index.embed_dim}")
         t0 = time.perf_counter()
         engine.startup()
+        require_seeded("siglip", engine)
         require(len(engine.index) == n, "[siglip] startup row count")
         mode = engine.accuracy_mode()
         require(mode == "exact-f32-rerank", f"[siglip] mode {mode}")
@@ -3327,6 +3384,450 @@ def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
         f"{ingested['frames_s']:.1f} frames/s")
     return launches, ingested
 
+
+# -- phase 9: checkpoints -----------------------------------------------------
+
+# ViT-L/14 at full width: 768-wide rows, B3 inside its B5 at 256 frames x 16
+# heads x S = 257, and the seeded videos phase 9 ingests through it (half of
+# phase 4's 20)
+L14 = "openai/clip-vit-large-patch14"
+L14_ATTN_SHAPES = ((256, 257, 16, False),)
+L14_VIDEOS = 10
+# the checkpoint engines' queries: two random words, so that the checkpoint
+# vocabulary's character-level BPE ids stay in the 32 bucket (B2's)
+CKPT_WORDS = 2
+# ln(1 / 0.07) and SigLIP's log(10) and -10: the logit scalars an HF
+# checkpoint carries (the converters read them; serving does not)
+LOGIT_SCALE = 2.6592
+SIGLIP_LOGITS = (2.302585, -10.0)
+# safetensors' dtype names of the arrays phase 9 writes
+ST_DTYPES = {np.dtype(np.float32): "F32", np.dtype(np.int64): "I64"}
+
+
+def phase_l14_kernels(embedder: CLIPEmbedder, args, device) -> dict:
+    """Phase 3's ViT-L/14 part (seeded, bf16): B3 at 256 frames x 16 heads
+    x S = 257 beside SDPA, B5 and B6 on one vision layer at 256 frames (T =
+    65,792, D = 1,024, F = 4,096; cuBLAS's two bare GEMMs beside B6), B2
+    on the 768-wide text tower (12 heads) at B = 64; returns their
+    kernels-line numbers."""
+    b3 = compare_attention(device, L14_ATTN_SHAPES,
+                           row=L14_ATTN_SHAPES[0][:2])
+    b5, b6 = compare_layer_halves(embedder, args.seed)
+    b2 = compare_fused_layer(embedder, args.seed)
+    return {"attention": b3, "attn_half": b5, "mlp_half": b6,
+            "fused_layer": b2}
+
+
+def _hf_blocks(sd: dict, tower: str) -> dict:
+    """``tower``'s encoder blocks ("text" or "vision") under HF's names."""
+    out, pre = {}, f"{tower}.layers."
+    for k, v in sd.items():
+        if k.startswith(pre):
+            i, rest = k[len(pre):].split(".", 1)
+            if rest.startswith("attn."):
+                rest = "self_" + rest
+            out[f"{tower}_model.encoder.layers.{i}.{rest}"] = v
+    return out
+
+
+def _hf_patch(w: torch.Tensor, p: int) -> torch.Tensor:
+    """The port's patch matrix ``[D, p*p*3]`` (row, column, channel) as
+    HF's conv weight ``[D, 3, p, p]``."""
+    return w.reshape(w.shape[0], p, p, 3).permute(0, 3, 1, 2)
+
+
+def _ln_pair(out: dict, hf: str, sd: dict, port: str) -> None:
+    for leaf in ("weight", "bias"):
+        out[f"{hf}.{leaf}"] = sd[f"{port}.{leaf}"]
+
+
+def _position_ids(out: dict, n_vision: int, n_text: int) -> None:
+    """The int64 ``position_ids`` buffers older HF checkpoints carry (the
+    converters ignore them)."""
+    out["vision_model.embeddings.position_ids"] = \
+        torch.arange(n_vision)[None]
+    out["text_model.embeddings.position_ids"] = torch.arange(n_text)[None]
+
+
+def _numpy(out: dict) -> dict:
+    return {k: np.ascontiguousarray(v.detach().cpu().numpy())
+            for k, v in out.items()}
+
+
+def hf_clip_state(sd: dict, cfg) -> dict:
+    """The port's ``CLIP`` state dict under HF ``CLIPModel``'s names and
+    layouts: the converter's inverse (used here only, to write the
+    checkpoints phase 9 loads)."""
+    out = {
+        "text_model.embeddings.token_embedding.weight":
+            sd["text.token_embedding.weight"],
+        "text_model.embeddings.position_embedding.weight":
+            sd["text.position_embedding"],
+        "text_projection.weight": sd["text_projection.weight"],
+        "vision_model.embeddings.patch_embedding.weight":
+            _hf_patch(sd["vision.patch_embedding.weight"],
+                      cfg.vision.patch_size),
+        "vision_model.embeddings.class_embedding":
+            sd["vision.class_embedding"],
+        "vision_model.embeddings.position_embedding.weight":
+            sd["vision.position_embedding"],
+        "visual_projection.weight": sd["visual_projection.weight"],
+        "logit_scale": torch.tensor(LOGIT_SCALE),
+    }
+    _ln_pair(out, "text_model.final_layer_norm", sd, "text.final_layer_norm")
+    # NB: HF spells it "pre_layrnorm"
+    _ln_pair(out, "vision_model.pre_layrnorm", sd, "vision.pre_layernorm")
+    _ln_pair(out, "vision_model.post_layernorm", sd, "vision.post_layernorm")
+    out.update(_hf_blocks(sd, "text"))
+    out.update(_hf_blocks(sd, "vision"))
+    require(len(out) == len(sd) + 1, "HF CLIP names: a tensor was dropped")
+    _position_ids(out, cfg.vision.seq_len, cfg.text.context_length)
+    return _numpy(out)
+
+
+def hf_siglip_state(sd: dict, cfg) -> dict:
+    """The port's ``SigLIP`` state dict under HF ``SiglipModel``'s names and
+    layouts (the MAP head's q/k/v packed into torch's ``in_proj``)."""
+    h = "vision.head."
+    out = {
+        "text_model.embeddings.token_embedding.weight":
+            sd["text.token_embedding.weight"],
+        "text_model.embeddings.position_embedding.weight":
+            sd["text.position_embedding"],
+        "vision_model.embeddings.patch_embedding.weight":
+            _hf_patch(sd["vision.patch_embedding.weight"],
+                      cfg.vision.patch_size),
+        "vision_model.embeddings.patch_embedding.bias":
+            sd["vision.patch_embedding.bias"],
+        "vision_model.embeddings.position_embedding.weight":
+            sd["vision.position_embedding"],
+        "vision_model.head.probe": sd[h + "probe"],
+        "vision_model.head.attention.in_proj_weight": torch.cat(
+            [sd[h + f"{n}_proj.weight"] for n in "qkv"]),
+        "vision_model.head.attention.in_proj_bias": torch.cat(
+            [sd[h + f"{n}_proj.bias"] for n in "qkv"]),
+        "logit_scale": torch.tensor(SIGLIP_LOGITS[0]),
+        "logit_bias": torch.tensor(SIGLIP_LOGITS[1]),
+    }
+    for hf, port in (("text_model.final_layer_norm", "text.final_layer_norm"),
+                     ("text_model.head", "text.head"),
+                     ("vision_model.post_layernorm", "vision.post_layernorm"),
+                     ("vision_model.head.attention.out_proj",
+                      h + "out_proj"),
+                     ("vision_model.head.layernorm", h + "layernorm"),
+                     ("vision_model.head.mlp.fc1", h + "mlp.fc1"),
+                     ("vision_model.head.mlp.fc2", h + "mlp.fc2")):
+        _ln_pair(out, hf, sd, port)
+    out.update(_hf_blocks(sd, "text"))
+    out.update(_hf_blocks(sd, "vision"))
+    # six q/k/v tensors packed into two, plus the two logit scalars
+    require(len(out) == len(sd) - 2, "HF SigLIP names: a tensor was dropped")
+    _position_ids(out, cfg.vision.num_patches, cfg.text.context_length)
+    return _numpy(out)
+
+
+def write_safetensors(path: Path, arrays: dict) -> None:
+    """``arrays`` as a ``.safetensors`` file, written by hand: the header's
+    length (8 bytes, little-endian), the JSON header (each tensor's dtype,
+    shape and data offsets counted from the header's end; padded with
+    spaces to 8 bytes), then each array's raw little-endian bytes."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, a in arrays.items():
+        header[name] = {"dtype": ST_DTYPES[a.dtype], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for a in arrays.values():
+            f.write(a.reshape(-1).data)
+
+
+def write_bpe_vocab(d: Path) -> None:
+    """A small ``vocab.json``/``merges.txt`` pair in HF's format: letters
+    and their word-final ``</w>`` forms, a few merges, the two specials
+    last (EOT the highest id), and ``merges.txt``'s ``#version`` line."""
+    vocab = {}
+    for ch in "abcdefghijklmnopqrstuvwxyz":
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    for tok in ("do", "do</w>", "og</w>", "dog</w>", "<|startoftext|>",
+                "<|endoftext|>"):
+        vocab[tok] = len(vocab)
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "merges.txt").write_text("#version: 0.2\nd o\ndo g</w>\no g</w>\n")
+
+
+def write_checkpoint(d: Path, seeded, family: str, fmt: str, seed: int
+                     ) -> None:
+    """The f32 weights ``seeded`` was built from (the port's seeded init,
+    drawn again from ``seed``) as an HF checkpoint dir: ``model.safetensors``
+    (written by hand) or ``pytorch_model.bin`` (``torch.save``), with the
+    BPE vocabulary pair for CLIP."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)
+    if family == "clip":
+        hf = hf_clip_state(clip_bridge.init_params(seeded.cfg, gen),
+                           seeded.cfg)
+    else:
+        hf = hf_siglip_state(siglip_bridge.init_params(seeded.cfg, gen),
+                             seeded.cfg)
+    d.mkdir(parents=True)
+    if fmt == "safetensors":
+        write_safetensors(d / "model.safetensors", hf)
+    else:
+        torch.save({k: torch.from_numpy(v) for k, v in hf.items()},
+                   d / "pytorch_model.bin")
+    if family == "clip":
+        write_bpe_vocab(d)
+    size = sum(f.stat().st_size for f in d.iterdir())
+    log(f"[{d.name}] checkpoint: {len(hf)} tensors, {size / 1e9:.3f} GB "
+        f"({fmt}) drawn and written in {time.perf_counter() - t0:.1f} s")
+
+
+def require_same_params(tag: str, got, want) -> None:
+    """The loaded tower's parameters equal the seeded tower's, bit for
+    bit."""
+    a, b = got.state_dict(), want.state_dict()
+    require(a.keys() == b.keys(), f"[{tag}] parameter names differ")
+    bad = [k for k in a if a[k].dtype != b[k].dtype
+           or not torch.equal(a[k], b[k])]
+    require(not bad, f"[{tag}] parameters differ: {bad[:4]}")
+    n = sum(t.numel() for t in a.values())
+    log(f"[{tag}] all {len(a)} parameter tensors ({n:,} values, "
+        f"{next(iter(a.values())).dtype}) equal the seeded tower's, bit for "
+        "bit")
+
+
+def rss_gb() -> str:
+    """This process's resident and peak resident host memory."""
+    fields = dict(line.split(":", 1) for line in
+                  Path("/proc/self/status").read_text().splitlines()
+                  if line.startswith(("VmRSS", "VmHWM")))
+    return ", ".join(f"{k} {int(v.split()[0]) / 2 ** 20:.2f} GB"
+                     for k, v in fields.items())
+
+
+def checkpoint_engine(tag: str, config: EngineConfig, videos: Path,
+                      seeded, device):
+    """An engine over ``videos`` with ``config`` (no tower injected: it
+    builds its own from the checkpoint); its tower is built and checked
+    first: ``stats()["pretrained"]`` true, the tokenizer, the parameters
+    against ``seeded``'s. Returns the engine, its tower and the load's
+    seconds."""
+    engine = VideoSearchEngine(videos, config=config, device=device)
+    before = rss_gb()
+    t0 = time.perf_counter()
+    tower = engine._tower()
+    wall = time.perf_counter() - t0
+    pretrained = engine.stats()["pretrained"]
+    require(pretrained is True, f"[{tag}] pretrained {pretrained}")
+    want = CLIPBPETokenizer if config.model.family == "clip" \
+        else HashTokenizer
+    require(type(tower.tokenizer) is want,
+            f"[{tag}] tokenizer {type(tower.tokenizer).__name__}")
+    log(f"[{tag}] tower loaded in {wall:.2f} s (stages, s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in tower.load_seconds.items())
+        + f"); pretrained: true; tokenizer {want.__name__}; host memory "
+        f"before: {before}; after: {rss_gb()}")
+    require_same_params(tag, tower.params, seeded.params)
+    return engine, tower, {"wall_s": wall, **tower.load_seconds}
+
+
+def same_text_vectors(tag: str, tower, seeded, rng) -> None:
+    """The loaded and the seeded tower give the same text vectors, bit for
+    bit, on the same ids (the loaded tower's tokenizer): 8 singles (B = 1)
+    and a batch of 64."""
+    texts = [words(rng, CKPT_WORDS) for _ in range(64)]
+    ids = tower.prepare_text_ids(tower.tokenizer(texts))
+    with torch.inference_mode():
+        for batch in [ids[i:i + 1] for i in range(8)] + [ids]:
+            t = tower.ids_tensor(batch)
+            require(torch.equal(tower.text_encode_fn(tower.params, t),
+                                seeded.text_encode_fn(seeded.params, t)),
+                    f"[{tag}] text vectors differ at B={len(batch)}")
+    log(f"[{tag}] text vectors of 8 singles and a batch of 64 (S="
+        f"{ids.shape[1]}) equal the seeded tower's, bit for bit")
+
+
+def serve_checkpoint(tag: str, config: EngineConfig, seeded, args, device,
+                     root: Path, smi: str, n_videos: int = INGEST_VIDEOS,
+                     encode_check=None) -> dict:
+    """One engine that loads its tower from a checkpoint: the load checks,
+    the text vectors against the seeded tower, ``encode_check(tower)`` when
+    given, startup (no cache), a seeded corpus of ``args.videos`` x
+    ``args.frames`` unit rows (phase 4's size: as B1 keeps the top 2 rows
+    of each 1,024-row bucket, a smaller corpus lets three of a query's top
+    10 share a bucket; drawn on the card and appended video by video, not
+    loaded from a pickle: the cache's save and load are phase 4's), an
+    ingest of ``n_videos`` seeded videos (the vision tower; the mirror bit
+    for bit), then over HTTP 16 singles, 64 coalesced clients and a batch
+    of 64, the launch counters set to 0 just before and read just after,
+    every single and 8 batch rows held against the host exact top-K over
+    the grown corpus. Returns the load's seconds and the launches."""
+    siglip = config.model.family == "siglip"
+    videos = root / f"videos-{tag.replace('/', '-')}"
+    engine, tower, load = checkpoint_engine(tag, config, videos, seeded,
+                                            device)
+    rng = np.random.default_rng(args.seed + 9)
+    same_text_vectors(tag, tower, seeded, rng)
+    if encode_check is not None:
+        encode_check(tower)
+    engine.startup()
+    t0 = time.perf_counter()
+    n_base = args.videos * args.frames
+    rows = corpus_on_card_rows(device, args.seed + 9, n_base,
+                               tower.embed_dim)
+    engine.index.reserve(n_base)
+    stamps = [0.5 * t for t in range(args.frames)]
+    for v in range(args.videos):
+        engine.index.add_batch(rows[v * args.frames:(v + 1) * args.frames],
+                               video_name(v), stamps)
+    del rows
+    require(len(engine.index) == n_base, f"[{tag}] corpus row count")
+    log(f"[{tag}] seeded corpus: {n_base} rows x {tower.embed_dim} drawn on "
+        f"the card and appended in {time.perf_counter() - t0:.1f} s")
+    ingested = ingest_tier(engine, "bfloat16", str(videos), args, device,
+                           n_videos=n_videos, tag=tag,
+                           path=("attention",) if siglip else INGEST)
+    corpus = engine.index._emb[: len(engine.index)]
+
+    def name_of(row: int) -> str:
+        if row < n_base:
+            return video_name(row // args.frames)
+        return ingest_name((row - n_base) // args.frames)
+
+    server = create_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    timings = {}
+    try:
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        served = drive(base, tag, rng, timings, n_words=CKPT_WORDS)
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        engine.close()
+    if siglip:
+        check_siglip_launches(engine, launches)
+    else:
+        check_launches(tag, engine, launches, "cand_scan_prefix")
+    check_served("bfloat16", tower, corpus, name_of, served, device, tag=tag)
+    log(f"[{tag}] on {smi}: single p50 {timings['single_p50_ms']:.2f} ms, "
+        f"batch of 64 {timings['batch_ms']:.2f} ms, ingest "
+        f"{ingested['frames_s']:.1f} frames/s; launches: ingest "
+        f"{ingested['launches']}, searches {launches}")
+    del engine, server, corpus, tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"load": load, "launches": launches, "ingest": ingested}
+
+
+def compare_l14_encode(tower: CLIPEmbedder, seed: int, b: int = 256) -> None:
+    """ViT-L/14's fused vision encode (B5 + B6 x 24 layers at T = 65,792,
+    D = 1,024, F = 4,096) against the module tower (B3 and cuBLAS) and
+    against the plain halves on ``b`` seeded frames: per-row cosine >=
+    MIN_COS, unit rows within UNIT_ATOL."""
+    model = tower.params
+    ops = tower._layer_ops(model, "vision")
+    frames = torch.from_numpy(seeded_frames(seed, 10_003, b)).to(
+        tower.device)
+    with torch.inference_mode():
+        pixels = normalize_images(frames, dtype=tower.dtype)
+
+        def kern():
+            return fl.fused_vision_encode(model, pixels, ops)
+
+        a = kern()
+        norm = (torch.linalg.vector_norm(a, dim=-1) - 1).abs().max().item()
+        require(a.shape == (b, tower.embed_dim)
+                and bool(torch.isfinite(a).all()), "L/14 encode: output")
+        require(norm <= UNIT_ATOL, f"L/14 encode: norm error {norm}")
+        cos = {}
+        for name, ref in (("module tower", model.encode_image(pixels)),
+                          ("plain halves", fl.fused_vision_encode(
+                              model, pixels, ops, attn=fl.attn_half_ref,
+                              mlp=fl.mlp_half_ref))):
+            cos[name] = torch.nn.functional.cosine_similarity(
+                a, ref, dim=-1).min().item()
+            require(cos[name] >= MIN_COS,
+                    f"L/14 encode vs the {name}: min cosine {cos[name]}")
+        ms = cuda_ms(kern, 3)
+        module_ms = cuda_ms(lambda: model.encode_image(pixels), 3)
+    log(f"ViT-L/14 vision encode B={b} frames x{len(ops)} layers (bf16, "
+        f"fused: B5 + B6): min row cosine {cos['module tower']:.6f} vs the "
+        f"module tower, {cos['plain halves']:.6f} vs the plain halves (>= "
+        f"{MIN_COS}), max |norm - 1| {norm:.2e}; {ms:.3f} ms = "
+        f"{b / ms * 1e3:.0f} frames/s (module tower {module_ms:.3f} ms)")
+
+
+def phase_checkpoints(embedder: CLIPEmbedder, siglip: SigLIPEmbedder,
+                      l14: CLIPEmbedder, args, device, smi: str) -> dict:
+    """Phase 9: the seeded towers written as HF checkpoints and served from
+    them. ViT-B/32 from ``model.safetensors`` through
+    ``VQT_CLIP_CHECKPOINT`` (the operator's route), then loaded once more
+    from ``pytorch_model.bin``; SigLIP base/16 from ``model.safetensors``
+    (``model.checkpoint_dir``); ViT-L/14 at full width. Returns each
+    path's load seconds and launches."""
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        root = Path(tmp)
+        with timed("9, ViT-B/32 from model.safetensors"):
+            ckpt = root / "clip-vit-base-patch32"
+            write_checkpoint(ckpt, embedder, "clip", "safetensors",
+                             args.seed)
+            os.environ["VQT_CLIP_CHECKPOINT"] = str(ckpt)
+            try:
+                config = apply_env_overrides(EngineConfig())
+            finally:
+                del os.environ["VQT_CLIP_CHECKPOINT"]
+            require(config.model.checkpoint_dir == str(ckpt),
+                    "VQT_CLIP_CHECKPOINT -> model.checkpoint_dir")
+            config.index.device_dtype = "bfloat16"
+            out["vit-b-32"] = serve_checkpoint(
+                "ckpt vit-b/32", config, embedder, args, device, root, smi)
+        with timed("9, ViT-B/32 from pytorch_model.bin"):
+            ckpt = root / "clip-vit-base-patch32-bin"
+            write_checkpoint(ckpt, embedder, "clip", "bin", args.seed)
+            config = EngineConfig()
+            config.model.checkpoint_dir = str(ckpt)
+            engine, _, load = checkpoint_engine(
+                "ckpt vit-b/32 .bin", config, root / "videos-bin", embedder,
+                device)
+            out["vit-b-32-bin"] = {"load": load}
+            del engine
+            shutil.rmtree(ckpt)
+        with timed("9, SigLIP base/16 from model.safetensors"):
+            ckpt = root / "siglip-base-patch16-224"
+            write_checkpoint(ckpt, siglip, "siglip", "safetensors",
+                             args.seed)
+            config = EngineConfig()
+            config.model.family = "siglip"
+            config.model.checkpoint_dir = str(ckpt)
+            config.index.device_dtype = "bfloat16"
+            out["siglip"] = serve_checkpoint(
+                "ckpt siglip", config, siglip, args, device, root, smi)
+        with timed("9, ViT-L/14 from model.safetensors"):
+            ckpt = root / "clip-vit-large-patch14"
+            write_checkpoint(ckpt, l14, "clip", "safetensors", args.seed)
+            config = EngineConfig()
+            config.model.name = L14
+            config.model.checkpoint_dir = str(ckpt)
+            config.index.embed_dim = l14.embed_dim
+            config.index.device_dtype = "bfloat16"
+            out["vit-l-14"] = serve_checkpoint(
+                "ckpt vit-l/14", config, l14, args, device, root, smi,
+                n_videos=L14_VIDEOS,
+                encode_check=lambda t: compare_l14_encode(t, args.seed))
+    return out
 
 # one A/B run: the text and vision kernel phases (and the search-tier
 # scans with --ab-scans) of the chip_smoke.py in the working directory, in
@@ -3552,6 +4053,9 @@ def main() -> int:
     ap.add_argument("--exact-scans", action="store_true",
                     help="only the hatch's exact scans (B9, B8 over bf16 "
                          "rows) against their plain versions, timed")
+    ap.add_argument("--checkpoints", action="store_true",
+                    help="only the ViT-L/14 kernels and phase 9 (the "
+                         "towers served from HF checkpoints)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run "
@@ -3571,6 +4075,21 @@ def main() -> int:
             store, _ = corpus_on_card(device, n_rows, args.seed)
             compare_exact_scans(store, n_rows, args.seed)
         log(smi)
+        return 0
+    if args.checkpoints:
+        with timed("3, ViT-L/14 kernels"):
+            l14 = CLIPEmbedder(model_name=L14, dtype=torch.bfloat16,
+                               device=device, seed=args.seed)
+            phase_l14_kernels(l14, args, device)
+        stageprof.ENABLED = True
+        with timed("9, checkpoints"):
+            ck = phase_checkpoints(
+                CLIPEmbedder(dtype=torch.bfloat16, device=device,
+                             seed=args.seed),
+                SigLIPEmbedder(dtype=torch.bfloat16, device=device,
+                               seed=args.seed), l14, args, device, smi)
+        log(f"phase 9 summary ({smi}): " + json.dumps(ck))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     with timed("3, text and vision kernels"):
         embedder = CLIPEmbedder(dtype=torch.bfloat16, device=device,
@@ -3600,12 +4119,20 @@ def main() -> int:
         siglip = SigLIPEmbedder(dtype=torch.bfloat16, device=device,
                                 seed=args.seed)
         sk = phase_siglip_kernels(siglip, args, device)
+    with timed("3, ViT-L/14 kernels"):
+        l14 = CLIPEmbedder(model_name=L14, dtype=torch.bfloat16,
+                           device=device, seed=args.seed)
+        lk = phase_l14_kernels(l14, args, device)
     # the serving path's stage spans: phase 5 splits its batches by them
     stageprof.ENABLED = True
     launches, ingested, extra, surface = phase_end_to_end(embedder, args,
                                                           device, smi)
     with timed("6, SigLIP engine"):
         sl, si = phase_siglip_engine(siglip, args, device, smi)
+    with timed("9, checkpoints"):
+        ck = phase_checkpoints(embedder, siglip, l14, args, device, smi)
+    l14_ingest = ck["vit-l-14"]["ingest"]["launches"]
+    l14_search = ck["vit-l-14"]["launches"]
     src = "video_quierer_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {"name": "cand_scan_prefix", "route": "cuda",
@@ -3677,6 +4204,25 @@ def main() -> int:
          "source": src + "cand_scan.cu",
          "replaces": "video_quierer_tpu/ops/topk.py:1419",
          "launches": sl["cand_scan_prefix"], **sk["cand_scan_prefix"]},
+        # ViT-L/14 served from its checkpoint (phase 9): B3 at S = 257 runs
+        # inside each B5 launch of its ingest
+        {"name": "attention_l14_vision", "route": "cuda",
+         "source": src + "attention.cu",
+         "replaces": "video_quierer_tpu/ops/attention.py:143",
+         "launches": l14_ingest["attn_half"], "via": "attn_half",
+         **lk["attention"]},
+        {"name": "attn_half_l14", "route": "cuda",
+         "source": src + "fused_layer.cu",
+         "replaces": "video_quierer_tpu/ops/fused_layer.py:425",
+         "launches": l14_ingest["attn_half"], **lk["attn_half"]},
+        {"name": "mlp_half_l14", "route": "cuda",
+         "source": src + "fused_layer.cu",
+         "replaces": "video_quierer_tpu/ops/fused_layer.py:462",
+         "launches": l14_ingest["mlp_half"], **lk["mlp_half"]},
+        {"name": "fused_text_layer_d768", "route": "cuda",
+         "source": src + "fused_layer.cu",
+         "replaces": "video_quierer_tpu/ops/fused_layer.py:386",
+         "launches": l14_search["fused_layer"], **lk["fused_layer"]},
     ]}
     # phase 8's launches, beside each kernel's main-path count
     big, maint = surface["2m"], surface["maintenance"]
@@ -3693,11 +4239,24 @@ def main() -> int:
             "upload_2m": big["upload"]["launches"][name],
             "memo_rebuilds": [r["launches"][name]
                               for r in surface["memo"]["rebuilds"]]}
+    # phase 9's ViT-B/32 checkpoint engine: its searches and its ingest
+    b32 = ck["vit-b-32"]
+    ckpt_launches = {name: {"search": b32["launches"][w],
+                            "ingest": b32["ingest"]["launches"][w]}
+                     for name, w in (("cand_scan_prefix", "cand_scan_prefix"),
+                                     ("fused_text_layer", "fused_layer"),
+                                     ("attention", "attention"),
+                                     ("attn_half", "attn_half"),
+                                     ("mlp_half", "mlp_half"))}
     for entry in kernels_line["kernels"]:
         if entry["name"] in slice_launches:
             entry["phase8_launches"] = slice_launches[entry["name"]]
+        if entry["name"] in ckpt_launches:
+            entry["phase9_launches"] = ckpt_launches[entry["name"]]
     log(f"phase 7 and 8 summary ({smi}; host-clock p50 ms per route, device "
         "ranking ms by CUDA events): " + json.dumps(surface))
+    log(f"phase 9 summary ({smi}; load seconds by stage, launches): "
+        + json.dumps(ck))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)

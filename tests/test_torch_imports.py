@@ -2,9 +2,9 @@
 every module of video_quierer_tpu_torch (the corpus-mesh modules
 ``parallel/mesh.py`` and ``index/sharded.py``, the SigLIP family's
 ``models/siglip``, the HTTP API's ``api/``, the samplers, the
-``use_clip = false`` encoders and the CLI among them) leaves jax, flax,
-aiohttp, pydantic, cv2 and yt_dlp out of ``sys.modules``, and builds no
-kernel."""
+``use_clip = false`` encoders, the CLI and the checkpoint converters among
+them) leaves jax, flax, aiohttp, pydantic, cv2, yt_dlp, safetensors and
+transformers out of ``sys.modules``, and builds no kernel."""
 
 import json
 import subprocess
@@ -15,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "aiohttp", "pydantic", "cv2",
-             "yt_dlp")
+             "yt_dlp", "safetensors", "transformers")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
@@ -56,7 +56,7 @@ def test_mesh_modules_are_walked(report):
 
 
 def test_siglip_modules_are_walked(report):
-    for name in ("model", "bridge", "fused", "embedder", "spm"):
+    for name in ("model", "bridge", "fused", "embedder", "spm", "convert"):
         assert f"video_quierer_tpu_torch.models.siglip.{name}" in \
             report["modules"]
 

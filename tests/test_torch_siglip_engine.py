@@ -143,20 +143,26 @@ def test_family_builds_the_siglip_embedder(tmp_path, monkeypatch):
     cfg.model.family = "siglip"
     engine = VideoSearchEngine(tmp_path, config=cfg, device="cpu")
     assert engine._get_embedder() == "siglip"
-    assert built == [{"dtype": torch.bfloat16,
+    assert built == [{"checkpoint_dir": None, "orbax_checkpoint": None,
+                      "dtype": torch.bfloat16,
                       "device": torch.device("cpu")}]
 
 
-@pytest.mark.parametrize("field,value,match", [
-    ("checkpoint_dir", "/ckpt", "converters"),
-    ("orbax_checkpoint", "/ckpt", "converters"),
-    ("parallel", "pp", "pipeline parallelism")])
+@pytest.mark.parametrize("field,value,error,match", [
+    ("checkpoint_dir", "/ckpt", FileNotFoundError, "no model.safetensors"),
+    ("orbax_checkpoint", "/ckpt", NotImplementedError, "A11"),
+    ("parallel", "pp", NotImplementedError, "pipeline parallelism")])
 def test_family_still_refuses_checkpoints_and_pp(tmp_path, field, value,
-                                                 match):
-    for family in ("clip", "siglip"):
+                                                 error, match):
+    """The trainer's checkpoint and pipeline parallelism stay refused; an
+    HF checkpoint dir is read, so one without weights raises (CLIP; a
+    SigLIP dir without ``model.safetensors`` serves seeded, the
+    reference's rule, held in ``tests/test_torch_checkpoint.py``)."""
+    families = ("clip",) if field == "checkpoint_dir" else ("clip", "siglip")
+    for family in families:
         cfg = EngineConfig(videos_dir=str(tmp_path))
         cfg.model.family = family
         setattr(cfg.model, field, value)
         engine = VideoSearchEngine(tmp_path, config=cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             engine._get_embedder()

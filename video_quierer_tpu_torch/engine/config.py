@@ -13,8 +13,10 @@ fields included (``index.kind = "ivf"``, ``ivf_nlist``, ``ivf_nprobe``,
 corpus mesh's (``index.corpus_shards``, ``index.corpus_slices``,
 ``VQT_CORPUS_SHARDS``/``VQT_CORPUS_SLICES``: the engine shards its index,
 ``parallel/mesh.py``) and the model family's (``model.family`` "clip" or
-"siglip", ``VQT_MODEL_FAMILY``: the engine builds that family's seeded
-towers); fields the port does not act on yet (checkpoints, pipeline
+"siglip", ``VQT_MODEL_FAMILY``: the engine builds that family's towers)
+and the HF checkpoint's (``model.checkpoint_dir``,
+``VQT_CLIP_CHECKPOINT``: the towers load it, ``models/clip/convert.py``);
+fields the port refuses (``model.orbax_checkpoint``, pipeline
 parallelism) keep their names and validation so one
 ``config.json``/``engine.yaml`` serves both packages.
 """

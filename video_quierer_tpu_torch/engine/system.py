@@ -184,26 +184,25 @@ class VideoSearchEngine:
             return None
         if self._embedder is None:
             m = self.config.model
-            if m.checkpoint_dir or m.orbax_checkpoint:
-                raise NotImplementedError(
-                    "model.checkpoint_dir / model.orbax_checkpoint: the "
-                    "port serves seeded towers only (the CLIP and SigLIP "
-                    "checkpoint converters are not ported yet)")
             if m.parallel != "none":
                 raise NotImplementedError(
                     f"model.parallel={m.parallel!r}: pipeline parallelism "
                     "of the towers is not ported")
+            # an HF checkpoint dir (VQT_CLIP_CHECKPOINT); orbax_checkpoint
+            # reaches the embedder, which refuses it (not ported)
+            kw = dict(checkpoint_dir=Path(m.checkpoint_dir)
+                      if m.checkpoint_dir else None,
+                      orbax_checkpoint=Path(m.orbax_checkpoint)
+                      if m.orbax_checkpoint else None,
+                      dtype=_DTYPES[m.dtype], device=self.device)
             if m.family == "siglip":
                 from video_quierer_tpu_torch.models.siglip.embedder import \
                     SigLIPEmbedder
-                self._embedder = SigLIPEmbedder(dtype=_DTYPES[m.dtype],
-                                                device=self.device)
+                self._embedder = SigLIPEmbedder(**kw)
             else:
                 from video_quierer_tpu_torch.models.clip.embedder import \
                     CLIPEmbedder
-                self._embedder = CLIPEmbedder(model_name=m.name,
-                                              dtype=_DTYPES[m.dtype],
-                                              device=self.device)
+                self._embedder = CLIPEmbedder(model_name=m.name, **kw)
             if self.config.cache.frame_memo_size > 0:
                 from video_quierer_tpu_torch.models.clip.embedder import \
                     MemoizedEmbedder

@@ -18,22 +18,37 @@ text (counterpart of ``video_quierer_tpu/models/clip/embedder.py``).
 ``MemoizedEmbedder`` wraps any embedder in a frame-embedding memo
 (``cache.frame_memo_size > 0``).
 
-Weights: a state dict handed in (e.g. from ``bridge.params_from_jax``),
-else the port's seeded init (``bridge.init_params`` from a
-``torch.Generator``). Real checkpoints and the BPE vocab are not loaded
-yet; the tokenizer is the deterministic ``HashTokenizer``.
+Weights, in the reference's order: ``orbax_checkpoint`` (the trainer's
+format) raises ``NotImplementedError`` (not ported); a state dict handed
+in (e.g. from ``bridge.params_from_jax``) is used as it is; else the HF
+checkpoint in ``checkpoint_dir``, or the one ``find_local_checkpoint``
+finds (``$VQT_CLIP_CHECKPOINT``, ``./checkpoints/<short name>``, the HF
+hub cache), read by ``convert.py`` into the JAX package's tree and
+bridged (``pretrained`` is then True); else the port's seeded init
+(``bridge.init_params`` from a ``torch.Generator``), with a warning. A
+configured directory without weights raises ``FileNotFoundError``. The
+tokenizer is the checkpoint's BPE (``vocab.json``/``merges.txt``) when
+the directory holds one, else the deterministic ``HashTokenizer``.
+``load_seconds`` splits a checkpoint load by stage.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
+import time
 from collections import OrderedDict
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from video_quierer_tpu_torch.models.clip.bridge import init_params
+from video_quierer_tpu_torch.models.clip import convert as convert_mod
+from video_quierer_tpu_torch.models.clip.bridge import (
+    init_params,
+    params_from_jax,
+)
 from video_quierer_tpu_torch.models.clip.config import CLIPConfig, get_config
 from video_quierer_tpu_torch.models.clip.model import CLIP
 from video_quierer_tpu_torch.models.clip.tokenizer import (
@@ -52,6 +67,8 @@ from video_quierer_tpu_torch.ops.fused_layer import (
 )
 from video_quierer_tpu_torch.ops.preprocess import normalize_images
 from video_quierer_tpu_torch.utils.env import resolve_device
+
+logger = logging.getLogger(__name__)
 
 # Frame-batch buckets: frames pad to the next one (the reference's).
 IMAGE_BUCKETS = (32, 128, 256)
@@ -81,28 +98,84 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+def refuse_orbax(orbax_checkpoint: Optional[Path]) -> None:
+    if orbax_checkpoint is not None:
+        raise NotImplementedError(
+            f"orbax_checkpoint={orbax_checkpoint}: the trainer's checkpoint "
+            "format is not ported (ROADMAP A11); serve an HF checkpoint "
+            "through checkpoint_dir")
+
+
+def read_checkpoint(ckpt: Path, cfg, convert, bridge, seconds: dict
+                    ) -> Dict[str, torch.Tensor]:
+    """An HF checkpoint dir → the port's f32 state dict: ``convert`` (the
+    file read, mapped, and the JAX package's numpy tree) then ``bridge``
+    (``params_from_jax``); the tree is dropped on return."""
+    t0 = time.perf_counter()
+    tree = convert(ckpt, cfg)
+    t1 = time.perf_counter()
+    state_dict = bridge(tree, cfg)
+    seconds.update(read_convert=t1 - t0, bridge=time.perf_counter() - t1)
+    return state_dict
+
+
+def place_module(module_cls, cfg, state_dict: Dict[str, torch.Tensor],
+                 device: torch.device, dtype: torch.dtype,
+                 seconds: dict) -> torch.nn.Module:
+    """``module_cls(cfg)`` holding ``state_dict`` (every parameter, strict)
+    in ``dtype`` on ``device``, in eval mode. The module is built on the
+    meta device and takes the state dict's tensors, so no random init
+    runs and no second host copy is made."""
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = module_cls(cfg)
+    model.load_state_dict(state_dict, assign=True)
+    t1 = time.perf_counter()
+    model = model.to(device=device, dtype=dtype).eval()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds.update(load=t1 - t0, device=time.perf_counter() - t1)
+    return model
+
+
 class CLIPEmbedder:
     """CLIP image and text encoder with bucketed batching on one
     device."""
 
     def __init__(self,
                  model_name: str = "openai/clip-vit-base-patch32",
+                 checkpoint_dir: Optional[Path] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
                  seed: int = 0,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 orbax_checkpoint: Optional[Path] = None):
+        refuse_orbax(orbax_checkpoint)
         self.cfg: CLIPConfig = get_config(model_name)
         self.device = resolve_device(device)
         self.dtype = dtype
-        if state_dict is None:
-            state_dict = init_params(self.cfg,
-                                     torch.Generator().manual_seed(seed))
-        model = CLIP(self.cfg)
-        model.load_state_dict(state_dict)
-        self.params = model.to(device=self.device, dtype=dtype).eval()
-        # seeded or bridged weights — no pretrained checkpoint is loaded
         self.pretrained = False
-        self.tokenizer: TokenizerBase = load_tokenizer(None)
+        self.load_seconds: Dict[str, float] = {}
+        ckpt = checkpoint_dir
+        if state_dict is None:
+            ckpt = ckpt or convert_mod.find_local_checkpoint(model_name)
+            if ckpt is not None:
+                logger.info("Loading CLIP weights from %s", ckpt)
+                state_dict = read_checkpoint(
+                    Path(ckpt), self.cfg, convert_mod.convert_hf_checkpoint,
+                    params_from_jax, self.load_seconds)
+                self.pretrained = True
+            else:
+                logger.warning(
+                    "No local CLIP checkpoint found — using seeded random "
+                    "init (set VQT_CLIP_CHECKPOINT to a local HF checkpoint "
+                    "dir).")
+                state_dict = init_params(self.cfg,
+                                         torch.Generator().manual_seed(seed))
+        self.params = place_module(CLIP, self.cfg, state_dict, self.device,
+                                   dtype, self.load_seconds)
+        del state_dict
+        self.tokenizer: TokenizerBase = load_tokenizer(ckpt)
         self._fused_text = fused_text_tower_eligible(self.cfg.text)
         self._fused_vision = fused_vision_tower_eligible(self.cfg.vision)
         self._ops: Dict[tuple, List[LayerOps]] = {}

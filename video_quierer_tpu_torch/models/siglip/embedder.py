@@ -16,9 +16,14 @@ interface, so the engine swaps families through ``model.family``.
   (64-token context, 32k vocab).
 - ``embed_dim`` is the tower width (768): SigLIP has no projection.
 
-Weights: a state dict handed in (e.g. from ``bridge.params_from_jax``),
-else the port's seeded init (``bridge.init_params``). Checkpoints are not
-loaded yet.
+Weights, in the reference's order: ``orbax_checkpoint`` raises
+``NotImplementedError`` (not ported); a state dict handed in (e.g. from
+``bridge.params_from_jax``) is used as it is; else ``checkpoint_dir``'s HF
+checkpoint, read by ``convert.py`` and bridged, but only when the
+directory holds ``model.safetensors`` (a ``pytorch_model.bin`` alone is
+not read: the reference's rule, kept for parity); else the port's seeded
+init (``bridge.init_params``), with a warning. SigLIP takes no part in
+``find_local_checkpoint``'s discovery, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,9 +35,20 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from video_quierer_tpu_torch.models.clip.embedder import CLIPEmbedder
+from video_quierer_tpu_torch.models.clip.embedder import (
+    CLIPEmbedder,
+    place_module,
+    read_checkpoint,
+    refuse_orbax,
+)
 from video_quierer_tpu_torch.models.clip.tokenizer import HashTokenizer
-from video_quierer_tpu_torch.models.siglip.bridge import init_params
+from video_quierer_tpu_torch.models.siglip.bridge import (
+    init_params,
+    params_from_jax,
+)
+from video_quierer_tpu_torch.models.siglip.convert import (
+    convert_siglip_checkpoint,
+)
 from video_quierer_tpu_torch.models.siglip.fused import (
     fused_siglip_text_encode,
 )
@@ -80,21 +96,35 @@ class SigLIPEmbedder(CLIPEmbedder):
     batching on one device."""
 
     def __init__(self, cfg: Optional[SigLIPConfig] = None,
+                 checkpoint_dir: Optional[Path] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
                  seed: int = 0,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 orbax_checkpoint: Optional[Path] = None):
+        refuse_orbax(orbax_checkpoint)
         self.cfg = cfg or siglip_base_patch16()
         self.device = resolve_device(device)
         self.dtype = dtype
-        if state_dict is None:
-            state_dict = init_params(self.cfg,
-                                     torch.Generator().manual_seed(seed))
-        model = SigLIP(self.cfg)
-        model.load_state_dict(state_dict)
-        self.params = model.to(device=self.device, dtype=dtype).eval()
         self.pretrained = False
-        self.tokenizer = siglip_tokenizer(self.cfg)
+        self.load_seconds: Dict[str, float] = {}
+        if state_dict is None:
+            if checkpoint_dir is not None and (
+                    Path(checkpoint_dir) / "model.safetensors").exists():
+                logger.info("Loading SigLIP weights from %s", checkpoint_dir)
+                state_dict = read_checkpoint(
+                    Path(checkpoint_dir), self.cfg,
+                    convert_siglip_checkpoint, params_from_jax,
+                    self.load_seconds)
+                self.pretrained = True
+            else:
+                logger.warning("No local SigLIP checkpoint — seeded init")
+                state_dict = init_params(self.cfg,
+                                         torch.Generator().manual_seed(seed))
+        self.params = place_module(SigLIP, self.cfg, state_dict, self.device,
+                                   dtype, self.load_seconds)
+        del state_dict
+        self.tokenizer = siglip_tokenizer(self.cfg, checkpoint_dir)
         self._fused_text = fused_text_tower_eligible(self.cfg.text)
         self._ops: Dict[tuple, List[LayerOps]] = {}
         self.text_encode_fn = self._encode_text_fn
