@@ -6,6 +6,7 @@ GPU — the quickest proof that the port still starts on the card.
     python3 chip_smoke.py --ab DIR [--ab-scans]
     python3 chip_smoke.py --exact-scans
     python3 chip_smoke.py --checkpoints
+    python3 chip_smoke.py --train
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
@@ -20,7 +21,7 @@ one, in the order DIR, this, this, DIR, and prints each kernel's ms per
 run. ``--exact-scans`` runs phases 1 and 2, then only the hatch's exact
 scans against their plain versions (phase 3's last part), timed;
 ``--checkpoints`` runs phases 1 and 2, then only phase 3's ViT-L/14 part
-and phase 9.
+and phase 9; ``--train`` runs phases 1, 2 and 10.
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -202,7 +203,33 @@ last line):
    character-level vocabulary keeps them in the 32-token bucket), rows
    against the host exact top-10, launches counted (B1, B2, B3 and the
    ingest's B5, B6; SigLIP: B1, B3, B5, B6);
-10. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+10. training: B3 under autograd (its Function: the kernel forward, the
+   einsum VJP backward) against autograd through its plain version at the
+   trainer's shapes (B = 64: ViT-B/32 vision S = 50, 12 heads; text S =
+   77, causal, 8 heads; f32 and bf16): the output and dq, dk, dv within
+   the stated tolerance, one launch a forward and none a backward, timed
+   (the forward alone, the forward with its backward both ways and
+   SDPA's, and under remat); then ``CLIPTrainer`` at ViT-B/32's full
+   width on seeded weights, one batch of 64 (seeded uint8 frames through
+   ``train/data.py:frame_caption_batches``, its decode replaced as phase
+   8's, captions from the file names through the hash tokenizer): 8 f32
+   steps with the warmup-cosine schedule, the clip of the global norm and
+   the EMA (every loss finite, the last below the first, B3 launched 24
+   times a step and nothing else), one step under remat (48 launches, the
+   first step's loss), the first step's loss and gradients without remat,
+   under remat and with B3 swapped for its plain version, held against
+   each other; 2 bf16 steps; a bf16 SigLIP base/16 step at B = 32; ms a
+   step, frames/s, peak memory and the step's operations against the f32
+   and bf16 peaks; then ``train/checkpoint.py``'s save and restore into a
+   fresh trainer (params, moments, EMA and step bit for bit) and an engine
+   with ``model.orbax_checkpoint`` set to the saved directory over a
+   4,000-row seeded corpus: ``pretrained`` true, its image and text
+   vectors against the trainer's towers on the saved weights (per-row
+   cosine >= 0.999, bf16 serving), and over HTTP phase 4's searches, rows
+   against the host exact top-10; last, one more f32 and one more bf16
+   step each under ``torch.profiler``: the device-busy share of the step,
+   its kernel launches and its six costliest kernels;
+11. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
@@ -211,7 +238,9 @@ last line):
    B3, B5 and B6 with their phase-8 launches under ``phase8_launches`` and
    their phase-9 ViT-B/32 launches under ``phase9_launches``; the
    ViT-L/14 path's B3 at S = 257 (launched inside B5), B5, B6 and B2 at
-   768 wide, with their phase-9 launches), the nvidia-smi line, and the
+   768 wide, with their phase-9 launches; B3 under autograd in phase
+   10's steps, ``attention_train`` with its launches a step, and under
+   remat, ``attention_train_remat``), the nvidia-smi line, and the
    result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -256,6 +285,7 @@ from video_quierer_tpu_torch.engine.config import (
 )
 from video_quierer_tpu_torch.engine.fallback import KeywordQueryEncoder
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
+from video_quierer_tpu_torch.ingest import frames as ingest_frames
 from video_quierer_tpu_torch.ingest.frames import (
     sampling_interval,
     video_identity_hash,
@@ -270,6 +300,7 @@ from video_quierer_tpu_torch.index.device_index import (
 )
 from video_quierer_tpu_torch.models.clip import bridge as clip_bridge
 from video_quierer_tpu_torch.models.clip import model as clip_model
+from video_quierer_tpu_torch.models.clip.config import get_config
 from video_quierer_tpu_torch.models.clip.embedder import (
     CLIPEmbedder,
     MemoizedEmbedder,
@@ -278,11 +309,19 @@ from video_quierer_tpu_torch.models.clip.embedder import (
 from video_quierer_tpu_torch.models.clip.tokenizer import (
     CLIPBPETokenizer,
     HashTokenizer,
+    load_tokenizer,
 )
 from video_quierer_tpu_torch.models.siglip import bridge as siglip_bridge
-from video_quierer_tpu_torch.models.siglip.embedder import SigLIPEmbedder
+from video_quierer_tpu_torch.models.siglip.embedder import (
+    SigLIPEmbedder,
+    siglip_tokenizer,
+)
 from video_quierer_tpu_torch.models.siglip.fused import \
     fused_siglip_text_encode
+from video_quierer_tpu_torch.models.siglip.model import (
+    SigLIP,
+    siglip_base_patch16,
+)
 from video_quierer_tpu_torch.ops import fused_layer as fl
 from video_quierer_tpu_torch.ops import kernels, topk
 from video_quierer_tpu_torch.ops.attention import attention, attention_ref
@@ -296,6 +335,9 @@ from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows_int4,
 )
 from video_quierer_tpu_torch.parallel.mesh import CorpusMesh
+from video_quierer_tpu_torch.train import checkpoint as train_ckpt
+from video_quierer_tpu_torch.train.data import frame_caption_batches
+from video_quierer_tpu_torch.train.trainer import CLIPTrainer, loss_fn
 from video_quierer_tpu_torch.utils import stageprof
 
 ROOT = Path(__file__).resolve().parent
@@ -3396,10 +3438,6 @@ L14_VIDEOS = 10
 # the checkpoint engines' queries: two random words, so that the checkpoint
 # vocabulary's character-level BPE ids stay in the 32 bucket (B2's)
 CKPT_WORDS = 2
-# ln(1 / 0.07) and SigLIP's log(10) and -10: the logit scalars an HF
-# checkpoint carries (the converters read them; serving does not)
-LOGIT_SCALE = 2.6592
-SIGLIP_LOGITS = (2.302585, -10.0)
 # safetensors' dtype names of the arrays phase 9 writes
 ST_DTYPES = {np.dtype(np.float32): "F32", np.dtype(np.int64): "I64"}
 
@@ -3472,7 +3510,7 @@ def hf_clip_state(sd: dict, cfg) -> dict:
         "vision_model.embeddings.position_embedding.weight":
             sd["vision.position_embedding"],
         "visual_projection.weight": sd["visual_projection.weight"],
-        "logit_scale": torch.tensor(LOGIT_SCALE),
+        "logit_scale": sd["logit_scale"],
     }
     _ln_pair(out, "text_model.final_layer_norm", sd, "text.final_layer_norm")
     # NB: HF spells it "pre_layrnorm"
@@ -3480,7 +3518,7 @@ def hf_clip_state(sd: dict, cfg) -> dict:
     _ln_pair(out, "vision_model.post_layernorm", sd, "vision.post_layernorm")
     out.update(_hf_blocks(sd, "text"))
     out.update(_hf_blocks(sd, "vision"))
-    require(len(out) == len(sd) + 1, "HF CLIP names: a tensor was dropped")
+    require(len(out) == len(sd), "HF CLIP names: a tensor was dropped")
     _position_ids(out, cfg.vision.seq_len, cfg.text.context_length)
     return _numpy(out)
 
@@ -3506,8 +3544,8 @@ def hf_siglip_state(sd: dict, cfg) -> dict:
             [sd[h + f"{n}_proj.weight"] for n in "qkv"]),
         "vision_model.head.attention.in_proj_bias": torch.cat(
             [sd[h + f"{n}_proj.bias"] for n in "qkv"]),
-        "logit_scale": torch.tensor(SIGLIP_LOGITS[0]),
-        "logit_bias": torch.tensor(SIGLIP_LOGITS[1]),
+        "logit_scale": sd["logit_scale"],
+        "logit_bias": sd["logit_bias"],
     }
     for hf, port in (("text_model.final_layer_norm", "text.final_layer_norm"),
                      ("text_model.head", "text.head"),
@@ -3520,8 +3558,8 @@ def hf_siglip_state(sd: dict, cfg) -> dict:
         _ln_pair(out, hf, sd, port)
     out.update(_hf_blocks(sd, "text"))
     out.update(_hf_blocks(sd, "vision"))
-    # six q/k/v tensors packed into two, plus the two logit scalars
-    require(len(out) == len(sd) - 2, "HF SigLIP names: a tensor was dropped")
+    # six q/k/v tensors packed into two
+    require(len(out) == len(sd) - 4, "HF SigLIP names: a tensor was dropped")
     _position_ids(out, cfg.vision.num_patches, cfg.text.context_length)
     return _numpy(out)
 
@@ -3829,6 +3867,521 @@ def phase_checkpoints(embedder: CLIPEmbedder, siglip: SigLIPEmbedder,
                 encode_check=lambda t: compare_l14_encode(t, args.seed))
     return out
 
+# -- phase 10: training -----------------------------------------------------
+
+# B3 under autograd at the trainer's shapes: (B, S, heads, causal), the
+# ViT-B/32 vision tower's and the text tower's
+TRAIN_ATTN_SHAPES = ((64, 50, 12, False), (64, 77, 8, True))
+# forward and dq/dk/dv against autograd through the plain version: f32
+# (two f32 matmul chains in other orders), bf16 (the forward's clamped
+# unstabilised softmax against the stabilised one of the VJP, each rounded
+# to bf16: tests/test_torch_train.py)
+TRAIN_ATTN_ATOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 6e-2)}
+TRAIN_B = 64
+TRAIN_STEPS = 8
+TRAIN_FRAMES = 8            # a video's frames: 8 videos make the batch of 64
+TRAIN_LR = 3e-4
+TRAIN_LAUNCHES = 24         # a step's B3 launches: 12 vision + 12 text layers
+# a step's loss and gradients under remat (the same kernels and GEMMs run
+# again) and with B3 swapped for its plain version (f32 throughout), per
+# tensor: ||g - g_ref|| <= rtol ||g_ref|| + atol sqrt(n)
+REMAT_TOL = (1e-5, 1e-8)
+PLAIN_TOL = (1e-3, 1e-6)
+SIGLIP_TRAIN_B = 32
+# the train → serve engine's corpus: 20 videos x 200 frames
+SERVE_VIDEOS, SERVE_FRAMES = 20, 200
+SERVE_TEXTS = ("a dog on the beach", "two cats asleep", "a red car",
+               "city lights at night")
+
+
+def attention_train_bound(b: int, s: int, d: int, causal: bool, dtype,
+                          forwards: int = 1) -> dict:
+    """The least time of ``forwards`` attention forwards and one backward:
+    each forward reads q, k, v and writes the output, the backward reads
+    q, k, v and the output's gradient and writes dq, dk, dv; two products
+    a forward (QK^T, PV) and four a backward (dP, dV, dQ, dK) over the
+    (causal) pairs."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    esize = 2 if dtype == torch.bfloat16 else 4
+    tensors = 4 * forwards + 7
+    ops = 2 * b * d * pairs * (2 * forwards + 4)
+    return bound(tensors * b * s * d * esize, ops,
+                 "bf16" if dtype == torch.bfloat16 else "f32")
+
+
+def compare_attention_grad(dev) -> dict:
+    """B3 under autograd (its Function: the kernel forward, the einsum VJP
+    backward) against autograd through its plain version, at the
+    trainer's shapes in f32 and bf16: the output and dq, dk, dv within
+    TRAIN_ATTN_ATOL; one launch a forward, none a backward. Timed with
+    CUDA events, the second of two loops: the forward alone (device time,
+    graph replay), the forward with its backward both ways and SDPA's
+    (the yardstick), and under remat (a forward without grad, then the
+    forward and backward again). Returns {(S, dtype): numbers}."""
+    out = {}
+    for b, s, heads, causal in TRAIN_ATTN_SHAPES:
+        d = 64 * heads
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(2000 * s + b)
+            q, k, v, grad = ((0.5 * torch.randn(b, s, d, generator=g,
+                                                device=dev)).to(dtype)
+                             for _ in range(4))
+
+            def run(fn, q=q, k=k, v=v, grad=grad, heads=heads,
+                    causal=causal):
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = fn(*leaves, num_heads=heads, causal=causal)
+                return o, torch.autograd.grad(o, leaves, grad)
+
+            def forward(q=q, k=k, v=v, heads=heads, causal=causal):
+                with torch.no_grad():
+                    return attention(q, k, v, num_heads=heads, causal=causal)
+
+            qh, kh, vh, gh = (t.view(b, s, heads, 64).transpose(1, 2)
+                              for t in (q, k, v, grad))
+
+            def library(qh=qh, kh=kh, vh=vh, gh=gh, causal=causal):
+                leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, scale=64 ** -0.5)
+                return torch.autograd.grad(o, leaves, gh)
+
+            before = attention.launches
+            o_k, g_k = run(attention)
+            torch.cuda.synchronize()
+            require(attention.launches == before + 1,
+                    f"B3 under autograd S={s}: "
+                    f"{attention.launches - before} launches")
+            o_p, g_p = run(plain_attention)
+            err = (o_k.float() - o_p.float()).abs().max().item()
+            gerr = max((a.float() - c.float()).abs().max().item()
+                       for a, c in zip(g_k, g_p))
+            atol, gatol = TRAIN_ATTN_ATOL[dtype]
+            tag = f"B3 train S={s} H={heads} {str(dtype)[6:]}"
+            require(err <= atol and gerr <= gatol,
+                    f"{tag}: forward err {err}, gradient err {gerr}")
+            require(all(t.dtype == dtype for t in g_k), f"{tag}: grad dtype")
+            fwd_ms = graph_ms(forward, 20)
+            ms, pms = cuda_ms(lambda: run(attention), 20), \
+                cuda_ms(lambda: run(plain_attention), 20)
+            lms = cuda_ms(library, 20)
+            rms = cuda_ms(lambda: (forward(), run(attention)), 20)
+            rpms = cuda_ms(lambda: (plain_attention(
+                q, k, v, num_heads=heads, causal=causal),
+                run(plain_attention)), 20)
+            rlms = cuda_ms(lambda: (library(), library()), 10) / 2
+            lim = attention_train_bound(b, s, d, causal, dtype)
+            rlim = attention_train_bound(b, s, d, causal, dtype, forwards=2)
+            log(f"{tag} {'causal' if causal else 'non-causal'} B={b}: "
+                f"forward err {err:.3e}, dq/dk/dv err {gerr:.3e} (atol "
+                f"{atol}, {gatol}); forward {fwd_ms:.4f} ms device; forward "
+                f"+ backward {ms:.4f} ms (plain {pms:.4f}, sdpa {lms:.4f}, "
+                f"bound {lim['bound_ms']:.4f} {lim['bound_by']}); under "
+                f"remat {rms:.4f} ms (plain {rpms:.4f}, bound "
+                f"{rlim['bound_ms']:.4f})")
+            out[(s, dtype)] = {
+                "step": {"max_abs_err": max(err, gerr), "ms": ms,
+                         "plain_ms": pms, **lim, "library_ms": lms,
+                         "forward_ms": fwd_ms, "forward_err": err,
+                         "grad_err": gerr},
+                "remat": {"max_abs_err": max(err, gerr), "ms": rms,
+                          "plain_ms": rpms, **rlim, "library_ms": rlms}}
+    return out
+
+
+def train_flops(cfg, b: int) -> float:
+    """The operations of one training step of ``cfg``'s two towers at
+    batch ``b``: the forward's products (the patch embedding, per layer
+    the q/k/v/out projections, the MLP and attention's two products over
+    its (causal) pairs, the projections) times 3 for the backward's two
+    products each; the elementwise work and the loss left out."""
+    def tower(c, s, causal):
+        d, f = c.hidden_size, c.hidden_size * c.mlp_ratio
+        pairs = s * (s + 1) / 2 if causal else s * s
+        return c.num_layers * (2 * s * (4 * d * d + 2 * d * f)
+                               + 4 * d * pairs)
+    v, t = cfg.vision, cfg.text
+    fwd = (tower(v, v.seq_len, False) + tower(t, t.context_length, True)
+           + 2 * v.num_patches * v.patch_size ** 2 * 3 * v.hidden_size
+           + 2 * cfg.projection_dim * (v.hidden_size + t.hidden_size))
+    return 3 * b * fwd
+
+
+def train_batch(args, tokenizer, n_videos: int, mean, std):
+    """One batch of ``n_videos x TRAIN_FRAMES`` (frame, caption) pairs
+    through ``frame_caption_batches``: the decode replaced by seeded uint8
+    frames (the card's machine has no OpenCV; the data module looks
+    ``frames.extract_frames`` up at call time), the captions from the
+    file names, tokenized by ``tokenizer``; returns (images, ids)."""
+    def seeded(path, *, max_frames, sampling_mode, target_size):
+        v = int(Path(path).stem.split("_")[1])
+        return (seeded_frames(args.seed, 40_000 + v, max_frames),
+                [k / FPS for k in range(max_frames)])
+
+    real = ingest_frames.extract_frames
+    ingest_frames.extract_frames = seeded
+    try:
+        paths = [Path(f"clip_{v:02d}_{words(np.random.default_rng(v), 2)}"
+                      ".mp4".replace(" ", "_")) for v in range(n_videos)]
+        batches = list(frame_caption_batches(
+            paths, tokenizer, batch_size=n_videos * TRAIN_FRAMES,
+            max_frames_per_video=TRAIN_FRAMES, image_size=IMAGE, mean=mean,
+            std=std))
+    finally:
+        ingest_frames.extract_frames = real
+    require(len(batches) == 1, f"training batches: {len(batches)}")
+    return batches[0]
+
+
+def zero_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_launches(tag: str, want: int) -> dict:
+    """The counts since ``zero_launches``: B3 ``want`` times, no other
+    kernel (the towers train on the module path)."""
+    got = {name: w.launches for name, w in WRAPPERS.items()}
+    others = {k: n for k, n in got.items() if k != "attention" and n}
+    require(got["attention"] == want and not others,
+            f"[{tag}] launches {got} (want B3 {want}, nothing else)")
+    return got
+
+
+def step_grads(model, images, ids) -> tuple:
+    """One forward and backward of ``model``: (loss, {name: grad})."""
+    names, params = zip(*model.named_parameters())
+    loss = loss_fn(model, images, ids)
+    return loss.item(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def grads_gap(got: dict, want: dict, tol: tuple, tag: str) -> float:
+    """Per tensor ``||got - want|| <= rtol ||want|| + atol sqrt(n)``;
+    returns the largest ``||got - want|| / ||want||``."""
+    rtol, atol = tol
+    worst = 0.0
+    for name, w in want.items():
+        diff = torch.linalg.vector_norm(got[name].double() - w.double())
+        ref = torch.linalg.vector_norm(w.double())
+        require(diff <= rtol * ref + atol * w.numel() ** 0.5,
+                f"[{tag}] gradient {name}: |diff| {diff:.3e}, |g| {ref:.3e}")
+        worst = max(worst, (diff / max(ref, 1e-30)).item())
+    return worst
+
+
+def module_from(cfg, params: dict, device, **kw):
+    """A ``CLIP(cfg, **kw)`` on ``device`` holding ``params``."""
+    with torch.device("meta"):
+        model = clip_model.CLIP(cfg, **kw)
+    model = model.to_empty(device=device)
+    model.load_state_dict(params)
+    return model
+
+
+def same_state(tag: str, got: dict, want: dict) -> None:
+    require(got.keys() == want.keys()
+            and all(torch.equal(got[k], want[k]) for k in want),
+            f"[{tag}] tensors differ")
+
+
+def serve_trained(path: Path, trainer: CLIPTrainer, args, device, root: Path,
+                  smi: str) -> dict:
+    """An engine with ``model.orbax_checkpoint`` = ``path`` over a seeded
+    corpus of SERVE_VIDEOS x SERVE_FRAMES rows: ``pretrained`` true; its
+    image and text vectors against the trainer's own towers on the saved
+    parameters (per-row cosine >= MIN_COS: the engine serves bf16); then
+    over HTTP the searches of phase 4, rows against the host exact top-K."""
+    config = EngineConfig()
+    config.model.orbax_checkpoint = str(path)
+    config.index.device_dtype = "bfloat16"
+    videos = root / "videos-trained"
+    engine = VideoSearchEngine(videos, config=config, device=device)
+    t0 = time.perf_counter()
+    tower = engine._tower()
+    require(engine.stats()["pretrained"] is True, "[trained] pretrained")
+    load_s = time.perf_counter() - t0
+    frames = seeded_frames(args.seed, 50_000, 32)
+    ids = tower.prepare_text_ids(tower.tokenizer(list(SERVE_TEXTS)))
+    with torch.no_grad():
+        img = trainer.model.encode_image(normalize_images(
+            torch.from_numpy(frames).to(device)))
+        txt = trainer.model.encode_text(tower.ids_tensor(ids))
+    cos = {}
+    for name, got, want in (
+            ("image", tower.embed_frames(frames), img),
+            ("text", tower.embed_texts(list(SERVE_TEXTS)), txt)):
+        cos[name] = torch.nn.functional.cosine_similarity(
+            torch.from_numpy(got), want.cpu(), dim=-1).min().item()
+        require(cos[name] >= MIN_COS,
+                f"[trained] {name} vectors: min cosine {cos[name]}")
+    log(f"[trained] engine tower from {path.name} in {load_s:.2f} s "
+        f"(stages, s: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     tower.load_seconds.items())
+        + f"); pretrained: true; min row cosine against the trainer's "
+        f"towers: image {cos['image']:.6f}, text {cos['text']:.6f} "
+        f"(>= {MIN_COS}, bf16 serving)")
+    engine.startup()
+    rows = corpus_on_card_rows(device, args.seed + 10,
+                               SERVE_VIDEOS * SERVE_FRAMES, DIM)
+    stamps = [0.5 * t for t in range(SERVE_FRAMES)]
+    for v in range(SERVE_VIDEOS):
+        engine.index.add_batch(rows[v * SERVE_FRAMES:(v + 1) * SERVE_FRAMES],
+                               video_name(v), stamps)
+    corpus = engine.index._emb[: len(engine.index)]
+    require(len(corpus) == len(rows), "[trained] corpus rows")
+    server = create_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    timings = {}
+    try:
+        served = drive(base, "bfloat16", np.random.default_rng(args.seed + 10),
+                       timings)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        engine.close()
+    check_served("bfloat16", tower, corpus,
+                 lambda row: video_name(row // SERVE_FRAMES), served, device,
+                 tag="trained")
+    log(f"[trained] on {smi}: single p50 {timings['single_p50_ms']:.2f} ms, "
+        f"batch of 64 {timings['batch_ms']:.2f} ms over {len(corpus)} rows")
+    del engine, tower, server
+    return {"load_s": load_s, "min_cos": cos, **timings}
+
+
+def timed_steps(trainer: CLIPTrainer, images, ids, n: int, tag: str
+                ) -> tuple:
+    """``n`` steps, each B3 TRAIN_LAUNCHES times and nothing else; returns
+    (losses, host seconds a step, total launches)."""
+    losses, secs, total = [], [], 0
+    for i in range(n):
+        zero_launches()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(images, ids))     # float(): synchronises
+        secs.append(time.perf_counter() - t0)
+        total += read_launches(f"{tag} step {i}",
+                               TRAIN_LAUNCHES)["attention"]
+        require(np.isfinite(losses[-1]), f"[{tag}] step {i}: loss "
+                f"{losses[-1]}")
+    return losses, secs, total
+
+
+def traced_step(trainer: CLIPTrainer, images, ids, trace_dir: Path,
+                tag: str, smi: str) -> dict:
+    """One more step under ``torch.profiler`` (CPU ops and CUDA kernels):
+    the device-busy share of the step's window, its kernel launches and
+    the six kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(images, ids)
+        torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    path = trace_dir / f"train_{tag}.json"
+    prof.export_chrome_trace(str(path))
+    tr = read_trace(path)
+    count = sum(c for c, _ in tr["kernels"].values())
+    device_ms = sum(us for _, us in tr["kernels"].values()) / 1e3
+    top = sorted(tr["kernels"].items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"[train {tag} traced] one step ({host_ms:.1f} ms of host clock "
+        f"under the profiler; window {tr['window_ms']:.1f} ms): device "
+        f"busy {100 * tr['busy']:.1f}% of the window, {count} kernel "
+        f"launches, {device_ms:.1f} ms of kernel time; on {smi}")
+    for name, (c, us) in top:
+        log(f"[train {tag} traced]   {us / 1e3:8.3f} ms  {c:5d} x  "
+            f"{name[:100]}")
+    return {"busy_share": tr["busy"], "window_ms": tr["window_ms"],
+            "kernel_launches": count, "kernel_ms": device_ms,
+            "top6": [[n[:100], c, us / 1e3] for n, (c, us) in top]}
+
+
+def phase_train(args, device, smi: str) -> dict:
+    """Phase 10: B3 under autograd against its plain version at the
+    training shapes, then ``CLIPTrainer`` at ViT-B/32's full width on one
+    seeded batch of 64 (8 f32 steps, warmup-cosine, the clip, the EMA; a
+    step under remat; 2 bf16 steps; the first step's loss and gradients
+    with B3 swapped for its plain version), a bf16 SigLIP base/16 step at
+    B = 32, then the checkpoint's round trip and an engine serving it;
+    last, one more f32 and one more bf16 step each under the profiler."""
+    out = {"attention": compare_attention_grad(device)}
+    cfg = get_config("openai/clip-vit-base-patch32")
+    mean = (0.48145466, 0.4578275, 0.40821073)
+    std = (0.26862954, 0.26130258, 0.27577711)
+    images, ids = train_batch(args, load_tokenizer(), TRAIN_B // TRAIN_FRAMES,
+                              mean, std)
+    images, ids = (torch.from_numpy(images).to(device),
+                   torch.from_numpy(ids).to(device).long())
+    kw = dict(learning_rate=TRAIN_LR, schedule="cosine", warmup_steps=2,
+              total_steps=TRAIN_STEPS, max_grad_norm=1.0, ema_decay=0.99,
+              device=device)
+    trainer = CLIPTrainer(cfg, seed=args.seed, **kw)
+    init = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    flops = train_flops(cfg, TRAIN_B)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, secs, launches = timed_steps(trainer, images, ids, TRAIN_STEPS,
+                                         "f32")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    require(losses[-1] < losses[0], f"[f32] losses {losses}: no descent")
+    step_s = float(np.mean(secs[2:]))
+    out["f32"] = {"losses": losses, "step_ms": 1e3 * step_s,
+                  "frames_s": TRAIN_B / step_s, "peak_gb": peak,
+                  "launches": launches}
+    bounds = {k: 1e3 * flops / PEAK_OPS_S[k] for k in ("f32", "bf16")}
+    log(f"[train f32] ViT-B/32 B={TRAIN_B}, {TRAIN_STEPS} steps "
+        f"(warmup-cosine to lr {TRAIN_LR}, clip 1.0, EMA 0.99): losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f"; {1e3 * step_s:.1f} ms "
+        f"a step (mean of steps 3-{TRAIN_STEPS}; first "
+        f"{1e3 * secs[0]:.1f}) = {TRAIN_B / step_s:.1f} frames/s; peak "
+        f"memory {peak:.2f} GB; B3 {TRAIN_LAUNCHES} launches a step, "
+        f"{launches} in all; {flops / 1e12:.3f} TFLOP a step: bound "
+        f"{bounds['f32']:.2f} ms at the f32 peak, {bounds['bf16']:.2f} ms at "
+        f"the bf16 peak; on {smi}")
+    out["flops"], out["bound_ms"] = flops, bounds
+
+    # one step under remat (through the trainer, from the same weights)
+    remat = CLIPTrainer(cfg, params=init, remat=True, **kw)
+    zero_launches()
+    t0 = time.perf_counter()
+    r_loss = remat.step(images, ids)
+    r_ms = 1e3 * (time.perf_counter() - t0)
+    r_launches = read_launches("remat step", 2 * TRAIN_LAUNCHES)["attention"]
+    require(abs(r_loss - losses[0]) <= 1e-6 * abs(losses[0]),
+            f"[remat] loss {r_loss} against {losses[0]}")
+    del remat
+    # the first step's gradients: no remat, remat, and B3's plain version
+    grads = {}
+    for name, model_kw in (("kernel", {}), ("remat", {"remat": True}),
+                           ("plain", {})):
+        model = module_from(cfg, init, device, **model_kw)
+        zero_launches()
+        if name == "plain":
+            with module_attention_plain():
+                grads[name] = step_grads(model, images, ids)
+            read_launches("plain step", 0)
+        else:
+            grads[name] = step_grads(model, images, ids)
+            read_launches(f"{name} step", TRAIN_LAUNCHES
+                          * (2 if name == "remat" else 1))
+        del model
+    (l_k, g_k), (l_r, g_r), (l_p, g_p) = (grads[n] for n in
+                                          ("kernel", "remat", "plain"))
+    require(l_k == losses[0] or abs(l_k - losses[0]) <= 1e-6 * abs(l_k),
+            f"[grads] loss {l_k} against the trainer's {losses[0]}")
+    require(abs(l_r - l_k) <= 1e-6 * abs(l_k), f"[remat] loss {l_r} vs {l_k}")
+    require(abs(l_p - l_k) <= 1e-5 * abs(l_k), f"[plain] loss {l_p} vs {l_k}")
+    gap_r = grads_gap(g_r, g_k, REMAT_TOL, "remat")
+    gap_p = grads_gap(g_k, g_p, PLAIN_TOL, "plain")
+    del grads, g_k, g_r, g_p
+    log(f"[train remat] one step: {r_launches} B3 launches, loss "
+        f"{r_loss:.6f} (the f32 trainer's first {losses[0]:.6f}), "
+        f"{r_ms:.1f} ms; first-step gradients: remat against none max "
+        f"relative gap {gap_r:.2e} (rtol {REMAT_TOL[0]}), B3 against its "
+        f"plain version {gap_p:.2e} (rtol {PLAIN_TOL[0]}), loss {l_p:.6f} "
+        f"against {l_k:.6f}")
+    out["remat"] = {"loss": r_loss, "ms": r_ms, "launches": r_launches,
+                    "grad_gap": gap_r, "plain_grad_gap": gap_p}
+
+    # train → serve: the checkpoint's round trip, then an engine serving it
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        path = train_ckpt.save_checkpoint(root / "ckpt", trainer,
+                                          trainer.state.step)
+        save_s = time.perf_counter() - t0
+        fresh = CLIPTrainer(cfg, params=init, **kw)
+        t0 = time.perf_counter()
+        step = train_ckpt.restore_checkpoint(root / "ckpt", fresh)
+        restore_s = time.perf_counter() - t0
+        a, b = trainer.state, fresh.state
+        require(step == b.step == a.step == TRAIN_STEPS
+                and b.opt_state["count"] == a.opt_state["count"],
+                f"[ckpt] step {step}")
+        for name, got, want in (("params", b.params, a.params),
+                                ("mu", b.opt_state["mu"], a.opt_state["mu"]),
+                                ("nu", b.opt_state["nu"], a.opt_state["nu"]),
+                                ("ema", b.ema_params, a.ema_params)):
+            same_state(f"ckpt {name}", got, want)
+        size = sum(f.stat().st_size for f in path.iterdir()) / 1e9
+        log(f"[ckpt] {path.name}: {size:.3f} GB saved in {save_s:.2f} s, "
+            f"restored into a fresh trainer in {restore_s:.2f} s: params, "
+            "moments, EMA and step bit for bit")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve"] = serve_trained(path, trainer, args, device, root, smi)
+        out["f32"]["traced"] = traced_step(trainer, images, ids, root,
+                                           "f32", smi)
+    del trainer, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: 2 steps from the seeded weights
+    bf16 = CLIPTrainer(cfg, seed=args.seed, dtype=torch.bfloat16, **kw)
+    torch.cuda.reset_peak_memory_stats(device)
+    b_losses, b_secs, b_launches = timed_steps(bf16, images, ids, 2, "bf16")
+    b_peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        b_traced = traced_step(bf16, images, ids, Path(tmp), "bf16", smi)
+    del bf16
+    log(f"[train bf16] ViT-B/32 B={TRAIN_B}, 2 steps: losses "
+        + ", ".join(f"{x:.4f}" for x in b_losses) + f"; second step "
+        f"{1e3 * b_secs[1]:.1f} ms = {TRAIN_B / b_secs[1]:.1f} frames/s "
+        f"(first {1e3 * b_secs[0]:.1f}); peak memory {b_peak:.2f} GB; "
+        f"bound {bounds['bf16']:.2f} ms; on {smi}")
+    out["bf16"] = {"losses": b_losses, "step_ms": 1e3 * b_secs[1],
+                   "frames_s": TRAIN_B / b_secs[1], "peak_gb": b_peak,
+                   "launches": b_launches, "traced": b_traced}
+
+    # SigLIP base/16, bf16, one step at B = 32
+    scfg = siglip_base_patch16()
+    with torch.device("meta"):
+        smodel = SigLIP(scfg, dtype=torch.bfloat16)
+    s_images, s_ids = train_batch(args, siglip_tokenizer(scfg),
+                                  SIGLIP_TRAIN_B // TRAIN_FRAMES,
+                                  SIGLIP_MEAN, SIGLIP_STD)
+    siglip = CLIPTrainer(model=smodel, seed=args.seed, **kw)
+    s_losses, s_secs, s_launches = timed_steps(siglip, s_images, s_ids, 1,
+                                               "siglip bf16")
+    del siglip, smodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train siglip] base/16 bf16 B={SIGLIP_TRAIN_B} (S = 196 vision, "
+        f"64 text): loss {s_losses[0]:.4f}, {1e3 * s_secs[0]:.1f} ms (first "
+        f"step), {s_launches} B3 launches")
+    out["siglip"] = {"loss": s_losses[0], "ms": 1e3 * s_secs[0],
+                     "launches": s_launches}
+    return out
+
+
+def train_kernel_entries(tr: dict) -> list:
+    """The kernels line's training entries: B3 under autograd as a step
+    runs it (its numbers at the vision shape, f32; the text shape and bf16
+    under ``at``), and under remat."""
+    src = "video_quierer_tpu_torch/csrc/attention.cu"
+    att = tr["attention"]
+    at = {f"S={s} {str(dt)[6:]}": att[(s, dt)]["step"]
+          for s, dt in att if (s, dt) != (50, torch.float32)}
+    base = {"route": "cuda", "source": src,
+            "replaces": "video_quierer_tpu/ops/attention.py:143"}
+    return [
+        {"name": "attention_train", **base,
+         "launches": tr["f32"]["launches"],
+         "launches_per_step": TRAIN_LAUNCHES,
+         "steps": TRAIN_STEPS, "shape": "B=64 S=50 H=12 f32, forward + "
+         "backward", **att[(50, torch.float32)]["step"], "at": at},
+        {"name": "attention_train_remat", **base,
+         "launches": tr["remat"]["launches"],
+         "shape": "B=64 S=50 H=12 f32, forward twice + backward",
+         **att[(50, torch.float32)]["remat"]}]
+
+
 # one A/B run: the text and vision kernel phases (and the search-tier
 # scans with --ab-scans) of the chip_smoke.py in the working directory, in
 # a fresh process, then the device time (CUDA graph replay) of B3, B2, B5
@@ -4056,6 +4609,9 @@ def main() -> int:
     ap.add_argument("--checkpoints", action="store_true",
                     help="only the ViT-L/14 kernels and phase 9 (the "
                          "towers served from HF checkpoints)")
+    ap.add_argument("--train", action="store_true",
+                    help="only phase 10 (B3 under autograd, the trainer, "
+                         "train -> serve)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run "
@@ -4089,6 +4645,13 @@ def main() -> int:
                 SigLIPEmbedder(dtype=torch.bfloat16, device=device,
                                seed=args.seed), l14, args, device, smi)
         log(f"phase 9 summary ({smi}): " + json.dumps(ck))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.train:
+        with timed("10, training"):
+            tr = phase_train(args, device, smi)
+        log(f"phase 10 kernels ({smi}): "
+            + json.dumps(train_kernel_entries(tr)))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     with timed("3, text and vision kernels"):
@@ -4131,6 +4694,8 @@ def main() -> int:
         sl, si = phase_siglip_engine(siglip, args, device, smi)
     with timed("9, checkpoints"):
         ck = phase_checkpoints(embedder, siglip, l14, args, device, smi)
+    with timed("10, training"):
+        tr = phase_train(args, device, smi)
     l14_ingest = ck["vit-l-14"]["ingest"]["launches"]
     l14_search = ck["vit-l-14"]["launches"]
     src = "video_quierer_tpu_torch/csrc/"
@@ -4248,6 +4813,8 @@ def main() -> int:
                                      ("attention", "attention"),
                                      ("attn_half", "attn_half"),
                                      ("mlp_half", "mlp_half"))}
+    # phase 10: B3 under autograd in the trainer's steps
+    kernels_line["kernels"] += train_kernel_entries(tr)
     for entry in kernels_line["kernels"]:
         if entry["name"] in slice_launches:
             entry["phase8_launches"] = slice_launches[entry["name"]]
@@ -4257,6 +4824,8 @@ def main() -> int:
         "ranking ms by CUDA events): " + json.dumps(surface))
     log(f"phase 9 summary ({smi}; load seconds by stage, launches): "
         + json.dumps(ck))
+    log(f"phase 10 summary ({smi}): " + json.dumps(
+        {k: v for k, v in tr.items() if k != "attention"}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)

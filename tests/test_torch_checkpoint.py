@@ -28,8 +28,8 @@ tests write themselves (nothing is downloaded):
   bridged, so that the rows can be compared);
 - (f) the reference's edge cases: a configured directory without weights
   raises ``FileNotFoundError``; a SigLIP directory holding only
-  ``pytorch_model.bin`` serves seeded; ``orbax_checkpoint`` raises
-  ``NotImplementedError`` (not ported) in both embedders and the engine;
+  ``pytorch_model.bin`` serves seeded; ``orbax_checkpoint``, a checkpoint
+  of the port's trainer, is served by both embedders and the engine;
 - (g) ViT-L/14 widths (vision 1,024 wide, 16 heads, patch 14 at 224 px, S =
   257; text 768 wide, 12 heads; rows 768 wide) at 2 layers a tower and a
   1,000-token vocab: the converter fills every parameter of the port's
@@ -59,6 +59,11 @@ from tests.test_real_checkpoint import (
 )
 from tests.test_siglip_spm import BASE_PIECES, make_spiece
 from tests.test_torch_siglip import tiny_configs
+from tests.test_torch_train_checkpoint import (
+    assert_serves_trainer,
+    served_by,
+    train_and_save,
+)
 from tests.torch_parity import (
     TINY_FULL_VOCAB,
     _as_torch_cfg,
@@ -563,20 +568,28 @@ def test_siglip_bin_only_serves_seeded(tmp_path, jax_tiny_siglip):
 
 
 @pytest.mark.parametrize("family", ["clip", "siglip"])
-def test_orbax_checkpoint_not_ported(tmp_path, family):
-    if family == "clip":
-        with pytest.raises(NotImplementedError, match="A11"):
-            emb_mod.CLIPEmbedder(TINY_HF, device="cpu",
-                                 orbax_checkpoint=tmp_path)
-    else:
-        with pytest.raises(NotImplementedError, match="A11"):
-            semb.SigLIPEmbedder(siglip_configs()[1], device="cpu",
-                                orbax_checkpoint=tmp_path)
+def test_orbax_checkpoint_not_ported(tmp_path, family, monkeypatch):
+    """``orbax_checkpoint`` names a checkpoint of the port's trainer
+    (``train/checkpoint.py``): each family's embedder and the engine serve
+    it, ``pretrained`` true, the saved ``params`` bit for bit and the
+    trainer's vectors (the name is kept from when the field was refused;
+    an orbax directory of the JAX package is still not read:
+    ``tests/test_torch_train_checkpoint.py``)."""
+    trainer, path = train_and_save(tmp_path / "ck", family)
+    assert_serves_trainer(served_by(family, path), trainer, family)
     cfg = torch_config.EngineConfig(videos_dir=str(tmp_path / "v"))
-    cfg.model.family, cfg.model.orbax_checkpoint = family, str(tmp_path)
+    cfg.model.family, cfg.model.orbax_checkpoint = family, str(path)
+    cfg.model.dtype = "float32"
+    if family == "clip":
+        cfg.model.name = TINY_FULL_VOCAB
+    else:
+        # the engine builds siglip_base_patch16(): the tiny config instead
+        monkeypatch.setattr(semb, "siglip_base_patch16",
+                            lambda: siglip_configs()[1])
     engine = VideoSearchEngine(tmp_path / "v", config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        engine._get_embedder()
+    tower = engine._get_embedder()
+    assert engine.stats()["pretrained"] is True
+    assert_serves_trainer(tower, trainer, family)
 
 
 # -- (g) ViT-L/14 widths ----------------------------------------------------

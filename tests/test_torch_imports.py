@@ -2,9 +2,10 @@
 every module of video_quierer_tpu_torch (the corpus-mesh modules
 ``parallel/mesh.py`` and ``index/sharded.py``, the SigLIP family's
 ``models/siglip``, the HTTP API's ``api/``, the samplers, the
-``use_clip = false`` encoders, the CLI and the checkpoint converters among
-them) leaves jax, flax, aiohttp, pydantic, cv2, yt_dlp, safetensors and
-transformers out of ``sys.modules``, and builds no kernel."""
+``use_clip = false`` encoders, the CLI, the checkpoint converters and the
+trainer's ``train/`` among them) leaves jax, flax, optax, orbax, aiohttp,
+pydantic, cv2, yt_dlp, safetensors and transformers out of
+``sys.modules``, and builds no kernel."""
 
 import json
 import subprocess
@@ -91,3 +92,9 @@ def test_mesh_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setenv("VQT_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="multi-host"):
         mesh.initialize_distributed()
+
+
+def test_train_modules_are_walked(report):
+    for name in ("train", "train.trainer", "train.data", "train.eval",
+                 "train.checkpoint", "train.finetune"):
+        assert f"video_quierer_tpu_torch.{name}" in report["modules"]

@@ -10,7 +10,9 @@ Kernel tests carry the ``gpu`` marker and skip where no CUDA card is
 present; the CPU tests check the wrappers' CPU routing and launch counts.
 Tolerances: B1 exact (the inputs are multiples of 1/256, so every f32 dot
 product is exact in any summation order); B2 per-row cosine >= 1 - 1e-5
-in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2; B5 and B6
+in f32 and >= 0.999 in bf16; B3 f32 atol 1e-5, bf16 atol 2e-2 (under
+autograd at the training shapes, its dq, dk, dv against autograd through
+the plain version: f32 atol 1e-4, bf16 6e-2); B5 and B6
 (one layer half at ViT-B/32 widths, N(0, 1) activations) f32 atol 1e-4
 (sums of up to 3,072 products in another order), bf16 within two bf16
 ulps at the largest input magnitude (a GEMM output may round to the
@@ -342,6 +344,43 @@ def test_attention_tensor_core_shapes(cuda, b, s, causal):
                          causal=causal)
     torch.testing.assert_close(got[:, :valid].float(),
                                want[:, :valid].float(), atol=2e-2, rtol=0)
+
+
+# B3 under autograd: forward atol as B3's, dq/dk/dv f32 1e-4 (two f32
+# matmul chains in other orders), bf16 6e-2 (tests/test_torch_train.py)
+GRAD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,heads,causal", [(50, 12, False), (77, 8, True)])
+def test_attention_function_at_the_training_shapes(cuda, dtype, s, heads,
+                                                   causal):
+    """B3's autograd Function at the trainer's shapes (ViT-B/32 vision: B
+    = 64, S = 50, 12 heads; text: S = 77, causal, 8 heads): one kernel
+    launch forward, none backward (the einsum VJP), output and gradients
+    against autograd through the plain version (q pre-scaled in the
+    graph)."""
+    g = torch.Generator().manual_seed(s)
+    q, k, v, grad = (torch.randn(64, s, 64 * heads, generator=g).mul(0.5)
+                     .to(cuda, dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = attention.launches
+    out = attention(*leaves, num_heads=heads, causal=causal)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    qs = (plain[0].float() * 64 ** -0.5).to(dtype)
+    want = attention_ref(qs, plain[1], plain[2], num_heads=heads,
+                         valid_len=s, causal=causal)
+    want.backward(grad)
+    torch.testing.assert_close(out.detach().float(), want.detach().float(),
+                               atol=ATOL[dtype], rtol=0)
+    for a, b in zip(leaves, plain):
+        assert a.grad.dtype == dtype
+        torch.testing.assert_close(a.grad.float(), b.grad.float(),
+                                   atol=GRAD_ATOL[dtype], rtol=0)
 
 
 @pytest.mark.gpu

@@ -257,11 +257,12 @@ def test_params_from_jax_covers_the_module(tiny):
     jcfg, tcfg, params = tiny
     sd = bridge.params_from_jax(numpy_tree(params), tcfg)
     assert sd.keys() == sm.SigLIP(tcfg).state_dict().keys()
-    leaves = jax.tree_util.tree_leaves(
-        {k: v for k, v in params.items()
-         if k not in ("logit_scale", "logit_bias")})
+    # every leaf, the logit scale and bias included (training parameters)
+    leaves = jax.tree_util.tree_leaves(params)
     assert sum(v.numel() for v in sd.values()) == \
         sum(int(np.prod(x.shape)) for x in leaves)
+    for name in ("logit_scale", "logit_bias"):
+        assert sd[name].item() == float(params[name])
 
 
 def test_seeded_init_is_deterministic(tiny):

@@ -4,8 +4,12 @@ The same numpy-seeded inputs go through the JAX package and the PyTorch
 port; weights cross with ``params_from_jax``.
 """
 
+import contextlib
+
 import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
 
 from video_quierer_tpu.models.clip import config as jax_cfg
 from video_quierer_tpu_torch.models.clip import config as torch_cfg
@@ -54,6 +58,27 @@ for _name, _factory in ((TINY, _tiny(1000, 77)),
                         _tiny(49408, 77, image=224, patch=56))):
     jax_cfg.register_config(_name, _factory)
     torch_cfg.register_config(_name, _as_torch_cfg(_factory))
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch's CPU ops on one thread (tiny tensors gain nothing from
+    more, and the parallel test workers share the cores), restored on
+    exit."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def jax_init(model, image: int, context: int):
+    """A flax tower's ``params`` at seed 0, its init jitted (the eager
+    init traces op by op, ~2x slower)."""
+    return jax.jit(lambda key: model.init(
+        key, jnp.zeros((1, image, image, 3)),
+        jnp.zeros((1, context), jnp.int32))["params"])(jax.random.PRNGKey(0))
 
 
 def numpy_tree(params):

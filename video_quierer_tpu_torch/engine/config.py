@@ -15,10 +15,12 @@ corpus mesh's (``index.corpus_shards``, ``index.corpus_slices``,
 ``parallel/mesh.py``) and the model family's (``model.family`` "clip" or
 "siglip", ``VQT_MODEL_FAMILY``: the engine builds that family's towers)
 and the HF checkpoint's (``model.checkpoint_dir``,
-``VQT_CLIP_CHECKPOINT``: the towers load it, ``models/clip/convert.py``);
-fields the port refuses (``model.orbax_checkpoint``, pipeline
-parallelism) keep their names and validation so one
-``config.json``/``engine.yaml`` serves both packages.
+``VQT_CLIP_CHECKPOINT``: the towers load it, ``models/clip/convert.py``)
+and the fine-tuned checkpoint's (``model.orbax_checkpoint``: a checkpoint
+of the port's trainer, ``train/checkpoint.py``; an orbax directory of the
+JAX package is refused); fields the port refuses (pipeline parallelism)
+keep their names and validation so one ``config.json``/``engine.yaml``
+serves both packages.
 """
 
 from __future__ import annotations

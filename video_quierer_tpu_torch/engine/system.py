@@ -189,7 +189,7 @@ class VideoSearchEngine:
                     f"model.parallel={m.parallel!r}: pipeline parallelism "
                     "of the towers is not ported")
             # an HF checkpoint dir (VQT_CLIP_CHECKPOINT); orbax_checkpoint
-            # reaches the embedder, which refuses it (not ported)
+            # a checkpoint of the port's trainer (train/checkpoint.py)
             kw = dict(checkpoint_dir=Path(m.checkpoint_dir)
                       if m.checkpoint_dir else None,
                       orbax_checkpoint=Path(m.orbax_checkpoint)

@@ -5,14 +5,20 @@
   ``kernel [in, out]`` becomes ``weight [out, in]``; the patch conv's
   HWIO ``kernel [p, p, 3, D]`` becomes ``weight [D, p*p*3]`` over patches
   flattened in (row, column, channel) order; embeddings, positions and
-  LayerNorm vectors are copied as they are.
+  LayerNorm vectors are copied as they are; ``logit_scale`` is the tree's
+  when it has one (the trainer's and HF checkpoints' trees do), else the
+  config's ``logit_scale_init``, the constant flax's init gives it, so
+  every state dict of the port's loads strictly into any ``CLIP``, a
+  serving module included. Optimizer moments are trees shaped like the
+  parameters: optax's AdamW ``mu`` and ``nu`` map the same way.
 - :func:`init_params` draws a fresh state dict from an explicit
   ``torch.Generator`` in the distributions of flax's defaults (the JAX
   package's ``init_params``): Dense and conv kernels LeCun-normal
   (truncated normal, variance 1/fan_in), biases zero, the token embedding
   normal with std ``1/sqrt(hidden)``, text positions normal(0.01), the
   class embedding and vision positions normal(0.02), LayerNorm scale 1
-  and bias 0. The text tower is drawn first, then the vision tower. The
+  and bias 0, ``logit_scale`` the config's constant (no draw). The text
+  tower is drawn first, then the vision tower. The
   numbers differ from jax.random's; the parity tests move weights with
   :func:`params_from_jax` instead.
 """
@@ -78,6 +84,7 @@ def params_from_jax(params: Mapping, cfg: CLIPConfig
         "vision.position_embedding": _t(vp["position_embedding"]),
         "visual_projection.weight":
             _t(params["visual_projection"]["kernel"]).t().contiguous(),
+        "logit_scale": _t(params.get("logit_scale", cfg.logit_scale_init)),
     }
     for tower in ("pre_layernorm", "post_layernorm"):
         sd[f"vision.{tower}.weight"] = _t(vp[tower]["scale"])
@@ -142,4 +149,5 @@ def init_params(cfg: CLIPConfig, generator: torch.Generator
         sd[f"vision.{tower}.bias"] = torch.zeros(dv)
     sd.update(_init_blocks("vision", v.num_layers, dv, dv * v.mlp_ratio, g))
     sd["visual_projection.weight"] = _lecun(cfg.projection_dim, dv, g)
+    sd["logit_scale"] = _t(cfg.logit_scale_init)
     return sd

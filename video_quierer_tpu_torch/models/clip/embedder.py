@@ -18,10 +18,14 @@ text (counterpart of ``video_quierer_tpu/models/clip/embedder.py``).
 ``MemoizedEmbedder`` wraps any embedder in a frame-embedding memo
 (``cache.frame_memo_size > 0``).
 
-Weights, in the reference's order: ``orbax_checkpoint`` (the trainer's
-format) raises ``NotImplementedError`` (not ported); a state dict handed
-in (e.g. from ``bridge.params_from_jax``) is used as it is; else the HF
-checkpoint in ``checkpoint_dir``, or the one ``find_local_checkpoint``
+Weights, in the reference's order: ``orbax_checkpoint``, a checkpoint
+directory of the port's trainer (``train/checkpoint.py``, the port's own
+format: an orbax directory of the JAX package raises ``ValueError``),
+whose ``params`` tree (the live weights, not the EMA, as the reference
+reads) is served with ``pretrained`` True and the tokenizer of
+``checkpoint_dir`` or of the checkpoint discovery finds; a state dict
+handed in (e.g. from ``bridge.params_from_jax``) is used as it is; else
+the HF checkpoint in ``checkpoint_dir``, or the one ``find_local_checkpoint``
 finds (``$VQT_CLIP_CHECKPOINT``, ``./checkpoints/<short name>``, the HF
 hub cache), read by ``convert.py`` into the JAX package's tree and
 bridged (``pretrained`` is then True); else the port's seeded init
@@ -98,12 +102,14 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-def refuse_orbax(orbax_checkpoint: Optional[Path]) -> None:
-    if orbax_checkpoint is not None:
-        raise NotImplementedError(
-            f"orbax_checkpoint={orbax_checkpoint}: the trainer's checkpoint "
-            "format is not ported (ROADMAP A11); serve an HF checkpoint "
-            "through checkpoint_dir")
+def read_trained(path: Path, seconds: dict) -> Dict[str, torch.Tensor]:
+    """The ``params`` tree of a checkpoint of the port's trainer (JAX
+    ``_load_orbax_params``; ``train/checkpoint.py:load_params``)."""
+    from video_quierer_tpu_torch.train.checkpoint import load_params
+    t0 = time.perf_counter()
+    state_dict = load_params(Path(path))
+    seconds.update(read_trained=time.perf_counter() - t0)
+    return state_dict
 
 
 def read_checkpoint(ckpt: Path, cfg, convert, bridge, seconds: dict
@@ -150,14 +156,21 @@ class CLIPEmbedder:
                  seed: int = 0,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  orbax_checkpoint: Optional[Path] = None):
-        refuse_orbax(orbax_checkpoint)
         self.cfg: CLIPConfig = get_config(model_name)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.pretrained = False
         self.load_seconds: Dict[str, float] = {}
         ckpt = checkpoint_dir
-        if state_dict is None:
+        if orbax_checkpoint is not None:
+            # fine-tuned weights from the port's trainer: the train → serve
+            # loop; the tokenizer is still the HF checkpoint's, if any
+            logger.info("Loading fine-tuned params from %s",
+                        orbax_checkpoint)
+            state_dict = read_trained(orbax_checkpoint, self.load_seconds)
+            ckpt = ckpt or convert_mod.find_local_checkpoint(model_name)
+            self.pretrained = True
+        elif state_dict is None:
             ckpt = ckpt or convert_mod.find_local_checkpoint(model_name)
             if ckpt is not None:
                 logger.info("Loading CLIP weights from %s", ckpt)

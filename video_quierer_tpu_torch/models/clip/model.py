@@ -12,20 +12,40 @@ Architecture of ``openai/clip-vit-base-patch32``, both towers:
 
 Module and parameter names follow the flax tree (``models/clip/bridge.py``
 maps one onto the other). The q/k/v/out, fc and patch projections are
-``nn.Linear`` (the JAX package leaves them to XLA outside any kernel);
+:class:`Linear`, an ``nn.Linear`` (the JAX package leaves them to XLA
+outside any kernel);
 attention is kernel B3 (``ops/attention.py``), as the flax towers route
 it. LayerNorm keeps f32 statistics and casts to the tower dtype, as
 flax's LayerNorm does. Inputs are NHWC images already normalised
 (``ops/preprocess.py``), as in the JAX package. MoE vision towers are not
-ported.
+ported (ROADMAP A11b).
+
+Training (JAX ``CLIP.__call__``, ``:250-284``): ``forward(pixels,
+input_ids)`` returns ``(img, txt, exp(logit_scale))``, the scale an f32
+parameter initialised to ``cfg.logit_scale_init``. ``CLIP(cfg, dtype,
+remat)`` mirrors flax's module fields:
+
+- ``dtype`` is the compute dtype, apart from the parameters' (flax's
+  ``dtype`` over f32 ``param_dtype``): the pixels, the embeddings and the
+  positions are cast to it where they are used, and each :class:`Linear`
+  casts its weight and bias to its input's dtype, so f32 parameters
+  train a bf16 tower; LayerNorm statistics stay f32. ``None`` (the
+  default) computes in the parameters' dtype: a serving module is cast
+  whole by ``embedder.place_module``, and every cast is then a no-op;
+- ``remat`` runs each encoder block through ``torch.utils.checkpoint``
+  (``use_reentrant=False``) when grad mode is on, as ``nn.remat`` does
+  (JAX ``:155-158``): its activations are recomputed in the backward.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from video_quierer_tpu_torch.models.clip.config import (
     CLIPConfig,
@@ -55,6 +75,28 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu_tanh": gelu_tanh}
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias take its input's dtype where
+    they are used (flax ``Dense(dtype=...)``); a no-op cast when they
+    already have it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def run_blocks(layers: nn.ModuleList, x: torch.Tensor,
+               remat: bool) -> torch.Tensor:
+    """``x`` through each block; with ``remat`` and grad mode on, each
+    block's activations are recomputed in the backward."""
+    for block in layers:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, use_reentrant=False)
+        else:
+            x = block(x)
+    return x
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with f32 statistics, output in the input dtype."""
 
@@ -75,10 +117,10 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.causal = causal
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = Linear(d, d)
+        self.k_proj = Linear(d, d)
+        self.v_proj = Linear(d, d)
+        self.out_proj = Linear(d, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = attention(self.q_proj(x), self.k_proj(x), self.v_proj(x),
@@ -90,8 +132,8 @@ class MLP(nn.Module):
     def __init__(self, d: int, ratio: int, act: str = "quick_gelu"):
         super().__init__()
         self.act = ACTIVATIONS[act]
-        self.fc1 = nn.Linear(d, d * ratio)
-        self.fc2 = nn.Linear(d * ratio, d)
+        self.fc1 = Linear(d, d * ratio)
+        self.fc2 = Linear(d * ratio, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -119,6 +161,8 @@ class TextTower(nn.Module):
     def __init__(self, c: CLIPTextConfig):
         super().__init__()
         self.cfg = c
+        self.compute_dtype: Optional[torch.dtype] = None
+        self.remat = False
         self.token_embedding = nn.Embedding(c.vocab_size, c.hidden_size)
         self.position_embedding = nn.Parameter(
             torch.zeros(c.context_length, c.hidden_size))
@@ -129,10 +173,10 @@ class TextTower(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """``[B, S]`` ids → pooled features ``[B, hidden]`` at each
         sequence's EOT token (highest id, first occurrence)."""
-        x = self.token_embedding(input_ids) \
-            + self.position_embedding[: input_ids.shape[1]][None]
-        for block in self.layers:
-            x = block(x)
+        dtype = self.compute_dtype or self.token_embedding.weight.dtype
+        x = F.embedding(input_ids, self.token_embedding.weight.to(dtype)) \
+            + self.position_embedding[: input_ids.shape[1]].to(dtype)[None]
+        x = run_blocks(self.layers, x, self.remat)
         x = self.final_layer_norm(x)
         eot = torch.argmax(input_ids, dim=-1)
         return x[torch.arange(x.shape[0], device=x.device), eot]
@@ -142,12 +186,15 @@ class VisionTower(nn.Module):
     def __init__(self, c: CLIPVisionConfig):
         super().__init__()
         if c.moe_experts:
-            raise NotImplementedError("MoE vision towers are not ported")
+            raise NotImplementedError(
+                "MoE vision towers are not ported (ROADMAP A11b)")
         self.cfg = c
+        self.compute_dtype: Optional[torch.dtype] = None
+        self.remat = False
         d, p = c.hidden_size, c.patch_size
         # the flax conv kernel [p, p, 3, D] (HWIO) as a [D, p*p*3] matrix
         # over patches flattened in (row, column, channel) order
-        self.patch_embedding = nn.Linear(p * p * 3, d, bias=False)
+        self.patch_embedding = Linear(p * p * 3, d, bias=False)
         self.class_embedding = nn.Parameter(torch.zeros(d))
         self.position_embedding = nn.Parameter(torch.zeros(c.seq_len, d))
         self.pre_layernorm = LayerNorm(d, c.layer_norm_eps)
@@ -161,18 +208,17 @@ class VisionTower(nn.Module):
         c = self.cfg
         b = pixels.shape[0]
         p, g = c.patch_size, c.image_size // c.patch_size
-        dtype = self.class_embedding.dtype
+        dtype = self.compute_dtype or self.class_embedding.dtype
         patches = (pixels.to(dtype).reshape(b, g, p, g, p, 3)
                    .permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3))
-        x = torch.cat([self.class_embedding.expand(b, 1, -1),
+        x = torch.cat([self.class_embedding.to(dtype).expand(b, 1, -1),
                        self.patch_embedding(patches)], dim=1)
-        return self.pre_layernorm(x + self.position_embedding[None])
+        return self.pre_layernorm(
+            x + self.position_embedding.to(dtype)[None])
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         """Pooled pre-projection features ``[B, hidden]`` (post-LN CLS)."""
-        x = self.embed(pixels)
-        for block in self.layers:
-            x = block(x)
+        x = run_blocks(self.layers, self.embed(pixels), self.remat)
         return self.post_layernorm(x[:, 0])
 
 
@@ -186,19 +232,31 @@ def _normalize_f32(feats: torch.Tensor, normalize: bool) -> torch.Tensor:
     return feats
 
 
-class CLIP(nn.Module):
-    """Dual-tower CLIP with projection heads (serving only: no logit
-    scale)."""
+def configure_towers(towers, dtype: Optional[torch.dtype],
+                     remat: bool) -> None:
+    """Set each tower's compute dtype and remat (the module fields flax
+    passes down)."""
+    for tower in towers:
+        tower.compute_dtype = dtype
+        tower.remat = remat
 
-    def __init__(self, cfg: CLIPConfig):
+
+class CLIP(nn.Module):
+    """Dual-tower CLIP with projection heads and a trainable logit
+    scale."""
+
+    def __init__(self, cfg: CLIPConfig, dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.vision = VisionTower(cfg.vision)
         self.text = TextTower(cfg.text)
-        self.visual_projection = nn.Linear(cfg.vision.hidden_size,
-                                           cfg.projection_dim, bias=False)
-        self.text_projection = nn.Linear(cfg.text.hidden_size,
-                                         cfg.projection_dim, bias=False)
+        self.visual_projection = Linear(cfg.vision.hidden_size,
+                                        cfg.projection_dim, bias=False)
+        self.text_projection = Linear(cfg.text.hidden_size,
+                                      cfg.projection_dim, bias=False)
+        self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init))
+        configure_towers((self.vision, self.text), dtype, remat)
 
     def encode_image(self, pixels: torch.Tensor,
                      normalize: bool = True) -> torch.Tensor:
@@ -209,3 +267,9 @@ class CLIP(nn.Module):
                     normalize: bool = True) -> torch.Tensor:
         feats = self.text_projection(self.text(input_ids))
         return _normalize_f32(feats, normalize)
+
+    def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor):
+        """Training forward: ``(image_feats, text_feats, logit_scale)``,
+        the features f32 unit rows, the scale ``exp`` of the parameter."""
+        return (self.encode_image(pixels), self.encode_text(input_ids),
+                self.logit_scale.exp())

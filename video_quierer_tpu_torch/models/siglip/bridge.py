@@ -6,13 +6,15 @@
   becomes ``weight [out, in]``; the patch conv's HWIO ``kernel [p, p, 3,
   D]`` becomes ``weight [D, p*p*3]``, its bias kept; embeddings,
   positions, the MAP head's probe and LayerNorm vectors are copied as
-  they are. The logit scale and bias (training only) are left out.
+  they are; ``logit_scale`` and ``logit_bias`` are the tree's, else the
+  config's init constants (as the CLIP bridge's ``logit_scale``).
 - :func:`init_params` draws a fresh state dict from an explicit
   ``torch.Generator`` in the distributions of flax's defaults (the JAX
   package's ``siglip_init_params``): Dense and conv kernels LeCun-normal,
   biases zero, the token embedding normal with std ``1/sqrt(hidden)``,
   both position tables normal(0.02), the probe normal(1), LayerNorm scale
-  1 and bias 0. The text tower is drawn first, then the vision tower. The
+  1 and bias 0, the logit scale and bias the config's constants (no
+  draw). The text tower is drawn first, then the vision tower. The
   numbers differ from jax.random's; the parity tests move weights with
   :func:`params_from_jax` instead.
 """
@@ -62,6 +64,8 @@ def params_from_jax(params: Mapping, cfg: SigLIPConfig
         "vision.patch_embedding.bias": _t(vp["patch_embedding"]["bias"]),
         "vision.position_embedding": _t(vp["position_embedding"]),
         "vision.head.probe": _t(head["probe"]),
+        "logit_scale": _t(params.get("logit_scale", cfg.logit_scale_init)),
+        "logit_bias": _t(params.get("logit_bias", cfg.logit_bias_init)),
     }
     _ln(sd, "text.final_layer_norm", tp["final_layer_norm"])
     _dense(sd, "text.head", tp["head"])
@@ -115,4 +119,6 @@ def init_params(cfg: SigLIPConfig, generator: torch.Generator
     sd["vision.head.mlp.fc1.bias"] = torch.zeros(f)
     sd["vision.head.mlp.fc2.weight"] = _lecun(dv, f, g)
     sd["vision.head.mlp.fc2.bias"] = torch.zeros(dv)
+    sd["logit_scale"] = _t(cfg.logit_scale_init)
+    sd["logit_bias"] = _t(cfg.logit_bias_init)
     return sd

@@ -16,8 +16,9 @@ interface, so the engine swaps families through ``model.family``.
   (64-token context, 32k vocab).
 - ``embed_dim`` is the tower width (768): SigLIP has no projection.
 
-Weights, in the reference's order: ``orbax_checkpoint`` raises
-``NotImplementedError`` (not ported); a state dict handed in (e.g. from
+Weights, in the reference's order: ``orbax_checkpoint``, a checkpoint of
+the port's trainer, whose ``params`` tree is served (as the CLIP
+embedder's; ``pretrained`` True); a state dict handed in (e.g. from
 ``bridge.params_from_jax``) is used as it is; else ``checkpoint_dir``'s HF
 checkpoint, read by ``convert.py`` and bridged, but only when the
 directory holds ``model.safetensors`` (a ``pytorch_model.bin`` alone is
@@ -39,7 +40,7 @@ from video_quierer_tpu_torch.models.clip.embedder import (
     CLIPEmbedder,
     place_module,
     read_checkpoint,
-    refuse_orbax,
+    read_trained,
 )
 from video_quierer_tpu_torch.models.clip.tokenizer import HashTokenizer
 from video_quierer_tpu_torch.models.siglip.bridge import (
@@ -102,13 +103,17 @@ class SigLIPEmbedder(CLIPEmbedder):
                  seed: int = 0,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  orbax_checkpoint: Optional[Path] = None):
-        refuse_orbax(orbax_checkpoint)
         self.cfg = cfg or siglip_base_patch16()
         self.device = resolve_device(device)
         self.dtype = dtype
         self.pretrained = False
         self.load_seconds: Dict[str, float] = {}
-        if state_dict is None:
+        if orbax_checkpoint is not None:
+            logger.info("Loading fine-tuned SigLIP params from %s",
+                        orbax_checkpoint)
+            state_dict = read_trained(orbax_checkpoint, self.load_seconds)
+            self.pretrained = True
+        elif state_dict is None:
             if checkpoint_dir is not None and (
                     Path(checkpoint_dir) / "model.safetensors").exists():
                 logger.info("Loading SigLIP weights from %s", checkpoint_dir)

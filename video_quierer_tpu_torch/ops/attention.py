@@ -1,4 +1,4 @@
-"""Multi-head attention for the CLIP text tower (counterpart of
+"""Multi-head attention for the CLIP and SigLIP towers (counterpart of
 ``video_quierer_tpu/ops/attention.py``).
 
 :func:`attention` takes ``q, k, v`` in the towers' h-minor projection
@@ -16,7 +16,17 @@ contract:
   stabilised softmax;
 - output rows at ``s >= valid_len`` are garbage by contract.
 
-Serving only: no autograd (training is a later port).
+Gradients (JAX ``_attn``'s ``custom_vjp``, ``:198-221``): when grad mode
+is on and an input requires a gradient, :func:`attention` runs through
+:class:`AttentionFunction`, whose forward is the same kernel (or plain
+version) and which saves only ``(q, k, v)``; its backward is the VJP of
+:func:`einsum_attention` (JAX ``_einsum_attention``), recomputed from
+those three tensors with batched matmuls and a softmax. The TPU package
+has no backward kernel, so neither does the port. The forward's q is
+pre-scaled and rounded while the recompute scales the f32 logits, and in
+bf16 the forward's softmax is the clamped unstabilised one: the gradient
+is the stabilised einsum path's, as in JAX. Under
+``torch.inference_mode()`` (every embedder) nothing of this runs.
 """
 
 from __future__ import annotations
@@ -58,14 +68,73 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 2, 1, 3).reshape(b, s, d).to(q.dtype)
 
 
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     *, num_heads: int, valid_len: int,
+                     causal: bool) -> torch.Tensor:
+    """The differentiable reference (JAX ``_einsum_attention``): f32
+    logits of the unscaled q and k, times ``hd**-0.5``, masked, a
+    stabilised f32 softmax, the weights cast to ``q.dtype``, then
+    ``weights @ v`` in that dtype."""
+    b, s, d = q.shape
+    hd = d // num_heads
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, hd).transpose(1, 2)
+
+    logits = torch.matmul(heads(q).float(),
+                          heads(k).float().transpose(-1, -2)) * hd ** -0.5
+    col = torch.arange(s, device=q.device)
+    mask = (col < valid_len)[None, :].expand(s, s)
+    if causal:
+        mask = mask & (col[:, None] >= col[None, :])
+    logits = logits.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.matmul(w, heads(v))                        # [B, H, S, hd]
+    return out.transpose(1, 2).reshape(b, s, d)
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Kernel B3 (or its plain version on the CPU) forward, the VJP of
+    :func:`einsum_attention` backward, recomputed from ``(q, k, v)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, valid_len: int,
+                causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = dict(num_heads=num_heads, valid_len=valid_len,
+                        causal=causal)
+        return _forward(q, k, v, **ctx.attn)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = einsum_attention(*leaves, **ctx.attn)
+            grads = torch.autograd.grad(out, leaves, grad)
+        return (*grads, None, None, None)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               num_heads: int, valid_len: int | None = None,
               causal: bool = False) -> torch.Tensor:
     """Full (non-streamed) multi-head attention, ``[B, S, D]`` in and
-    out (``fused_attention``'s interface)."""
-    b, s, d = q.shape
+    out (``fused_attention``'s interface); differentiable through
+    :class:`AttentionFunction` when grad mode is on and an input requires
+    a gradient."""
     if valid_len is None:
-        valid_len = s
+        valid_len = q.shape[1]
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return AttentionFunction.apply(q, k, v, num_heads, valid_len,
+                                       causal)
+    return _forward(q, k, v, num_heads=num_heads, valid_len=valid_len,
+                    causal=causal)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             num_heads: int, valid_len: int, causal: bool) -> torch.Tensor:
+    """Kernel B3 on a CUDA tensor, :func:`attention_ref` on a CPU one."""
+    b, s, d = q.shape
     hd = d // num_heads
     if q.device.type == "cpu":
         q = (q.float() * hd ** -0.5).to(q.dtype)
