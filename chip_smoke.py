@@ -7,6 +7,8 @@ GPU — the quickest proof that the port still starts on the card.
     python3 chip_smoke.py --exact-scans
     python3 chip_smoke.py --checkpoints
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --towers
+    python3 chip_smoke.py --pp-cards 4
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
@@ -21,7 +23,9 @@ one, in the order DIR, this, this, DIR, and prints each kernel's ms per
 run. ``--exact-scans`` runs phases 1 and 2, then only the hatch's exact
 scans against their plain versions (phase 3's last part), timed;
 ``--checkpoints`` runs phases 1 and 2, then only phase 3's ViT-L/14 part
-and phase 9; ``--train`` runs phases 1, 2 and 10.
+and phase 9; ``--train`` runs phases 1, 2 and 10; ``--towers`` runs
+phases 1, 2 and 11; ``--pp-cards N`` runs phases 1, 2 and ViT-L/14's
+pipelined encode over N cards (stage s on cuda:s; needs N cards).
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -165,11 +169,9 @@ last line):
    unknown queries go over HTTP one at a time (each the host exact top-10
    of the keyword encoder's vector; B1 once a search, no tower kernel, no
    fallback; ``processor_type`` "Visual"); ``POST /api/config`` turns
-   CLIP on again; a 64 MB ``/api/videos/upload`` with ``?upload_id=`` and
-   its SSE stream opened first (the record and the events end at "done",
-   every byte received, 200 frames; B5 and B6 12 times; the phases'
-   arrival times printed; the save rewrites the whole pickle, split by
-   its stage spans); then the
+   CLIP on again (a 64 MB upload onto these 2M rows is left out for time:
+   ~190-220 s, nearly all of it the save rewriting the whole pickle;
+   phase 7's engine below still takes one); then the
    profiler route traces 8 singles, a batch of 64 and 64 coalesced
    clients (after an untraced round): the trace must name B1's, B2's
    and B3's kernels; the ten device kernels that took the most time and
@@ -229,14 +231,36 @@ last line):
    against the host exact top-10; last, one more f32 and one more bf16
    step each under ``torch.profiler``: the device-busy share of the step,
    its kernel launches and its six costliest kernels;
-11. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+11. tower parallelism: ``vit-b-32-moe8`` (ViT-B/32's widths, 8 experts in
+   every 2nd vision block, capacity 1.25; registered here through
+   ``register_config``) on a seeded bf16 engine: its 256-frame encode
+   (module tower: B3) against the f32 tower on the same weights with B3's
+   plain version (per-row cosine >= MIN_COS, tokens routed alike >=
+   MOE_MIN_ROUTED), timed beside the dense tower's module and fused
+   encodes; then grown and served as phase 9's engines (a 2M-row corpus
+   drawn on the card, 20 seeded videos ingested, B3 once a layer and
+   embed batch, the mirror bit for bit; over HTTP 16 singles, 64
+   coalesced clients and a batch of 64 against the host exact top-10);
+   ``finetune.main`` with ``--moe-experts 8 --ep 1`` on the card (2 steps
+   at B = 32, seeded frames, B3 24 times a step), its checkpoint served
+   by an engine with ``model.orbax_checkpoint`` (vectors against the f32
+   module tower on the saved parameters, 8 searches against the host
+   exact top-10); a ViT-B/32 engine with ``model.parallel = "pp"`` and
+   ``pipeline_microbatches = 4`` building its own tower (one stage on
+   the card; its 256-frame encode against the sequential module tower,
+   B3 M·L = 48 times; served as the MoE engine; the MoE, dense module and
+   ``pp`` encodes traced by ``torch.profiler``); ViT-L/14's
+   ``pipelined_encode_image`` over 4 stages on ``cuda:0`` at M = 4 (B3 96
+   times) against its sequential module tower, both timed;
+12. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
    the mesh at both B; the SigLIP path's B6 with tanh-GELU, B5, B3 at S =
    196 and B1 at D = 768, each with its SigLIP-engine launches; B1, B2,
    B3, B5 and B6 with their phase-8 launches under ``phase8_launches`` and
-   their phase-9 ViT-B/32 launches under ``phase9_launches``; the
+   their phase-9 ViT-B/32 launches under ``phase9_launches``; B1, B2 and
+   B3 with phase 11's under ``phase11_launches``; the
    ViT-L/14 path's B3 at S = 257 (launched inside B5), B5, B6 and B2 at
    768 wide, with their phase-9 launches; B3 under autograd in phase
    10's steps, ``attention_train`` with its launches a step, and under
@@ -255,9 +279,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
+import logging
 import os
 import re
 import shutil
@@ -300,7 +326,10 @@ from video_quierer_tpu_torch.index.device_index import (
 )
 from video_quierer_tpu_torch.models.clip import bridge as clip_bridge
 from video_quierer_tpu_torch.models.clip import model as clip_model
-from video_quierer_tpu_torch.models.clip.config import get_config
+from video_quierer_tpu_torch.models.clip.config import (
+    get_config,
+    register_config,
+)
 from video_quierer_tpu_torch.models.clip.embedder import (
     CLIPEmbedder,
     MemoizedEmbedder,
@@ -334,7 +363,7 @@ from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows,
     quantize_rows_int4,
 )
-from video_quierer_tpu_torch.parallel.mesh import CorpusMesh
+from video_quierer_tpu_torch.parallel.mesh import CorpusMesh, pipe_devices
 from video_quierer_tpu_torch.train import checkpoint as train_ckpt
 from video_quierer_tpu_torch.train.data import frame_caption_batches
 from video_quierer_tpu_torch.train.trainer import CLIPTrainer, loss_fn
@@ -1683,10 +1712,9 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device, smi: str
             with timed(f"5, {spec[0]} engine"):
                 extra[spec[0]] = serve_extra(spec, videos, embedder, args,
                                              rng, device, surface)
-        # phase 4's bf16 engine again: its upload rewrites the cache, so
-        # after every phase that reads it
-        with timed("8, phase 4's bf16 engine: keyword, upload, profiler"):
-            surface["2m"] = phase_big_engine(bf16_engine, videos, embedder,
+        # phase 4's bf16 engine again, once phase 5's engines are done
+        with timed("8, phase 4's bf16 engine: keyword, profiler"):
+            surface["2m"] = phase_big_engine(bf16_engine, videos,
                                              args, rng, device, scratch, smi)
         del bf16_engine
         gc.collect()
@@ -1952,14 +1980,15 @@ def seeded_extract(path: Path, *, seed: int, n: int, mode: str):
 
 def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
                 device, n_videos: int = INGEST_VIDEOS, tag: str = "",
-                path: tuple = INGEST) -> dict:
+                path: tuple = INGEST, per_batch: int = 0) -> dict:
     """``n_videos`` seeded videos through ``batched_frames`` and the
     engine's ingest loop onto the loaded corpus (placeholder video files
     in the videos dir, so the hashes are recorded; removed again
     afterwards), then the checks: host rows and metadata, the mirror
     against the host path bit for bit, 16 ingested frames as queries,
-    launch and fallback counts (the kernels of ``path`` once per layer and
-    embed batch, no other). ``tag`` names the engine in the log."""
+    launch and fallback counts (the kernels of ``path`` ``per_batch``
+    times an embed batch, by default once a layer, no other). ``tag``
+    names the engine in the log."""
     tag = tag or dtype
     index, api, ing = engine.index, engine.config.api, engine.config.ingest
     n0, n = len(index), n_videos * args.frames
@@ -2008,12 +2037,12 @@ def ingest_tier(engine: VideoSearchEngine, dtype: str, videos: str, args,
         f"frames/s (seeded frames, decode pipeline, vision tower, host "
         f"append, streamed mirror append); launches {launches}")
     require(added == n and len(index) == n0 + n, "ingest row count")
-    layers = engine._get_embedder().cfg.vision.num_layers
+    per_batch = per_batch or engine._get_embedder().cfg.vision.num_layers
     for name, count in launches.items():
-        want = layers * len(batches) if name in path else 0
+        want = per_batch * len(batches) if name in path else 0
         require(count == want, f"[{tag}] ingest: {name} launched {count} "
-                f"times, not {want} ({layers} layers x {len(batches)} embed "
-                "batches)")
+                f"times, not {want} ({per_batch} an embed batch x "
+                f"{len(batches)} embed batches)")
     for name in ("embed_fallbacks", "fused_search_fallbacks"):
         require(engine.metrics.counter(name) == 0, f"[{tag}] {name}")
     # 1. host rows = the embedder's output, with the reference's metadata
@@ -3160,16 +3189,16 @@ def check_docs_and_ui(base: str) -> None:
         "answer 200")
 
 
-def phase_big_engine(engine: VideoSearchEngine, videos: str,
-                     embedder: CLIPEmbedder, args, rng, device,
-                     scratch: Path, smi: str) -> dict:
+def phase_big_engine(engine: VideoSearchEngine, videos: str, args, rng,
+                     device, scratch: Path, smi: str) -> dict:
     """Phase 8 on phase 4's bf16 engine (2,000,000 cached rows and its
     4,000 ingested ones), behind a server of its own: ``POST /api/config``
     turns ``use_clip`` off (the keyword encoder: no tower) for 16 keyword
-    and unknown queries, and on again; one 64 MB upload goes in (its
-    receiving, processing and saving phases timed, the save split by the
-    stage spans: the whole pickle is rewritten); then the profiler route
-    traces a round of searches; then the docs and UI routes."""
+    and unknown queries, and on again; then the profiler route traces a
+    round of searches; then the docs and UI routes. (A 64 MB upload onto
+    these 2M rows is left out for time: ~190-220 s, nearly all of it the
+    save rewriting the whole pickle; the upload route runs on phase 7's
+    4,000-row engine.)"""
     n = len(engine.index)
     n_base = args.videos * args.frames
     corpus = engine.index._emb[:n]
@@ -3184,7 +3213,6 @@ def phase_big_engine(engine: VideoSearchEngine, videos: str,
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
-    real = seeded_decode(args)
     out = {}
     try:
         body = call(base, "POST", "/api/config", {"use_clip": False})
@@ -3194,36 +3222,9 @@ def phase_big_engine(engine: VideoSearchEngine, videos: str,
         body = call(base, "POST", "/api/config", {"use_clip": True})
         require(body["config"]["use_clip"] is True and engine.use_clip,
                 "use_clip back on")
-        for wrapper in WRAPPERS.values():
-            wrapper.launches = 0
-        spans = stageprof.snapshot()
-        up = upload_video(base, "ingest", f"{INGEST_VIDEOS + 2:02d}.mp4",
-                          "smoke-2m")
-        torch.cuda.synchronize()
-        launches = {k: w.launches for k, w in WRAPPERS.items()}
-        save = {k: v / 1e3 for k, v in stage_ms(
-            spans, stageprof.snapshot()).items() if k.startswith("save_")}
-        check_upload("2m upload", up, args.frames, UPLOAD_BYTES)
-        require(len(engine.index) == n + args.frames, "2M upload rows")
-        layers = embedder.cfg.vision.num_layers
-        for kname, count in launches.items():
-            want = layers if kname in INGEST else 0
-            require(count == want, f"2M upload: {kname} {count} != {want}")
-        size = engine.cache_path.stat().st_size
-        log(f"[2m] 8 ({smi}): upload of {UPLOAD_BYTES} bytes onto "
-            f"{n} rows: 200 in {up['wall']:.3f} s; phases first seen in "
-            f"the SSE events {fmt_s(up['phases_s'])}; processing_time "
-            f"{up['body']['processing_time']:.3f} s (the save: the whole "
-            f"{size}-byte pickle rewritten; its spans, s: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in save.items())
-            + f"); launches {launches}")
-        out["upload"] = {"launches": launches, "wall_s": up["wall"],
-                         "phases_s": up["phases_s"], "save_s": save,
-                         "cache_bytes": size}
         out["profiler"] = profile_engine(base, scratch / "trace", rng, smi)
         check_docs_and_ui(base)
     finally:
-        engine_system.batched_frames = real
         server.shutdown()
         server.server_close()
         thread.join(30)
@@ -3713,6 +3714,28 @@ def serve_checkpoint(tag: str, config: EngineConfig, seeded, args, device,
     same_text_vectors(tag, tower, seeded, rng)
     if encode_check is not None:
         encode_check(tower)
+    served = serve_grown(tag, engine, tower, args, device, smi, videos, rng,
+                         n_videos=n_videos,
+                         path=("attention",) if siglip else INGEST)
+    del engine, tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"load": load, **served}
+
+
+def serve_grown(tag: str, engine: VideoSearchEngine, tower, args, device,
+                smi: str, videos: Path, rng, n_videos: int = INGEST_VIDEOS,
+                path: tuple = INGEST, per_batch: int = 0) -> dict:
+    """``engine`` (its tower ``tower``) grown and served: startup (no
+    cache), a seeded corpus of ``args.videos`` x ``args.frames`` unit rows
+    drawn on the card and appended video by video, an ingest of
+    ``n_videos`` seeded videos (``ingest_tier``: the kernels of ``path``
+    ``per_batch`` times an embed batch), then over HTTP 16 singles, 64
+    coalesced clients and a batch of 64, the launch counters set to 0 just
+    before and read just after, every single and 8 batch rows held against
+    the host exact top-K over the grown corpus. Returns the launches of
+    the searches and of the ingest."""
+    siglip = engine.config.model.family == "siglip"
     engine.startup()
     t0 = time.perf_counter()
     n_base = args.videos * args.frames
@@ -3728,8 +3751,8 @@ def serve_checkpoint(tag: str, config: EngineConfig, seeded, args, device,
     log(f"[{tag}] seeded corpus: {n_base} rows x {tower.embed_dim} drawn on "
         f"the card and appended in {time.perf_counter() - t0:.1f} s")
     ingested = ingest_tier(engine, "bfloat16", str(videos), args, device,
-                           n_videos=n_videos, tag=tag,
-                           path=("attention",) if siglip else INGEST)
+                           n_videos=n_videos, tag=tag, path=path,
+                           per_batch=per_batch)
     corpus = engine.index._emb[: len(engine.index)]
 
     def name_of(row: int) -> str:
@@ -3761,10 +3784,8 @@ def serve_checkpoint(tag: str, config: EngineConfig, seeded, args, device,
         f"batch of 64 {timings['batch_ms']:.2f} ms, ingest "
         f"{ingested['frames_s']:.1f} frames/s; launches: ingest "
         f"{ingested['launches']}, searches {launches}")
-    del engine, server, corpus, tower
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"load": load, "launches": launches, "ingest": ingested}
+    del server, corpus
+    return {"launches": launches, "ingest": ingested, **timings}
 
 
 def compare_l14_encode(tower: CLIPEmbedder, seed: int, b: int = 256) -> None:
@@ -4387,6 +4408,474 @@ def train_kernel_entries(tr: dict) -> list:
 # a fresh process, then the device time (CUDA graph replay) of B3, B2, B5
 # and B6 at the same shapes, timed the same way in either tree; the
 # kernels' ms go to one "ab-row" JSON line
+# -- phase 11: tower parallelism ----------------------------------------------
+
+# ViT-B/32's published widths with a Switch-MoE MLP in every 2nd vision block
+# (8 experts, capacity factor 1.25): 6 layers x 8 experts x 2 x 768 x 3,072
+# expert weights, ~453 MB in bf16
+MOE = "vit-b-32-moe8"
+MOE_EXPERTS, MOE_EVERY, MOE_CAPACITY = 8, 2, 1.25
+# the bf16 kernel tower against the f32 plain tower on the same weights:
+# the share of (token, MoE layer) pairs routed to the same expert (a bf16
+# rounding flips near-tied routers), and the rows' cosine (MIN_COS)
+MOE_MIN_ROUTED = 0.95
+# fine-tuning --moe-experts 8 at --ep 1: 8 seeded videos x 8 frames in
+# batches of 32 (2 steps, 24 B3 launches a step)
+MOE_TRAIN_VIDEOS, MOE_TRAIN_FRAMES, MOE_TRAIN_BATCH = 8, 8, 32
+PP_MICROBATCHES = 4
+PP_L14_STAGES = 4
+
+
+def moe_config():
+    c = get_config("openai/clip-vit-base-patch32")
+    return dataclasses.replace(c, name=MOE, vision=dataclasses.replace(
+        c.vision, moe_experts=MOE_EXPERTS, moe_every=MOE_EVERY,
+        moe_capacity=MOE_CAPACITY))
+
+
+def router_choices(model) -> tuple:
+    """Forward hooks recording each MoE router's expert choice (the
+    argmax of its logits), per layer; returns (choices, handles)."""
+    choices, handles = {}, []
+    for i, layer in enumerate(model.vision.layers):
+        if hasattr(layer, "moe"):
+            def hook(mod, inp, out, i=i):
+                choices[i] = out.float().argmax(-1)
+            handles.append(layer.moe.router.register_forward_hook(hook))
+    return choices, handles
+
+
+def traced_encode(fn, trace_dir: Path, tag: str, smi: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device-busy share
+    of its window, its kernel launches and kernel time, and the eight
+    kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = trace_dir / f"encode_{tag.replace(' ', '_')}.json"
+    prof.export_chrome_trace(str(path))
+    tr = read_trace(path)
+    count = sum(c for c, _ in tr["kernels"].values())
+    device_ms = sum(us for _, us in tr["kernels"].values()) / 1e3
+    top = sorted(tr["kernels"].items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"[{tag} traced] window {tr['window_ms']:.1f} ms: device busy "
+        f"{100 * tr['busy']:.1f}%, {count} kernel launches, "
+        f"{device_ms:.2f} ms of kernel time; on {smi}")
+    for name, (c, us) in top:
+        log(f"[{tag} traced]   {us / 1e3:8.3f} ms  {c:5d} x  {name[:100]}")
+    return {"busy_share": tr["busy"], "window_ms": tr["window_ms"],
+            "kernel_launches": count, "kernel_ms": device_ms,
+            "top8": [[n[:100], c, us / 1e3] for n, (c, us) in top]}
+
+
+def compare_moe_tower(moe: CLIPEmbedder, sd: dict, dense: CLIPEmbedder,
+                      seed: int, device, trace_dir: Path, smi: str,
+                      b: int = 256) -> dict:
+    """The MoE tower's 256-frame encode on the card (bf16, the module
+    tower: B3 and cuBLAS, the expert products ``torch.bmm``) against the
+    f32 module tower on the same weights with B3's plain version: per-row
+    cosine and the share of tokens routed alike; timed beside the dense
+    ViT-B/32 tower's module and fused encodes, and the MoE and dense
+    module encodes traced."""
+    frames = torch.from_numpy(seeded_frames(seed, 11_000, b)).to(device)
+    ref = module_from(moe.cfg, sd, device).eval()
+    got_r, h1 = router_choices(moe.params)
+    want_r, h2 = router_choices(ref)
+    with torch.inference_mode():
+        zero_launches()
+        got = moe._encode_image_fn(moe.params, frames)
+        launches = WRAPPERS["attention"].launches
+        with module_attention_plain():
+            want = ref.encode_image(normalize_images(frames))
+    for h in h1 + h2:
+        h.remove()
+    require(launches == moe.cfg.vision.num_layers,
+            f"[moe] B3 launches {launches} in one encode")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    alike = torch.cat([(got_r[i] == want_r[i]).float() for i in want_r])
+    out = {"min_cos": cos.min().item(), "mean_cos": cos.mean().item(),
+           "routed_alike": alike.mean().item(),
+           "moe_layers": len(want_r)}
+    require(out["min_cos"] >= MIN_COS,
+            f"[moe] tower vs f32 plain: min cosine {out['min_cos']}")
+    require(out["routed_alike"] >= MOE_MIN_ROUTED,
+            f"[moe] tokens routed alike {out['routed_alike']}")
+    del ref
+    with torch.inference_mode():
+        pixels = normalize_images(frames, dtype=torch.bfloat16)
+        out["ms"] = cuda_ms(lambda: moe._encode_image_fn(moe.params,
+                                                         frames), 3)
+        out["dense_module_ms"] = cuda_ms(
+            lambda: dense.params.encode_image(pixels), 3)
+        out["dense_fused_ms"] = cuda_ms(
+            lambda: dense._encode_image_fn(dense.params, frames), 3)
+        out["trace"] = traced_encode(
+            lambda: moe._encode_image_fn(moe.params, frames), trace_dir,
+            "moe encode", smi)
+        out["dense_module_trace"] = traced_encode(
+            lambda: dense.params.encode_image(pixels), trace_dir,
+            "dense module encode", smi)
+    log(f"[moe] {MOE} encode of {b} frames (bf16, module tower, B3 x "
+        f"{launches}): min row cosine {out['min_cos']:.6f} (mean "
+        f"{out['mean_cos']:.6f}) against the f32 plain tower (>= "
+        f"{MIN_COS}); tokens routed alike {out['routed_alike']:.4f} over "
+        f"{out['moe_layers']} MoE layers (>= {MOE_MIN_ROUTED}); {out['ms']:.3f} "
+        f"ms = {b / out['ms'] * 1e3:.0f} frames/s; dense ViT-B/32 module "
+        f"tower {out['dense_module_ms']:.3f} ms, fused "
+        f"{out['dense_fused_ms']:.3f} ms")
+    return out
+
+
+def phase_moe_engine(dense: CLIPEmbedder, args, device, root: Path,
+                     smi: str) -> dict:
+    """A seeded bf16 engine serving ``MOE``: the tower checked against the
+    f32 plain tower (``compare_moe_tower``), then grown and served as
+    phase 9's engines (``serve_grown``: 2M rows, an ingest of 20 seeded
+    videos through the module tower, B3 once a layer and embed batch; the
+    searches over HTTP against the host exact top-10)."""
+    register_config(MOE, moe_config)
+    t0 = time.perf_counter()
+    sd = clip_bridge.init_params(moe_config(),
+                                 torch.Generator().manual_seed(args.seed))
+    init_s = time.perf_counter() - t0
+    moe = CLIPEmbedder(model_name=MOE, dtype=torch.bfloat16, device=device,
+                       state_dict=sd)
+    require(not moe._fused_vision, "[moe] the fused vision encode is on")
+    experts = sum(p.numel() * p.element_size() for n, p in
+                  moe.params.named_parameters() if ".moe.w" in n)
+    log(f"[moe] {MOE}: seeded init {init_s:.1f} s; expert weights "
+        f"{experts / 1e6:.1f} MB (bf16)")
+    out = {"tower": compare_moe_tower(moe, sd, dense, args.seed, device,
+                                      root, smi),
+           "init_s": init_s}
+    del sd
+    config = EngineConfig()
+    config.model.name = MOE
+    config.index.device_dtype = "bfloat16"
+    videos = root / "videos-moe"
+    engine = VideoSearchEngine(videos, config=config, embedder=moe,
+                               device=device)
+    require_seeded("moe", engine)
+    out.update(serve_grown("moe", engine, moe, args, device, smi, videos,
+                           np.random.default_rng(args.seed + 11),
+                           path=("attention",)))
+    del engine, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_train(args, device, root: Path, smi: str) -> dict:
+    """``python -m video_quierer_tpu_torch.train.finetune --moe-experts 8``
+    at ``--ep 1`` on the card (its ``main``, the decode replaced by seeded
+    frames as phase 10's): 2 steps at B = 32 on ViT-B/32, B3 24 times a
+    step and nothing else; then an engine with ``model.name`` = ``MOE``
+    and ``model.orbax_checkpoint`` = the saved step serves it: its image
+    and text vectors against the f32 module tower on the saved
+    parameters, and 8 searches over 4,000 seeded rows against the host
+    exact top-10."""
+    from video_quierer_tpu_torch.train import finetune
+    vdir, out_dir = root / "videos-moe-train", root / "ckpt-moe"
+    vdir.mkdir(parents=True, exist_ok=True)
+    for v in range(MOE_TRAIN_VIDEOS):
+        (vdir / f"clip_{v:02d}_{words(np.random.default_rng(v), 2)}.mp4"
+         .replace(" ", "_")).write_bytes(b"seeded frames")
+
+    def seeded(path, *, max_frames, sampling_mode, target_size):
+        v = int(Path(path).stem.split("_")[1])
+        return (seeded_frames(args.seed, 41_000 + v, max_frames),
+                [k / FPS for k in range(max_frames)])
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    logging.getLogger("vqt.finetune").addHandler(handler)
+    # the CLI's logging.basicConfig: undone afterwards
+    root_log = logging.getLogger()
+    saved = root_log.level, list(root_log.handlers)
+    real = ingest_frames.extract_frames
+    ingest_frames.extract_frames = seeded
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = finetune.main([
+            "--videos-dir", str(vdir), "--out", str(out_dir),
+            "--moe-experts", str(MOE_EXPERTS), "--moe-every",
+            str(MOE_EVERY), "--moe-capacity", str(MOE_CAPACITY), "--ep",
+            "1", "--batch", str(MOE_TRAIN_BATCH), "--max-frames-per-video",
+            str(MOE_TRAIN_FRAMES), "--lr", str(TRAIN_LR), "--seed",
+            str(args.seed), "--device", str(device)])
+        torch.cuda.synchronize()
+    finally:
+        ingest_frames.extract_frames = real
+        logging.getLogger("vqt.finetune").removeHandler(handler)
+        root_log.setLevel(saved[0])
+        root_log.handlers[:] = saved[1]
+    wall = time.perf_counter() - t0
+    steps = MOE_TRAIN_VIDEOS * MOE_TRAIN_FRAMES // MOE_TRAIN_BATCH
+    launches = read_launches("moe train", TRAIN_LAUNCHES * steps)
+    summary = [r for r in records if r.startswith("steps:")]
+    require(rc == 0 and summary and summary[0].startswith(f"steps: {steps}"),
+            f"[moe train] finetune rc {rc}, log {records}")
+    losses = [float(x) for x in re.findall(r"loss: ([-\d.naif]+)",
+                                           summary[0])]
+    require(len(losses) == 2 and all(np.isfinite(losses)),
+            f"[moe train] losses {losses}")
+    path = out_dir / f"step_{steps}"
+    log(f"[moe train] finetune --moe-experts {MOE_EXPERTS} --ep 1 on the "
+        f"card: {steps} steps at B={MOE_TRAIN_BATCH} (ViT-B/32 widths), "
+        f"first loss {losses[0]:.4f}, last {losses[1]:.4f}; {wall:.1f} s "
+        f"with the seeded init and the save; launches {launches}; "
+        f"checkpoint {path.name}")
+    params = train_ckpt.load_params(path)
+    v = moe_config().vision
+    require(params["vision.layers.1.moe.w1"].shape
+            == (MOE_EXPERTS, v.hidden_size,
+                       v.hidden_size * v.mlp_ratio),
+            "[moe train] expert stack shape")
+    config = EngineConfig()
+    config.model.name = MOE
+    config.model.orbax_checkpoint = str(path)
+    config.index.device_dtype = "bfloat16"
+    engine = VideoSearchEngine(root / "videos-moe-trained", config=config,
+                               device=device)
+    t0 = time.perf_counter()
+    tower = engine._tower()
+    load_s = time.perf_counter() - t0
+    require(engine.stats()["pretrained"] is True, "[moe trained] pretrained")
+    ref = module_from(tower.cfg, params, device).eval()
+    frames = seeded_frames(args.seed, 51_000, 32)
+    ids = tower.prepare_text_ids(tower.tokenizer(list(SERVE_TEXTS)))
+    with torch.inference_mode():
+        img = ref.encode_image(normalize_images(
+            torch.from_numpy(frames).to(device)))
+        txt = ref.encode_text(tower.ids_tensor(ids))
+    cos = {}
+    for name, got, want in (
+            ("image", tower.embed_frames(frames), img),
+            ("text", tower.embed_texts(list(SERVE_TEXTS)), txt)):
+        cos[name] = torch.nn.functional.cosine_similarity(
+            torch.from_numpy(got), want.cpu(), dim=-1).min().item()
+        require(cos[name] >= MIN_COS,
+                f"[moe trained] {name} vectors: min cosine {cos[name]}")
+    del ref, params
+    engine.startup()
+    rows = corpus_on_card_rows(device, args.seed + 12,
+                               SERVE_VIDEOS * SERVE_FRAMES, DIM)
+    stamps = [0.5 * t for t in range(SERVE_FRAMES)]
+    for v in range(SERVE_VIDEOS):
+        engine.index.add_batch(rows[v * SERVE_FRAMES:(v + 1) * SERVE_FRAMES],
+                               video_name(v), stamps)
+    rng = np.random.default_rng(args.seed + 12)
+    queries = [words(rng, 4) for _ in range(8)]
+    zero_launches()
+    served = [engine.search_ex(q, k=K, use_cache=False)[0] for q in queries]
+    search_launches = {k: w.launches for k, w in WRAPPERS.items() if
+                       w.launches}
+    err = check_exact(engine.index._emb[: len(engine.index)],
+                      lambda row: video_name(row // SERVE_FRAMES),
+                      np.stack([tower.embed_text(q) for q in queries]),
+                      served)
+    engine.close()
+    log(f"[moe trained] engine tower ({MOE}) from {path.name} in "
+        f"{load_s:.2f} s; pretrained: true; min row cosine against the f32 "
+        f"module tower on the saved parameters: image {cos['image']:.6f}, "
+        f"text {cos['text']:.6f} (>= {MIN_COS}, bf16 serving); 8 searches "
+        f"over {len(rows)} rows equal the host exact top-{K} (max score "
+        f"error {err:.2e}); launches {search_launches}; on {smi}")
+    del engine, tower, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "wall_s": wall, "launches": launches,
+            "load_s": load_s, "min_cos": cos,
+            "search_launches": search_launches}
+
+
+def phase_pp_engine(dense: CLIPEmbedder, args, device, root: Path,
+                    smi: str) -> dict:
+    """A ViT-B/32 engine with ``model.parallel = "pp"`` and
+    ``pipeline_microbatches = 4`` that builds its own seeded bf16 tower:
+    one stage on the one card; its 256-frame encode against the dense
+    module tower (the same seeded weights as phase 3's embedder) and
+    timed beside it; then grown and served as phase 9's engines (B3 M · L
+    = 48 times an embed batch), rows against the host exact top-10."""
+    config = EngineConfig()
+    config.model.parallel = "pp"
+    config.model.pipeline_microbatches = PP_MICROBATCHES
+    config.index.device_dtype = "bfloat16"
+    videos = root / "videos-pp"
+    engine = VideoSearchEngine(videos, config=config, device=device)
+    tower = engine._tower()
+    require_seeded("pp", engine)
+    stages = tower._pipe_stages
+    layers = tower.cfg.vision.num_layers
+    require(tuple(st.device for st in stages) == pipe_devices(depth=layers)
+            and stages[0].device == device and not tower._fused_vision,
+            f"[pp] stages {[(st.device, len(st.layers)) for st in stages]}")
+    frames = torch.from_numpy(seeded_frames(args.seed, 12_000, 256)).to(
+        device)
+    with torch.inference_mode():
+        zero_launches()
+        got = tower._encode_image_fn(tower.params, frames)
+        launches = WRAPPERS["attention"].launches
+        pixels = normalize_images(frames, dtype=torch.bfloat16)
+        want = dense.params.encode_image(pixels)
+        ms = cuda_ms(lambda: tower._encode_image_fn(tower.params, frames), 3)
+        module_ms = cuda_ms(lambda: dense.params.encode_image(pixels), 3)
+        trace = traced_encode(
+            lambda: tower._encode_image_fn(tower.params, frames), root,
+            "pp encode", smi)
+    require(launches == PP_MICROBATCHES * layers,
+            f"[pp] B3 launches {launches} in one encode")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    require(cos.min().item() >= MIN_COS, f"[pp] min cosine {cos.min()}")
+    log(f"[pp] ViT-B/32 pipelined encode of 256 frames, {len(stages)} "
+        f"stage(s) x {layers // len(stages)} layers, M={PP_MICROBATCHES} "
+        f"(B3 x {launches} = M·L): min row cosine {cos.min().item():.6f} "
+        f"against the sequential module tower; {ms:.3f} ms (module tower "
+        f"{module_ms:.3f} ms)")
+    out = {"stages": len(stages), "encode_launches": launches, "ms": ms,
+           "module_ms": module_ms, "min_cos": cos.min().item(),
+           "trace": trace}
+    out.update(serve_grown("pp", engine, tower, args, device, smi, videos,
+                           np.random.default_rng(args.seed + 13),
+                           path=("attention",),
+                           per_batch=PP_MICROBATCHES * layers))
+    del engine, tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_pp_l14(l14: CLIPEmbedder, seed: int, device,
+                   b: int = 256) -> dict:
+    """ViT-L/14's ``pipelined_encode_image`` over PP_L14_STAGES stages on
+    the one card (M = 4, one 256-frame batch) against its sequential
+    module tower: per-row cosine, both timed, B3's launches (M · L = 96)."""
+    from video_quierer_tpu_torch.parallel.pipeline import (
+        pipelined_encode_image,
+        shard_layers,
+    )
+    model = l14.params
+    stages = shard_layers(model.vision.layers, [device] * PP_L14_STAGES)
+    frames = torch.from_numpy(seeded_frames(seed, 13_000, b)).to(device)
+    layers = l14.cfg.vision.num_layers
+    with torch.inference_mode():
+        pixels = normalize_images(frames, dtype=l14.dtype)
+
+        def pp():
+            return pipelined_encode_image(model, pixels, stages=stages,
+                                          n_microbatches=PP_MICROBATCHES)
+
+        zero_launches()
+        got = pp()
+        launches = WRAPPERS["attention"].launches
+        want = model.encode_image(pixels)
+        ms = cuda_ms(pp, 3)
+        seq_ms = cuda_ms(lambda: model.encode_image(pixels), 3)
+    require(launches == PP_MICROBATCHES * layers,
+            f"[pp l14] B3 launches {launches}")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    require(cos.min().item() >= MIN_COS, f"[pp l14] min cosine {cos.min()}")
+    log(f"[pp l14] ViT-L/14 pipelined encode, {b} frames over "
+        f"{PP_L14_STAGES} stages on {device} x {layers // PP_L14_STAGES} "
+        f"layers, M={PP_MICROBATCHES} (B3 x {launches} = M·L): min row "
+        f"cosine {cos.min().item():.6f} against the sequential module "
+        f"tower; {ms:.3f} ms (sequential {seq_ms:.3f} ms)")
+    return {"launches": launches, "ms": ms, "sequential_ms": seq_ms,
+            "min_cos": cos.min().item()}
+
+
+def compare_pp_cards(l14: CLIPEmbedder, seed: int, n_cards: int,
+                     b: int = 256) -> dict:
+    """ViT-L/14's ``pipelined_encode_image`` over ``n_cards`` cards (stage
+    ``s`` on ``cuda:s``, M = 4 and 8) against its sequential module tower
+    on ``cuda:0``, one 256-frame batch: per-row cosine, times, B3's
+    launches. The vision layers move to their cards, so the sequential
+    encode runs first."""
+    from video_quierer_tpu_torch.parallel.pipeline import (
+        pipelined_encode_image,
+        shard_layers,
+    )
+    require(torch.cuda.device_count() >= n_cards,
+            f"{n_cards} cards asked for, {torch.cuda.device_count()} seen")
+    model, dev0 = l14.params, torch.device("cuda", 0)
+    frames = torch.from_numpy(seeded_frames(seed, 13_000, b)).to(dev0)
+    layers = l14.cfg.vision.num_layers
+    out = {"cards": n_cards}
+    with torch.inference_mode():
+        pixels = normalize_images(frames, dtype=l14.dtype)
+        want = model.encode_image(pixels)
+        out["sequential_ms"] = cuda_ms(lambda: model.encode_image(pixels), 3)
+        stages = shard_layers(model.vision.layers,
+                              [torch.device("cuda", i)
+                               for i in range(n_cards)])
+        for m in (PP_MICROBATCHES, 2 * PP_MICROBATCHES):
+            def pp():
+                return pipelined_encode_image(model, pixels, stages=stages,
+                                              n_microbatches=m)
+
+            zero_launches()
+            got = pp()
+            launches = WRAPPERS["attention"].launches
+            require(launches == m * layers, f"[pp cards] B3 {launches}")
+            cos = torch.nn.functional.cosine_similarity(
+                got, want, dim=-1).min().item()
+            require(cos >= MIN_COS, f"[pp cards] min cosine {cos}")
+            ms = cuda_ms(pp, 3)
+            out[f"m{m}"] = {"ms": ms, "launches": launches, "min_cos": cos}
+            log(f"[pp cards] ViT-L/14 pipelined encode, {b} frames over "
+                f"{n_cards} cards x {layers // n_cards} layers, M={m} (B3 x "
+                f"{launches}): min row cosine {cos:.6f} against the "
+                f"sequential module tower on cuda:0; {ms:.3f} ms "
+                f"(sequential {out['sequential_ms']:.3f} ms)")
+    return out
+
+
+def phase_towers(dense: CLIPEmbedder, l14: CLIPEmbedder, args, device,
+                 smi: str) -> dict:
+    """Phase 11: the MoE engine, MoE fine-tuning and its checkpoint
+    served, the ``pp`` engine, and ViT-L/14 pipelined over 4 stages."""
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as root:
+        root = Path(root)
+        with timed("11, MoE engine"):
+            out["moe"] = phase_moe_engine(dense, args, device, root, smi)
+        with timed("11, MoE fine-tuning"):
+            out["moe_train"] = phase_moe_train(args, device, root, smi)
+        with timed("11, pp engine"):
+            out["pp"] = phase_pp_engine(dense, args, device, root, smi)
+        with timed("11, ViT-L/14 pipelined"):
+            out["pp_l14"] = compare_pp_l14(l14, args.seed, device)
+    return out
+
+
+def tower_launches(tw: dict) -> dict:
+    """Phase 11's launches of B1, B2 and B3, by path, for the kernels
+    line."""
+    moe, pp = tw["moe"], tw["pp"]
+    out = {}
+    for name, key in (("cand_scan_prefix", "cand_scan_prefix"),
+                      ("fused_text_layer", "fused_layer"),
+                      ("attention", "attention")):
+        out[name] = {"moe_search": moe["launches"][key],
+                     "moe_ingest": moe["ingest"]["launches"][key],
+                     "pp_search": pp["launches"][key],
+                     "pp_ingest": pp["ingest"]["launches"][key],
+                     "moe_trained_search":
+                         tw["moe_train"]["search_launches"].get(key, 0)}
+    out["attention"].update(
+        moe_train=tw["moe_train"]["launches"]["attention"],
+        pp_encode=pp["encode_launches"],
+        l14_pp_encode=tw["pp_l14"]["launches"])
+    return out
+
+
 _AB_RUN = """
 import json, sys, numpy as np, torch
 sys.path.insert(0, ".")
@@ -4612,6 +5101,12 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="only phase 10 (B3 under autograd, the trainer, "
                          "train -> serve)")
+    ap.add_argument("--towers", action="store_true",
+                    help="only phase 11 (the MoE engine, MoE fine-tuning, "
+                         "the pp engine, ViT-L/14 pipelined)")
+    ap.add_argument("--pp-cards", type=int, default=0, metavar="N",
+                    help="only ViT-L/14's pipelined encode over N cards "
+                         "(stage s on cuda:s) against its sequential tower")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run "
@@ -4652,6 +5147,24 @@ def main() -> int:
             tr = phase_train(args, device, smi)
         log(f"phase 10 kernels ({smi}): "
             + json.dumps(train_kernel_entries(tr)))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.pp_cards:
+        l14 = CLIPEmbedder(model_name=L14, dtype=torch.bfloat16,
+                           device=device, seed=args.seed)
+        with timed(f"11, ViT-L/14 pipelined over {args.pp_cards} cards"):
+            pc = compare_pp_cards(l14, args.seed, args.pp_cards)
+        log(f"pp cards summary ({smi}): " + json.dumps(pc))
+        return 0
+    if args.towers:
+        dense = CLIPEmbedder(dtype=torch.bfloat16, device=device,
+                             seed=args.seed)
+        l14 = CLIPEmbedder(model_name=L14, dtype=torch.bfloat16,
+                           device=device, seed=args.seed)
+        tw = phase_towers(dense, l14, args, device, smi)
+        log(f"phase 11 launches ({smi}): "
+            + json.dumps(tower_launches(tw)))
+        log(f"phase 11 summary ({smi}): " + json.dumps(tw))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     with timed("3, text and vision kernels"):
@@ -4696,6 +5209,7 @@ def main() -> int:
         ck = phase_checkpoints(embedder, siglip, l14, args, device, smi)
     with timed("10, training"):
         tr = phase_train(args, device, smi)
+    tw = phase_towers(embedder, l14, args, device, smi)
     l14_ingest = ck["vit-l-14"]["ingest"]["launches"]
     l14_search = ck["vit-l-14"]["launches"]
     src = "video_quierer_tpu_torch/csrc/"
@@ -4801,7 +5315,6 @@ def main() -> int:
     for name in INGEST:
         slice_launches[name] = {
             "upload": maint["upload"]["launches"][name],
-            "upload_2m": big["upload"]["launches"][name],
             "memo_rebuilds": [r["launches"][name]
                               for r in surface["memo"]["rebuilds"]]}
     # phase 9's ViT-B/32 checkpoint engine: its searches and its ingest
@@ -4815,17 +5328,22 @@ def main() -> int:
                                      ("mlp_half", "mlp_half"))}
     # phase 10: B3 under autograd in the trainer's steps
     kernels_line["kernels"] += train_kernel_entries(tr)
+    # phase 11: the MoE, MoE-training and pp paths
+    towers_launches = tower_launches(tw)
     for entry in kernels_line["kernels"]:
         if entry["name"] in slice_launches:
             entry["phase8_launches"] = slice_launches[entry["name"]]
         if entry["name"] in ckpt_launches:
             entry["phase9_launches"] = ckpt_launches[entry["name"]]
+        if entry["name"] in towers_launches:
+            entry["phase11_launches"] = towers_launches[entry["name"]]
     log(f"phase 7 and 8 summary ({smi}; host-clock p50 ms per route, device "
         "ranking ms by CUDA events): " + json.dumps(surface))
     log(f"phase 9 summary ({smi}; load seconds by stage, launches): "
         + json.dumps(ck))
     log(f"phase 10 summary ({smi}): " + json.dumps(
         {k: v for k, v in tr.items() if k != "attention"}))
+    log(f"phase 11 summary ({smi}): " + json.dumps(tw))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)

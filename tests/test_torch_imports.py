@@ -2,10 +2,12 @@
 every module of video_quierer_tpu_torch (the corpus-mesh modules
 ``parallel/mesh.py`` and ``index/sharded.py``, the SigLIP family's
 ``models/siglip``, the HTTP API's ``api/``, the samplers, the
-``use_clip = false`` encoders, the CLI, the checkpoint converters and the
-trainer's ``train/`` among them) leaves jax, flax, optax, orbax, aiohttp,
-pydantic, cv2, yt_dlp, safetensors and transformers out of
-``sys.modules``, and builds no kernel."""
+``use_clip = false`` encoders, the CLI, the checkpoint converters, the
+trainer's ``train/``, the Switch-MoE and pipeline modules of
+``parallel/`` and the native decode tier's ``ingest/native.py`` among
+them) leaves jax, flax, optax, orbax, aiohttp, pydantic, cv2, yt_dlp,
+safetensors and transformers out of ``sys.modules``, builds no kernel,
+spawns no process and loads no native library."""
 
 import json
 import subprocess
@@ -19,15 +21,29 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "aiohttp", "pydantic", "cv2",
              "yt_dlp", "safetensors", "transformers")
 
 SCRIPT = r"""
-import importlib, json, pkgutil, sys
+import ctypes, importlib, json, pkgutil, subprocess, sys
+spawned, opened = [], []
+_popen, _cdll = subprocess.Popen.__init__, ctypes.CDLL.__init__
+def popen(self, args, *a, **kw):
+    spawned.append(str(args))
+    return _popen(self, args, *a, **kw)
+def cdll(self, name, *a, **kw):
+    opened.append(str(name))
+    return _cdll(self, name, *a, **kw)
+subprocess.Popen.__init__, ctypes.CDLL.__init__ = popen, cdll
 import video_quierer_tpu_torch as pkg
 mods = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + "."))
 for name in mods:
     importlib.import_module(name)
 from video_quierer_tpu_torch.ops import kernels
+from video_quierer_tpu_torch.ingest import native
 print(json.dumps({"modules": mods, "loaded": sorted(sys.modules),
-                  "built": kernels._lib is not None}))
+                  "built": kernels._lib is not None,
+                  "native": [native._lib is not None,
+                             native._load_attempted],
+                  "spawned": spawned,
+                  "opened": [n for n in opened if "vqt" in n]}))
 """
 
 
@@ -50,8 +66,16 @@ def test_import_builds_no_kernel(report):
     assert report["built"] is False
 
 
+def test_import_builds_and_loads_no_native_decoder(report):
+    """Importing ``ingest/native.py`` (with every other module) runs no
+    compiler and no ``make``, spawns no process and loads no library."""
+    assert report["native"] == [False, False]
+    assert report["spawned"] == [] and report["opened"] == []
+
+
 def test_mesh_modules_are_walked(report):
-    for name in ("parallel", "parallel.mesh", "index.sharded",
+    for name in ("parallel", "parallel.mesh", "parallel.moe",
+                 "parallel.pipeline", "ingest.native", "index.sharded",
                  "index.device_index", "index.ivf"):
         assert f"video_quierer_tpu_torch.{name}" in report["modules"]
 

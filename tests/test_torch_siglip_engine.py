@@ -151,17 +151,19 @@ def test_family_builds_the_siglip_embedder(tmp_path, monkeypatch):
 @pytest.mark.parametrize("field,value,error,match", [
     ("checkpoint_dir", "/ckpt", FileNotFoundError, "no model.safetensors"),
     ("orbax_checkpoint", "/ckpt", ValueError, "not a checkpoint of the port"),
-    ("parallel", "pp", NotImplementedError, "pipeline parallelism")])
+    ("parallel", "pp", ValueError, "clip family")])
 def test_family_still_refuses_checkpoints_and_pp(tmp_path, field, value,
                                                  error, match):
-    """Pipeline parallelism stays refused; the trainer's checkpoint is
-    passed through to the embedder, which reads it (a directory that is
-    not one of the port's raises ``ValueError``; served checkpoints:
+    """Pipeline parallelism is refused for SigLIP (the config's rule; CLIP
+    serves it: ``tests/test_torch_pipeline.py``); the trainer's checkpoint
+    is passed through to the embedder, which reads it (a directory that
+    is not one of the port's raises ``ValueError``; served checkpoints:
     ``tests/test_torch_train_checkpoint.py``); an HF checkpoint dir is
     read, so one without weights raises (CLIP; a SigLIP dir without
     ``model.safetensors`` serves seeded, the reference's rule, held in
     ``tests/test_torch_checkpoint.py``)."""
-    families = ("clip",) if field == "checkpoint_dir" else ("clip", "siglip")
+    families = {"checkpoint_dir": ("clip",), "parallel": ("siglip",)}.get(
+        field, ("clip", "siglip"))
     for family in families:
         cfg = EngineConfig(videos_dir=str(tmp_path))
         cfg.model.family = family

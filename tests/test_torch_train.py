@@ -384,20 +384,18 @@ def test_compute_dtype_keeps_f32_parameters(clip_tiny):
 
 
 def test_mesh_and_moe_are_refused(clip_tiny):
+    """Meshes stay refused (A11b); a Switch-MoE tower now trains on one
+    device (its parity: ``tests/test_torch_moe.py``)."""
     import dataclasses
     _, tcfg, _, sd = clip_tiny
     with pytest.raises(NotImplementedError, match="A11b"):
         trainer.CLIPTrainer(tcfg, mesh=object(), device="cpu")
     moe = dataclasses.replace(tcfg, vision=dataclasses.replace(
         tcfg.vision, moe_experts=4))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        trainer.CLIPTrainer(moe, device="cpu")
-
-    class Moe(torch.nn.Module):
-        cfg = moe
-
-    with pytest.raises(NotImplementedError, match="A11b"):
-        trainer.loss_fn(Moe(), None, None)
+    tr = trainer.CLIPTrainer(moe, device="cpu")
+    assert trainer.is_moe(tr.model) and not trainer.is_moe(
+        CLIP(tcfg))
+    assert "vision.layers.1.moe.w1" in tr.state.params
 
 
 def test_siglip_trainer_steps(siglip_tiny):

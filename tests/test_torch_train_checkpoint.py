@@ -357,7 +357,9 @@ def test_finetune_cli_writes_a_servable_checkpoint(tmp_path):
 
 def test_finetune_cli_refuses_meshes_and_moe(tmp_path):
     """``python -m ...finetune`` exits non-zero naming A11b for a mesh;
-    the MoE flag and the other axes too (in process)."""
+    the other axes too, and ``--moe-experts`` with ``--ep`` above 1 (in
+    process); ``--moe-experts`` at ``--ep 1`` trains (its run:
+    ``tests/test_torch_moe.py``), here up to the missing videos."""
     proc = subprocess.run(
         [sys.executable, "-m", "video_quierer_tpu_torch.train.finetune",
          "--videos-dir", str(tmp_path), "--out", str(tmp_path / "o"),
@@ -366,9 +368,11 @@ def test_finetune_cli_refuses_meshes_and_moe(tmp_path):
     assert proc.returncode != 0 and "A11b" in proc.stderr
     assert not (tmp_path / "o").exists()
     base = ["--videos-dir", str(tmp_path), "--out", str(tmp_path / "o")]
-    for flags in (["--tp", "2"], ["--ep", "4"], ["--moe-experts", "8"]):
+    for flags in (["--tp", "2"], ["--ep", "4"],
+                  ["--moe-experts", "8", "--ep", "2"]):
         with pytest.raises(SystemExit, match="A11b"):
             finetune.main(base + flags)
-    with pytest.raises(SystemExit, match="no videos"):
-        finetune.main(base + ["--device", "cpu", "--model",
-                              TINY_FULL_VOCAB])
+    for flags in ([], ["--moe-experts", "8"]):
+        with pytest.raises(SystemExit, match="no videos"):
+            finetune.main(base + ["--device", "cpu", "--model",
+                                  TINY_FULL_VOCAB] + flags)

@@ -26,14 +26,27 @@ TINY_224 = "torch-parity-tiny-224"
 TINY_224_FULL_VOCAB = "torch-parity-tiny-224-vocab"
 
 
-def _tiny(vocab: int, context: int, image: int = 32, patch: int = 8):
+# Switch-MoE towers (tests/test_torch_moe.py): 4 vision layers, 4 experts
+# in layers 1 and 3 (moe_every 2), capacity factor 1.25
+TINY_MOE = "torch-parity-tiny-moe"
+TINY_MOE_224 = "torch-parity-tiny-moe-224-vocab"
+# TINY_FULL_VOCAB with 4 experts in its layer 1: what ``finetune
+# --moe-experts 4`` trains from TINY_FULL_VOCAB
+TINY_MOE_VOCAB = "torch-parity-tiny-moe-vocab"
+# a 4-layer dense tower for the pipelined image tower (1, 2 or 4 stages)
+TINY_PP_224 = "torch-parity-tiny-pp-224-vocab"
+
+
+def _tiny(vocab: int, context: int, image: int = 32, patch: int = 8,
+          layers: int = 2, **moe):
     def factory():
         return jax_cfg.CLIPConfig(
             name=TINY, projection_dim=64,
             vision=jax_cfg.CLIPVisionConfig(image_size=image,
                                             patch_size=patch,
-                                            hidden_size=128, num_layers=2,
-                                            num_heads=2),
+                                            hidden_size=128,
+                                            num_layers=layers,
+                                            num_heads=2, **moe),
             text=jax_cfg.CLIPTextConfig(vocab_size=vocab,
                                         context_length=context,
                                         hidden_size=128, num_layers=2,
@@ -55,7 +68,13 @@ for _name, _factory in ((TINY, _tiny(1000, 77)),
                        (TINY_FULL_VOCAB, _tiny(49408, 77)),
                        (TINY_224, _tiny(1000, 77, image=224, patch=56)),
                        (TINY_224_FULL_VOCAB,
-                        _tiny(49408, 77, image=224, patch=56))):
+                        _tiny(49408, 77, image=224, patch=56)),
+                       (TINY_MOE, _tiny(1000, 77, layers=4, moe_experts=4)),
+                       (TINY_MOE_VOCAB, _tiny(49408, 77, moe_experts=4)),
+                       (TINY_MOE_224, _tiny(49408, 77, image=224, patch=56,
+                                            layers=4, moe_experts=4)),
+                       (TINY_PP_224, _tiny(49408, 77, image=224, patch=56,
+                                           layers=4))):
     jax_cfg.register_config(_name, _factory)
     torch_cfg.register_config(_name, _as_torch_cfg(_factory))
 

@@ -18,9 +18,11 @@ and the HF checkpoint's (``model.checkpoint_dir``,
 ``VQT_CLIP_CHECKPOINT``: the towers load it, ``models/clip/convert.py``)
 and the fine-tuned checkpoint's (``model.orbax_checkpoint``: a checkpoint
 of the port's trainer, ``train/checkpoint.py``; an orbax directory of the
-JAX package is refused); fields the port refuses (pipeline parallelism)
-keep their names and validation so one ``config.json``/``engine.yaml``
-serves both packages.
+JAX package is refused) and the pipelined image tower's
+(``model.parallel = "pp"``, ``model.pipeline_microbatches``,
+``VQT_MODEL_PARALLEL``/``VQT_PIPELINE_MICROBATCHES``: the CLIP embedder
+pipelines its vision blocks, ``parallel/pipeline.py``), so one
+``config.json``/``engine.yaml`` serves both packages.
 """
 
 from __future__ import annotations

@@ -184,10 +184,6 @@ class VideoSearchEngine:
             return None
         if self._embedder is None:
             m = self.config.model
-            if m.parallel != "none":
-                raise NotImplementedError(
-                    f"model.parallel={m.parallel!r}: pipeline parallelism "
-                    "of the towers is not ported")
             # an HF checkpoint dir (VQT_CLIP_CHECKPOINT); orbax_checkpoint
             # a checkpoint of the port's trainer (train/checkpoint.py)
             kw = dict(checkpoint_dir=Path(m.checkpoint_dir)
@@ -196,13 +192,19 @@ class VideoSearchEngine:
                       if m.orbax_checkpoint else None,
                       dtype=_DTYPES[m.dtype], device=self.device)
             if m.family == "siglip":
+                if m.parallel != "none":
+                    raise ValueError(
+                        "model.parallel='pp' is implemented for the clip "
+                        "family (parallel/pipeline.py)")
                 from video_quierer_tpu_torch.models.siglip.embedder import \
                     SigLIPEmbedder
                 self._embedder = SigLIPEmbedder(**kw)
             else:
                 from video_quierer_tpu_torch.models.clip.embedder import \
                     CLIPEmbedder
-                self._embedder = CLIPEmbedder(model_name=m.name, **kw)
+                self._embedder = CLIPEmbedder(
+                    model_name=m.name, parallel=m.parallel,
+                    pipeline_microbatches=m.pipeline_microbatches, **kw)
             if self.config.cache.frame_memo_size > 0:
                 from video_quierer_tpu_torch.models.clip.embedder import \
                     MemoizedEmbedder

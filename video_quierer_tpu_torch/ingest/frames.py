@@ -1,6 +1,5 @@
 """Frame extraction with the reference's sampling semantics (counterpart of
-``video_quierer_tpu/ingest/frames.py``, without its opt-in native FFmpeg
-tier).
+``video_quierer_tpu/ingest/frames.py``).
 
 ====================  =========================================
 mode                  interval
@@ -18,6 +17,13 @@ BGR→RGB and resized to the CLIP input geometry at once (shortest-edge
 bicubic + centre crop, ``ops/preprocess.py``), so decode emits fixed-shape
 uint8 RGB frames ready for the device.
 
+``extract_frames`` has two decode tiers, as in the JAX package: the
+OpenCV streaming path (the default) and the native FFmpeg/C++ tier
+(``ingest/native.py`` over ``native/decoder.cpp``), taken with
+``use_native=True`` or ``VQT_NATIVE_DECODE=1``; where the library cannot
+be built or loaded, or a video does not probe or decode there, the OpenCV
+path serves.
+
 ``cv2`` is imported inside the functions that decode: the port imports no
 OpenCV until a video is opened.
 """
@@ -27,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
+import os
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
@@ -112,11 +119,30 @@ def iter_sampled_frames(video_path: Path, max_frames: int = 300,
         cap.release()
 
 
+def _native_default() -> bool:
+    return os.environ.get("VQT_NATIVE_DECODE") == "1"
+
+
 def extract_frames(video_path: Path, max_frames: int = 300,
-                   sampling_mode: str = "high", target_size: int = 224
+                   sampling_mode: str = "high", target_size: int = 224,
+                   use_native: Optional[bool] = None
                    ) -> Tuple[np.ndarray, List[float]]:
     """Materialised variant: ``([N, target, target, 3] uint8 RGB,
-    timestamps)``."""
+    timestamps)``. ``use_native`` (None: ``VQT_NATIVE_DECODE == "1"``)
+    tries the native tier first (module docstring)."""
+    if use_native is None:
+        use_native = _native_default()
+    if use_native:
+        from video_quierer_tpu_torch.ingest import native
+        if native.available():
+            probed = native.probe(Path(video_path))
+            if probed is not None:
+                interval = sampling_interval(probed[1], max_frames,
+                                             sampling_mode)
+                out = native.decode_sampled(Path(video_path), interval,
+                                            max_frames, target_size)
+                if out is not None:
+                    return out
     frames, stamps = [], []
     for rgb, ts in iter_sampled_frames(video_path, max_frames, sampling_mode,
                                        target_size):

@@ -6,8 +6,20 @@ text (counterpart of ``video_quierer_tpu/models/clip/embedder.py``).
   device once, normalised there (``ops/preprocess.py``) and encoded: the
   fused vision encode (kernels B5 + B6, ``ops/fused_layer.py``) whenever
   the tower is eligible and ``B·S >= MIN_TOKENS`` — every image bucket of
-  a dense CLIP tower — else the module tower. Every chunk is enqueued
-  before any result is fetched.
+  a dense CLIP tower — else the module tower (attention kernel B3), which
+  a Switch-MoE tower always takes. An MoE row depends on the rest of its
+  padded bucket (each expert's capacity counts every token of it), so the
+  chunks and buckets are the JAX embedder's exactly. Every chunk is
+  enqueued before any result is fetched.
+- ``parallel="pp"`` (``model.parallel``): the image encode runs GPipe
+  over a ``pipe`` of stages (``parallel/pipeline.py:
+  pipelined_encode_image``, ``pipeline_microbatches`` microbatches; the
+  fused vision encode is off), on ``pipe_devices`` when given, else on
+  the largest count of CUDA cards that divides the encoder depth (one
+  card: one stage; a CPU embedder: one stage on the CPU). The vision
+  layers move to their stages' devices. A Switch-MoE tower raises
+  ``ValueError``: the pipeline runs the dense block (the JAX embedder
+  fails there too, at its first encode).
 - Text: queries are tokenized on the host, trimmed to a seq bucket (exact
   for the causal tower), padded to a batch bucket, and encoded on the
   embedder's device. ``B·S >= MIN_TOKENS`` with S in the 8/16/32 buckets
@@ -70,6 +82,11 @@ from video_quierer_tpu_torch.ops.fused_layer import (
     fused_vision_tower_eligible,
 )
 from video_quierer_tpu_torch.ops.preprocess import normalize_images
+from video_quierer_tpu_torch.parallel import mesh as mesh_mod
+from video_quierer_tpu_torch.parallel.pipeline import (
+    pipelined_encode_image,
+    shard_layers,
+)
 from video_quierer_tpu_torch.utils.env import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -155,10 +172,21 @@ class CLIPEmbedder:
                  device: str | torch.device = "cuda",
                  seed: int = 0,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 orbax_checkpoint: Optional[Path] = None):
+                 orbax_checkpoint: Optional[Path] = None,
+                 parallel: str = "none",
+                 pipeline_microbatches: int = 4,
+                 pipe_devices: Optional[Sequence] = None):
         self.cfg: CLIPConfig = get_config(model_name)
         self.device = resolve_device(device)
         self.dtype = dtype
+        if parallel not in ("none", "pp"):
+            raise ValueError(f"unknown parallel mode {parallel!r}")
+        if parallel == "pp" and self.cfg.vision.moe_experts:
+            raise ValueError(
+                "model.parallel='pp' pipelines the dense encoder block; a "
+                "Switch-MoE tower (vision.moe_experts > 0) cannot be "
+                "pipelined")
+        self._pipe_microbatches = pipeline_microbatches
         self.pretrained = False
         self.load_seconds: Dict[str, float] = {}
         ckpt = checkpoint_dir
@@ -189,8 +217,18 @@ class CLIPEmbedder:
                                    dtype, self.load_seconds)
         del state_dict
         self.tokenizer: TokenizerBase = load_tokenizer(ckpt)
+        self._pipe_stages = None
+        if parallel == "pp":
+            if pipe_devices is None:
+                pipe_devices = mesh_mod.pipe_devices(
+                    devices=None if self.device.type == "cuda"
+                    else [self.device], depth=self.cfg.vision.num_layers)
+            self._pipe_stages = shard_layers(self.params.vision.layers,
+                                             pipe_devices)
         self._fused_text = fused_text_tower_eligible(self.cfg.text)
-        self._fused_vision = fused_vision_tower_eligible(self.cfg.vision)
+        self._fused_vision = (self._pipe_stages is None
+                              and fused_vision_tower_eligible(
+                                  self.cfg.vision))
         self._ops: Dict[tuple, List[LayerOps]] = {}
         # bound ONCE, as the reference's: callers hand it to the index
         self.text_encode_fn = self._encode_text_fn
@@ -219,6 +257,10 @@ class CLIPEmbedder:
         rows."""
         with torch.inference_mode():
             pixels = normalize_images(frames_u8, dtype=self.dtype)
+            if self._pipe_stages is not None:
+                return pipelined_encode_image(
+                    params, pixels, stages=self._pipe_stages,
+                    n_microbatches=self._pipe_microbatches)
             if self._fused_vision and fused_batch_eligible(
                     frames_u8.shape[0], self.cfg.vision.seq_len):
                 return fused_vision_encode(params, pixels,

@@ -17,8 +17,15 @@ outside any kernel);
 attention is kernel B3 (``ops/attention.py``), as the flax towers route
 it. LayerNorm keeps f32 statistics and casts to the tower dtype, as
 flax's LayerNorm does. Inputs are NHWC images already normalised
-(``ops/preprocess.py``), as in the JAX package. MoE vision towers are not
-ported (ROADMAP A11b).
+(``ops/preprocess.py``), as in the JAX package.
+
+Switch-MoE vision towers (``vision.moe_experts > 0``, JAX ``:130-165``):
+layer ``i`` is a ``parallel/moe.py:MoEEncoderBlock`` where ``i %
+moe_every == moe_every - 1``, else the dense block. Each MoE block also
+returns its load-balance ``aux``: the forwards take an ``aux`` list and
+append every MoE block's to it, in layer order, for the trainer's loss
+(flax sows it into the ``losses`` collection); serving passes none and the
+values are dropped, as flax drops them when ``losses`` is not mutable.
 
 Training (JAX ``CLIP.__call__``, ``:250-284``): ``forward(pixels,
 input_ids)`` returns ``(img, txt, exp(logit_scale))``, the scale an f32
@@ -85,15 +92,21 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
-def run_blocks(layers: nn.ModuleList, x: torch.Tensor,
-               remat: bool) -> torch.Tensor:
+def run_blocks(layers: nn.ModuleList, x: torch.Tensor, remat: bool,
+               aux: Optional[list] = None) -> torch.Tensor:
     """``x`` through each block; with ``remat`` and grad mode on, each
-    block's activations are recomputed in the backward."""
+    block's activations are recomputed in the backward. A block that
+    returns ``(x, aux)`` (an MoE block) has its ``aux`` appended to
+    ``aux`` when a list is given."""
     for block in layers:
         if remat and torch.is_grad_enabled():
             x = checkpoint(block, x, use_reentrant=False)
         else:
             x = block(x)
+        if isinstance(x, tuple):
+            x, block_aux = x
+            if aux is not None:
+                aux.append(block_aux)
     return x
 
 
@@ -182,12 +195,22 @@ class TextTower(nn.Module):
         return x[torch.arange(x.shape[0], device=x.device), eot]
 
 
+def is_moe_layer(c: CLIPVisionConfig, i: int) -> bool:
+    """Whether vision layer ``i`` is a Switch-MoE block."""
+    return c.moe_experts > 0 and i % c.moe_every == c.moe_every - 1
+
+
+def vision_block(c: CLIPVisionConfig, i: int) -> nn.Module:
+    """Vision layer ``i``: an MoE block or the dense one."""
+    if is_moe_layer(c, i):
+        from video_quierer_tpu_torch.parallel.moe import MoEEncoderBlock
+        return MoEEncoderBlock(c, c.moe_experts, c.moe_capacity)
+    return EncoderBlock(c, causal=False)
+
+
 class VisionTower(nn.Module):
     def __init__(self, c: CLIPVisionConfig):
         super().__init__()
-        if c.moe_experts:
-            raise NotImplementedError(
-                "MoE vision towers are not ported (ROADMAP A11b)")
         self.cfg = c
         self.compute_dtype: Optional[torch.dtype] = None
         self.remat = False
@@ -198,13 +221,13 @@ class VisionTower(nn.Module):
         self.class_embedding = nn.Parameter(torch.zeros(d))
         self.position_embedding = nn.Parameter(torch.zeros(c.seq_len, d))
         self.pre_layernorm = LayerNorm(d, c.layer_norm_eps)
-        self.layers = nn.ModuleList(EncoderBlock(c, causal=False)
-                                    for _ in range(c.num_layers))
+        self.layers = nn.ModuleList(vision_block(c, i)
+                                    for i in range(c.num_layers))
         self.post_layernorm = LayerNorm(d, c.layer_norm_eps)
 
-    def embed(self, pixels: torch.Tensor) -> torch.Tensor:
-        """NHWC ``[B, H, W, 3]`` normalised pixels → pre-LN tokens
-        ``[B, S, D]``: patchify, class token, positions, pre-LN."""
+    def tokens(self, pixels: torch.Tensor) -> torch.Tensor:
+        """NHWC ``[B, H, W, 3]`` normalised pixels → tokens ``[B, S, D]``
+        before the pre-LN: patchify, class token, positions."""
         c = self.cfg
         b = pixels.shape[0]
         p, g = c.patch_size, c.image_size // c.patch_size
@@ -213,12 +236,18 @@ class VisionTower(nn.Module):
                    .permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3))
         x = torch.cat([self.class_embedding.to(dtype).expand(b, 1, -1),
                        self.patch_embedding(patches)], dim=1)
-        return self.pre_layernorm(
-            x + self.position_embedding.to(dtype)[None])
+        return x + self.position_embedding.to(dtype)[None]
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """Pooled pre-projection features ``[B, hidden]`` (post-LN CLS)."""
-        x = run_blocks(self.layers, self.embed(pixels), self.remat)
+    def embed(self, pixels: torch.Tensor) -> torch.Tensor:
+        """NHWC ``[B, H, W, 3]`` normalised pixels → pre-LN tokens
+        ``[B, S, D]``: patchify, class token, positions, pre-LN."""
+        return self.pre_layernorm(self.tokens(pixels))
+
+    def forward(self, pixels: torch.Tensor,
+                aux: Optional[list] = None) -> torch.Tensor:
+        """Pooled pre-projection features ``[B, hidden]`` (post-LN CLS);
+        MoE blocks' ``aux`` appended to ``aux``."""
+        x = run_blocks(self.layers, self.embed(pixels), self.remat, aux)
         return self.post_layernorm(x[:, 0])
 
 
@@ -258,9 +287,9 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init))
         configure_towers((self.vision, self.text), dtype, remat)
 
-    def encode_image(self, pixels: torch.Tensor,
-                     normalize: bool = True) -> torch.Tensor:
-        feats = self.visual_projection(self.vision(pixels))
+    def encode_image(self, pixels: torch.Tensor, normalize: bool = True,
+                     aux: Optional[list] = None) -> torch.Tensor:
+        feats = self.visual_projection(self.vision(pixels, aux))
         return _normalize_f32(feats, normalize)
 
     def encode_text(self, input_ids: torch.Tensor,
@@ -268,8 +297,10 @@ class CLIP(nn.Module):
         feats = self.text_projection(self.text(input_ids))
         return _normalize_f32(feats, normalize)
 
-    def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor):
+    def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor,
+                aux: Optional[list] = None):
         """Training forward: ``(image_feats, text_feats, logit_scale)``,
-        the features f32 unit rows, the scale ``exp`` of the parameter."""
-        return (self.encode_image(pixels), self.encode_text(input_ids),
-                self.logit_scale.exp())
+        the features f32 unit rows, the scale ``exp`` of the parameter;
+        the MoE blocks' ``aux`` appended to ``aux``."""
+        return (self.encode_image(pixels, aux=aux),
+                self.encode_text(input_ids), self.logit_scale.exp())

@@ -10,8 +10,10 @@ shard's scan on its device and merges the candidates on the first one.
 Devices may repeat, so several shards can share one card (or, in the CPU
 tests, ``"cpu"``), as the JAX tests split the host into 8 virtual devices.
 
-Multi-host serving (``initialize_distributed`` with NCCL), the data and
-pipeline meshes of training are later ports.
+:func:`pipe_devices` gives the ``pipe`` axis of the pipelined image tower
+(``parallel/pipeline.py``; JAX ``pipe_mesh``). Multi-host serving
+(``initialize_distributed`` with NCCL) and the data, tensor and expert
+meshes of training are later ports.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 CORPUS_AXIS = "corpus"
 # outer axis of a multi-slice mesh: shards of one slice are contiguous
 DCN_AXIS = "dcn"
+# the pipelined image tower's stages (parallel/pipeline.py)
+PIPE_AXIS = "pipe"
 
 
 class CorpusMesh:
@@ -94,6 +98,20 @@ def multislice_corpus_mesh(n_slices: int, n_devices: Optional[int] = None,
     """2-D ``(dcn, corpus)`` mesh: the first ``n_devices`` devices split
     row-major into ``n_slices`` slices (an indivisible count raises)."""
     return CorpusMesh(_cuda_devices(n_devices, devices), n_slices=n_slices)
+
+
+def pipe_devices(n_stages: Optional[int] = None, devices=None, *,
+                 depth: Optional[int] = None) -> Tuple[torch.device, ...]:
+    """The ``pipe`` axis: stage ``s`` runs on the ``s``-th device. The
+    first ``n_stages`` of ``devices`` (all CUDA devices when None, raising
+    without a card); with ``n_stages`` None and the encoder ``depth``
+    given, the largest count of them that divides it (JAX
+    ``embedder.py:130-139``): one card is one stage."""
+    devs = _cuda_devices(n_stages, devices)
+    if n_stages is None and depth is not None:
+        n = max(d for d in range(1, len(devs) + 1) if depth % d == 0)
+        devs = devs[:n]
+    return tuple(torch.device(d) for d in devs)
 
 
 def initialize_distributed() -> bool:

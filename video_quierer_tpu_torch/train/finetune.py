@@ -13,16 +13,24 @@ Examples::
     python -m video_quierer_tpu_torch.train.finetune --videos-dir ./videos \\
         --out ./ckpt --device cpu
 
-The JAX CLI's flags, plus ``--device``. Meshes (``--dp``, ``--tp``,
-``--ep`` above 1) and Switch-MoE towers (``--moe-experts``) are not
-ported (ROADMAP A11b) and exit with a message. ``--hf-checkpoint`` starts
-from a local HF checkpoint, read by ``models/clip/convert.py`` and the
-bridge. TF32 is off: f32 products run in full f32, as in the server.
+    # a Switch-MoE tower: 8 experts every 2nd vision block
+    python -m video_quierer_tpu_torch.train.finetune --videos-dir ./videos \
+        --moe-experts 8 --out ./ckpt
+
+The JAX CLI's flags, plus ``--device``. ``--moe-experts/--moe-every/
+--moe-capacity`` build a Switch-MoE vision tower (``parallel/moe.py``) on
+the one device, with the JAX CLI's refusals: ``--hf-checkpoint`` with
+MoE (a dense tree), and experts that do not divide over ``--ep``. Meshes
+(``--dp``, ``--tp``, ``--ep`` above 1) are not ported (ROADMAP A11b) and
+exit with a message. ``--hf-checkpoint`` starts from a local HF
+checkpoint, read by ``models/clip/convert.py`` and the bridge. TF32 is
+off: f32 products run in full f32, as in the server.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 from pathlib import Path
@@ -71,12 +79,15 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu runs on the host)")
     args = ap.parse_args(argv)
 
+    if args.moe_experts and args.hf_checkpoint:
+        raise SystemExit(
+            "--hf-checkpoint starts from a dense tree; MoE towers "
+            "train from init (or resume their own checkpoints)")
+    if args.ep > 1 and args.moe_experts % args.ep:
+        raise SystemExit("--moe-experts must divide evenly over --ep")
     if max(args.dp, args.tp, args.ep) > 1:
         raise SystemExit("--dp/--tp/--ep > 1: mesh training is not ported "
                          "(ROADMAP A11b); train on one device")
-    if args.moe_experts:
-        raise SystemExit("--moe-experts: Switch-MoE towers are not ported "
-                         "(ROADMAP A11b)")
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -98,6 +109,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.model)
+    if args.moe_experts:
+        cfg = dataclasses.replace(
+            cfg, vision=dataclasses.replace(
+                cfg.vision, moe_experts=args.moe_experts,
+                moe_every=args.moe_every, moe_capacity=args.moe_capacity))
     params = None
     if args.hf_checkpoint:
         params = params_from_jax(convert_mod.convert_hf_checkpoint(

@@ -2,8 +2,9 @@
 ``video_quierer_tpu/train/trainer.py``).
 
 One process, one device: the JAX trainer's single-device path. Meshes
-(data and tensor parallelism, ``param_partition_spec``/``shard_params``)
-and Switch-MoE towers are the port's ROADMAP A11b and raise here.
+(data, tensor and expert parallelism, ``param_partition_spec``/
+``shard_params``) are the port's ROADMAP A11b and raise here. Switch-MoE
+towers (``vision.moe_experts > 0``) train on the one device.
 
 - :func:`build_lr_schedule` gives optax's values at every count, in f32:
   ``constant``, ``constant`` after a linear warmup from 0, and ``cosine``
@@ -12,8 +13,10 @@ and Switch-MoE towers are the port's ROADMAP A11b and raise here.
 - :func:`loss_fn` runs the module's training forward: CLIP's ``(img,
   txt, scale)`` into :func:`clip_contrastive_loss` (symmetric InfoNCE
   over the batch's all-pairs logits, the scale unclamped), SigLIP's
-  ``(img, txt, scale, bias)`` into ``siglip_sigmoid_loss``. The module
-  carries its parameters (JAX's ``loss_fn`` takes them as a tree).
+  ``(img, txt, scale, bias)`` into ``siglip_sigmoid_loss``; an MoE
+  tower's load-balance losses are added with the Switch weight
+  :data:`MOE_AUX_WEIGHT` (JAX ``:136-170``). The module carries its
+  parameters (JAX's ``loss_fn`` takes them as a tree).
 - :class:`CLIPTrainer` owns the module (f32 parameters; its compute
   dtype and remat are the module's, ``models/clip/model.py``) and a state
   of ``step``, ``params``, ``opt_state`` and ``ema_params``. A step is
@@ -134,25 +137,31 @@ def clip_contrastive_loss(image_feats: torch.Tensor, text_feats: torch.Tensor,
             + F.cross_entropy(logits.t(), labels)) / 2.0
 
 
-def refuse_moe(cfg) -> None:
-    """Switch-MoE towers (``vision.moe_experts > 0``) train with expert
-    parallelism, which is not ported yet."""
-    if getattr(getattr(cfg, "vision", None), "moe_experts", 0):
-        raise NotImplementedError(
-            "Switch-MoE towers (vision.moe_experts > 0) are not ported: "
-            "ROADMAP A11b")
+MOE_AUX_WEIGHT = 0.01  # the standard Switch load-balance coefficient
+
+
+def is_moe(model: torch.nn.Module) -> bool:
+    """Whether ``model``'s vision tower has Switch-MoE blocks."""
+    vision = getattr(getattr(model, "cfg", None), "vision", None)
+    return bool(getattr(vision, "moe_experts", 0))
 
 
 def loss_fn(model: torch.nn.Module, images: torch.Tensor,
             input_ids: torch.Tensor) -> torch.Tensor:
     """The family's objective on the module's training forward: three
     outputs (CLIP) → :func:`clip_contrastive_loss`, four (SigLIP) →
-    ``siglip_sigmoid_loss``."""
-    refuse_moe(getattr(model, "cfg", None))
-    out = model(images, input_ids)
-    if len(out) == 4:
-        return siglip_sigmoid_loss(*out)
-    return clip_contrastive_loss(*out)
+    ``siglip_sigmoid_loss``; plus ``MOE_AUX_WEIGHT`` times the sum of an
+    MoE tower's ``aux`` losses."""
+    if is_moe(model):
+        aux: List[torch.Tensor] = []
+        out = model(images, input_ids, aux=aux)
+    else:
+        aux, out = [], model(images, input_ids)
+    loss = (siglip_sigmoid_loss(*out) if len(out) == 4
+            else clip_contrastive_loss(*out))
+    if aux:
+        loss = loss + MOE_AUX_WEIGHT * torch.stack(aux).sum()
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -252,9 +261,8 @@ class CLIPTrainer:
                  device: str | torch.device = "cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh training (data and tensor parallelism) is not "
-                "ported: ROADMAP A11b")
-        refuse_moe(cfg if model is None else model.cfg)
+                "mesh training (data, tensor and expert parallelism) is "
+                "not ported: ROADMAP A11b")
         self.cfg = cfg if model is None else model.cfg
         self.device = resolve_device(device)
         self.weight_decay = weight_decay
