@@ -9,6 +9,7 @@ GPU — the quickest proof that the port still starts on the card.
     python3 chip_smoke.py --train
     python3 chip_smoke.py --towers
     python3 chip_smoke.py --pp-cards 4
+    python3 chip_smoke.py --hosts 2
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
@@ -25,7 +26,9 @@ scans against their plain versions (phase 3's last part), timed;
 ``--checkpoints`` runs phases 1 and 2, then only phase 3's ViT-L/14 part
 and phase 9; ``--train`` runs phases 1, 2 and 10; ``--towers`` runs
 phases 1, 2 and 11; ``--pp-cards N`` runs phases 1, 2 and ViT-L/14's
-pipelined encode over N cards (stage s on cuda:s; needs N cards).
+pipelined encode over N cards (stage s on cuda:s; needs N cards);
+``--hosts N`` runs phases 1, 2 and phase 12's multi-process half over N
+processes (needs N or more cards, a multiple of N).
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -84,7 +87,8 @@ last line):
    frames (T = 65,792, D = 1,024, F = 4,096; cuBLAS's two bare GEMMs
    beside B6) and B2 on the 768-wide, 12-head text tower at B = 64;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
-   unit rows x 512) written once as the pickle v1.0 cache; for each mirror
+   unit rows x 512, drawn on the card) written once as the pickle v1.0
+   cache; for each mirror
    dtype (bfloat16, then float32, int8 and int4), and then for the IVF
    tier (``index.kind = "ivf"`` over the bf16 mirror, nprobe 8, nlist
    auto, built by ``startup``), an engine loads it
@@ -132,9 +136,10 @@ last line):
    (IVF: the host's probed-exact top-10); each path's scan kernel launched
    and the single-card candidate kernels (B1, B4) not;
 6. the SigLIP engine (``model.family = "siglip"``, bf16 tier, the phase-3
-   towers injected; ``index.embed_dim`` widens to 768): a seeded cache of
-   10,000 videos x 200 frames x 768 (drawn on the card), ``startup()``,
-   an ingest of 20 x 200 seeded frames (the module vision tower: B3; the
+   towers injected; ``index.embed_dim`` widens to 768): ``startup()`` over
+   an empty videos dir, then a seeded corpus of 10,000 videos x 200 frames
+   x 768 drawn on the card and appended (no pickle written or loaded), an
+   ingest of 20 x 200 seeded frames (the module vision tower: B3; the
    mirror checked bit for bit), then over HTTP 16 singles (module text
    tower: B3), 64 coalesced clients and a batch of 64 (fused text encode:
    B5 + B6 with tanh-GELU), every single and batch row held against the
@@ -252,7 +257,31 @@ last line):
    ``pp`` encodes traced by ``torch.profiler``); ViT-L/14's
    ``pipelined_encode_image`` over 4 stages on ``cuda:0`` at M = 4 (B3 96
    times) against its sequential module tower, both timed;
-12. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+12. serving across cards. The data mesh on the one card
+   (``data_mesh(devices=[cuda:0] * 4)``): 256 seeded frames through the
+   mesh tower, four 64-frame parts (B5 and B6 12 times a part), and a
+   batch of 64 ten-word texts, four parts of 16 (S = 16: B2 12 times a
+   part), held against the meshless fused tower (per-row cosine >=
+   DATA_MESH_MIN_COS) and the f32 plain tower (>= MIN_COS), both encodes
+   timed against the meshless ones (CUDA events); then an engine built
+   with ``mesh=`` (its own seeded tower) grown and served as phase 9's
+   engines (ingest: B5 and B6 48 times an embed batch; 16 singles, 64
+   coalesced clients and a batch of 64 of ten-word queries over HTTP,
+   rows against the host exact top-10). Then, with 2 or more cards
+   visible (``--hosts N`` alone: on N processes), the multi-process half:
+   one 2M-row x 512 pickle v1.0 cache written once, N processes of this
+   script (``--host-child``) started with ``VQT_COORDINATOR``,
+   ``VQT_NUM_PROCESSES``, ``VQT_PROCESS_ID`` and their own
+   ``CUDA_VISIBLE_DEVICES``; each starts an engine from the cache through
+   the config path (``index.corpus_shards`` = the cards of every process,
+   ``index.corpus_slices`` = N: NCCL, each process's shards on its own
+   cards) in the bfloat16, int8 and float32 tiers, ingests the same 2
+   seeded videos, and runs the same 16 singles and 3 batches of 64;
+   process 0 gathers every process's rows and holds them against its own
+   and against the host exact top-10 over the grown corpus; each
+   ``all_gather`` of the merge is timed by CUDA events; a failed or
+   timed-out process fails the run;
+13. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
@@ -264,7 +293,8 @@ last line):
    ViT-L/14 path's B3 at S = 257 (launched inside B5), B5, B6 and B2 at
    768 wide, with their phase-9 launches; B3 under autograd in phase
    10's steps, ``attention_train`` with its launches a step, and under
-   remat, ``attention_train_remat``), the nvidia-smi line, and the
+   remat, ``attention_train_remat``; phase 12's launches under
+   ``phase12_launches``), the nvidia-smi line, and the
    result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -287,6 +317,7 @@ import logging
 import os
 import re
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -363,7 +394,12 @@ from video_quierer_tpu_torch.ops.quantize import (
     quantize_rows,
     quantize_rows_int4,
 )
-from video_quierer_tpu_torch.parallel.mesh import CorpusMesh, pipe_devices
+from video_quierer_tpu_torch.parallel.mesh import (
+    CorpusMesh,
+    data_mesh,
+    initialize_distributed,
+    pipe_devices,
+)
 from video_quierer_tpu_torch.train import checkpoint as train_ckpt
 from video_quierer_tpu_torch.train.data import frame_caption_batches
 from video_quierer_tpu_torch.train.trainer import CLIPTrainer, loss_fn
@@ -382,6 +418,9 @@ ATTN_ATOL = 2e-2        # bf16 attention vs plain, valid rows
 # bf16 ulps in [4, 8), where the largest of these activations lie
 LAYER_ATOL = 2 * 2.0 ** -5
 MIN_COS = 0.999         # bf16 tower rows vs plain
+# the data mesh's bf16 rows vs the meshless tower's (the same kernels on
+# parts of the batch)
+DATA_MESH_MIN_COS = 0.9999
 UNIT_ATOL = 1e-5        # f32 row norms of the towers' outputs
 SCORE_ATOL = 1e-5       # returned scores vs host exact f32
 SCAN_RTOL = 1e-5        # exact-scan kernel scores vs its plain version
@@ -1572,14 +1611,6 @@ def phase_siglip_kernels(embedder: SigLIPEmbedder, args, device) -> dict:
 
 # -- phases 4 and 5: end to end -----------------------------------------------
 
-def build_corpus(seed: int, n_videos: int, n_frames: int) -> np.ndarray:
-    rng = np.random.default_rng(seed)
-    corpus = rng.standard_normal((n_videos * n_frames, DIM),
-                                 dtype=np.float32)
-    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
-    return corpus
-
-
 def video_name(v: int) -> str:
     return f"video_{v:05d}.mp4"
 
@@ -1687,9 +1718,9 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device, smi: str
     its ingest path, and each phase-5 engine's search-path counts."""
     n = args.videos * args.frames
     t0 = time.perf_counter()
-    corpus = build_corpus(args.seed, args.videos, args.frames)
-    log(f"corpus: {n} rows x {DIM} from seed {args.seed} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    corpus = corpus_on_card_rows(device, args.seed, n, DIM)
+    log(f"corpus: {n} rows x {DIM} from seed {args.seed}, drawn on the "
+        f"card, in {time.perf_counter() - t0:.1f} s")
     scratch = ROOT / "build" / "smoke"
     scratch.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(args.seed + 1)
@@ -3355,29 +3386,21 @@ def check_siglip_launches(engine: VideoSearchEngine, launches: dict) -> int:
 
 def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
                         smi: str) -> tuple:
-    """``model.family = "siglip"`` at full width, bf16 tier: a seeded cache
-    of ``args.videos`` x ``args.frames`` rows x 768 (pickle v1.0), then
-    ``engine.startup()``, an ingest of INGEST_VIDEOS seeded videos through
-    the decode pipeline and the module vision tower (mirror checked bit for
-    bit), then the HTTP server: 16 singles, 64 coalesced clients and a
-    batch of 64, rows held against the host exact top-K over the grown
-    f32 corpus. Returns the search path's and the ingest's launches."""
+    """``model.family = "siglip"`` at full width, bf16 tier:
+    ``engine.startup()`` over an empty videos dir, a seeded corpus of
+    ``args.videos`` x ``args.frames`` rows x 768 drawn on the card and
+    appended video by video (as phase 9's corpora: no pickle written and
+    loaded), an ingest of INGEST_VIDEOS seeded videos through the decode
+    pipeline and the module vision tower (mirror checked bit for bit),
+    then the HTTP server: 16 singles, 64 coalesced clients and a batch of
+    64, rows held against the host exact top-K over the grown f32 corpus.
+    Returns the search path's and the ingest's launches."""
     n = args.videos * args.frames
-    t0 = time.perf_counter()
-    corpus = corpus_on_card_rows(device, args.seed + 7, n)
-    log(f"[siglip] corpus: {n} rows x {SIGLIP_DIM} from seed "
-        f"{args.seed + 7} in {time.perf_counter() - t0:.1f} s")
     scratch = ROOT / "build" / "smoke"
     scratch.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(args.seed + 2)
     timings = {}
     with tempfile.TemporaryDirectory(dir=scratch) as videos:
-        t0 = time.perf_counter()
-        write_cache(corpus, args.frames,
-                    Path(videos) / "video_search_cache.pkl")
-        log(f"[siglip] pickle v1.0 cache written in "
-            f"{time.perf_counter() - t0:.1f} s")
-        del corpus
         config = EngineConfig()
         config.model.family = "siglip"
         config.index.device_dtype = "bfloat16"
@@ -3385,15 +3408,25 @@ def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
                                    device=device)
         require(config.index.embed_dim == SIGLIP_DIM,
                 f"[siglip] index.embed_dim {config.index.embed_dim}")
-        t0 = time.perf_counter()
         engine.startup()
         require_seeded("siglip", engine)
-        require(len(engine.index) == n, "[siglip] startup row count")
+        t0 = time.perf_counter()
+        corpus = corpus_on_card_rows(device, args.seed + 7, n)
+        engine.index.reserve(n)
+        stamps = [0.5 * t for t in range(args.frames)]
+        for v in range(args.videos):
+            engine.index.add_batch(
+                corpus[v * args.frames:(v + 1) * args.frames],
+                video_name(v), stamps)
+        del corpus
+        engine.index.sync_mirror()
+        require(len(engine.index) == n, "[siglip] corpus row count")
         mode = engine.accuracy_mode()
         require(mode == "exact-f32-rerank", f"[siglip] mode {mode}")
-        log(f"[siglip] engine.startup(): {len(engine.index)} rows x "
-            f"{engine.index.dim}, bf16 mirror + re-rank store on the card, "
-            f"in {time.perf_counter() - t0:.1f} s ({mode})")
+        log(f"[siglip] corpus: {n} rows x {engine.index.dim} from seed "
+            f"{args.seed + 7} drawn on the card, appended and placed (bf16 "
+            f"mirror + re-rank store) in {time.perf_counter() - t0:.1f} s "
+            f"({mode})")
         ingested = ingest_tier(engine, "bfloat16", videos, args, device,
                                tag="siglip", path=("attention",))
         corpus = engine.index._emb[: len(engine.index)]
@@ -3725,7 +3758,8 @@ def serve_checkpoint(tag: str, config: EngineConfig, seeded, args, device,
 
 def serve_grown(tag: str, engine: VideoSearchEngine, tower, args, device,
                 smi: str, videos: Path, rng, n_videos: int = INGEST_VIDEOS,
-                path: tuple = INGEST, per_batch: int = 0) -> dict:
+                path: tuple = INGEST, per_batch: int = 0,
+                n_words: int = CKPT_WORDS) -> dict:
     """``engine`` (its tower ``tower``) grown and served: startup (no
     cache), a seeded corpus of ``args.videos`` x ``args.frames`` unit rows
     drawn on the card and appended video by video, an ingest of
@@ -3733,8 +3767,9 @@ def serve_grown(tag: str, engine: VideoSearchEngine, tower, args, device,
     ``per_batch`` times an embed batch), then over HTTP 16 singles, 64
     coalesced clients and a batch of 64, the launch counters set to 0 just
     before and read just after, every single and 8 batch rows held against
-    the host exact top-K over the grown corpus. Returns the launches of
-    the searches and of the ingest."""
+    the host exact top-K over the grown corpus (queries of ``n_words``
+    random words). Returns the launches of the searches and of the
+    ingest."""
     siglip = engine.config.model.family == "siglip"
     engine.startup()
     t0 = time.perf_counter()
@@ -3768,7 +3803,7 @@ def serve_grown(tag: str, engine: VideoSearchEngine, tower, args, device,
     try:
         for wrapper in WRAPPERS.values():
             wrapper.launches = 0
-        served = drive(base, tag, rng, timings, n_words=CKPT_WORDS)
+        served = drive(base, tag, rng, timings, n_words=n_words)
         launches = {name: w.launches for name, w in WRAPPERS.items()}
     finally:
         server.shutdown()
@@ -4876,6 +4911,449 @@ def tower_launches(tw: dict) -> dict:
     return out
 
 
+# -- phase 12: serving across cards -------------------------------------------
+
+# the data mesh on the one card: [cuda:0] x DATA_PARTS, so a 256-frame
+# batch is four 64-frame parts (B5 + B6 each) and a batch of 64 texts four
+# parts of 16 (B2 each, at 10-word queries: S = 16, 16 x 16 = MIN_TOKENS)
+DATA_PARTS = 4
+DATA_WORDS = 10
+# the multi-process half: the tiers each process serves, its searches
+HOST_TIERS = ("bfloat16", "int8", "float32")
+HOST_SCANS = {"bfloat16": "cand_scan", "int8": "cand_scan_int8",
+              "float32": "block_scan"}
+HOST_SINGLES = 16
+HOST_BATCH_ROUNDS = 3
+# a child's rendezvous or collective that takes longer raises; a child
+# that takes longer than HOST_RUN_S is killed and fails the run
+HOST_COLLECTIVE_S = 300
+HOST_RUN_S = 900
+# the videos each process ingests onto the cache's corpus
+HOST_INGEST_VIDEOS = 2
+
+
+def part_launches(tag: str, names: tuple, parts: int, layers: int) -> dict:
+    """The launches since ``zero_launches``: each of ``names`` ``layers``
+    times a part, nothing else; returns them a part."""
+    got = {name: w.launches for name, w in WRAPPERS.items()}
+    for name, count in got.items():
+        want = parts * layers if name in names else 0
+        require(count == want, f"[{tag}] {name} launched {count} times, not "
+                f"{want} ({layers} a part x {parts} parts)")
+    return {name: got[name] // parts for name in names}
+
+
+def compare_data_mesh(tower: CLIPEmbedder, dense: CLIPEmbedder, seed: int,
+                      device, rng) -> dict:
+    """The data-mesh tower against the meshless fused one (the same
+    weights) and the f32 plain tower: 256 seeded frames in DATA_PARTS
+    parts (B5 + B6 a part), a batch of 64 texts in DATA_PARTS parts (B2 a
+    part); launches a part; both encodes timed against the meshless ones
+    (CUDA events)."""
+    layers = tower.cfg.vision.num_layers
+    frames = torch.from_numpy(seeded_frames(seed, 13_000, 256)).to(device)
+    texts = [words(rng, DATA_WORDS) for _ in range(64)]
+    ids = tower.ids_tensor(tower.prepare_text_ids(tower.tokenizer(texts)))
+    require(ids.shape[1] == 16, f"[data mesh] text bucket {ids.shape}")
+    with torch.inference_mode():
+        zero_launches()
+        got = tower._encode_image_mesh(frames)
+        torch.cuda.synchronize()
+        vision = part_launches("data mesh vision", INGEST, DATA_PARTS,
+                               layers)
+        zero_launches()
+        got_t = tower.text_encode_fn(tower.params, ids)
+        torch.cuda.synchronize()
+        text = part_launches("data mesh text", ("fused_layer",),
+                             DATA_PARTS, tower.cfg.text.num_layers)
+        want = dense._encode_image_fn(dense.params, frames)
+        want_t = dense.text_encode_fn(dense.params, ids)
+        ref = module_from(tower.cfg, {k: v.float() for k, v in
+                                      tower.params.state_dict().items()},
+                          device).eval()
+        with module_attention_plain():
+            plain = ref.encode_image(normalize_images(frames))
+            plain_t = ref.encode_text(ids)
+        del ref
+        cos = torch.nn.functional.cosine_similarity
+        out = {"parts": DATA_PARTS, "vision_launches_a_part": vision,
+               "text_launches_a_part": text,
+               "vision_vs_meshless_max_abs": (got - want).abs().max().item(),
+               "vision_vs_meshless_min_cos": cos(got, want, dim=-1).min()
+               .item(),
+               "vision_vs_plain_f32_min_cos": cos(got, plain, dim=-1).min()
+               .item(),
+               "text_vs_meshless_min_cos": cos(got_t, want_t, dim=-1).min()
+               .item(),
+               "text_vs_plain_f32_min_cos": cos(got_t, plain_t, dim=-1).min()
+               .item()}
+        require(out["vision_vs_meshless_min_cos"] >= DATA_MESH_MIN_COS
+                and out["text_vs_meshless_min_cos"] >= DATA_MESH_MIN_COS,
+                f"[data mesh] against the meshless tower {out}")
+        require(out["vision_vs_plain_f32_min_cos"] >= MIN_COS
+                and out["text_vs_plain_f32_min_cos"] >= MIN_COS,
+                f"[data mesh] against the f32 plain tower {out}")
+        out["vision_ms"] = cuda_ms(lambda: tower._encode_image_mesh(frames),
+                                   3)
+        out["vision_meshless_ms"] = cuda_ms(
+            lambda: dense._encode_image_fn(dense.params, frames), 3)
+        out["text_ms"] = cuda_ms(
+            lambda: tower.text_encode_fn(tower.params, ids), 5)
+        out["text_meshless_ms"] = cuda_ms(
+            lambda: dense.text_encode_fn(dense.params, ids), 5)
+    log(f"[data mesh] {DATA_PARTS} parts on {device}: 256 frames, B5 "
+        f"{vision['attn_half']} and B6 {vision['mlp_half']} launches a part; "
+        f"64 texts (S = 16), B2 {text['fused_layer']} a part; rows against "
+        f"the meshless tower: vision min cosine "
+        f"{out['vision_vs_meshless_min_cos']:.7f} (max |diff| "
+        f"{out['vision_vs_meshless_max_abs']:.2e}), text "
+        f"{out['text_vs_meshless_min_cos']:.7f} (>= {DATA_MESH_MIN_COS}); "
+        f"against the f32 plain tower: vision "
+        f"{out['vision_vs_plain_f32_min_cos']:.6f}, text "
+        f"{out['text_vs_plain_f32_min_cos']:.6f} (>= {MIN_COS}); encode ms "
+        f"(CUDA events): vision {out['vision_ms']:.3f} against "
+        f"{out['vision_meshless_ms']:.3f} meshless, text "
+        f"{out['text_ms']:.3f} against {out['text_meshless_ms']:.3f}")
+    return out
+
+
+def phase_data_mesh(dense: CLIPEmbedder, args, device, smi: str) -> dict:
+    """Phase 12's one-card half: a ``data_mesh`` of DATA_PARTS x the card,
+    the tower checked (``compare_data_mesh``), then an engine built with
+    ``mesh=`` (its own seeded tower, the weights of ``dense``) grown and
+    served as phase 9's engines: the 2M-row corpus drawn on the card, an
+    ingest (B5 and B6 DATA_PARTS x 12 times an embed batch), 16 singles,
+    64 coalesced clients and a batch of 64 over HTTP, rows against the
+    host exact top-10."""
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    mesh = data_mesh(devices=[device] * DATA_PARTS)
+    with tempfile.TemporaryDirectory(dir=scratch) as videos:
+        config = EngineConfig()
+        config.index.device_dtype = "bfloat16"
+        engine = VideoSearchEngine(videos, config=config, device=device,
+                                   mesh=mesh)
+        tower = engine._tower()
+        require_seeded("data mesh", engine)
+        require(tower.mesh is mesh and tower._fused_vision,
+                f"[data mesh] tower mesh {tower.mesh}")
+        require_same_params("data mesh", tower.params, dense.params)
+        out = compare_data_mesh(tower, dense, args.seed, device,
+                                np.random.default_rng(args.seed + 17))
+        out.update(serve_grown(
+            "data mesh", engine, tower, args, device, smi, Path(videos),
+            np.random.default_rng(args.seed + 19),
+            per_batch=DATA_PARTS * tower.cfg.vision.num_layers,
+            n_words=DATA_WORDS))
+        del engine, tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class GatherTimer:
+    """CUDA events around every ``torch.distributed.all_gather`` while
+    active (the corpus mesh's cross-process merge makes one a search)."""
+
+    def __init__(self):
+        self.pairs = []
+        self._real = None
+
+    def __enter__(self):
+        self._real = torch.distributed.all_gather
+
+        def timed_gather(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._real(*a, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        torch.distributed.all_gather = timed_gather
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_gather = self._real
+
+    def take(self) -> list:
+        """The ms of each gather since the last ``take``."""
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in self.pairs]
+        self.pairs = []
+        return ms
+
+
+def host_ingest(engine: VideoSearchEngine, args) -> int:
+    """HOST_INGEST_VIDEOS seeded videos through ``batched_frames`` and the
+    engine's ingest loop (the same frames on every process; no file is
+    written in the shared videos dir)."""
+    paths = [Path(engine.videos_dir) / ingest_name(v)
+             for v in range(HOST_INGEST_VIDEOS)]
+    api, ing = engine.config.api, engine.config.ingest
+    extract = functools.partial(seeded_extract, seed=args.seed,
+                                n=args.frames, mode=api.sampling_mode)
+    with engine.lock:
+        return engine._ingest_batches(paths, batched_frames(
+            paths, max_frames=args.frames, sampling_mode=api.sampling_mode,
+            batch_size=ing.batch_size, num_workers=ing.num_decode_workers,
+            prefetch=ing.prefetch_videos, extract_fn=extract))
+
+
+def host_tier(dtype: str, videos: Path, embedder: CLIPEmbedder, args,
+              device, timer: GatherTimer) -> dict:
+    """One tier on this process: an engine from the shared cache through
+    the config path (``corpus_shards`` = the cards of every process,
+    ``corpus_slices`` = the processes), an ingest, HOST_SINGLES singles
+    and HOST_BATCH_ROUNDS batches of 64 (the same queries on every
+    process), the launches and the gathers' ms. Rank 0 holds every
+    process's rows against its own and against the host exact top-10."""
+    dist = torch.distributed
+    rank, procs = dist.get_rank(), dist.get_world_size()
+    config = EngineConfig()
+    config.index.device_dtype = dtype
+    config.index.corpus_shards = torch.cuda.device_count() * procs
+    config.index.corpus_slices = procs
+    engine = VideoSearchEngine(str(videos), config=config, embedder=embedder,
+                               device=device)
+    mesh = engine.index.mesh
+    require(mesh.multiprocess and mesh.process_count == procs
+            and mesh.n_local == torch.cuda.device_count(),
+            f"[hosts {dtype}] mesh {mesh}")
+    t0 = time.perf_counter()
+    engine.startup()
+    startup_s = time.perf_counter() - t0
+    n_base = args.videos * args.frames
+    require(len(engine.index) == n_base, f"[hosts {dtype}] startup rows")
+    t0 = time.perf_counter()
+    added = host_ingest(engine, args)
+    ingest_s = time.perf_counter() - t0
+    require(added == HOST_INGEST_VIDEOS * args.frames, "host ingest rows")
+    rng = np.random.default_rng(args.seed + 23)
+    singles = [words(rng, 4) for _ in range(HOST_SINGLES)]
+    batch = [words(rng, 4) for _ in range(64)]
+    timer.take()
+    zero_launches()
+    single_rows, lat, gather1 = [], [], []
+    for q in singles:
+        t0 = time.perf_counter()
+        rows, _ = engine.search_ex(q, k=K, use_cache=False)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        single_rows.append(rows)
+        gather1 += timer.take()
+    batch_rows, blat, gather64 = None, [], []
+    for _ in range(HOST_BATCH_ROUNDS):
+        t0 = time.perf_counter()
+        rows = engine.search_batch(batch, k=K)
+        torch.cuda.synchronize()
+        blat.append(time.perf_counter() - t0)
+        gather64 += timer.take()
+        require(batch_rows is None or rows == batch_rows,
+                f"[hosts {dtype}] batch rounds disagree")
+        batch_rows = rows
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    require(len(gather1) == HOST_SINGLES
+            and len(gather64) == HOST_BATCH_ROUNDS,
+            f"[hosts {dtype}] gathers {len(gather1)}, {len(gather64)}")
+    check_launches(f"hosts {dtype} rank {rank}", engine, launches,
+                   HOST_SCANS[dtype])
+    out = {"startup_s": startup_s, "ingest_s": ingest_s,
+           "single_p50_ms": 1e3 * float(np.median(lat)),
+           "batch_p50_ms": 1e3 * float(np.median(blat)),
+           "gather_ms_b1_p50": float(np.median(gather1)),
+           "gather_ms_b64_p50": float(np.median(gather64)),
+           "launches": {k: v for k, v in launches.items() if v}}
+    served = (singles, single_rows, batch, batch_rows)
+    everyone = [None] * procs
+    dist.all_gather_object(everyone, (out, single_rows, batch_rows))
+    if rank == 0:
+        for r, (_, s_rows, b_rows) in enumerate(everyone):
+            require(s_rows == single_rows and b_rows == batch_rows,
+                    f"[hosts {dtype}] rank {r}'s rows differ from rank 0's")
+        corpus = engine.index._emb[: len(engine.index)]
+
+        def name_of(row: int) -> str:
+            if row < n_base:
+                return video_name(row // args.frames)
+            return ingest_name((row - n_base) // args.frames)
+
+        check_served(dtype, embedder, corpus, name_of, served, device,
+                     tag=f"hosts {dtype}")
+        log(f"[hosts {dtype}] every one of {procs} processes returned the "
+            f"same rows")
+    engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ranks": [o for o, _, _ in everyone]}
+
+
+def gather_alone(timer: GatherTimer, device, iters: int = 20) -> dict:
+    """The merge's collective alone: an ``all_gather`` of the bf16 tier's
+    ``[1, B, 2, 128]`` int32 buffer at B = 1 and 64, every one started
+    right after a barrier and a synchronise (so the wait for a slower
+    process, which the searches' gathers include, is left out); p50 ms."""
+    dist = torch.distributed
+    out = {}
+    for b in (1, 64):
+        buf = torch.zeros((1, b, 2, 128), dtype=torch.int32, device=device)
+        got = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
+        ms = []
+        for i in range(iters + 3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            dist.all_gather(got, buf)
+            taken = timer.take()
+            if i >= 3:                  # three warm-up gathers
+                ms += taken
+        out[f"b{b}_p50_ms"] = float(np.median(ms))
+    return out
+
+
+def host_child(args) -> int:
+    """One process of ``--hosts N`` (``VQT_COORDINATOR``,
+    ``VQT_NUM_PROCESSES``, ``VQT_PROCESS_ID`` and ``CUDA_VISIBLE_DEVICES``
+    set by the parent): every tier over the shared cache in
+    ``args.host_child``; rank 0 writes the summary beside it."""
+    logging.basicConfig(level=logging.WARNING)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    require(initialize_distributed(device, timeout_s=HOST_COLLECTIVE_S),
+            "VQT_COORDINATOR is not set")
+    rank = torch.distributed.get_rank()
+    kernels.lib()                       # built by the parent's phase 2
+    embedder = CLIPEmbedder(dtype=torch.bfloat16, device=device,
+                            seed=args.seed)
+    out = {}
+    try:
+        with GatherTimer() as timer:
+            for dtype in HOST_TIERS:
+                t0 = time.perf_counter()
+                out[dtype] = host_tier(dtype, args.host_child, embedder,
+                                       args, device, timer)
+                out[dtype]["seconds"] = time.perf_counter() - t0
+                log(f"[hosts {dtype}] rank {rank}: "
+                    + json.dumps(out[dtype]["ranks"][rank]))
+            alone = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(alone,
+                                                gather_alone(timer, device))
+            out["gather_alone"] = alone
+        if rank == 0:
+            (args.host_child / "summary.json").write_text(json.dumps(out))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_hosts(n_hosts: int, args, device, smi: str) -> dict:
+    """Phase 12's multi-process half: one 2M-row x 512 pickle v1.0 cache
+    (drawn on the card, written once), then ``n_hosts`` processes of
+    ``chip_smoke.py --host-child``, each on its own visible cards with
+    ``VQT_COORDINATOR``, ``VQT_NUM_PROCESSES`` and ``VQT_PROCESS_ID`` set;
+    a failed or timed-out child fails the phase."""
+    cards = torch.cuda.device_count()
+    require(n_hosts >= 2 and cards % n_hosts == 0,
+            f"--hosts {n_hosts} over {cards} visible cards")
+    per = cards // n_hosts
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = (visible.split(",") if visible else
+           [str(i) for i in range(cards)])
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    n = args.videos * args.frames
+    with tempfile.TemporaryDirectory(dir=scratch) as videos:
+        videos = Path(videos)
+        t0 = time.perf_counter()
+        corpus = corpus_on_card_rows(device, args.seed + 21, n, DIM)
+        write_cache(corpus, args.frames, videos / "video_search_cache.pkl")
+        del corpus
+        log(f"[hosts] cache of {n} rows x {DIM} written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs, logs = [], []
+        for rank in range(n_hosts):
+            env = dict(os.environ, VQT_COORDINATOR=f"127.0.0.1:{port}",
+                       VQT_NUM_PROCESSES=str(n_hosts),
+                       VQT_PROCESS_ID=str(rank),
+                       CUDA_VISIBLE_DEVICES=",".join(
+                           ids[rank * per:(rank + 1) * per]))
+            logs.append(open(videos.parent / f"host-{port}-{rank}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--host-child", str(videos), "--seed", str(args.seed),
+                 "--videos", str(args.videos), "--frames",
+                 str(args.frames)], cwd=ROOT, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, HOST_RUN_S
+                                   - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        codes = [p.returncode for p in procs]
+        for rank, f in enumerate(logs):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            os.unlink(f.name)
+            tail = text if rank == 0 or codes[rank] else text[-2000:]
+            log(f"---- host process {rank} (exit {codes[rank]}) ----\n"
+                + tail.rstrip())
+        require(all(c == 0 for c in codes),
+                f"[hosts] a process failed: exit codes {codes}")
+        summary = json.loads((videos / "summary.json").read_text())
+    summary["processes"], summary["cards_each"] = n_hosts, per
+    log(f"[hosts] {n_hosts} processes x {per} card(s) on {smi}: " + ", ".join(
+        f"{d}: single p50 "
+        + "/".join(f"{r['single_p50_ms']:.2f}" for r in summary[d]["ranks"])
+        + " ms, batch of 64 p50 "
+        + "/".join(f"{r['batch_p50_ms']:.2f}" for r in summary[d]["ranks"])
+        + " ms, all_gather p50 at B = 1 "
+        + "/".join(f"{r['gather_ms_b1_p50']:.4f}"
+                   for r in summary[d]["ranks"])
+        + " ms, at B = 64 "
+        + "/".join(f"{r['gather_ms_b64_p50']:.4f}"
+                   for r in summary[d]["ranks"]) + " ms"
+        for d in HOST_TIERS) + " (per rank); the all_gather alone, after a "
+        "barrier, p50 at B = 1 "
+        + "/".join(f"{r['b1_p50_ms']:.4f}" for r in summary["gather_alone"])
+        + " ms, at B = 64 "
+        + "/".join(f"{r['b64_p50_ms']:.4f}" for r in summary["gather_alone"])
+        + " ms")
+    return summary
+
+
+def data_mesh_launches(dm: dict, hosts) -> dict:
+    """Phase 12's launches for the kernels line: B5, B6 and B2 a data-mesh
+    part; the data-mesh engine's ingest (B5, B6) and searches (B1, B2,
+    B3); with the processes' half, each process's scans (B10, B11, B8) in
+    each tier."""
+    out = {"attn_half": {"a_part": dm["vision_launches_a_part"]["attn_half"],
+                         "ingest": dm["ingest"]["launches"]["attn_half"]},
+           "mlp_half": {"a_part": dm["vision_launches_a_part"]["mlp_half"],
+                        "ingest": dm["ingest"]["launches"]["mlp_half"]},
+           "fused_text_layer": {
+               "a_part": dm["text_launches_a_part"]["fused_layer"],
+               "search": dm["launches"]["fused_layer"]},
+           "attention": {"search": dm["launches"]["attention"]},
+           "cand_scan_prefix": {"search": dm["launches"]["cand_scan_prefix"]}}
+    if hosts is not None:
+        for dtype, scan in HOST_SCANS.items():
+            out.setdefault(scan, {})[f"processes_{dtype}"] = [
+                r["launches"].get(scan, 0) for r in hosts[dtype]["ranks"]]
+    return out
+
+
 _AB_RUN = """
 import json, sys, numpy as np, torch
 sys.path.insert(0, ".")
@@ -5107,11 +5585,18 @@ def main() -> int:
     ap.add_argument("--pp-cards", type=int, default=0, metavar="N",
                     help="only ViT-L/14's pipelined encode over N cards "
                          "(stage s on cuda:s) against its sequential tower")
+    ap.add_argument("--hosts", type=int, default=0, metavar="N",
+                    help="only phase 12's multi-process half: N processes "
+                         "serving one corpus over the visible cards")
+    ap.add_argument("--host-child", type=Path, default=None,
+                    metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    if args.host_child is not None:
+        return host_child(args)
     if args.ab is not None:
         return phase_ab(args.ab.resolve(), args)
     device = torch.device("cuda", 0)
@@ -5147,6 +5632,12 @@ def main() -> int:
             tr = phase_train(args, device, smi)
         log(f"phase 10 kernels ({smi}): "
             + json.dumps(train_kernel_entries(tr)))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.hosts:
+        with timed(f"12, {args.hosts} processes"):
+            hosts = phase_hosts(args.hosts, args, device, smi)
+        log(f"phase 12 processes summary ({smi}): " + json.dumps(hosts))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.pp_cards:
@@ -5210,6 +5701,16 @@ def main() -> int:
     with timed("10, training"):
         tr = phase_train(args, device, smi)
     tw = phase_towers(embedder, l14, args, device, smi)
+    with timed("12, data mesh"):
+        dm = phase_data_mesh(embedder, args, device, smi)
+    hosts = None
+    if torch.cuda.device_count() >= 2:
+        with timed(f"12, {torch.cuda.device_count()} processes"):
+            hosts = phase_hosts(torch.cuda.device_count(), args, device, smi)
+    else:
+        log("phase 12's multi-process half skipped: "
+            f"{torch.cuda.device_count()} card visible, it needs 2 or more "
+            "(chip_smoke.py --hosts N runs it on N or more cards)")
     l14_ingest = ck["vit-l-14"]["ingest"]["launches"]
     l14_search = ck["vit-l-14"]["launches"]
     src = "video_quierer_tpu_torch/csrc/"
@@ -5330,6 +5831,8 @@ def main() -> int:
     kernels_line["kernels"] += train_kernel_entries(tr)
     # phase 11: the MoE, MoE-training and pp paths
     towers_launches = tower_launches(tw)
+    # phase 12: the data mesh's parts, its engine, and the processes' scans
+    mesh_launches = data_mesh_launches(dm, hosts)
     for entry in kernels_line["kernels"]:
         if entry["name"] in slice_launches:
             entry["phase8_launches"] = slice_launches[entry["name"]]
@@ -5337,6 +5840,8 @@ def main() -> int:
             entry["phase9_launches"] = ckpt_launches[entry["name"]]
         if entry["name"] in towers_launches:
             entry["phase11_launches"] = towers_launches[entry["name"]]
+        if entry["name"] in mesh_launches:
+            entry["phase12_launches"] = mesh_launches[entry["name"]]
     log(f"phase 7 and 8 summary ({smi}; host-clock p50 ms per route, device "
         "ranking ms by CUDA events): " + json.dumps(surface))
     log(f"phase 9 summary ({smi}; load seconds by stage, launches): "
@@ -5344,6 +5849,8 @@ def main() -> int:
     log(f"phase 10 summary ({smi}): " + json.dumps(
         {k: v for k, v in tr.items() if k != "attention"}))
     log(f"phase 11 summary ({smi}): " + json.dumps(tw))
+    log(f"phase 12 summary ({smi}): " + json.dumps(
+        {"data_mesh": dm, "processes": hosts}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)

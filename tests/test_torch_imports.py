@@ -4,8 +4,8 @@ every module of video_quierer_tpu_torch (the corpus-mesh modules
 ``models/siglip``, the HTTP API's ``api/``, the samplers, the
 ``use_clip = false`` encoders, the CLI, the checkpoint converters, the
 trainer's ``train/``, the Switch-MoE and pipeline modules of
-``parallel/`` and the native decode tier's ``ingest/native.py`` among
-them) leaves jax, flax, optax, orbax, aiohttp, pydantic, cv2, yt_dlp,
+``parallel/``, the native decode tier's ``ingest/native.py`` and the
+multi-process and data meshes of ``parallel/mesh.py`` among them) leaves jax, flax, optax, orbax, aiohttp, pydantic, cv2, yt_dlp,
 safetensors and transformers out of ``sys.modules``, builds no kernel,
 spawns no process and loads no native library."""
 
@@ -113,9 +113,53 @@ def test_mesh_entry_points_default_to_the_card(monkeypatch):
         mesh.multislice_corpus_mesh(3, 4, devices=["cpu"] * 4)
     monkeypatch.delenv("VQT_COORDINATOR", raising=False)
     assert mesh.initialize_distributed() is False
-    monkeypatch.setenv("VQT_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        mesh.initialize_distributed()
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            mesh.data_mesh(4)
+    dm = mesh.data_mesh(devices=["cpu"] * 4, model_parallel=2)
+    assert dm.shape == {mesh.DATA_AXIS: 2, mesh.MODEL_AXIS: 2}
+    assert len(dm.data_devices) == 2
+
+
+GROUP_SCRIPT = r"""
+import json, os, socket
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+os.environ.update(VQT_COORDINATOR=f"127.0.0.1:{port}", VQT_NUM_PROCESSES="1",
+                  VQT_PROCESS_ID="0")
+import torch.distributed as dist
+from video_quierer_tpu_torch.parallel import mesh
+first = mesh.initialize_distributed("cpu", timeout_s=30)
+out = {"first": first, "formed": dist.is_initialized(),
+       "backend": dist.get_backend(), "world": dist.get_world_size(),
+       "again": mesh.initialize_distributed("cpu")}
+try:
+    mesh.initialize_distributed("cuda")
+except ValueError as e:
+    out["cuda"] = str(e)
+m = mesh.multislice_corpus_mesh(1, devices=["cpu"] * 2)
+out["mesh"] = [m.n_shards, m.multiprocess]
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_env_gated_init_forms_the_group():
+    """With ``VQT_COORDINATOR`` set, ``initialize_distributed`` forms the
+    default process group (gloo for the CPU) and returns True; a second
+    call returns True without a new rendezvous; a CUDA device asks for
+    NCCL and is refused on a gloo group, never served by it. A group of
+    one process leaves the corpus mesh in one process."""
+    out = subprocess.run([sys.executable, "-c", GROUP_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["first"] is True and got["formed"] is True
+    assert got["backend"] == "gloo" and got["world"] == 1
+    assert got["again"] is True
+    assert "nccl" in got["cuda"]
+    assert got["mesh"] == [2, False]
 
 
 def test_train_modules_are_walked(report):

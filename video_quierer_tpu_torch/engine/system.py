@@ -5,7 +5,26 @@ One engine, one config, one index — on one device, or with its mirror
 sharded over a corpus mesh (``corpus_mesh=``, or ``index.corpus_shards``
 and ``index.corpus_slices``: ``parallel/mesh.py``, ``index/sharded.py``;
 the IVF tier then spreads its clusters over the mesh, except on a
-multi-slice one, where it keeps one replica on the first device):
+multi-slice one or one that spans processes, where it keeps one replica
+on the first device of each process). ``mesh=`` (a data mesh,
+``parallel/mesh.py:data_mesh``) is handed to the CLIP embedder it builds,
+which then splits frame and text batches over its ``data`` axis (SigLIP's
+embedder takes none, as in the JAX package).
+
+**Multi-process serving** (``index.corpus_slices > 1`` with
+``VQT_COORDINATOR``, ``VQT_NUM_PROCESSES`` and ``VQT_PROCESS_ID`` set):
+the engine joins the process group (``initialize_distributed``, NCCL on
+the card, gloo on the CPU) and its corpus mesh spans every process, each
+holding its own shards. The engine is then SPMD, as the JAX one: every
+process makes the same calls in the same order (startup, ingests,
+searches, removals), since each search's merge is a collective. Writes to
+the shared videos dir (the pickle cache, its config hash, the cache's
+removal) are made by process 0 alone while the others wait
+(``CorpusMesh.on_first_process``). The query cache's TTL and the
+coalescer's flush timer decide by each process's clock, so they can skip
+a collective on one process and not another: multi-process callers search
+with ``use_cache=False`` and not through the coalescer (a mismatch ends
+in the collectives' timeout, never in a silent wrong answer).
 
 - ``startup``: load the pickle v1.0 cache, diff the videos dir by
   md5(name, size, mtime), ingest the new and changed videos (all of them
@@ -98,6 +117,7 @@ from video_quierer_tpu_torch.ops.preprocess import \
 from video_quierer_tpu_torch.ops.topk import MAX_K
 from video_quierer_tpu_torch.parallel.mesh import (
     CorpusMesh,
+    DataMesh,
     corpus_mesh as make_corpus_mesh,
     initialize_distributed,
     multislice_corpus_mesh,
@@ -122,11 +142,14 @@ class VideoSearchEngine:
                  config: Optional[EngineConfig] = None,
                  embedder=None,
                  device: str | torch.device = "cuda",
-                 corpus_mesh: Optional[CorpusMesh] = None):
+                 corpus_mesh: Optional[CorpusMesh] = None,
+                 mesh: Optional[DataMesh] = None):
         """``device``: the towers' (and an unsharded index's) device.
         ``corpus_mesh``: shard the index over it; None builds one from
         ``index.corpus_shards`` (> 0: the first that many CUDA devices,
-        split into ``index.corpus_slices`` slices when > 1)."""
+        split into ``index.corpus_slices`` slices when > 1; then, with
+        ``VQT_COORDINATOR`` set, over the devices of every process).
+        ``mesh``: the CLIP embedder's data mesh."""
         self.config = config or load_engine_config()
         if self.config.model.family == "siglip" and \
                 self.config.index.embed_dim == 512:
@@ -139,7 +162,7 @@ class VideoSearchEngine:
         idx = self.config.index
         if corpus_mesh is None and idx.corpus_shards > 0:
             if idx.corpus_slices > 1:
-                initialize_distributed()
+                initialize_distributed(self.device)
                 corpus_mesh = multislice_corpus_mesh(
                     idx.corpus_slices, n_devices=idx.corpus_shards)
             else:
@@ -148,6 +171,7 @@ class VideoSearchEngine:
             dim=idx.embed_dim, device_dtype=idx.device_dtype,
             device=self.device, device_rerank=idx.device_rerank,
             rerank_store_dtype=idx.rerank_store_dtype, mesh=corpus_mesh)
+        self.mesh = mesh
         self.metrics = SystemMetrics()
         for name in ("embed_fallbacks", "fused_search_fallbacks"):
             self.metrics.inc(name, 0)
@@ -204,7 +228,8 @@ class VideoSearchEngine:
                     CLIPEmbedder
                 self._embedder = CLIPEmbedder(
                     model_name=m.name, parallel=m.parallel,
-                    pipeline_microbatches=m.pipeline_microbatches, **kw)
+                    pipeline_microbatches=m.pipeline_microbatches,
+                    mesh=self.mesh, **kw)
             if self.config.cache.frame_memo_size > 0:
                 from video_quierer_tpu_torch.models.clip.embedder import \
                     MemoizedEmbedder
@@ -294,8 +319,10 @@ class VideoSearchEngine:
                             len(stale))
                 self._ingest(stale)
             if stale or not loaded:
-                self.index.save_to_disk(self.cache_path)
-            self._config_hash_path.write_text(self._config_hash())
+                self._write_once(
+                    lambda: self.index.save_to_disk(self.cache_path))
+            self._write_once(lambda: self._config_hash_path.write_text(
+                self._config_hash()))
             self.index.sync_mirror()
             if self._ivf is None:
                 self._maybe_build_ivf()
@@ -303,6 +330,16 @@ class VideoSearchEngine:
         self._ready = True
         self.metrics.set_gauge("frames_indexed", len(self.index))
         logger.info("Startup complete: %d frames indexed", len(self.index))
+
+    def _write_once(self, fn: Callable):
+        """``fn()``, a write to the shared videos dir: on a corpus mesh
+        that spans processes only process 0 makes it, the others waiting
+        for it (the save writes the file in place, so two processes must
+        not write one path); its result on every process."""
+        mesh = self.index.mesh
+        if mesh is None:
+            return fn()
+        return mesh.on_first_process(fn)
 
     def _warm_up(self) -> None:
         """Run the fused text-search path once for each shape its first
@@ -441,7 +478,7 @@ class VideoSearchEngine:
         if cfg.kind != "ivf" or self.index.count < cfg.ivf_min_rows:
             return
         mesh = self.index.mesh
-        if mesh is not None and mesh.multislice:
+        if mesh is not None and (mesh.multislice or mesh.multiprocess):
             mesh = None         # one replica on the index's first device
         ivf = IVFIndex(nlist=cfg.ivf_nlist or None, nprobe=cfg.ivf_nprobe,
                        mesh=mesh, device=self.index.device)
@@ -778,7 +815,8 @@ class VideoSearchEngine:
             self._ivf_rows = 0
             self.query_cache.invalidate_all()
             added = self._ingest(self.current_videos())
-            self.index.save_to_disk(self.cache_path)
+            self._write_once(
+                lambda: self.index.save_to_disk(self.cache_path))
         return added
 
     def clear(self) -> None:
@@ -789,15 +827,15 @@ class VideoSearchEngine:
             self._ivf = None
             self._ivf_rows = 0
             self.query_cache.invalidate_all()
-            if self.cache_path.exists():
-                self.cache_path.unlink()
+            self._write_once(lambda: self.cache_path.unlink(
+                missing_ok=True))
         self.metrics.set_gauge("frames_indexed", 0)
 
     def save(self, path: Optional[Path] = None) -> bool:
         """Write the pickle cache (to ``path``, else the videos dir's)."""
         with self.lock:
-            return self.index.save_to_disk(Path(path) if path
-                                           else self.cache_path)
+            return self._write_once(lambda: self.index.save_to_disk(
+                Path(path) if path else self.cache_path))
 
     def load(self, path: Optional[Path] = None) -> bool:
         """Load a pickle cache (from ``path``, else the videos dir's):

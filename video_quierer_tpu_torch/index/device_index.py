@@ -36,9 +36,15 @@ flipped) re-places the mirror.
 capacity is a multiple of the shard count times the kernels' blocks, the
 mirror (rows or codes, scales, perm column) is split row-wise over the
 shards' devices (``index/sharded.py``), and every search runs the
-per-shard scans and the merge on the first device; candidates re-rank on
-the host. Any change re-places the whole mirror at the next search
-(appends do not stream into it), as in the reference.
+per-shard scans and the merge; candidates re-rank on the host. Any change
+re-places the whole mirror at the next search (appends do not stream into
+it), as in the reference. On a mesh that spans processes each process's
+mirror holds only its own shards (:meth:`_full_place` quantizes and
+uploads only those rows), while every process keeps the whole host f32
+store, as every JAX process holds the same host arrays: the f32 re-rank,
+the host video ranking and the similar-frame lookups stay local, and a
+search's one collective is the merge's ``all_gather``. Every process
+must then make the same searches in the same order.
 
 Searches: :meth:`search_batch` (query vectors) and
 :meth:`search_batch_fused_async` (token ids: text encode + scan + re-rank
@@ -84,9 +90,10 @@ import torch
 
 from video_quierer_tpu_torch.index.sharded import (
     is_multislice,
+    local_rows,
     multislice_cosine_topk,
     multislice_cosine_topk_int8,
-    shard_corpus,
+    place_local,
     sharded_cosine_topk,
     sharded_cosine_topk_int8,
 )
@@ -262,8 +269,8 @@ class DeviceVideoIndex:
                  rerank_store_dtype: str = "float32",
                  mesh: Optional[CorpusMesh] = None):
         """``mesh``: shard the mirror over a corpus mesh; queries, merges
-        and results then live on its first device (``device`` is not
-        read)."""
+        and results then live on its first device (this process's first
+        device on a mesh that spans processes; ``device`` is not read)."""
         if device_dtype not in DEVICE_DTYPES:
             raise ValueError(f"unsupported device_dtype {device_dtype!r}")
         if device_dtype == "int4" and mesh is not None:
@@ -609,10 +616,19 @@ class DeviceVideoIndex:
                 if self._mirror_layout_cur in ("perm", "prefix") else None)
 
     def _place(self, t: torch.Tensor, dtype: Optional[torch.dtype] = None):
-        """A host tensor on the index's device, or split over the mesh."""
+        """A host tensor on the index's device, or (on a mesh: the rows of
+        this process's shards, :meth:`_mirror_rows`) split over its
+        local shards."""
         if self.mesh is None:
             return t.to(self.device, dtype)
-        return shard_corpus(t, self.mesh, dtype)
+        return place_local(t, self.mesh, dtype)
+
+    def _mirror_rows(self, cap: int) -> slice:
+        """The mirror positions this process places: all of them, or on a
+        mesh its shards' rows."""
+        if self.mesh is None:
+            return slice(0, cap)
+        return slice(*local_rows(cap, self.mesh))
 
     def _put(self, rows: np.ndarray, pos: Optional[torch.Tensor] = None,
              lo: int = 0) -> None:
@@ -636,7 +652,9 @@ class DeviceVideoIndex:
         elif layout == "perm":
             self._require_perm(cap)
         self._device_emb = self._device_scales = self._perm_dev = None
-        rows = self._emb if layout == "id" else self._emb[self._perm]
+        mine = self._mirror_rows(cap)
+        rows = (self._emb[mine] if layout == "id"
+                else self._emb[self._perm[mine]])
         if self._codes:
             codes, scales = self._quantize_host(rows)
             self._device_emb = self._place(torch.from_numpy(codes))
@@ -645,7 +663,7 @@ class DeviceVideoIndex:
             self._device_emb = self._place(torch.from_numpy(rows),
                                            self._row_dtype)
         if layout != "id":
-            self._perm_dev = self._place(torch.from_numpy(self._perm))
+            self._perm_dev = self._place(torch.from_numpy(self._perm[mine]))
         self._mirror_layout_cur = layout
         self._device_cap = cap
         self._device_rows = self._count

@@ -393,6 +393,10 @@ class IVFIndex:
                  rebuild_fraction: float = 0.25,
                  mesh: Optional[CorpusMesh] = None,
                  device: str | torch.device = "cuda"):
+        if mesh is not None and mesh.multiprocess:
+            raise ValueError("the IVF tier spreads over one process's "
+                             "devices; on a mesh that spans processes each "
+                             "process keeps its own replica (mesh=None)")
         self.mesh = mesh
         # a multi-slice mesh's first slice
         self._devices = None if mesh is None else mesh.devices[:mesh.per_slice]

@@ -26,6 +26,19 @@ text (counterpart of ``video_quierer_tpu/models/clip/embedder.py``).
   takes the fused-layer encode (kernel B2); everything else — single
   queries, small batches, the 77 bucket — takes the module tower
   (attention kernel B3).
+- ``mesh`` (a :class:`~video_quierer_tpu_torch.parallel.mesh.DataMesh`,
+  JAX ``CLIPEmbedder(mesh=..., data_axis="data")``): data-parallel
+  serving. The module is replicated once per data row's first device; a
+  batch that divides the ``data`` axis splits into equal parts, each
+  encoded on its device against its replica
+  (``ops/fused_layer.py:fused_encode_shards``): the fused encodes (B5 +
+  B6, B2) where each PART clears the gates (``_fused_shard_ok``), else the
+  module tower (B3) per part; the rows gather onto the embedder's device.
+  A batch that does not divide the axis (a single query's bucket of 1)
+  runs whole on the embedder's device on the module tower, as the JAX
+  embedder leaves it unsharded. A Switch-MoE tower never splits (its
+  rows depend on the whole bucket). ``parallel="pp"`` with a data mesh
+  raises ``ValueError``.
 
 ``MemoizedEmbedder`` wraps any embedder in a frame-embedding memo
 (``cache.frame_memo_size > 0``).
@@ -50,6 +63,7 @@ the directory holds one, else the deterministic ``HashTokenizer``.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import logging
 import time
@@ -75,6 +89,7 @@ from video_quierer_tpu_torch.ops.fused_layer import (
     LayerOps,
     _layer_operands,
     fused_batch_eligible,
+    fused_encode_shards,
     fused_seq_eligible,
     fused_text_encode,
     fused_text_tower_eligible,
@@ -162,8 +177,8 @@ def place_module(module_cls, cfg, state_dict: Dict[str, torch.Tensor],
 
 
 class CLIPEmbedder:
-    """CLIP image and text encoder with bucketed batching on one
-    device."""
+    """CLIP image and text encoder with bucketed batching on one device,
+    or over a data mesh's devices (``mesh``)."""
 
     def __init__(self,
                  model_name: str = "openai/clip-vit-base-patch32",
@@ -175,12 +190,26 @@ class CLIPEmbedder:
                  orbax_checkpoint: Optional[Path] = None,
                  parallel: str = "none",
                  pipeline_microbatches: int = 4,
-                 pipe_devices: Optional[Sequence] = None):
+                 pipe_devices: Optional[Sequence] = None,
+                 mesh: Optional[mesh_mod.DataMesh] = None,
+                 data_axis: str = mesh_mod.DATA_AXIS):
+        """``mesh``: serve over a data mesh's devices (its ``data_axis``,
+        the JAX embedder's argument, must be ``"data"``); results land on
+        ``device``."""
         self.cfg: CLIPConfig = get_config(model_name)
         self.device = resolve_device(device)
         self.dtype = dtype
         if parallel not in ("none", "pp"):
             raise ValueError(f"unknown parallel mode {parallel!r}")
+        if mesh is not None and data_axis not in mesh.shape:
+            raise ValueError(f"the mesh has no {data_axis!r} axis: "
+                             f"{mesh.shape}")
+        if mesh is not None and parallel == "pp":
+            raise ValueError(
+                "model.parallel='pp' with a data mesh: the port's pipelined "
+                "tower runs on its own pipe of cards (parallel/pipeline.py) "
+                "and does not split batches over a data mesh as well")
+        self.mesh = mesh
         if parallel == "pp" and self.cfg.vision.moe_experts:
             raise ValueError(
                 "model.parallel='pp' pipelines the dense encoder block; a "
@@ -230,6 +259,15 @@ class CLIPEmbedder:
                               and fused_vision_tower_eligible(
                                   self.cfg.vision))
         self._ops: Dict[tuple, List[LayerOps]] = {}
+        # one module a data row: the parameters themselves on the
+        # embedder's device, one copy on each other device
+        self._replicas: List[CLIP] = [self.params]
+        if mesh is not None:
+            by_device = {self.device: self.params}
+            for d in mesh.data_devices:
+                if d not in by_device:
+                    by_device[d] = copy.deepcopy(self.params).to(d)
+            self._replicas = [by_device[d] for d in mesh.data_devices]
         # bound ONCE, as the reference's: callers hand it to the index
         self.text_encode_fn = self._encode_text_fn
 
@@ -240,8 +278,8 @@ class CLIPEmbedder:
         key = (id(params), tower)
         ops = self._ops.get(key)
         if ops is None:
-            if any(k[0] != id(params) for k in self._ops):
-                self._ops = {}
+            live = {id(params)} | {id(r) for r in self._replicas}
+            self._ops = {k: v for k, v in self._ops.items() if k[0] in live}
             ops = self._ops[key] = [_layer_operands(block, self.dtype)
                                     for block in getattr(params,
                                                          tower).layers]
@@ -250,6 +288,47 @@ class CLIPEmbedder:
     @property
     def embed_dim(self) -> int:
         return self.cfg.projection_dim
+
+    def _fused_shard_ok(self, b: int, s: int) -> bool:
+        """Data-mesh serving: the batch splits evenly over the ``data``
+        axis and each PART clears the fused gate (JAX
+        ``_fused_shard_ok``)."""
+        n = len(self._replicas)
+        return b % n == 0 and fused_batch_eligible(b // n, s)
+
+    def _encode_parts(self, params: CLIP, x: torch.Tensor, fused, module,
+                      splits: bool = True) -> torch.Tensor:
+        """Under the data mesh: ``fused(replica, part)`` over the parts
+        when ``fused`` is given, else ``module(replica, part)`` when the
+        batch divides the axis and the tower ``splits``, else
+        ``module(params, x)`` whole on the embedder's device; rows on the
+        embedder's device."""
+        if params is not self.params:
+            raise ValueError("under a data mesh the embedder encodes with "
+                             "its own replicated parameters")
+        split = fused or (module if splits and x.shape[0] % len(
+            self._replicas) == 0 else None)
+        with torch.inference_mode():
+            if split is None:
+                return module(params, x.to(self.device))
+            return fused_encode_shards(split, self._replicas, self.mesh,
+                                       x).to(self.device)
+
+    def _encode_image_mesh(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """``[B, H, W, 3]`` uint8 (host or device) over the data mesh."""
+        def norm(part):
+            return normalize_images(part, dtype=self.dtype)
+        fused = None
+        if self._fused_vision and self._fused_shard_ok(
+                frames_u8.shape[0], self.cfg.vision.seq_len):
+            def fused(m, part):
+                return fused_vision_encode(m, norm(part),
+                                           self._layer_ops(m, "vision"))
+        # a Switch-MoE row depends on its whole bucket: never split
+        return self._encode_parts(
+            self.params, frames_u8, fused,
+            lambda m, part: m.encode_image(norm(part)),
+            splits=not self.cfg.vision.moe_experts)
 
     def _encode_image_fn(self, params: CLIP,
                          frames_u8: torch.Tensor) -> torch.Tensor:
@@ -295,9 +374,13 @@ class CLIPEmbedder:
             if chunk.shape[0] < bucket:
                 chunk = np.concatenate([chunk, np.zeros(
                     (bucket - chunk.shape[0],) + chunk.shape[1:], np.uint8)])
-            batch = torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                self.device)
-            parts.append(self._encode_image_fn(self.params, batch))
+            batch = torch.from_numpy(np.ascontiguousarray(chunk))
+            if self.mesh is not None:
+                # each part goes from the host to its own device
+                parts.append(self._encode_image_mesh(batch))
+                continue
+            parts.append(self._encode_image_fn(self.params,
+                                               batch.to(self.device)))
         feats_dev = parts[0] if len(parts) == 1 else torch.cat(parts)
         return feats_dev, feats_dev[:n].cpu().numpy()
 
@@ -305,6 +388,14 @@ class CLIPEmbedder:
                         input_ids: torch.Tensor) -> torch.Tensor:
         """``[B, S]`` ids on the device → ``[B, proj]`` f32 unit rows."""
         b, s = input_ids.shape
+        if self.mesh is not None:
+            fused = None
+            if self._fused_text and fused_seq_eligible(s) \
+                    and self._fused_shard_ok(b, s):
+                def fused(m, part):
+                    return fused_text_encode(m, part, self._layer_ops(m))
+            return self._encode_parts(params, input_ids, fused,
+                                      lambda m, part: m.encode_text(part))
         with torch.inference_mode():
             if self._fused_text and fused_seq_eligible(s) \
                     and fused_batch_eligible(b, s):

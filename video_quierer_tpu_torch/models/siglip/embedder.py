@@ -132,6 +132,9 @@ class SigLIPEmbedder(CLIPEmbedder):
         self.tokenizer = siglip_tokenizer(self.cfg, checkpoint_dir)
         self._fused_text = fused_text_tower_eligible(self.cfg.text)
         self._ops: Dict[tuple, List[LayerOps]] = {}
+        # no data mesh: the JAX SigLIP embedder takes none
+        self.mesh = None
+        self._replicas = [self.params]
         self.text_encode_fn = self._encode_text_fn
 
     @property

@@ -29,6 +29,11 @@ final LN → projection → f32 L2 normalise); :func:`fused_vision_encode` the
 drop-in for ``CLIP.encode_image`` (patchify → class token + positions →
 pre-LN → blocks → CLS pooling → post-LN → projection → f32 L2 normalise).
 
+:func:`fused_encode_shards` is the data mesh's counterpart of the
+reference's ``fused_encode_shard_map``: a batch split over the mesh's
+``data`` axis, each part encoded on its own device against that
+device's replica, the rows gathered in order.
+
 Routing is the port's own, not the TPU's VMEM budgets: a tower whose heads
 are 64 wide and whose width divides by 64 takes the fused encode when
 ``B·S >= MIN_TOKENS`` (the reference's single-batch policy); text also
@@ -39,7 +44,7 @@ pad-token scheme have no counterpart here.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -374,3 +379,24 @@ def fused_vision_encode(model, pixels: torch.Tensor,
                   eps=c.layer_norm_eps, causal=False)
         x2 = mlp(x2, ops, eps=c.layer_norm_eps)
     return vision_head(model, x2, b)
+
+
+def fused_encode_shards(encode, replicas: Sequence, mesh,
+                        x: torch.Tensor) -> torch.Tensor:
+    """The data mesh's encode (JAX ``fused_encode_shard_map``): ``x``
+    (``[b, ...]``, on any device) split into equal parts over the mesh's
+    ``data`` axis, part ``i`` moved to ``mesh.data_devices[i]`` and
+    encoded there by ``encode(replicas[i], part)`` (``[b / n, D]``, the
+    replica's device), the rows gathered onto the first data device in
+    order. Every part is enqueued before any is gathered, so parts on
+    distinct cards overlap. Callers gate on ``b % n == 0`` (and each
+    part's fused eligibility)."""
+    devs = mesh.data_devices
+    n = len(devs)
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                         f"{n} data shards")
+    step = x.shape[0] // n
+    outs = [encode(replicas[i], x[i * step:(i + 1) * step].to(
+        dev, non_blocking=True)) for i, dev in enumerate(devs)]
+    return torch.cat([o.to(devs[0], non_blocking=True) for o in outs])
