@@ -10,6 +10,8 @@ GPU — the quickest proof that the port still starts on the card.
     python3 chip_smoke.py --towers
     python3 chip_smoke.py --pp-cards 4
     python3 chip_smoke.py --hosts 2
+    python3 chip_smoke.py --meshes
+    python3 chip_smoke.py --train-mesh 4
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
 of the text and vision kernel phases (and with ``--ab-scans`` the
@@ -28,7 +30,10 @@ and phase 9; ``--train`` runs phases 1, 2 and 10; ``--towers`` runs
 phases 1, 2 and 11; ``--pp-cards N`` runs phases 1, 2 and ViT-L/14's
 pipelined encode over N cards (stage s on cuda:s; needs N cards);
 ``--hosts N`` runs phases 1, 2 and phase 12's multi-process half over N
-processes (needs N or more cards, a multiple of N).
+processes (needs N or more cards, a multiple of N); ``--meshes`` runs
+phases 1, 2 and phase 13's one-card half; ``--train-mesh N`` runs phases
+1, 2 and phase 13's multi-card half over N cards (an even N, at most the
+cards visible).
 
 Phases (any failure raises, and the script exits non-zero without its
 last line):
@@ -119,8 +124,10 @@ last line):
    kernel of that path must have launched (the layer halves 12 times per
    embed batch), the other kernels not, and both fallback counters must
    read 0;
-5. corpus meshes and the exact-candidate hatch, each an engine over the
-   same cache served through its own entry points (``search_ex`` for 8
+5. corpus meshes and the exact-candidate hatch, each an engine over a
+   smaller cache of the same shapes (the first 1,250 videos x 200 frames
+   of phase 4's corpus: 250,000 rows, written once beside phase 4's)
+   served through its own entry points (``search_ex`` for 8
    single queries, ``search_batch`` for one batch of 64, sent twice: the
    first and the second call's times and their split by the serving
    path's stage spans, ``utils/stageprof.py``, are printed, and the two
@@ -281,7 +288,29 @@ last line):
    and against the host exact top-10 over the grown corpus; each
    ``all_gather`` of the merge is timed by CUDA events; a failed or
    timed-out process fails the run;
-13. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
+13. training meshes (``CLIPTrainer(mesh=...)``, one process). On the one
+   card, ``data_mesh(devices=[cuda:0] * 4)``: B3 under autograd at a
+   data row's part shapes (B = 32, S = 50 with 6 heads, S = 77 causal
+   with 4) against its plain version as phase 10; ViT-B/32 at B = 64 in
+   f32 (warmup-cosine, the clip, the EMA; 3 steps) and in bf16 (2
+   steps) on (data 2, model 2), ``vit-b-32-moe8`` in f32 on (data 2,
+   expert 2) and SigLIP base/16 in f32 at B = 32 on (data 2, model 2)
+   (2 steps each): each first step's loss and gradients against the
+   one-device ``CLIPTrainer`` from the same seed on the same batch (f32
+   loss rtol 1e-5 and every gradient element within rtol 1e-4 / atol
+   1e-6; bf16 loss rtol 1e-2; the MoE tower's tokens dropped per layer
+   equal), then every step B3 the count the mesh implies (data rows x
+   model parts x 24 layers) and nothing else, ms a step beside the
+   one-device trainer's second step, and peak memory; the f32 trainer's
+   checkpoint saved, restored onto one device (bit for bit) and served
+   by a bf16 ``CLIPEmbedder`` (vectors against the trainer's towers,
+   cosine >= MIN_COS), and one more f32 mesh step under
+   ``torch.profiler`` (device-busy share); then the training half of the
+   JAX package's ``dryrun_multichip`` at tiny shapes (a dp x tp CLIP
+   step, a SigLIP step, an EMA + cosine step). With 4 cards visible
+   (``--train-mesh N`` alone: on N), the f32 ViT-B/32 step over
+   ``cuda:0 .. 3`` against the same grid on ``cuda:0``, both timed;
+14. a JSON line of the kernels (B1, B4, B7 and B11 also under ``at_b`` at
    B = 1, 64 and 256, B10 and B11 also under ``shard`` on shard 0 of the
    4-shard layout, B11 there at each B under ``shard_at_b``; B12 under
    ``at_b`` at B = 1 and 64 and, under ``at_b["shard"]``, on shard 0 of
@@ -293,8 +322,9 @@ last line):
    ViT-L/14 path's B3 at S = 257 (launched inside B5), B5, B6 and B2 at
    768 wide, with their phase-9 launches; B3 under autograd in phase
    10's steps, ``attention_train`` with its launches a step, and under
-   remat, ``attention_train_remat``; phase 12's launches under
-   ``phase12_launches``), the nvidia-smi line, and the
+   remat, ``attention_train_remat``; B3 in phase 13's mesh steps,
+   ``attention_train_mesh``, with its launches a step; phase 12's
+   launches under ``phase12_launches``), the nvidia-smi line, and the
    result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -458,6 +488,11 @@ MESH_SHARDS = 4
 MESH_INGEST_VIDEOS = 2
 # the exact-candidate hatch's fetch at k = K (DeviceVideoIndex._rerank_fetch)
 HATCH_K = min(max(4 * K, K + 16), topk.MAX_K)
+# phase 5's engines start from a smaller cache of the same shapes: the first
+# EXTRA_VIDEOS videos of phase 4's corpus (1,250 x 200 = 250,000 rows x
+# 512), so that their seven startups cost less (phase 3 times the kernels
+# at 2M rows)
+EXTRA_VIDEOS = 1_250
 # the engines of phase 5: (name, device_dtype, kind, mesh shards (0: none;
 # -1: index.corpus_shards = 1 through the config), hatch, the scan kernel)
 EXTRA = (("mesh bfloat16", "bfloat16", "exact", MESH_SHARDS, False,
@@ -1725,11 +1760,19 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device, smi: str
     scratch.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(args.seed + 1)
     launches, ingested = {}, {}
-    with tempfile.TemporaryDirectory(dir=scratch) as videos:
+    n_extra = min(EXTRA_VIDEOS, args.videos)
+    with tempfile.TemporaryDirectory(dir=scratch) as videos, \
+            tempfile.TemporaryDirectory(dir=scratch) as small:
         t0 = time.perf_counter()
         write_cache(corpus, args.frames,
                     Path(videos) / "video_search_cache.pkl")
         log(f"pickle v1.0 cache written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        write_cache(corpus[:n_extra * args.frames], args.frames,
+                    Path(small) / "video_search_cache.pkl")
+        log(f"phase 5's pickle v1.0 cache ({n_extra} videos, "
+            f"{n_extra * args.frames} rows) written in "
+            f"{time.perf_counter() - t0:.1f} s")
         del corpus
         surface = {}
         for tier in SCANS:
@@ -1741,8 +1784,8 @@ def phase_end_to_end(embedder: CLIPEmbedder, args, device, smi: str
         extra = {}
         for spec in EXTRA:
             with timed(f"5, {spec[0]} engine"):
-                extra[spec[0]] = serve_extra(spec, videos, embedder, args,
-                                             rng, device, surface)
+                extra[spec[0]] = serve_extra(spec, small, n_extra, embedder,
+                                             args, rng, device, surface)
         # phase 4's bf16 engine again, once phase 5's engines are done
         with timed("8, phase 4's bf16 engine: keyword, profiler"):
             surface["2m"] = phase_big_engine(bf16_engine, videos,
@@ -1863,9 +1906,11 @@ def check_launches(tag: str, engine: VideoSearchEngine, launches: dict,
         "fused_search_fallbacks 0")
 
 
-def serve_extra(spec: tuple, videos: str, embedder: CLIPEmbedder, args,
-                rng, device, surface: dict) -> dict:
-    """One phase-5 engine over the cache (see EXTRA): startup, for the
+def serve_extra(spec: tuple, videos: str, n_videos: int,
+                embedder: CLIPEmbedder, args, rng, device,
+                surface: dict) -> dict:
+    """One phase-5 engine over the cache of ``n_videos`` videos in
+    ``videos`` (see EXTRA): startup, for the
     bf16 mesh first an ingest of MESH_INGEST_VIDEOS seeded videos, then 8
     single searches and one batch of 64 through the engine's own entry
     points, the launch counters set to 0 just before and read just after;
@@ -1888,7 +1933,7 @@ def serve_extra(spec: tuple, videos: str, embedder: CLIPEmbedder, args,
         t0 = time.perf_counter()
         engine.startup()
         require_seeded(tag, engine)
-        index, n_base = engine.index, args.videos * args.frames
+        index, n_base = engine.index, n_videos * args.frames
         require(len(index) == n_base, f"[{tag}] startup row count")
         mode = engine.accuracy_mode()
         require(mode == MODES.get(kind, MODES.get(dtype, "exact-f32-rerank")),
@@ -3965,7 +4010,7 @@ def attention_train_bound(b: int, s: int, d: int, causal: bool, dtype,
                  "bf16" if dtype == torch.bfloat16 else "f32")
 
 
-def compare_attention_grad(dev) -> dict:
+def compare_attention_grad(dev, shapes=TRAIN_ATTN_SHAPES) -> dict:
     """B3 under autograd (its Function: the kernel forward, the einsum VJP
     backward) against autograd through its plain version, at the
     trainer's shapes in f32 and bf16: the output and dq, dk, dv within
@@ -3975,7 +4020,7 @@ def compare_attention_grad(dev) -> dict:
     (the yardstick), and under remat (a forward without grad, then the
     forward and backward again). Returns {(S, dtype): numbers}."""
     out = {}
-    for b, s, heads, causal in TRAIN_ATTN_SHAPES:
+    for b, s, heads, causal in shapes:
         d = 64 * heads
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(2000 * s + b)
@@ -5354,6 +5399,446 @@ def data_mesh_launches(dm: dict, hosts) -> dict:
     return out
 
 
+# -- phase 13: training meshes ------------------------------------------------
+
+# the one-card mesh: [cuda:0] x 4 as (data 2, model 2) or (data 2, expert 2)
+MESH_DATA, MESH_PARTS = 2, 2
+MESH_STEPS = 3
+MESH_SIGLIP_B = 32
+# each mesh's first step against the one-device trainer from the same seed
+# on the same batch: the loss (rtol by dtype) and, in f32, every gradient
+# element by element (rtol, atol)
+MESH_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+MESH_GRAD_TOL = (1e-4, 1e-6)
+# B3 under autograd at a mesh part's shapes: a data row of 32 frames, 6 of
+# the vision tower's 12 heads; 4 of the text tower's 8
+MESH_ATTN_SHAPES = ((32, 50, 6, False), (32, 77, 4, True))
+# the analogue of the JAX package's dryrun_multichip (its training half):
+# tiny towers whose heads are the kernel's 64 wide
+DRYRUN_CLIP, DRYRUN_IMAGE, DRYRUN_CONTEXT, DRYRUN_B = \
+    "train-mesh-tiny", 32, 16, 8
+
+
+def mesh_b3_per_step(cfg, mesh) -> int:
+    """B3's launches a mesh step implies: every data row runs every layer
+    of both towers, once a part of a ``model`` axis (each part its own
+    heads) and once on an ``expert`` mesh (attention unsplit)."""
+    parts = len(mesh.grid[0]) if mesh.axis == "model" else 1
+    return len(mesh.grid) * parts * (cfg.vision.num_layers
+                                     + cfg.text.num_layers)
+
+
+def moe_drop_hooks(model) -> tuple:
+    """Forward hooks on a one-device tower's MoE layers recording the
+    tokens each drops (its routing recomputed from the layer's input), in
+    layer order; returns (drops, handles)."""
+    from video_quierer_tpu_torch.parallel import moe as moe_mod
+    drops, handles = [], []
+
+    def hook(layer, inputs, _):
+        x = inputs[0]
+        n = x.shape[0] * x.shape[1]
+        probs = torch.softmax(layer.router(x.reshape(n, -1).float()), -1)
+        keep = moe_mod.route(probs, moe_mod.capacity(
+            n, layer.num_experts, layer.capacity_factor))[3]
+        drops.append(int((~keep).sum()))
+
+    for m in model.modules():
+        if isinstance(m, moe_mod.SwitchMoEMLP):
+            handles.append(m.register_forward_hook(hook))
+    return drops, handles
+
+
+def mesh_grads_gap(got: dict, want: dict, tag: str) -> float:
+    """Every gradient element within MESH_GRAD_TOL of the one-device
+    trainer's; returns the largest ``|got - want| - rtol |want|``."""
+    rtol, atol = MESH_GRAD_TOL
+    require(got.keys() == want.keys(), f"[{tag}] gradient names")
+    worst = 0.0
+    for name, w in want.items():
+        excess = ((got[name] - w).abs() - rtol * w.abs()).max().item()
+        require(excess <= atol, f"[{tag}] gradient {name}: |diff| - rtol "
+                f"|g| = {excess:.3e} > {atol}")
+        worst = max(worst, excess)
+    return worst
+
+
+def mesh_case(tag: str, make, mesh, images, ids, dtype, steps: int,
+              smi: str, moe: bool = False):
+    """One mesh configuration. ``make(mesh)`` builds its trainer and
+    ``make(None)`` the one-device trainer from the same seed; the first
+    step's loss and gradients are held against the one-device trainer's
+    on the same batch (MESH_LOSS_RTOL; in f32 MESH_GRAD_TOL element by
+    element; an MoE tower's dropped tokens layer by layer equal), then
+    applied, then ``steps - 1`` more steps; every step launches B3 the
+    count the mesh implies and nothing else. Returns (the trainer, its
+    numbers)."""
+    dev = mesh.devices[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = make(None)
+    drops, handles = moe_drop_hooks(one.model) if moe else ([], [])
+    want_loss, want = one.value_and_grad(images, ids)
+    for h in handles:
+        h.remove()
+    # the one-device trainer's ms a step, warm (its second step), to set
+    # beside the mesh's in this run
+    one.apply_gradients(want)
+    t0 = time.perf_counter()
+    one.step(images, ids)
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    one_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = make(mesh)
+    per_step = mesh_b3_per_step(trainer.cfg, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    loss, got = trainer.value_and_grad(images, ids)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    total = read_launches(f"{tag} first step", per_step)["attention"]
+    rtol = MESH_LOSS_RTOL[dtype]
+    require(np.isfinite(loss) and abs(loss - want_loss)
+            <= rtol * abs(want_loss), f"[{tag}] first loss {loss} against "
+            f"the one-device {want_loss} (rtol {rtol})")
+    require(all(bool(torch.isfinite(g).all()) for g in got.values()),
+            f"[{tag}] gradients not finite")
+    gap = mesh_grads_gap(got, want, tag) if dtype == torch.float32 else None
+    dropped = None
+    if moe:
+        dropped = [int(v) for v in trainer.last_dropped.values()]
+        require(dropped == drops, f"[{tag}] tokens dropped per layer "
+                f"{dropped}, one device {drops}")
+    trainer.apply_gradients(got)
+    del got, want
+    losses, secs = [loss], []
+    for i in range(1, steps):
+        zero_launches()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(images, ids))     # float(): synchronises
+        secs.append(time.perf_counter() - t0)
+        total += read_launches(f"{tag} step {i}", per_step)["attention"]
+        require(np.isfinite(losses[-1]), f"[{tag}] step {i}: loss "
+                f"{losses[-1]}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_ms = 1e3 * float(np.mean(secs))
+    log(f"[{tag}] mesh {mesh.shape} over {len(set(mesh.devices))} card(s), "
+        f"B={len(images)}: first loss {loss:.6f} against the one-device "
+        f"{want_loss:.6f} (rtol {rtol})"
+        + (f", gradients within rtol {MESH_GRAD_TOL[0]} / atol "
+           f"{MESH_GRAD_TOL[1]} (largest excess {gap:.2e})"
+           if gap is not None else "")
+        + (f", tokens dropped per MoE layer {dropped} (= one device)"
+           if moe else "")
+        + f"; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; {step_ms:.1f} ms a step (mean of steps 2-{steps}; first with "
+        f"its gradients gathered {first_ms:.1f}; the one-device trainer's "
+        f"second step {one_ms:.1f}); B3 {per_step} launches a step as the mesh "
+        f"implies, {total} in all; peak memory {peak:.2f} GB (the one-device "
+        f"trainer's {one_peak:.2f}); on {smi}")
+    return trainer, {"losses": losses, "want_loss": want_loss,
+                     "grad_excess": gap, "dropped": dropped,
+                     "step_ms": step_ms, "first_ms": first_ms,
+                     "one_device_step_ms": one_ms, "peak_gb": peak,
+                     "one_device_peak_gb": one_peak,
+                     "launches": total, "launches_per_step": per_step}
+
+
+def mesh_checkpoint_served(trainer: CLIPTrainer, cfg, kw: dict, args,
+                           device, root: Path) -> dict:
+    """The mesh trainer's checkpoint: saved (whole tensors), restored onto
+    a one-device trainer (params, moments, EMA and step bit for bit the
+    mesh's gathered), then served by a bf16 ``CLIPEmbedder`` with
+    ``orbax_checkpoint`` set to it: ``pretrained``, and its image and text
+    vectors against the f32 module towers on the trainer's parameters
+    (per-row cosine >= MIN_COS)."""
+    t0 = time.perf_counter()
+    path = train_ckpt.save_checkpoint(root / "ckpt-mesh", trainer,
+                                      trainer.state.step)
+    save_s = time.perf_counter() - t0
+    one = CLIPTrainer(cfg, seed=args.seed, **kw)
+    step = train_ckpt.restore_checkpoint(root / "ckpt-mesh", one)
+    a, b = trainer.state, one.state
+    require(step == b.step == a.step and b.opt_state["count"]
+            == a.opt_state["count"], f"[mesh ckpt] step {step}")
+    for name, got, want in (("params", b.params, a.params),
+                            ("mu", b.opt_state["mu"], a.opt_state["mu"]),
+                            ("nu", b.opt_state["nu"], a.opt_state["nu"]),
+                            ("ema", b.ema_params, a.ema_params)):
+        same_state(f"mesh ckpt {name}", got, dict(want.items()))
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    tower = CLIPEmbedder(dtype=torch.bfloat16, device=device,
+                         orbax_checkpoint=path)
+    require(tower.pretrained is True, "[mesh ckpt] pretrained")
+    ref = module_from(cfg, dict(trainer.state.params.items()),
+                      device).eval()
+    frames = seeded_frames(args.seed, 53_000, 32)
+    ids = tower.prepare_text_ids(tower.tokenizer(list(SERVE_TEXTS)))
+    with torch.inference_mode():
+        img = ref.encode_image(normalize_images(
+            torch.from_numpy(frames).to(device)))
+        txt = ref.encode_text(tower.ids_tensor(ids))
+    cos = {}
+    for name, got, want in (
+            ("image", tower.embed_frames(frames), img),
+            ("text", tower.embed_texts(list(SERVE_TEXTS)), txt)):
+        cos[name] = torch.nn.functional.cosine_similarity(
+            torch.from_numpy(got), want.cpu(), dim=-1).min().item()
+        require(cos[name] >= MIN_COS,
+                f"[mesh ckpt] {name} vectors: min cosine {cos[name]}")
+    log(f"[mesh ckpt] {path.name} saved from the mesh in {save_s:.2f} s, "
+        "restored onto one device (params, moments, EMA and step bit for "
+        "bit), served by a bf16 CLIPEmbedder: pretrained; min row cosine "
+        f"against the trainer's towers: image {cos['image']:.6f}, text "
+        f"{cos['text']:.6f} (>= {MIN_COS})")
+    del tower, ref
+    return {"save_s": save_s, "min_cos": cos}
+
+
+def dryrun_meshes(device) -> dict:
+    """The JAX package's ``dryrun_multichip`` (its training half) on the
+    one-card mesh at tiny shapes (towers 128 wide, heads of 64): a dp x tp
+    CLIP step, a SigLIP step and an EMA + cosine step, each loss
+    finite."""
+    from video_quierer_tpu_torch.models.clip.config import (
+        CLIPConfig,
+        CLIPTextConfig,
+        CLIPVisionConfig,
+    )
+    from video_quierer_tpu_torch.models.siglip.model import (
+        SigLIPConfig,
+        SigLIPTextConfig,
+        SigLIPVisionConfig,
+    )
+    mesh = data_mesh(devices=[device] * (MESH_DATA * MESH_PARTS),
+                     model_parallel=MESH_PARTS)
+    tiny = CLIPConfig(
+        name=DRYRUN_CLIP, projection_dim=64,
+        vision=CLIPVisionConfig(image_size=DRYRUN_IMAGE, patch_size=8,
+                                hidden_size=128, num_layers=2, num_heads=2),
+        text=CLIPTextConfig(vocab_size=64, context_length=DRYRUN_CONTEXT,
+                            hidden_size=128, num_layers=2, num_heads=2,
+                            eot_token_id=63))
+    sg = SigLIPConfig(
+        name="train-mesh-siglip-tiny",
+        vision=SigLIPVisionConfig(image_size=DRYRUN_IMAGE, patch_size=8,
+                                  hidden_size=128, num_layers=2,
+                                  num_heads=2, mlp_ratio=2),
+        text=SigLIPTextConfig(vocab_size=64, context_length=DRYRUN_CONTEXT,
+                              hidden_size=128, num_layers=2, num_heads=2,
+                              mlp_ratio=2))
+    rng = np.random.default_rng(13)
+    images = rng.standard_normal((DRYRUN_B, DRYRUN_IMAGE, DRYRUN_IMAGE,
+                                  3)).astype(np.float32)
+    ids = rng.integers(1, 62, (DRYRUN_B, DRYRUN_CONTEXT)).astype(np.int32)
+    ids[:, -1] = 63
+    with torch.device("meta"):
+        sg_model = SigLIP(sg)
+    out = {}
+    for tag, make in (
+            ("clip", lambda: CLIPTrainer(tiny, mesh=mesh, device=device,
+                                         learning_rate=1e-3)),
+            ("siglip", lambda: CLIPTrainer(model=sg_model, mesh=mesh,
+                                           device=device,
+                                           learning_rate=1e-3)),
+            ("ema-cosine", lambda: CLIPTrainer(
+                tiny, mesh=mesh, device=device, learning_rate=1e-3,
+                schedule="cosine", warmup_steps=1, total_steps=4,
+                ema_decay=0.9))):
+        trainer = make()
+        zero_launches()
+        out[tag] = trainer.step(images, ids)
+        read_launches(f"dryrun {tag}", MESH_DATA * MESH_PARTS * 4)
+        require(np.isfinite(out[tag]), f"[dryrun {tag}] loss {out[tag]}")
+    require(trainer.state.ema_params is not None, "[dryrun] EMA")
+    log(f"[dryrun] the training half of dryrun_multichip on {mesh.shape}: "
+        f"clip loss {out['clip']:.4f}, siglip loss {out['siglip']:.4f}, "
+        f"ema-cosine loss {out['ema-cosine']:.4f}")
+    return out
+
+
+def phase_train_mesh(args, device, smi: str) -> dict:
+    """Phase 13's one-card half: ``DataMesh([cuda:0] * 4)`` at full
+    width: ViT-B/32 at B = 64 in f32 (warmup-cosine, the clip, the EMA)
+    and in bf16 on (data 2, model 2), ``vit-b-32-moe8`` on (data 2,
+    expert 2), SigLIP base/16 at B = 32 on (data 2, model 2), each
+    against the one-device trainer (``mesh_case``); the f32 trainer's
+    checkpoint restored onto one device and served; the tiny dryrun; B3
+    under autograd at a part's shapes against its plain version."""
+    out = {"attention": compare_attention_grad(device, MESH_ATTN_SHAPES)}
+    n = MESH_DATA * MESH_PARTS
+    tp = data_mesh(devices=[device] * n, model_parallel=MESH_PARTS)
+    ep = data_mesh(devices=[device] * n, model_parallel=MESH_PARTS,
+                   axis="expert")
+    cfg = get_config("openai/clip-vit-base-patch32")
+    mean = (0.48145466, 0.4578275, 0.40821073)
+    std = (0.26862954, 0.26130258, 0.27577711)
+    images, ids = train_batch(args, load_tokenizer(), TRAIN_B // TRAIN_FRAMES,
+                              mean, std)
+    images, ids = (torch.from_numpy(images).to(device),
+                   torch.from_numpy(ids).to(device).long())
+    kw = dict(learning_rate=TRAIN_LR, schedule="cosine",
+              total_steps=MESH_STEPS, max_grad_norm=1.0, ema_decay=0.99,
+              device=device)
+
+    def clip_trainer(config, dtype=torch.float32, **extra):
+        return lambda mesh: CLIPTrainer(config, seed=args.seed, mesh=mesh,
+                                        dtype=dtype, **kw, **extra)
+
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    trainer, out["f32"] = mesh_case("mesh vit-b-32 f32", clip_trainer(cfg),
+                                    tp, images, ids, torch.float32,
+                                    MESH_STEPS, smi)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        out["f32"]["checkpoint"] = mesh_checkpoint_served(
+            trainer, cfg, kw, args, device, Path(tmp))
+        out["f32"]["traced"] = traced_step(trainer, images, ids, Path(tmp),
+                                           "mesh f32", smi)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, out["bf16"] = mesh_case(
+        "mesh vit-b-32 bf16", clip_trainer(cfg, torch.bfloat16), tp, images,
+        ids, torch.bfloat16, 2, smi)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer, out["moe"] = mesh_case(
+        f"mesh {MOE} f32", clip_trainer(moe_config()), ep, images, ids,
+        torch.float32, 2, smi, moe=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg = siglip_base_patch16()
+    s_images, s_ids = train_batch(args, siglip_tokenizer(scfg),
+                                  MESH_SIGLIP_B // TRAIN_FRAMES,
+                                  SIGLIP_MEAN, SIGLIP_STD)
+
+    def siglip_trainer(mesh):
+        with torch.device("meta"):
+            model = SigLIP(scfg)
+        return CLIPTrainer(model=model, seed=args.seed, mesh=mesh, **kw)
+
+    trainer, out["siglip"] = mesh_case(
+        "mesh siglip base/16 f32", siglip_trainer, tp, s_images, s_ids,
+        torch.float32, 2, smi)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_meshes(device)
+    return out
+
+
+def busy_by_device(path: Path) -> dict:
+    """Per device of a Chrome trace: the share of the traced window in
+    which it ran a kernel, a copy or a set, and its ms of copies."""
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    lo = min(float(e["ts"]) for e in spans)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    by_dev: dict = {}
+    for e in spans:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev = e.get("args", {}).get("device", e.get("pid"))
+            by_dev.setdefault(str(dev), []).append(e)
+    out = {}
+    for dev, evs in sorted(by_dev.items()):
+        busy, end = 0.0, lo
+        for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                           for e in evs):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        copies = sum(float(e["dur"]) for e in evs
+                     if e.get("cat") == "gpu_memcpy") / 1e3
+        out[dev] = {"busy_share": busy / (hi - lo), "copy_ms": copies}
+    return out
+
+
+def compare_train_mesh_cards(args, device, n_cards: int, smi: str) -> dict:
+    """Phase 13's multi-card half: ViT-B/32 at B = 64 in f32 on a (data
+    n/2, model 2) mesh over ``cuda:0 .. n-1`` and on the same grid over
+    ``[cuda:0] * n``, each against the one-device trainer on ``cuda:0``
+    (``mesh_case``), 3 steps each; ms a step of both, and per-card peak
+    memory of the cards' mesh."""
+    require(torch.cuda.device_count() >= n_cards and n_cards % 2 == 0,
+            f"--train-mesh {n_cards}: {torch.cuda.device_count()} cards "
+            "visible; it needs an even count, at most the visible cards")
+    cfg = get_config("openai/clip-vit-base-patch32")
+    mean = (0.48145466, 0.4578275, 0.40821073)
+    std = (0.26862954, 0.26130258, 0.27577711)
+    images, ids = train_batch(args, load_tokenizer(), TRAIN_B // TRAIN_FRAMES,
+                              mean, std)
+    images, ids = (torch.from_numpy(images).to(device),
+                   torch.from_numpy(ids).to(device).long())
+
+    def make(mesh):
+        return CLIPTrainer(cfg, seed=args.seed, mesh=mesh,
+                           learning_rate=TRAIN_LR, device=device)
+
+    out = {}
+    for tag, devs in (("cards", [torch.device("cuda", i)
+                                 for i in range(n_cards)]),
+                      ("one card", [device] * n_cards)):
+        mesh = data_mesh(devices=devs, model_parallel=MESH_PARTS)
+        for d in set(devs):
+            torch.cuda.reset_peak_memory_stats(d)
+        trainer, out[tag] = mesh_case(f"mesh {tag} vit-b-32 f32", make,
+                                      mesh, images, ids, torch.float32,
+                                      MESH_STEPS, smi)
+        out[tag]["peak_gb_per_card"] = [
+            torch.cuda.max_memory_allocated(d) / 2 ** 30
+            for d in sorted(set(devs), key=lambda d: d.index)]
+        scratch = ROOT / "build" / "smoke"
+        scratch.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+            name = f"mesh {tag}"
+            traced = traced_step(trainer, images, ids, Path(tmp), name, smi)
+            traced["by_device"] = busy_by_device(
+                Path(tmp) / f"train_{name}.json")
+        log(f"[mesh {tag} traced] per device (busy share of the window, ms "
+            "of copies): " + ", ".join(
+                f"{d} {v['busy_share']:.3f} {v['copy_ms']:.2f}"
+                for d, v in traced["by_device"].items()))
+        out[tag]["traced"] = traced
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[mesh cards] ViT-B/32 f32 B={TRAIN_B} on (data {n_cards // 2}, "
+        f"model 2): {out['cards']['step_ms']:.1f} ms a step over "
+        f"{n_cards} cards, {out['one card']['step_ms']:.1f} ms on one card "
+        f"(the one-device trainer's step "
+        f"{out['cards']['one_device_step_ms']:.1f} ms); peak memory per card "
+        + ", ".join(f"{g:.2f}" for g in out["cards"]["peak_gb_per_card"])
+        + f" GB; on {smi}")
+    return out
+
+
+def train_mesh_kernel_entry(tm: dict) -> dict:
+    """The kernels line's mesh-step entry: B3 under autograd at a data
+    row's part shape (f32 vision; the text shape and bf16 under ``at``),
+    with the launches of phase 13's mesh steps."""
+    att = tm["attention"]
+    at = {f"S={s} {str(dt)[6:]}": att[(s, dt)]["step"]
+          for s, dt in att if (s, dt) != (50, torch.float32)}
+    launches = {k: tm[k]["launches"] for k in ("f32", "bf16", "moe",
+                                               "siglip")}
+    return {"name": "attention_train_mesh", "route": "cuda",
+            "source": "video_quierer_tpu_torch/csrc/attention.cu",
+            "replaces": "video_quierer_tpu/ops/attention.py:143",
+            "launches": tm["f32"]["launches"],
+            "launches_per_step": tm["f32"]["launches_per_step"],
+            "steps": MESH_STEPS, "launches_by_case": launches,
+            "shape": "B=32 S=50 H=6 f32 (a data row's model part), forward "
+            "+ backward", **att[(50, torch.float32)]["step"], "at": at}
+
+
 _AB_RUN = """
 import json, sys, numpy as np, torch
 sys.path.insert(0, ".")
@@ -5588,6 +6073,12 @@ def main() -> int:
     ap.add_argument("--hosts", type=int, default=0, metavar="N",
                     help="only phase 12's multi-process half: N processes "
                          "serving one corpus over the visible cards")
+    ap.add_argument("--meshes", action="store_true",
+                    help="only phase 13's one-card half (the training "
+                         "meshes over [cuda:0] x 4)")
+    ap.add_argument("--train-mesh", type=int, default=0, metavar="N",
+                    help="only phase 13's multi-card half: the mesh step "
+                         "over cuda:0 .. N-1 against [cuda:0] x N")
     ap.add_argument("--host-child", type=Path, default=None,
                     metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5632,6 +6123,19 @@ def main() -> int:
             tr = phase_train(args, device, smi)
         log(f"phase 10 kernels ({smi}): "
             + json.dumps(train_kernel_entries(tr)))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.meshes:
+        with timed("13, training meshes"):
+            tm = phase_train_mesh(args, device, smi)
+        log(f"phase 13 kernels ({smi}): "
+            + json.dumps(train_mesh_kernel_entry(tm)))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.train_mesh:
+        with timed(f"13, {args.train_mesh} cards"):
+            tc = compare_train_mesh_cards(args, device, args.train_mesh, smi)
+        log(f"phase 13 cards summary ({smi}): " + json.dumps(tc))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.hosts:
@@ -5711,6 +6215,15 @@ def main() -> int:
         log("phase 12's multi-process half skipped: "
             f"{torch.cuda.device_count()} card visible, it needs 2 or more "
             "(chip_smoke.py --hosts N runs it on N or more cards)")
+    with timed("13, training meshes"):
+        tm = phase_train_mesh(args, device, smi)
+    if torch.cuda.device_count() >= 4:
+        with timed("13, 4 cards"):
+            tm["cards"] = compare_train_mesh_cards(args, device, 4, smi)
+    else:
+        log("phase 13's multi-card half skipped: "
+            f"{torch.cuda.device_count()} card visible, it needs 4 "
+            "(chip_smoke.py --train-mesh 4 runs it on 4 cards)")
     l14_ingest = ck["vit-l-14"]["ingest"]["launches"]
     l14_search = ck["vit-l-14"]["launches"]
     src = "video_quierer_tpu_torch/csrc/"
@@ -5827,8 +6340,10 @@ def main() -> int:
                                      ("attention", "attention"),
                                      ("attn_half", "attn_half"),
                                      ("mlp_half", "mlp_half"))}
-    # phase 10: B3 under autograd in the trainer's steps
+    # phase 10: B3 under autograd in the trainer's steps; phase 13: in the
+    # mesh steps
     kernels_line["kernels"] += train_kernel_entries(tr)
+    kernels_line["kernels"].append(train_mesh_kernel_entry(tm))
     # phase 11: the MoE, MoE-training and pp paths
     towers_launches = tower_launches(tw)
     # phase 12: the data mesh's parts, its engine, and the processes' scans
@@ -5851,6 +6366,8 @@ def main() -> int:
     log(f"phase 11 summary ({smi}): " + json.dumps(tw))
     log(f"phase 12 summary ({smi}): " + json.dumps(
         {"data_mesh": dm, "processes": hosts}))
+    log(f"phase 13 summary ({smi}): " + json.dumps(
+        {k: v for k, v in tm.items() if k != "attention"}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)

@@ -384,12 +384,23 @@ def test_compute_dtype_keeps_f32_parameters(clip_tiny):
 
 
 def test_mesh_and_moe_are_refused(clip_tiny):
-    """Meshes stay refused (A11b); a Switch-MoE tower now trains on one
+    """A mesh is no longer refused: ``mesh=`` (a ``DataMesh``) places the
+    parameters by the partition rules and steps on the global batch, the
+    first loss the one-device trainer's (its parity with JAX's mesh step:
+    ``tests/test_torch_train_mesh.py``); a Switch-MoE tower trains on one
     device (its parity: ``tests/test_torch_moe.py``)."""
     import dataclasses
+    from video_quierer_tpu_torch.parallel.mesh import ShardedTree, data_mesh
     _, tcfg, _, sd = clip_tiny
-    with pytest.raises(NotImplementedError, match="A11b"):
-        trainer.CLIPTrainer(tcfg, mesh=object(), device="cpu")
+    images, ids = clip_batch(7, b=4)
+    mesh = data_mesh(devices=["cpu"] * 4, model_parallel=2)
+    on_mesh = trainer.CLIPTrainer(tcfg, params=sd, mesh=mesh, device="cpu")
+    assert isinstance(on_mesh.state.params, ShardedTree)
+    assert len(on_mesh.state.params.parts(
+        "text.layers.0.mlp.fc1.weight")) == 2
+    one = trainer.CLIPTrainer(tcfg, params=sd, device="cpu")
+    np.testing.assert_allclose(on_mesh.step(images, ids),
+                               one.step(images, ids), rtol=1e-5)
     moe = dataclasses.replace(tcfg, vision=dataclasses.replace(
         tcfg.vision, moe_experts=4))
     tr = trainer.CLIPTrainer(moe, device="cpu")

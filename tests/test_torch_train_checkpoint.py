@@ -356,22 +356,32 @@ def test_finetune_cli_writes_a_servable_checkpoint(tmp_path):
 
 
 def test_finetune_cli_refuses_meshes_and_moe(tmp_path):
-    """``python -m ...finetune`` exits non-zero naming A11b for a mesh;
-    the other axes too, and ``--moe-experts`` with ``--ep`` above 1 (in
-    process); ``--moe-experts`` at ``--ep 1`` trains (its run:
-    ``tests/test_torch_moe.py``), here up to the missing videos."""
+    """``python -m ...finetune --dp 2 --device cpu`` builds its mesh and
+    runs up to the missing videos; so do the other axes and
+    ``--moe-experts`` with ``--ep`` (in process; the mesh runs:
+    ``tests/test_torch_train_mesh.py``); ``--moe-experts`` at ``--ep 1``
+    trains (its run: ``tests/test_torch_moe.py``), here up to the missing
+    videos. JAX's refusals stay: ``--tp`` with ``--ep``, and a mesh larger
+    than the cards there are."""
     proc = subprocess.run(
         [sys.executable, "-m", "video_quierer_tpu_torch.train.finetune",
          "--videos-dir", str(tmp_path), "--out", str(tmp_path / "o"),
          "--dp", "2", "--device", "cpu"], cwd=ROOT, capture_output=True,
         text=True, timeout=120)
-    assert proc.returncode != 0 and "A11b" in proc.stderr
+    assert proc.returncode != 0 and "no videos" in proc.stderr
+    assert "A11b" not in proc.stderr
     assert not (tmp_path / "o").exists()
     base = ["--videos-dir", str(tmp_path), "--out", str(tmp_path / "o")]
     for flags in (["--tp", "2"], ["--ep", "4"],
                   ["--moe-experts", "8", "--ep", "2"]):
-        with pytest.raises(SystemExit, match="A11b"):
-            finetune.main(base + flags)
+        with pytest.raises(SystemExit, match="no videos"):
+            finetune.main(base + ["--device", "cpu", "--model",
+                                  TINY_FULL_VOCAB] + flags)
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        finetune.main(base + ["--tp", "2", "--ep", "2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="mesh needs 2 devices"):
+            finetune.main(base + ["--dp", "2"])
     for flags in ([], ["--moe-experts", "8"]):
         with pytest.raises(SystemExit, match="no videos"):
             finetune.main(base + ["--device", "cpu", "--model",

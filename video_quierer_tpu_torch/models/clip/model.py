@@ -42,12 +42,23 @@ remat)`` mirrors flax's module fields:
 - ``remat`` runs each encoder block through ``torch.utils.checkpoint``
   (``use_reentrant=False``) when grad mode is on, as ``nn.remat`` does
   (JAX ``:155-158``): its activations are recomputed in the backward.
+
+Tensor parallelism (the trainer's ``(data, model)`` mesh,
+``train/trainer.py``): the forwards take a ``plan``, one data row's
+placement, whose ``block(block, x)`` then runs each encoder block in the
+block's place (the plan splits attention by heads and the MLP by its
+hidden columns over the row's devices). A part of a split block is
+:meth:`Attention.part` and :meth:`MLP.part`: the Megatron column slice
+of the first products and the matching rows of the second, returned as
+a partial sum without the second bias (added once, after the sum).
+Without a plan nothing of this runs.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -93,16 +104,18 @@ class Linear(nn.Linear):
 
 
 def run_blocks(layers: nn.ModuleList, x: torch.Tensor, remat: bool,
-               aux: Optional[list] = None) -> torch.Tensor:
-    """``x`` through each block; with ``remat`` and grad mode on, each
+               aux: Optional[list] = None, plan=None) -> torch.Tensor:
+    """``x`` through each block (through ``plan.block(block, x)`` when a
+    tensor-parallel plan is given); with ``remat`` and grad mode on, each
     block's activations are recomputed in the backward. A block that
     returns ``(x, aux)`` (an MoE block) has its ``aux`` appended to
     ``aux`` when a list is given."""
     for block in layers:
+        fn = block if plan is None else functools.partial(plan.block, block)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, use_reentrant=False)
+            x = checkpoint(fn, x, use_reentrant=False)
         else:
-            x = block(x)
+            x = fn(x)
         if isinstance(x, tuple):
             x, block_aux = x
             if aux is not None:
@@ -140,6 +153,20 @@ class Attention(nn.Module):
                         num_heads=self.num_heads, causal=self.causal)
         return self.out_proj(out)
 
+    def part(self, x: torch.Tensor, w: Dict[str, torch.Tensor],
+             num_heads: int) -> torch.Tensor:
+        """One tensor-parallel part: ``num_heads`` heads through the column
+        slices ``w["q_proj.weight"]``, ``w["q_proj.bias"]`` (and k, v),
+        attention (B3), then the out projection's matching input columns
+        ``w["out_proj.weight"]`` without its bias: this part's term of
+        the output, ``[B, S, D]``."""
+        dt = x.dtype
+        q, k, v = (F.linear(x, w[f"{n}.weight"].to(dt),
+                            w[f"{n}.bias"].to(dt))
+                   for n in ("q_proj", "k_proj", "v_proj"))
+        out = attention(q, k, v, num_heads=num_heads, causal=self.causal)
+        return F.linear(out, w["out_proj.weight"].to(dt))
+
 
 class MLP(nn.Module):
     def __init__(self, d: int, ratio: int, act: str = "quick_gelu"):
@@ -150,6 +177,16 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
+
+    def part(self, x: torch.Tensor, w: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """One tensor-parallel part: the hidden columns ``w["fc1.weight"]``,
+        ``w["fc1.bias"]``, the activation, and the matching input columns
+        of ``w["fc2.weight"]`` without fc2's bias: a partial sum."""
+        dt = x.dtype
+        h = self.act(F.linear(x, w["fc1.weight"].to(dt),
+                              w["fc1.bias"].to(dt)))
+        return F.linear(h, w["fc2.weight"].to(dt))
 
 
 class EncoderBlock(nn.Module):
@@ -183,13 +220,13 @@ class TextTower(nn.Module):
                                     for _ in range(c.num_layers))
         self.final_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, plan=None) -> torch.Tensor:
         """``[B, S]`` ids → pooled features ``[B, hidden]`` at each
         sequence's EOT token (highest id, first occurrence)."""
         dtype = self.compute_dtype or self.token_embedding.weight.dtype
         x = F.embedding(input_ids, self.token_embedding.weight.to(dtype)) \
             + self.position_embedding[: input_ids.shape[1]].to(dtype)[None]
-        x = run_blocks(self.layers, x, self.remat)
+        x = run_blocks(self.layers, x, self.remat, plan=plan)
         x = self.final_layer_norm(x)
         eot = torch.argmax(input_ids, dim=-1)
         return x[torch.arange(x.shape[0], device=x.device), eot]
@@ -243,11 +280,12 @@ class VisionTower(nn.Module):
         ``[B, S, D]``: patchify, class token, positions, pre-LN."""
         return self.pre_layernorm(self.tokens(pixels))
 
-    def forward(self, pixels: torch.Tensor,
-                aux: Optional[list] = None) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor, aux: Optional[list] = None,
+                plan=None) -> torch.Tensor:
         """Pooled pre-projection features ``[B, hidden]`` (post-LN CLS);
         MoE blocks' ``aux`` appended to ``aux``."""
-        x = run_blocks(self.layers, self.embed(pixels), self.remat, aux)
+        x = run_blocks(self.layers, self.embed(pixels), self.remat, aux,
+                       plan)
         return self.post_layernorm(x[:, 0])
 
 
@@ -288,19 +326,21 @@ class CLIP(nn.Module):
         configure_towers((self.vision, self.text), dtype, remat)
 
     def encode_image(self, pixels: torch.Tensor, normalize: bool = True,
-                     aux: Optional[list] = None) -> torch.Tensor:
-        feats = self.visual_projection(self.vision(pixels, aux))
+                     aux: Optional[list] = None, plan=None) -> torch.Tensor:
+        feats = self.visual_projection(self.vision(pixels, aux, plan))
         return _normalize_f32(feats, normalize)
 
-    def encode_text(self, input_ids: torch.Tensor,
-                    normalize: bool = True) -> torch.Tensor:
-        feats = self.text_projection(self.text(input_ids))
+    def encode_text(self, input_ids: torch.Tensor, normalize: bool = True,
+                    plan=None) -> torch.Tensor:
+        feats = self.text_projection(self.text(input_ids, plan))
         return _normalize_f32(feats, normalize)
 
     def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor,
-                aux: Optional[list] = None):
+                aux: Optional[list] = None, plan=None):
         """Training forward: ``(image_feats, text_feats, logit_scale)``,
         the features f32 unit rows, the scale ``exp`` of the parameter;
-        the MoE blocks' ``aux`` appended to ``aux``."""
-        return (self.encode_image(pixels, aux=aux),
-                self.encode_text(input_ids), self.logit_scale.exp())
+        the MoE blocks' ``aux`` appended to ``aux``; each encoder block
+        through ``plan`` when one is given."""
+        return (self.encode_image(pixels, aux=aux, plan=plan),
+                self.encode_text(input_ids, plan=plan),
+                self.logit_scale.exp())

@@ -25,13 +25,17 @@ Training (JAX ``:164-211``): ``forward(pixels, input_ids)`` returns
 ``(img, txt, exp(logit_scale), logit_bias)``, both scalars f32 parameters
 initialised from the config, for :func:`siglip_sigmoid_loss`. ``dtype``
 and ``remat`` work as in ``models/clip/model.py``; the MAP head keeps
-its own einsum attention, as JAX's does.
+its own einsum attention, as JAX's does. Under the trainer's tensor
+parallelism the forwards take a ``plan`` (``models/clip/model.py``): the
+encoder blocks go through ``plan.block`` and the MAP head through
+``plan.map_head``, whose parts are :meth:`MAPHead.heads_out` on a column
+slice of q, k and v.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -105,19 +109,42 @@ class MAPHead(nn.Module):
         self.layernorm = LayerNorm(d, eps)
         self.mlp = MLP(d, mlp_ratio, "gelu_tanh")
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def heads_out(self, tokens: torch.Tensor, w: Dict[str, torch.Tensor],
+                  num_heads: int) -> torch.Tensor:
+        """The probe's attention over ``num_heads`` heads whose q, k, v
+        columns are ``w["q_proj.weight"]``, ``w["q_proj.bias"]`` (and k,
+        v): ``[B, 1, num_heads·hd]`` in the tokens' dtype, before the out
+        projection."""
         b, s, d = tokens.shape
-        h = self.num_heads
-        hd = d // h
-        q = self.q_proj(self.probe.to(tokens.dtype).expand(b, 1, d))
-        k, v = self.k_proj(tokens), self.v_proj(tokens)
+        dt = tokens.dtype
+        q, k, v = (F.linear(x, w[f"{n}.weight"].to(dt),
+                            w[f"{n}.bias"].to(dt))
+                   for n, x in (("q_proj",
+                                 self.probe.to(dt).expand(b, 1, d)),
+                                ("k_proj", tokens), ("v_proj", tokens)))
+        h = num_heads
+        hd = q.shape[-1] // h
         qh = (q * hd ** -0.5).reshape(b, 1, h, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
                               k.reshape(b, s, h, hd).float())
-        weights = torch.softmax(logits, dim=-1).to(tokens.dtype)
+        weights = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", weights.float(),
                            v.reshape(b, s, h, hd).float())
-        x = self.out_proj(out.to(tokens.dtype).reshape(b, 1, d))
+        return out.to(dt).reshape(b, 1, h * hd)
+
+    def part(self, tokens: torch.Tensor, w: Dict[str, torch.Tensor],
+             num_heads: int) -> torch.Tensor:
+        """One tensor-parallel part of the head's attention: its heads
+        (:meth:`heads_out`) through the out projection's matching input
+        columns ``w["out_proj.weight"]``, without its bias."""
+        return F.linear(self.heads_out(tokens, w, num_heads),
+                        w["out_proj.weight"].to(tokens.dtype))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        w = {f"{n}.{leaf}": getattr(getattr(self, n), leaf)
+             for n in ("q_proj", "k_proj", "v_proj")
+             for leaf in ("weight", "bias")}
+        x = self.out_proj(self.heads_out(tokens, w, self.num_heads))
         x = x + self.mlp(self.layernorm(x))
         return x[:, 0]
 
@@ -152,15 +179,16 @@ class SigLIPVisionTower(nn.Module):
         return self.patch_embedding(patches) \
             + self.position_embedding.to(dtype)[None]
 
-    def pool(self, x: torch.Tensor) -> torch.Tensor:
+    def pool(self, x: torch.Tensor, plan=None) -> torch.Tensor:
         """Encoded tokens ``[B, S, D]`` → post-LN → the MAP head's row."""
-        return self.head(self.post_layernorm(x))
+        x = self.post_layernorm(x)
+        return self.head(x) if plan is None else plan.map_head(self.head, x)
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor, plan=None) -> torch.Tensor:
         """NHWC ``[B, H, W, 3]`` normalised pixels → pooled features
         ``[B, hidden]`` in the tower dtype."""
         return self.pool(run_blocks(self.layers, self.embed(pixels),
-                                    self.remat))
+                                    self.remat, plan=plan), plan)
 
 
 class SigLIPTextTower(nn.Module):
@@ -178,13 +206,13 @@ class SigLIPTextTower(nn.Module):
         self.final_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps)
         self.head = Linear(c.hidden_size, c.hidden_size)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, plan=None) -> torch.Tensor:
         """``[B, S]`` ids → head features ``[B, hidden]``, pooled at the
         last position."""
         dtype = self.compute_dtype or self.token_embedding.weight.dtype
         x = F.embedding(input_ids, self.token_embedding.weight.to(dtype)) \
             + self.position_embedding[: input_ids.shape[1]].to(dtype)[None]
-        x = run_blocks(self.layers, x, self.remat)
+        x = run_blocks(self.layers, x, self.remat, plan=plan)
         return self.head(self.final_layer_norm(x)[:, -1])
 
 
@@ -201,18 +229,21 @@ class SigLIP(nn.Module):
         self.logit_bias = nn.Parameter(torch.tensor(cfg.logit_bias_init))
         configure_towers((self.vision, self.text), dtype, remat)
 
-    def encode_image(self, pixels: torch.Tensor,
-                     normalize: bool = True) -> torch.Tensor:
-        return _normalize_f32(self.vision(pixels), normalize)
+    def encode_image(self, pixels: torch.Tensor, normalize: bool = True,
+                     plan=None) -> torch.Tensor:
+        return _normalize_f32(self.vision(pixels, plan), normalize)
 
-    def encode_text(self, input_ids: torch.Tensor,
-                    normalize: bool = True) -> torch.Tensor:
-        return _normalize_f32(self.text(input_ids), normalize)
+    def encode_text(self, input_ids: torch.Tensor, normalize: bool = True,
+                    plan=None) -> torch.Tensor:
+        return _normalize_f32(self.text(input_ids, plan), normalize)
 
-    def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor):
+    def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor,
+                plan=None):
         """Training forward: ``(image_feats, text_feats, exp(logit_scale),
-        logit_bias)``."""
-        return (self.encode_image(pixels), self.encode_text(input_ids),
+        logit_bias)``; each encoder block and the MAP head through
+        ``plan`` when one is given."""
+        return (self.encode_image(pixels, plan=plan),
+                self.encode_text(input_ids, plan=plan),
                 self.logit_scale.exp(), self.logit_bias)
 
 

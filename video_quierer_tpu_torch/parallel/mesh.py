@@ -24,17 +24,32 @@ count and owner.
 
 :func:`data_mesh` gives the ``(data, model)`` grid of the embedder's
 data-parallel serving (``models/clip/embedder.py``, JAX
-``CLIPEmbedder(mesh=...)``). It spans this process's devices only.
+``CLIPEmbedder(mesh=...)``) and of the trainer's data and tensor
+parallelism; with ``axis=EXPERT_AXIS`` the same grid is the trainer's
+``(data, expert)`` mesh (``train/trainer.py``, JAX ``finetune.py:
+build_mesh``). It spans this process's devices only: the JAX trainer is
+one controller over its devices, and so is the port's.
+:class:`ShardedTree` places a state dict on such a grid by partition
+specs (JAX ``device_put`` with a ``NamedSharding``).
 :func:`pipe_devices` gives the ``pipe`` axis of the pipelined image tower
-(``parallel/pipeline.py``; JAX ``pipe_mesh``). The data, tensor and
-expert meshes of training are a later port.
+(``parallel/pipeline.py``; JAX ``pipe_mesh``).
 """
 
 from __future__ import annotations
 
+import collections.abc
 import datetime
 import os
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import (
+    Callable,
+    Dict,
+    Iterator,
+    List,
+    Mapping,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import torch
 import torch.distributed as dist
@@ -172,28 +187,34 @@ class CorpusMesh:
 
 
 class DataMesh:
-    """A ``(data, model)`` grid of devices (JAX ``data_mesh``): row ``r``
-    is ``devices[r·mp : (r+1)·mp]``. Serving splits a batch over ``data``
-    only and computes each part on its row's first device
-    (:attr:`data_devices`), as JAX's ``P(data_axis, ...)`` replicates over
-    ``model``; tensor parallelism over ``model`` is the training meshes'.
-    Devices may repeat, so several parts can share one card."""
+    """A ``(data, axis)`` grid of devices (JAX ``data_mesh``; ``axis`` is
+    ``model`` or, for expert parallelism, ``parallel/moe.py:EXPERT_AXIS``):
+    row ``r`` is ``devices[r·mp : (r+1)·mp]`` and a part of the second
+    axis is ``grid[r][c]``. Serving splits a batch over ``data`` only and
+    computes each part on its row's first device (:attr:`data_devices`),
+    as JAX's ``P(data_axis, ...)`` replicates over ``model``; the trainer
+    also splits parameters over the second axis. Devices may repeat, so
+    several parts can share one card."""
 
-    def __init__(self, devices: Sequence, model_parallel: int = 1):
+    def __init__(self, devices: Sequence, model_parallel: int = 1, *,
+                 axis: str = MODEL_AXIS):
         devs = tuple(torch.device(d) for d in devices)
         if not devs:
             raise ValueError("a data mesh needs at least one device")
         if model_parallel < 1 or len(devs) % model_parallel:
             raise ValueError(f"{len(devs)} devices not divisible by "
                              f"mp={model_parallel}")
+        if axis == DATA_AXIS:
+            raise ValueError(f"the second axis cannot be {DATA_AXIS!r}")
         self.devices = devs
+        self.axis = axis
         self.grid: Tuple[Tuple[torch.device, ...], ...] = tuple(
             devs[r:r + model_parallel]
             for r in range(0, len(devs), model_parallel))
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: len(self.grid), MODEL_AXIS: len(self.grid[0])}
+        return {DATA_AXIS: len(self.grid), self.axis: len(self.grid[0])}
 
     @property
     def data_devices(self) -> Tuple[torch.device, ...]:
@@ -202,6 +223,105 @@ class DataMesh:
 
     def __repr__(self) -> str:
         return f"DataMesh({[str(d) for d in self.devices]}, {self.shape})"
+
+
+class ShardedTree(collections.abc.Mapping):
+    """Tensors by name, each placed on a :class:`DataMesh` by its
+    partition spec (a tuple with an axis name or None per dimension, ``()``
+    replicated; JAX's ``PartitionSpec``): a tensor split over the mesh's
+    second axis ``A`` on dimension ``k`` is held as ``A`` equal parts,
+    part ``c`` on ``mesh.grid[0][c]``; any other tensor as one part on
+    ``mesh.grid[0][0]``. The parts are what the trainer updates; other
+    data rows take copies of them (``to``) for a step.
+
+    As a mapping it gives each tensor whole by its name (the parts
+    concatenated on ``grid[0][0]``; a replicated tensor is its one part,
+    live), as a one-device state dict does; :meth:`load_` writes a whole
+    tensor into the parts in place."""
+
+    def __init__(self, mesh: DataMesh, specs: Mapping[str, tuple],
+                 parts: Mapping[str, List[torch.Tensor]]):
+        self.mesh = mesh
+        self.specs = dict(specs)
+        self._parts = dict(parts)
+
+    @staticmethod
+    def split_dim(spec: tuple, mesh: DataMesh) -> Optional[int]:
+        """The dimension ``spec`` splits over the mesh's second axis, or
+        None (replicated)."""
+        for k, ax in enumerate(spec):
+            if ax == mesh.axis:
+                return k
+        return None
+
+    @classmethod
+    def place(cls, tree: Mapping[str, torch.Tensor], mesh: DataMesh,
+              specs: Mapping[str, tuple]) -> "ShardedTree":
+        """``tree``'s tensors (copied) in their parts on the mesh; a
+        dimension that does not divide over the axis raises."""
+        n = len(mesh.grid[0])
+        parts = {}
+        for name, t in tree.items():
+            k = cls.split_dim(specs[name], mesh)
+            t = t.detach()
+            if k is None:
+                parts[name] = [t.to(mesh.grid[0][0], copy=True)]
+                continue
+            if t.shape[k] % n:
+                raise ValueError(f"{name}: dimension {k} of {tuple(t.shape)}"
+                                 f" does not split over {n} {mesh.axis} "
+                                 "parts")
+            parts[name] = [c.to(dev, copy=True).contiguous() for c, dev in
+                           zip(t.chunk(n, dim=k), mesh.grid[0])]
+        return cls(mesh, specs, parts)
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]
+            ) -> "ShardedTree":
+        """A tree of the same layout with ``fn`` of each part (say
+        ``torch.zeros_like``)."""
+        return ShardedTree(self.mesh, self.specs, {
+            k: [fn(p) for p in ps] for k, ps in self._parts.items()})
+
+    def parts(self, name: str) -> List[torch.Tensor]:
+        return self._parts[name]
+
+    def flat(self) -> List[torch.Tensor]:
+        """Every part, in name order and part order."""
+        return [p for ps in self._parts.values() for p in ps]
+
+    def split(self, name: str, full: torch.Tensor) -> List[torch.Tensor]:
+        """``full`` (a tensor shaped like ``name``'s) cut as ``name``'s
+        parts are, each on its part's device."""
+        k = self.split_dim(self.specs[name], self.mesh)
+        ps = self._parts[name]
+        if k is None:
+            return [full.to(ps[0].device)]
+        return [c.to(p.device) for c, p in
+                zip(full.chunk(len(ps), dim=k), ps)]
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        ps = self._parts[name]
+        k = self.split_dim(self.specs[name], self.mesh)
+        if k is None:
+            return ps[0]
+        return torch.cat([p.to(ps[0].device) for p in ps], dim=k)
+
+    def load_(self, name: str, full: torch.Tensor) -> None:
+        """Write the whole tensor ``full`` into ``name``'s parts."""
+        with torch.no_grad():
+            for p, c in zip(self._parts[name], self.split(name, full)):
+                p.copy_(c)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._parts)
+
+    def __len__(self) -> int:
+        return len(self._parts)
+
+    def __repr__(self) -> str:
+        split = sum(len(ps) > 1 for ps in self._parts.values())
+        return (f"ShardedTree({len(self)} tensors, {split} split over "
+                f"{self.mesh.shape})")
 
 
 def _cuda_devices(n_devices: Optional[int], devices, what: str = "a corpus "
@@ -258,13 +378,14 @@ def multislice_corpus_mesh(n_slices: int, n_devices: Optional[int] = None,
 
 
 def data_mesh(n_devices: Optional[int] = None, model_parallel: int = 1, *,
-              devices: Optional[Sequence] = None) -> DataMesh:
-    """``(data, model)`` grid over the first ``n_devices`` CUDA devices (or
+              devices: Optional[Sequence] = None,
+              axis: str = MODEL_AXIS) -> DataMesh:
+    """``(data, axis)`` grid over the first ``n_devices`` CUDA devices (or
     of ``devices``): ``n / model_parallel`` data rows of
     ``model_parallel`` devices. Without a card and without ``devices`` it
     raises."""
     return DataMesh(_cuda_devices(n_devices, devices, "a data mesh"),
-                    model_parallel)
+                    model_parallel, axis=axis)
 
 
 def pipe_devices(n_stages: Optional[int] = None, devices=None, *,

@@ -1,5 +1,6 @@
-"""Training: contrastive fine-tuning of the towers on one card
-(counterpart of ``video_quierer_tpu/train``; meshes are ROADMAP A11b)."""
+"""Training: contrastive fine-tuning of the towers on one card or on a
+``(data, model)`` or ``(data, expert)`` mesh (counterpart of
+``video_quierer_tpu/train``)."""
 
 from video_quierer_tpu_torch.train.trainer import (  # noqa: F401
     CLIPTrainer,

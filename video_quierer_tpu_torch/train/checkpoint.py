@@ -13,6 +13,9 @@ holds:
   parameter name, written by ``torch.save`` and read back with
   ``torch.load(weights_only=True)``.
 
+A mesh trainer's trees are written whole (gathered from their parts)
+in the same format, and any checkpoint restores onto any mesh shape or
+onto one device, as JAX's orbax restore does (JAX ``:51-84``).
 ``restore_checkpoint`` follows the JAX package's four EMA cases: an EMA
 on disk into a trainer without one is dropped; a checkpoint without one
 into a trainer that tracks one seeds it from the restored parameters;
@@ -31,9 +34,11 @@ import os
 import shutil
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
+
+from video_quierer_tpu_torch.parallel.mesh import ShardedTree
 
 logger = logging.getLogger(__name__)
 
@@ -41,7 +46,7 @@ FORMAT = "video_quierer_tpu_torch.train/1"
 MANIFEST = "checkpoint.json"
 
 
-def _cpu(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _cpu(tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in tree.items()}
 
 
@@ -120,8 +125,10 @@ def load_params(path: Path) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
-               what: str) -> None:
+def _copy_into(dst: Mapping[str, torch.Tensor],
+               src: Mapping[str, torch.Tensor], what: str) -> None:
+    """Copy ``src`` into ``dst`` in place, tensor by tensor (into a mesh
+    trainer's ``ShardedTree`` by its parts, whatever mesh wrote ``src``)."""
     if dst.keys() != src.keys():
         raise ValueError(f"{what}: the checkpoint's names differ from the "
                          f"trainer's ({sorted(set(dst) ^ set(src))[:4]})")
@@ -129,7 +136,10 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
         if t.shape != src[k].shape:
             raise ValueError(f"{what}.{k}: shape {tuple(src[k].shape)} on "
                              f"disk, {tuple(t.shape)} in the trainer")
-        t.copy_(src[k])
+        if isinstance(dst, ShardedTree):
+            dst.load_(k, src[k])
+        else:
+            t.copy_(src[k])
 
 
 def restore_checkpoint(ckpt_dir: Path, trainer,

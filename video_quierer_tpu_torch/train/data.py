@@ -91,8 +91,10 @@ def train_on_videos(trainer, video_paths: Sequence[Path], tokenizer,
                     captions: Optional[Dict[str, str]] = None,
                     image_size: int = 224,
                     mean=CLIP_MEAN, std=CLIP_STD):
-    """A plain epoch loop; returns the losses, one a step. ``image_size``
-    must be the tower's (``cfg.vision.image_size``)."""
+    """A plain epoch loop; returns the losses, one a step. Each batch goes
+    to the trainer whole: a mesh trainer splits the global batch over its
+    data rows itself. ``image_size`` must be the tower's
+    (``cfg.vision.image_size``)."""
     losses = []
     for _ in range(epochs):
         for images, ids in frame_caption_batches(

@@ -1,7 +1,8 @@
 """Fine-tuning CLI (counterpart of
 ``video_quierer_tpu/train/finetune.py``): contrastive fine-tuning of a
-CLIP tower on a videos directory, on one card, saved as a checkpoint the
-serving engine loads (``model.orbax_checkpoint``).
+CLIP tower on a videos directory, on one card or on a mesh of cards
+(DP × TP, or DP × EP for MoE towers), saved as a checkpoint the serving
+engine loads (``model.orbax_checkpoint``).
 
 Examples::
 
@@ -13,16 +14,24 @@ Examples::
     python -m video_quierer_tpu_torch.train.finetune --videos-dir ./videos \\
         --out ./ckpt --device cpu
 
-    # a Switch-MoE tower: 8 experts every 2nd vision block
+    # a data-parallel fine-tune over 4 cards
     python -m video_quierer_tpu_torch.train.finetune --videos-dir ./videos \
-        --moe-experts 8 --out ./ckpt
+        --epochs 2 --batch 64 --dp 4 --out ./ckpt
 
-The JAX CLI's flags, plus ``--device``. ``--moe-experts/--moe-every/
---moe-capacity`` build a Switch-MoE vision tower (``parallel/moe.py``) on
-the one device, with the JAX CLI's refusals: ``--hf-checkpoint`` with
-MoE (a dense tree), and experts that do not divide over ``--ep``. Meshes
-(``--dp``, ``--tp``, ``--ep`` above 1) are not ported (ROADMAP A11b) and
-exit with a message. ``--hf-checkpoint`` starts from a local HF
+    # a Switch-MoE tower (8 experts every 2nd vision block), experts
+    # split over an ``expert`` mesh axis
+    python -m video_quierer_tpu_torch.train.finetune --videos-dir ./videos \
+        --moe-experts 8 --dp 2 --ep 4 --out ./ckpt
+
+The JAX CLI's flags, plus ``--device``. ``--dp/--tp/--ep`` build the
+trainer's mesh (:func:`build_mesh`, JAX ``:37-58``): a ``(data, model)``
+or ``(data, expert)`` ``DataMesh`` over the first ``dp·tp·ep`` cards, or
+with ``--device cpu`` over as many ``"cpu"`` entries (one process either
+way). ``--moe-experts/--moe-every/--moe-capacity`` build a Switch-MoE
+vision tower (``parallel/moe.py``). The JAX CLI's refusals: ``--tp``
+with ``--ep``, a mesh larger than the cards there are,
+``--hf-checkpoint`` with MoE (a dense tree), and experts that do not
+divide over ``--ep``. ``--hf-checkpoint`` starts from a local HF
 checkpoint, read by ``models/clip/convert.py`` and the bridge. TF32 is
 off: f32 products run in full f32, as in the server.
 """
@@ -38,6 +47,34 @@ from pathlib import Path
 logger = logging.getLogger("vqt.finetune")
 
 VIDEO_SUFFIXES = (".mp4", ".avi", ".mov", ".mkv", ".webm")
+
+
+def build_mesh(dp: int, tp: int, ep: int, device: str = "cuda",
+               devices=None):
+    """The ``(data, model)`` or ``(data, expert)`` ``DataMesh`` of the CLI
+    sizes (a pure ``--dp`` mesh has a ``model`` axis of 1), or None for
+    one device. Its devices are ``devices`` when given, else the CUDA
+    cards (``device`` "cuda") or ``n`` ``"cpu"`` entries (``device``
+    "cpu", the host's stand-in for JAX's virtual devices)."""
+    from video_quierer_tpu_torch.parallel.mesh import MODEL_AXIS, DataMesh
+    from video_quierer_tpu_torch.parallel.moe import EXPERT_AXIS
+
+    if tp > 1 and ep > 1:
+        raise SystemExit("--tp and --ep are mutually exclusive here")
+    n = dp * max(tp, 1) * max(ep, 1)
+    if devices is None:
+        import torch
+        kind = torch.device(device).type
+        devices = (["cpu"] * n if kind == "cpu" else
+                   [torch.device(kind, i)
+                    for i in range(torch.cuda.device_count())])
+    if n > len(devices):
+        raise SystemExit(f"mesh needs {n} devices, have {len(devices)}")
+    if n == 1:
+        return None
+    if ep > 1:
+        return DataMesh(devices[:n], ep, axis=EXPERT_AXIS)
+    return DataMesh(devices[:n], max(tp, 1), axis=MODEL_AXIS)
 
 
 def main(argv=None) -> int:
@@ -85,9 +122,7 @@ def main(argv=None) -> int:
             "train from init (or resume their own checkpoints)")
     if args.ep > 1 and args.moe_experts % args.ep:
         raise SystemExit("--moe-experts must divide evenly over --ep")
-    if max(args.dp, args.tp, args.ep) > 1:
-        raise SystemExit("--dp/--tp/--ep > 1: mesh training is not ported "
-                         "(ROADMAP A11b); train on one device")
+    mesh = build_mesh(args.dp, args.tp, args.ep, device=args.device)
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -119,9 +154,11 @@ def main(argv=None) -> int:
         params = params_from_jax(convert_mod.convert_hf_checkpoint(
             Path(args.hf_checkpoint), cfg), cfg)
 
-    logger.info("device: %s", args.device)
+    logger.info("device: %s; mesh: %s", args.device,
+                mesh.shape if mesh else "single device")
     trainer = CLIPTrainer(
-        cfg, learning_rate=args.lr, weight_decay=args.weight_decay,
+        cfg, mesh=mesh, learning_rate=args.lr,
+        weight_decay=args.weight_decay,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         remat=args.remat, seed=args.seed, params=params,
         schedule=args.schedule, warmup_steps=args.warmup_steps,
