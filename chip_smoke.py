@@ -6108,7 +6108,7 @@ def main() -> int:
             l14 = CLIPEmbedder(model_name=L14, dtype=torch.bfloat16,
                                device=device, seed=args.seed)
             phase_l14_kernels(l14, args, device)
-        stageprof.ENABLED = True
+        stageprof.enable(True)
         with timed("9, checkpoints"):
             ck = phase_checkpoints(
                 CLIPEmbedder(dtype=torch.bfloat16, device=device,
@@ -6195,7 +6195,7 @@ def main() -> int:
                            device=device, seed=args.seed)
         lk = phase_l14_kernels(l14, args, device)
     # the serving path's stage spans: phase 5 splits its batches by them
-    stageprof.ENABLED = True
+    stageprof.enable(True)
     launches, ingested, extra, surface = phase_end_to_end(embedder, args,
                                                           device, smi)
     with timed("6, SigLIP engine"):

@@ -18,6 +18,7 @@ import torch
 
 from video_quierer_tpu.engine import config as jax_config
 from video_quierer_tpu_torch.engine import config as torch_config
+from video_quierer_tpu_torch.engine.metrics import HISTOGRAM_CAP, SystemMetrics
 from video_quierer_tpu_torch.engine.system import VideoSearchEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -165,6 +166,24 @@ def test_coalescer_propagates_failures_to_every_waiter(tmp_path):
         assert engine.metrics.counter("fused_search_fallbacks") == 0
     finally:
         engine.close()
+
+
+def test_histogram_count_and_sum_run_past_the_window():
+    """A histogram's count and sum (and Prometheus' ``_count`` and
+    ``_sum``) run over every sample; its quantiles over the last
+    ``HISTOGRAM_CAP``."""
+    m = SystemMetrics()
+    n = HISTOGRAM_CAP + 500
+    for v in range(n):
+        m.observe("op_ms", float(v))
+    s = m.histogram_stats("op_ms")
+    assert s["count"] == n and s["sum"] == float(sum(range(n)))
+    assert s["min"] == 500 and s["max"] == n - 1
+    assert s["mean"] == pytest.approx(500 + (HISTOGRAM_CAP - 1) / 2)
+    text = m.export_prometheus().splitlines()
+    assert f"video_search_op_ms_count {n}" in text
+    assert f"video_search_op_ms_sum {float(sum(range(n)))}" in text
+    assert f'video_search_op_ms{{quantile="50"}} {s["p50"]}' in text
 
 
 def test_server_refuses_to_start_without_a_card(tmp_path):

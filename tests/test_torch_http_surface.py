@@ -45,6 +45,7 @@ from video_quierer_tpu_torch.api.multipart import parse_multipart
 from video_quierer_tpu_torch.api.server import create_server
 from video_quierer_tpu_torch.engine.config import ApiConfig
 from video_quierer_tpu_torch.engine.metrics import SystemMetrics
+from video_quierer_tpu_torch.utils import stageprof
 
 # times, ids, the files' mtimes, and the link to pydantic's docs in a 422
 # entry (it names pydantic's version; the port has no pydantic)
@@ -339,6 +340,57 @@ def test_formerly_unported_routes_match_jax(servers, method, path):
         same_json(strip(json.loads(got[2])), strip(json.loads(want[2])))
     else:
         assert got[2] == want[2]
+
+
+FLUSH_SPANS = {"lock_wait", "tokenize", "dispatch", "resolve", "format",
+               "deliver"}
+
+
+def test_profiler_writes_the_spans_beside_its_trace(servers, tmp_path):
+    """``/api/profiler/start`` turns the program's spans on for the trace;
+    ``stop`` writes those of its time beside the trace as a Chrome trace
+    on the trace's time base (each coalesced flush's spans under its flush
+    number, a flush's ``dispatch`` around the torch ops its thread ran)
+    and puts the switch back as it was."""
+    _, (port_base, port) = servers
+    count = {name: port.metrics.histogram_stats(name).get("count", 0)
+             for name in ("flush_latency_ms", "batch_search_latency_ms")}
+    was = stageprof.ENABLED
+    stageprof.enable(False)
+    try:
+        assert send(port_base, "POST", "/api/profiler/start",
+                    {"trace_dir": str(tmp_path)})[0] == 200
+        assert stageprof.ENABLED
+        for query in QUERIES[:3]:
+            assert port.search_coalesced(query, 5, False)
+        assert send(port_base, "POST", "/api/profiler/stop", b"")[0] == 200
+        assert not stageprof.ENABLED
+    finally:
+        stageprof.enable(was)
+    # a flush's latency goes under its own name, not ``search_batch``'s
+    assert port.metrics.histogram_stats("flush_latency_ms")["count"] == \
+        count["flush_latency_ms"] + 3
+    assert port.metrics.histogram_stats("batch_search_latency_ms").get(
+        "count", 0) == count["batch_search_latency_ms"]
+    trace, = tmp_path.glob("vqt_trace_*.pt.trace.json")
+    spans, = tmp_path.glob("vqt_spans_*.json")
+    assert spans.name[len("vqt_spans_"):-len(".json")] == \
+        trace.name[len("vqt_trace_"):-len(".pt.trace.json")]
+    trace, spans = (json.loads(p.read_text()) for p in (trace, spans))
+    assert spans["baseTimeNanoseconds"] == trace["baseTimeNanoseconds"]
+    flushes = {}
+    for e in spans["traceEvents"]:
+        assert e["ph"] == "X" and e["dur"] >= 0
+        if e["name"] in FLUSH_SPANS:
+            flushes.setdefault(e["args"]["unit"], set()).add(e["name"])
+    assert len(flushes) >= 3 and None not in flushes
+    assert all(names == FLUSH_SPANS for names in flushes.values())
+    ops = [e for e in trace["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    for d in (e for e in spans["traceEvents"] if e["name"] == "dispatch"):
+        inside = [o for o in ops if o["tid"] == d["tid"]
+                  and d["ts"] <= o["ts"] <= d["ts"] + d["dur"]]
+        assert inside, d
 
 
 def test_metrics_snapshot_matches_jax(servers):

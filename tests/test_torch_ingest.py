@@ -34,6 +34,7 @@ import torch
 import jax.numpy as jnp
 
 from tests.helpers import make_synthetic_video
+from tests.test_torch_stageprof import spans_on  # noqa: F401  (a fixture)
 from tests.torch_parity import TINY_224, port_state_dict, row_cosine
 from video_quierer_tpu.engine import config as jax_config
 from video_quierer_tpu.engine.system import VideoSearchEngine as JaxEngine
@@ -409,3 +410,38 @@ def test_add_batch_device_appends_one_video():
     twin.sync_mirror()
     _assert_same_mirrors(streamed, twin)
     assert np.array_equal(streamed._emb[:20], feats[5:25].numpy())
+
+
+INGEST_SPANS = ("ingest.next", "frames.stack", "embed.fetch", "ingest.append")
+
+
+def test_ingest_logs_each_batch_under_its_number(videos, tmp_path,  # noqa: F811
+                                                 port_embedder, spans_on):
+    """Each batch logs one ``ingest.next`` (``frames.stack`` inside it),
+    one ``embed.fetch`` and one ``ingest.append`` under the engine's batch
+    number, which runs on across ingests; the ``ingest.next`` that finds
+    the stream's end carries the number the next batch will take."""
+    eng = _port_engine(_copy_videos(videos, tmp_path / "v", (0, 3)),
+                       embedder=port_embedder)
+    eng.startup()                               # 24 frames: 16 + 8
+    assert eng.process_video(tmp_path / "v" / "clip_3.mp4") == 12
+    assert eng.metrics.counter("ingest_batches") == 3
+    assert eng.metrics.counter("frames_embedded") == 36
+    by_unit = {}
+    for e in spans_on.events()[0]:
+        if e.name in INGEST_SPANS:
+            by_unit.setdefault(e.unit, []).append(e)
+    assert sorted(by_unit) == [0, 1, 2, 3]
+    assert [e.name for e in by_unit[3]] == ["ingest.next"]
+    for n in range(3):
+        names = sorted(e.name for e in by_unit[n])
+        ends = 1 if n == 2 else 0           # the first ingest's end
+        assert names == sorted(INGEST_SPANS + ("ingest.next",) * ends), n
+        named = {e.name: e for e in by_unit[n] if e.name != "ingest.next"}
+        stack = named["frames.stack"]
+        nxt, = [e for e in by_unit[n] if e.name == "ingest.next"
+                and e.t0_ns <= stack.t0_ns <= stack.t1_ns <= e.t1_ns]
+        assert stack.parent == "ingest.next" and nxt.parent is None
+        assert nxt.t1_ns <= named["embed.fetch"].t0_ns \
+            <= named["embed.fetch"].t1_ns <= named["ingest.append"].t0_ns
+        assert len({e.thread for e in by_unit[n]}) == 1

@@ -27,6 +27,8 @@ gradient and moment trees cross the same way. Tolerances:
   parameters after several steps are not compared element by element.
 """
 
+import weakref
+
 import numpy as np
 import optax
 import pytest
@@ -36,6 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.test_torch_siglip import tiny_configs
+from tests.test_torch_stageprof import spans_on  # noqa: F401  (a fixture)
 from tests.torch_parity import (
     TINY,
     jax_init,
@@ -322,6 +325,60 @@ def test_three_steps_match_jax_by_their_losses(clip_tiny):
     got = [port.step(images, ids) for _ in range(3)]
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[-1] < got[0]
+
+
+STEP_SPANS = ("train.forward", "train.backward", "train.optimizer",
+              "train.loss_fetch")
+
+
+def test_step_spans_log_each_step_and_leave_the_losses(  # noqa: F811
+        clip_tiny, spans_on):
+    """Each step logs its four spans in order under its step number; the
+    losses with spans on equal those with spans off, bit for bit."""
+    _, tcfg, _, sd = clip_tiny
+    images, ids = clip_batch(3, b=4)
+    on = trainer.CLIPTrainer(tcfg, params=sd, device="cpu",
+                             learning_rate=1e-3)
+    got = [on.step(images, ids) for _ in range(3)]
+    evs = [e for e in spans_on.events()[0] if e.name in STEP_SPANS]
+    assert [(e.unit, e.name) for e in evs] == [
+        (n, name) for n in range(3) for name in STEP_SPANS]
+    assert all(e.parent is None for e in evs)
+    assert all(a.t1_ns <= b.t0_ns for a, b in zip(evs, evs[1:]))
+    spans_on.enable(False)
+    off = trainer.CLIPTrainer(tcfg, params=sd, device="cpu",
+                              learning_rate=1e-3)
+    assert [off.step(images, ids) for _ in range(3)] == got
+    assert len(spans_on.events()[0]) == len(evs)
+
+
+def test_step_frees_its_graph_and_gradients_before_the_loss_fetch(
+        clip_tiny, monkeypatch):
+    """The step's loss (with its autograd graph) and its gradients are
+    released inside ``train.optimizer``: nothing of them is alive when
+    ``train.loss_fetch`` opens, so the fetch is the step's last work."""
+    _, tcfg, _, sd = clip_tiny
+    images, ids = clip_batch(3, b=4)
+    tr = trainer.CLIPTrainer(tcfg, params=sd, device="cpu",
+                             learning_rate=1e-3)
+    refs, alive = [], []
+    loss_and_grads, span = tr._loss_and_grads, trainer.span
+
+    def spy(*args):
+        loss, grads = loss_and_grads(*args)
+        refs.extend(weakref.ref(t) for t in (loss, *grads))
+        return loss, grads
+
+    def check(name):
+        if name == "train.loss_fetch":
+            alive.append(sum(r() is not None for r in refs))
+        return span(name)
+
+    monkeypatch.setattr(tr, "_loss_and_grads", spy)
+    monkeypatch.setattr(trainer, "span", check)
+    loss = tr.step(images, ids)
+    assert len(refs) == 1 + len(tr.state.params) and alive == [0]
+    assert np.isfinite(loss)
 
 
 def test_current_lr_and_serving_params(clip_tiny):

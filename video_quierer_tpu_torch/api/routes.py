@@ -7,7 +7,8 @@ texts and body shapes.
   ``/api/openapi.json`` and ``/api/docs`` (``api/openapi.py``), ``POST
   /api/profiler/start|stop`` (a ``torch.profiler`` trace of the CPU and,
   on a card, CUDA activity, written as a Chrome trace into
-  ``trace_dir``; 409 when a trace runs already, or none does);
+  ``trace_dir``, with the program's spans over the trace beside it on
+  the same clock; 409 when a trace runs already, or none does);
 - search: ``POST /api/search`` (``{query, k=5 (1..50), use_cache=true,
   dedup_videos=false, offset=0 (0..63)}``; a ``data:image/...;base64``
   query that decodes to an image searches by that image, any other query
@@ -46,6 +47,7 @@ import functools
 import json
 import logging
 import os
+import re
 import tempfile
 import threading
 import time
@@ -79,6 +81,7 @@ from video_quierer_tpu_torch.engine.system import (
     VideoSearchEngine,
 )
 from video_quierer_tpu_torch.index.device_index import DeviceVideoIndex
+from video_quierer_tpu_torch.utils import stageprof
 
 logger = logging.getLogger(__name__)
 
@@ -126,13 +129,20 @@ class TraceRecorder:
     """One ``torch.profiler`` trace at a time: the CPU activity and, on a
     card, the CUDA activity of the whole process (every thread's kernels),
     written at :meth:`stop` as a Chrome trace into the start's directory.
-    The profiler must start and stop on one thread, so a thread of its own
-    runs both for whichever request thread asks."""
+    The program's spans (``utils/stageprof.py``) are on while the trace
+    runs; :meth:`stop` writes those of the trace's time beside it as
+    ``vqt_spans_<id>.json`` (the trace is ``vqt_trace_<id>.pt.trace.json``),
+    on the trace's own time base, and puts the spans' switch back as it
+    was. The profiler must start and stop on one
+    thread, so a thread of its own runs both for whichever request thread
+    asks."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._prof = None
         self._dir: Optional[Path] = None
+        self._spans_were = False
+        self._since_ns = 0
         self._thread = ThreadPoolExecutor(1, thread_name_prefix="profiler")
 
     def _on_own_thread(self, fn):
@@ -156,21 +166,38 @@ class TraceRecorder:
                 return prof
 
             self._prof, self._dir = self._on_own_thread(begin), path
+            self._spans_were = stageprof.ENABLED
+            self._since_ns = time.time_ns()
+            stageprof.enable(True)
 
     def stop(self) -> Path:
         with self._lock:
             prof, self._prof = self._prof, None
             if prof is None:
                 raise RuntimeError("No profile started")
-            out = self._dir / f"vqt_trace_{os.getpid()}_{time.time_ns()}" \
-                ".pt.trace.json"
+            run = f"{os.getpid()}_{time.time_ns()}"
+            out = self._dir / f"vqt_trace_{run}.pt.trace.json"
 
             def end():
                 prof.stop()
                 prof.export_chrome_trace(str(out))
 
-            self._on_own_thread(end)
+            try:
+                self._on_own_thread(end)
+            finally:
+                stageprof.enable(self._spans_were)
+            evs, _ = stageprof.events(self._since_ns)
+            stageprof.write_chrome_trace(self._dir / f"vqt_spans_{run}.json",
+                                         evs, _trace_base_ns(out))
             return out
+
+
+def _trace_base_ns(path: Path) -> int:
+    """The ``baseTimeNanoseconds`` of a Chrome trace the profiler wrote
+    (in its first lines), else 0: its times are then from the epoch."""
+    with open(path, "rb") as f:
+        m = re.search(rb'"baseTimeNanoseconds":\s*(\d+)', f.read(1 << 20))
+    return int(m.group(1)) if m else 0
 
 
 def _decode_image_query(query: str) -> Optional[np.ndarray]:

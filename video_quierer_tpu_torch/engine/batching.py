@@ -52,6 +52,7 @@ class SearchCoalescer:
             maxsize=max(1, self.pipeline_depth))
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+        self._flushes = 0       # numbers the flushes (their spans' unit)
         n_resolvers = int(os.environ.get("VQT_COALESCE_RESOLVERS", "0")) \
             or self.pipeline_depth
         self._resolvers = []
@@ -132,26 +133,28 @@ class SearchCoalescer:
         for k, items in by_k.items():
             queries = [q for q, _ in items]
             engine.metrics.inc("searches", len(queries))
+            flush, self._flushes = self._flushes, self._flushes + 1
             t0 = time.perf_counter()
-            with stageprof.span("lock_wait"):
-                engine.lock.acquire_read()
-            try:
-                resolve = engine._dispatch_batch(queries, k)
-            except Exception as e:  # boundary: fail the waiters, keep serving
-                engine.lock.release_read()
-                logger.exception("coalesced dispatch failed")
-                for _, fut in items:
-                    fut.set_exception(e)
-                continue
-            with self._inflight_lock:
-                self._inflight += 1
-            if not self.pipeline_depth:
-                self._finish(items, resolve, t0)
-                continue
-            # hand (items, read lock) to a resolver; blocks when
-            # pipeline_depth flushes are already in flight
-            engine.metrics.inc("pipelined_flushes")
-            self._resolve_q.put((items, resolve, t0))
+            with stageprof.unit(flush):
+                with stageprof.span("lock_wait"):
+                    engine.lock.acquire_read()
+                try:
+                    resolve = engine._dispatch_batch(queries, k)
+                except Exception as e:  # boundary: fail the waiters, serve on
+                    engine.lock.release_read()
+                    logger.exception("coalesced dispatch failed")
+                    for _, fut in items:
+                        fut.set_exception(e)
+                    continue
+                with self._inflight_lock:
+                    self._inflight += 1
+                if not self.pipeline_depth:
+                    self._finish(items, resolve, t0, flush)
+                    continue
+                # hand (items, read lock) to a resolver; blocks when
+                # pipeline_depth flushes are already in flight
+                engine.metrics.inc("pipelined_flushes")
+                self._resolve_q.put((items, resolve, t0, flush))
 
     def _resolve_loop(self) -> None:
         while True:
@@ -160,17 +163,18 @@ class SearchCoalescer:
                 break
             self._finish(*item)
 
-    def _finish(self, items, resolve, t0: float) -> None:
+    def _finish(self, items, resolve, t0: float, flush: int) -> None:
         """Resolve one flush, answer its futures, release its read lock."""
         engine = self._engine
         try:
-            with stageprof.span("resolve"):
-                batches = resolve()
-            with stageprof.span("format"):
-                results = [engine._format(r) for r in batches]
-            with stageprof.span("deliver"):
-                for (_, fut), res in zip(items, results):
-                    fut.set_result(res)
+            with stageprof.unit(flush):
+                with stageprof.span("resolve"):
+                    batches = resolve()
+                with stageprof.span("format"):
+                    results = [engine._format(r) for r in batches]
+                with stageprof.span("deliver"):
+                    for (_, fut), res in zip(items, results):
+                        fut.set_result(res)
         except Exception as e:  # boundary: fail the waiters, keep serving
             logger.exception("coalesced resolve failed")
             for _, fut in items:
@@ -180,5 +184,5 @@ class SearchCoalescer:
             engine.lock.release_read()
             with self._inflight_lock:
                 self._inflight -= 1
-            engine.metrics.observe("batch_search_latency_ms",
+            engine.metrics.observe("flush_latency_ms",
                                    (time.perf_counter() - t0) * 1000.0)

@@ -1,14 +1,28 @@
-"""First-class system metrics, wired into the live path.
-
-Copy of ``video_quierer_tpu/engine/metrics.py`` for the PyTorch
-port, which cannot import the JAX package (its ``__init__`` imports
-jax); keep the two in step.
+"""First-class system metrics, wired into the live path
+(counterpart of ``video_quierer_tpu/engine/metrics.py``).
 
 The reference *defined* this subsystem but never connected it
 (``SystemMetrics``, src/utils/metrics.py — dead path; SURVEY.md §5 says the
-rebuild should make it live). Thread-safe counters / gauges / bounded
-histograms with percentile summaries and Prometheus text export under the
-``video_search_`` namespace.
+rebuild should make it live). Thread-safe counters / gauges / histograms
+with percentile summaries and Prometheus text export under the
+``video_search_`` namespace. A histogram's count and sum run over every
+sample it was given; its minimum, maximum, mean and percentiles over the
+last ``HISTOGRAM_CAP``.
+
+What the engine records (``/metrics``, ``/api/metrics``):
+
+- counters: ``searches``, ``search_cache_hits``, ``ann_searches``,
+  ``similar_searches``, ``pipelined_flushes`` (the coalescer's flushes
+  handed to a resolver), ``frames_embedded``, ``ingest_batches``,
+  ``ivf_builds``, ``embed_fallbacks`` and ``fused_search_fallbacks``
+  (always 0 on the port);
+- gauge: ``frames_indexed``;
+- histograms (ms unless named otherwise): ``startup_ms``, ``ingest_ms``,
+  ``embed_batch_ms``, ``ivf_build_ms``, ``search_latency_ms``,
+  ``text_encode_ms``, ``index_scan_ms``, ``batch_search_latency_ms``
+  (``search_batch``), ``video_search_latency_ms``, ``flush_latency_ms``
+  (a coalesced flush, dispatch to answers), ``coalesced_batch_size``
+  (requests).
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ class SystemMetrics:
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._histograms: Dict[str, deque] = {}
+        self._totals: Dict[str, list] = {}     # name: [count, sum]
         self._started = time.time()
 
     # -- recording -------------------------------------------------------
@@ -48,7 +63,11 @@ class SystemMetrics:
             hist = self._histograms.get(name)
             if hist is None:
                 hist = self._histograms[name] = deque(maxlen=HISTOGRAM_CAP)
+                self._totals[name] = [0, 0.0]
             hist.append(float(value))
+            total = self._totals[name]
+            total[0] += 1
+            total[1] += float(value)
 
     @contextmanager
     def timer(self, name: str):
@@ -70,13 +89,17 @@ class SystemMetrics:
             return self._gauges.get(name)
 
     def histogram_stats(self, name: str) -> Dict[str, float]:
+        """``count`` and ``sum`` of every sample; the rest of the last
+        ``HISTOGRAM_CAP``."""
         with self._lock:
             values = list(self._histograms.get(name, ()))
+            count, total = self._totals.get(name, (0, 0.0))
         if not values:
             return {}
         arr = np.asarray(values)
         return {
-            "count": int(arr.size),
+            "count": int(count),
+            "sum": float(total),
             "min": float(arr.min()),
             "max": float(arr.max()),
             "mean": float(arr.mean()),
@@ -118,8 +141,7 @@ class SystemMetrics:
                 lines.append(
                     f'{ns}_{name}{{quantile="{q[1:]}"}} {stats[q]}')
             lines.append(f"{ns}_{name}_count {stats['count']}")
-            lines.append(f"{ns}_{name}_sum "
-                         f"{stats['mean'] * stats['count']}")
+            lines.append(f"{ns}_{name}_sum {stats['sum']}")
         lines.append(f"# TYPE {ns}_uptime_seconds gauge")
         lines.append(f"{ns}_uptime_seconds {snap['uptime_seconds']}")
         return "\n".join(lines) + "\n"

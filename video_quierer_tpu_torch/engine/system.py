@@ -124,7 +124,7 @@ from video_quierer_tpu_torch.parallel.mesh import (
 )
 from video_quierer_tpu_torch.utils.env import resolve_device
 from video_quierer_tpu_torch.utils.locks import RWLock
-from video_quierer_tpu_torch.utils.stageprof import span
+from video_quierer_tpu_torch.utils.stageprof import span, unit
 
 logger = logging.getLogger(__name__)
 
@@ -362,7 +362,7 @@ class VideoSearchEngine:
         ks = sorted({1, self.config.api.default_results, 10})
         long_q = " ".join(["warmup"] * 28)
         try:
-            with self.lock.read(), span("warm_up"):
+            with self.lock.read():
                 for k in ks:
                     for query in ("warmup", long_q):
                         self._dispatch_batch_fused([query], k)()
@@ -424,27 +424,42 @@ class VideoSearchEngine:
         mirrors to sync at the next search. Returns the frames added."""
         stream = self.config.ingest.stream_mirror
         added = 0
-        for batch in batches:
-            feats_dev = None
-            with self.metrics.timer("embed_batch"):
-                if stream:
-                    feats_dev, feats = self.embed_frames_device(batch.frames)
-                else:
-                    feats = self.embed_frames(batch.frames)
-            pos = 0
-            lo = len(self.index)
-            for vidx, frames, stamps in group_by_video(batch):
-                n = frames.shape[0]
-                self.index.add_batch(feats[pos: pos + n],
-                                     Path(videos[vidx]).name, stamps)
-                pos += n
-            if feats_dev is not None:
-                self.index.stream_rows_device(feats_dev, offset=0, n=pos,
-                                              lo=lo)
-            elif stream:
-                self.index.sync_mirror()
+        it = iter(batches)
+        # each batch's spans carry the engine's running batch number; the
+        # last ``ingest.next`` is the wait that found the stream's end
+        number = int(self.metrics.counter("ingest_batches"))
+        while True:
+            with unit(number):
+                with span("ingest.next"):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                feats_dev = None
+                with self.metrics.timer("embed_batch"):
+                    if stream:
+                        feats_dev, feats = self.embed_frames_device(
+                            batch.frames)
+                    else:
+                        feats = self.embed_frames(batch.frames)
+                runs = [(Path(videos[vidx]).name, stamps) for vidx, _, stamps
+                        in group_by_video(batch)]
+                with span("ingest.append"):
+                    pos = 0
+                    lo = len(self.index)
+                    for name, stamps in runs:
+                        n = len(stamps)
+                        self.index.add_batch(feats[pos: pos + n], name,
+                                             stamps)
+                        pos += n
+                    if feats_dev is not None:
+                        self.index.stream_rows_device(feats_dev, offset=0,
+                                                      n=pos, lo=lo)
+                    elif stream:
+                        self.index.sync_mirror()
             added += len(batch)
+            number += 1
             self.metrics.inc("frames_embedded", len(batch))
+            self.metrics.inc("ingest_batches")
         return added
 
     def process_video(self, video_path: Path,

@@ -1340,16 +1340,11 @@ class DeviceVideoIndex:
         sidecar. True on success; a failed write is logged and gives False,
         as the reference's."""
         try:
-            with span("save_payload"):
-                payload = self.to_cache_dict()
-            with span("save_pickle"):
-                payload = pickle.dumps(payload)
-            with span("save_write"):
-                Path(cache_path).write_bytes(payload)
+            payload = pickle.dumps(self.to_cache_dict())
+            Path(cache_path).write_bytes(payload)
             if checksum:
-                with span("save_checksum"):
-                    self._sidecar(cache_path).write_text(
-                        hashlib.sha256(payload).hexdigest())
+                self._sidecar(cache_path).write_text(
+                    hashlib.sha256(payload).hexdigest())
         except Exception as e:  # boundary: the caller decides on a miss
             logger.error("Failed to save cache: %s", e)
             return False

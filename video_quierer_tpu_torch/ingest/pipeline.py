@@ -28,6 +28,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from video_quierer_tpu_torch.ingest.frames import extract_frames
+from video_quierer_tpu_torch.utils.stageprof import span
 
 logger = logging.getLogger(__name__)
 
@@ -107,9 +108,11 @@ def batched_frames(video_paths: Sequence[Path],
         nonlocal buf_frames, buf_vidx, buf_ts
         while len(buf_frames) >= batch_size or (force and buf_frames):
             take = min(batch_size, len(buf_frames))
-            yield FrameBatch(frames=np.stack(buf_frames[:take]),
-                             video_indices=buf_vidx[:take],
-                             timestamps=buf_ts[:take])
+            with span("frames.stack"):
+                batch = FrameBatch(frames=np.stack(buf_frames[:take]),
+                                   video_indices=buf_vidx[:take],
+                                   timestamps=buf_ts[:take])
+            yield batch
             buf_frames = buf_frames[take:]
             buf_vidx = buf_vidx[take:]
             buf_ts = buf_ts[take:]

@@ -103,6 +103,7 @@ from video_quierer_tpu_torch.parallel.pipeline import (
     shard_layers,
 )
 from video_quierer_tpu_torch.utils.env import resolve_device
+from video_quierer_tpu_torch.utils.stageprof import span
 
 logger = logging.getLogger(__name__)
 
@@ -382,7 +383,9 @@ class CLIPEmbedder:
             parts.append(self._encode_image_fn(self.params,
                                                batch.to(self.device)))
         feats_dev = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return feats_dev, feats_dev[:n].cpu().numpy()
+        with span("embed.fetch"):
+            feats = feats_dev[:n].cpu().numpy()
+        return feats_dev, feats
 
     def _encode_text_fn(self, params: CLIP,
                         input_ids: torch.Tensor) -> torch.Tensor:

@@ -96,6 +96,7 @@ from video_quierer_tpu_torch.parallel.moe import (
     switch_aux,
 )
 from video_quierer_tpu_torch.utils.env import resolve_device
+from video_quierer_tpu_torch.utils.stageprof import span, unit
 
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -570,10 +571,18 @@ class CLIPTrainer:
     def step(self, images, input_ids) -> float:
         """One optimizer step on a ``[B, H, W, 3]`` float batch (numpy or
         a tensor) and its ``[B, S]`` ids, the global batch on a mesh;
-        returns the loss."""
-        loss, grads = self._loss_and_grads(images, input_ids)
-        self._apply(grads)
-        return float(loss.detach())
+        returns the loss. Its spans (``train.forward``, ``train.backward``,
+        ``train.optimizer``, ``train.loss_fetch``) carry the step's number;
+        the loss's fetch is the step's one wait on the device and its last
+        work: the graph and the gradients are freed in ``train.optimizer``,
+        while the device still runs the step."""
+        with unit(self.state.step):
+            loss, grads = self._loss_and_grads(images, input_ids)
+            with span("train.optimizer"):
+                self._apply(grads)
+                loss, grads = loss.detach(), None
+            with span("train.loss_fetch"):
+                return float(loss)
 
     def value_and_grad(self, images, input_ids
                        ) -> Tuple[float, Dict[str, torch.Tensor]]:
@@ -590,17 +599,21 @@ class CLIPTrainer:
         return float(loss.detach()), dict(tree.items())
 
     def _loss_and_grads(self, images, input_ids):
-        if self.mesh is not None:
-            return self._mesh_loss_and_grads(images, input_ids)
-        images = torch.as_tensor(images, device=self.device)
-        input_ids = torch.as_tensor(input_ids, device=self.device).long()
-        params = list(self.state.params.values())
-        loss = loss_fn(self.model, images, input_ids)
-        return loss, list(torch.autograd.grad(loss, params))
+        with span("train.forward"):
+            if self.mesh is not None:
+                loss, leaves = self._mesh_loss(images, input_ids)
+            else:
+                images = torch.as_tensor(images, device=self.device)
+                input_ids = torch.as_tensor(input_ids,
+                                            device=self.device).long()
+                leaves = list(self.state.params.values())
+                loss = loss_fn(self.model, images, input_ids)
+        with span("train.backward"):
+            return loss, list(torch.autograd.grad(loss, leaves))
 
-    def _mesh_loss_and_grads(self, images, input_ids):
-        """The global batch's loss over the mesh's rows, and the gradient
-        of every part (``ShardedTree.flat`` order)."""
+    def _mesh_loss(self, images, input_ids):
+        """The global batch's loss over the mesh's rows, and every part it
+        is differentiated for (``ShardedTree.flat`` order)."""
         grid, st = self.mesh.grid, self.state.params
         images, input_ids = torch.as_tensor(images), torch.as_tensor(
             input_ids)
@@ -645,7 +658,7 @@ class CLIPTrainer:
             loss = loss + MOE_AUX_WEIGHT * torch.stack(aux).sum()
             self.last_dropped = {name: _sum_onto([x[2] for x in layers], dev)
                                  for name, layers in moe.items()}
-        return loss, list(torch.autograd.grad(loss, st.flat()))
+        return loss, st.flat()
 
     @torch.no_grad()
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]) -> None:
