@@ -24,7 +24,10 @@
   keep the incremental Fisher–Yates arrangement from the first row.
 """
 
+import itertools
 import shutil
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -99,12 +102,16 @@ def test_extract_frames_matches_jax(videos, mode):
     assert got_ts == want_ts
 
 
-def _batches(mod, videos, **kw):
+def _batches(mod, videos, batch_size=16, **kw):
     return [(b.frames, b.video_indices, b.timestamps,
              [(v, f.shape[0], list(t)) for v, f, t in mod.group_by_video(b)])
-            for b in mod.batched_frames(videos, max_frames=9,
-                                        sampling_mode="high", batch_size=16,
-                                        num_workers=2, prefetch=2, **kw)]
+            for b in _stream(mod, videos, batch_size, **kw)]
+
+
+def _stream(mod, videos, batch_size, **kw):
+    return mod.batched_frames(videos, max_frames=9, sampling_mode="high",
+                              batch_size=batch_size, num_workers=2,
+                              prefetch=2, **kw)
 
 
 def _assert_same_batches(got, want):
@@ -136,6 +143,110 @@ def test_failed_extraction_skips_the_video(videos):
                                                  extract_fn=extract))
     assert sorted({v for b in batches for v in b.video_indices}) == [0, 2]
 
+
+def _ptr(a: np.ndarray) -> int:
+    return a.__array_interface__["data"][0]
+
+
+def test_kept_view_holds_its_slot(videos):
+    """A view a consumer keeps of one batch (``b.frames[2:5]``) reads what
+    it read while the consumer takes five more batches: the ring fills
+    that batch's slot again only once nothing views it."""
+    want = _batches(jax_pipeline, videos, batch_size=4)
+    it = _stream(torch_pipeline, videos, 4)
+    kept = next(it).frames[2:5]
+    slot = _ptr(kept) - 2 * kept.strides[0]
+    for i in range(1, 6):
+        b = next(it)
+        assert np.array_equal(b.frames, want[i][0])
+        assert _ptr(b.frames) != slot
+        del b
+    assert np.array_equal(kept, want[0][0][2:5])
+    it.close()
+
+
+def test_dropped_batches_reuse_the_ring(videos, spans_on):  # noqa: F811
+    """A consumer that drops each batch gets the ring's slots again: the
+    frames' data pointers repeat, and ``frames.fresh`` counts only the
+    ring's first fill."""
+    want = _batches(jax_pipeline, videos, batch_size=4)
+    ptrs = []
+    for i, b in enumerate(_stream(torch_pipeline, videos, 4)):
+        assert np.array_equal(b.frames, want[i][0])
+        assert (b.video_indices, b.timestamps) == (want[i][1], want[i][2])
+        ptrs.append(_ptr(b.frames))
+    calls = {k: v[0] for k, v in spans_on.snapshot().items()}
+    assert len(ptrs) == len(want) == calls["frames.stack"]
+    assert len(set(ptrs)) == calls["frames.fresh"] \
+        <= torch_pipeline.RING_SLOTS < len(ptrs)
+
+
+def _numbered(path):
+    """Three frames filled with the video's number, as ``v<n>.mp4``'s."""
+    v = int(Path(path).stem[1:])
+    return np.full((3, 224, 224, 3), v % 256, np.uint8), [0.0, 0.5, 1.0]
+
+
+def test_close_stops_the_assembler():
+    """Closing the generator in the middle of a long video list stops its
+    assembler thread and its decode pool, and no extraction starts after."""
+    calls = []
+
+    def extract(path):
+        calls.append(path)
+        return _numbered(path)
+
+    paths = [f"v{i}.mp4" for i in range(100_000)]
+    jax_it = jax_pipeline.batched_frames(paths, batch_size=4, num_workers=2,
+                                         prefetch=4, extract_fn=_numbered)
+    want = list(itertools.islice(jax_it, 3))
+    jax_it.close()
+    before = set(threading.enumerate())
+    it = torch_pipeline.batched_frames(paths, batch_size=4, num_workers=2,
+                                       prefetch=4, extract_fn=extract)
+    for w in want:
+        b = next(it)
+        assert np.array_equal(b.frames, w.frames)
+        assert (b.video_indices, b.timestamps) == \
+            (w.video_indices, w.timestamps)
+    it.close()
+    deadline = time.monotonic() + 5
+    while set(threading.enumerate()) - before \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not set(threading.enumerate()) - before
+    n = len(calls)
+    time.sleep(0.2)
+    assert len(calls) == n < 30
+
+
+def test_assembler_error_reaches_the_consumer():
+    """Frames of a second shape: a batch made of them alone is built by a
+    fresh ``np.stack``; a batch mixing both shapes raises ``np.stack``'s
+    error at the consumer's ``next()``, after the batches before it, as
+    the JAX pipeline does."""
+    shapes = [(8, 224), (8, 224), (8, 224), (4, 32), (2, 224), (2, 32)]
+
+    def extract(path):
+        v = int(Path(path).stem[1:])
+        n, s = shapes[v]
+        return np.full((n, s, s, 3), v, np.uint8), [0.5 * j for j in range(n)]
+
+    def run(mod):
+        got = []
+        with pytest.raises(ValueError) as err:
+            for b in mod.batched_frames([f"v{i}.mp4" for i in range(6)],
+                                        batch_size=4, num_workers=2,
+                                        prefetch=2, extract_fn=extract):
+                got.append((b.frames, b.video_indices, b.timestamps))
+        return got, str(err.value)
+
+    got, got_err = run(torch_pipeline)
+    want, want_err = run(jax_pipeline)
+    assert got_err == want_err and "same shape" in got_err
+    assert len(got) == len(want) == 7 and got[6][0].shape[1] == 32
+    for (gf, gv, gt), (wf, wv, wt) in zip(got, want):
+        assert np.array_equal(gf, wf) and (gv, gt) == (wv, wt)
 
 # -- the engine, against the JAX engine -------------------------------------
 
@@ -412,36 +523,56 @@ def test_add_batch_device_appends_one_video():
     assert np.array_equal(streamed._emb[:20], feats[5:25].numpy())
 
 
-INGEST_SPANS = ("ingest.next", "frames.stack", "embed.fetch", "ingest.append")
+INGEST_SPANS = ("ingest.next", "embed.fetch", "ingest.append")
 
 
 def test_ingest_logs_each_batch_under_its_number(videos, tmp_path,  # noqa: F811
                                                  port_embedder, spans_on):
-    """Each batch logs one ``ingest.next`` (``frames.stack`` inside it),
-    one ``embed.fetch`` and one ``ingest.append`` under the engine's batch
-    number, which runs on across ingests; the ``ingest.next`` that finds
-    the stream's end carries the number the next batch will take."""
+    """Each batch logs one ``ingest.next``, one ``embed.fetch`` and one
+    ``ingest.append`` under the engine's batch number, which runs on across
+    ingests, on the loop's thread; the ``ingest.next`` that finds the
+    stream's end carries the number the next batch will take. Each batch's
+    ``frames.stack`` (a ``frames.fresh`` inside it while the ring fills) is
+    logged on the frame assembler's thread, with no number, and ends
+    before the loop's wait for that batch does."""
     eng = _port_engine(_copy_videos(videos, tmp_path / "v", (0, 3)),
                        embedder=port_embedder)
     eng.startup()                               # 24 frames: 16 + 8
     assert eng.process_video(tmp_path / "v" / "clip_3.mp4") == 12
     assert eng.metrics.counter("ingest_batches") == 3
     assert eng.metrics.counter("frames_embedded") == 36
-    by_unit = {}
+    by_unit, stacks, fresh = {}, [], []
     for e in spans_on.events()[0]:
         if e.name in INGEST_SPANS:
             by_unit.setdefault(e.unit, []).append(e)
+        elif e.name == "frames.stack":
+            stacks.append(e)
+        elif e.name == "frames.fresh":
+            fresh.append(e)
     assert sorted(by_unit) == [0, 1, 2, 3]
     assert [e.name for e in by_unit[3]] == ["ingest.next"]
+    loop = {e.thread for evs in by_unit.values() for e in evs}
+    assert len(loop) == 1
+    stacks.sort(key=lambda e: e.t1_ns)
+    assert len(stacks) == 3
     for n in range(3):
         names = sorted(e.name for e in by_unit[n])
         ends = 1 if n == 2 else 0           # the first ingest's end
         assert names == sorted(INGEST_SPANS + ("ingest.next",) * ends), n
         named = {e.name: e for e in by_unit[n] if e.name != "ingest.next"}
-        stack = named["frames.stack"]
-        nxt, = [e for e in by_unit[n] if e.name == "ingest.next"
-                and e.t0_ns <= stack.t0_ns <= stack.t1_ns <= e.t1_ns]
-        assert stack.parent == "ingest.next" and nxt.parent is None
+        nxt = max((e for e in by_unit[n] if e.name == "ingest.next"
+                   and e.t1_ns <= named["embed.fetch"].t0_ns),
+                  key=lambda e: e.t1_ns)
+        assert nxt.parent is None
         assert nxt.t1_ns <= named["embed.fetch"].t0_ns \
             <= named["embed.fetch"].t1_ns <= named["ingest.append"].t0_ns
-        assert len({e.thread for e in by_unit[n]}) == 1
+        stack = stacks[n]
+        assert stack.t1_ns <= nxt.t1_ns
+        assert stack.thread not in loop
+        assert stack.parent is None and stack.unit is None
+    # the first ingest fills two slots of its ring, the second one
+    assert len(fresh) == 3
+    for e in fresh:
+        assert e.parent == "frames.stack" and any(
+            s.thread == e.thread and s.t0_ns <= e.t0_ns <= e.t1_ns <= s.t1_ns
+            for s in stacks)

@@ -1737,3 +1737,32 @@ def test_multipart_pickle_part_loads_on_the_card(cuda):
     for q in _video_queries(rows, 3):
         assert dst.search_videos(q, 10) == src.search_videos(q, 10)
 
+
+
+@pytest.mark.gpu
+def test_frame_batches_are_pinned(cuda):
+    """On a CUDA host the frame pipeline's ring batches are page-locked, so
+    the embedder's upload of a batch is a pinned copy; a consumer that
+    drops each batch gets the ring's slots again, and the frames arrive on
+    the card as made."""
+    from video_quierer_tpu_torch.ingest.pipeline import (
+        RING_SLOTS,
+        batched_frames,
+    )
+
+    def extract(path):
+        v = int(path.stem[1:])
+        return np.full((6, 224, 224, 3), v, np.uint8), \
+            [0.5 * j for j in range(6)]
+
+    ptrs = []
+    for b in batched_frames([f"v{i}.mp4" for i in range(40)], batch_size=16,
+                            num_workers=2, extract_fn=extract):
+        frames = torch.from_numpy(b.frames)
+        assert frames.is_pinned()
+        want = torch.tensor(b.video_indices, dtype=torch.uint8)
+        assert torch.equal(frames.to(cuda).cpu(),
+                           want[:, None, None, None].expand_as(frames))
+        ptrs.append(frames.data_ptr())
+        del frames
+    assert len(ptrs) == 15 and len(set(ptrs)) <= RING_SLOTS

@@ -29,9 +29,13 @@ engine/system.py
   ingest.next    the ingest loop waiting on the frame pipeline for its
                  next batch (unit: the engine's batch number)
   ingest.append  a batch's per-video host appends and its device append
-ingest/pipeline.py
-  frames.stack   a batch's frames copied into one array
-                 (``batched_frames``; it runs inside ``ingest.next``)
+ingest/pipeline.py (``batched_frames``' assembler thread; no unit)
+  frames.stack   a batch's frames copied into one array, ahead of the
+                 loop's ``ingest.next`` that takes the batch
+  frames.fresh   inside ``frames.stack``: a new array made for the batch,
+                 a ring slot's first fill or, with no slot free, a fresh
+                 ``np.stack``; 1 - its count over ``frames.stack``'s is
+                 the share of batches built in a reused slot
 models/clip/embedder.py
   embed.fetch    the host waiting for the vision tower and copying the
                  batch's rows back (``embed_frames_device``)
