@@ -8,13 +8,17 @@ GPU — the quickest proof that the port still starts on the card.
     python3 chip_smoke.py --checkpoints
     python3 chip_smoke.py --train
     python3 chip_smoke.py --towers
+    python3 chip_smoke.py --aimv2
     python3 chip_smoke.py --pp-cards 4
     python3 chip_smoke.py --hosts 2
     python3 chip_smoke.py --meshes
     python3 chip_smoke.py --train-mesh 4
 
 Run from the root of a checkout. ``--ab DIR`` runs only a same-call A/B
-of the text and vision kernel phases (and with ``--ab-scans`` the
+of the text and vision kernel phases (B3 and the halves also at
+ViT-L/14's shapes and, where the checkout has them, AIMv2's: B3 at head
+width 128, the RMSNorm and gated halves, each at 256 frames on random
+operands; and with ``--ab-scans`` the
 search-tier scans B1, B4, B7, B8 — B8 also at B = 1 and 16, B1, B4 and
 B7 at B = 1 and 256 —, B9 and B8 over bf16 rows at B = 1 and 64 and k =
 10 and 40, B10 at B = 64 and B11 at B = 1, 64 and 256, both over the
@@ -27,7 +31,8 @@ run. ``--exact-scans`` runs phases 1 and 2, then only the hatch's exact
 scans against their plain versions (phase 3's last part), timed;
 ``--checkpoints`` runs phases 1 and 2, then only phase 3's ViT-L/14 part
 and phase 9; ``--train`` runs phases 1, 2 and 10; ``--towers`` runs
-phases 1, 2 and 11; ``--pp-cards N`` runs phases 1, 2 and ViT-L/14's
+phases 1, 2 and 11; ``--aimv2`` runs phases 1, 2, phase 3's AIMv2 part
+and phase 6's AIMv2 engine; ``--pp-cards N`` runs phases 1, 2 and ViT-L/14's
 pipelined encode over N cards (stage s on cuda:s; needs N cards);
 ``--hosts N`` runs phases 1, 2 and phase 12's multi-process half over N
 processes (needs N or more cards, a multiple of N); ``--meshes`` runs
@@ -91,6 +96,15 @@ last line):
    16 heads x S = 257 beside SDPA, B5 and B6 on one vision layer at 256
    frames (T = 65,792, D = 1,024, F = 4,096; cuBLAS's two bare GEMMs
    beside B6) and B2 on the 768-wide, 12-head text tower at B = 64;
+   then the AIMv2 kernels (``apple/aimv2-large-patch14-224-lit``, seeded,
+   bf16): B3 at head width 128 beside SDPA at the text shapes (6 heads,
+   causal; B = 1 and 64) and at the vision tower's 256 frames x 8 heads x
+   S = 256, B5 with RMSNorm and bias-free projections and B6 with the
+   SiLU-gated epilogue on one vision block at 256 frames (T = 65,536, D =
+   1,024, F = 2,816; within two bf16 ulps of the plain version's largest
+   output; cuBLAS's two bare GEMMs of each half beside it), the whole
+   fused vision encode (256 frames) and fused text encode (B = 64) on the
+   kernels against the same encodes on the halves' plain versions;
 4. end to end: a seeded corpus of 10,000 videos x 200 frames (2,000,000
    unit rows x 512, drawn on the card) written once as the pickle v1.0
    cache; for each mirror
@@ -154,7 +168,13 @@ last line):
    just before the searches to just after: B1 once a search dispatch,
    12 B3 a module-tower encode, 12 B5 and 12 B6 a fused flush, no other
    kernel, both fallback counters 0; single p50, batch ms and ingest
-   frames/s printed with the card's name and power limit;
+   frames/s printed with the card's name and power limit; then the same
+   for the AIMv2 engine (``model.family = "aimv2"``, the phase-3 towers;
+   512-wide rows): its ingest on the fused vision encode (24 launches of
+   each gated half an embed batch, B3 at head width 128 inside each B5,
+   no other kernel), its singles on the module text tower (B3 at head
+   width 128: every B3 launch counted on ``attention.launches_hd128``
+   too), its coalesced and batch searches on the fused text encode;
 7. the query and maintenance surface over HTTP, on engines already
    running: on phase 4's bf16, f32 and int8 engines (after their own
    launch counts were read) and on phase 5's bf16 mesh (behind a server
@@ -324,7 +344,10 @@ last line):
    10's steps, ``attention_train`` with its launches a step, and under
    remat, ``attention_train_remat``; B3 in phase 13's mesh steps,
    ``attention_train_mesh``, with its launches a step; phase 12's
-   launches under ``phase12_launches``), the nvidia-smi line, and the
+   launches under ``phase12_launches``; the AIMv2 path's B3 at head
+   width 128, S = 256 (launched inside B5) and S = 8 (the singles), B5
+   with RMSNorm and B6 with the gated epilogue, each with its AIMv2-engine
+   launches), the nvidia-smi line, and the
    result line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -385,6 +408,11 @@ from video_quierer_tpu_torch.index.device_index import (
     _round_capacity,
     video_rank_device,
 )
+from video_quierer_tpu_torch.models.aimv2.embedder import AIMv2Embedder
+from video_quierer_tpu_torch.models.aimv2.fused import (
+    fused_aimv2_text_encode,
+    fused_aimv2_vision_encode,
+)
 from video_quierer_tpu_torch.models.clip import bridge as clip_bridge
 from video_quierer_tpu_torch.models.clip import model as clip_model
 from video_quierer_tpu_torch.models.clip.config import (
@@ -414,7 +442,11 @@ from video_quierer_tpu_torch.models.siglip.model import (
 )
 from video_quierer_tpu_torch.ops import fused_layer as fl
 from video_quierer_tpu_torch.ops import kernels, topk
-from video_quierer_tpu_torch.ops.attention import attention, attention_ref
+from video_quierer_tpu_torch.ops.attention import (
+    HEAD_DIM,
+    attention,
+    attention_ref,
+)
 from video_quierer_tpu_torch.ops.preprocess import (
     SIGLIP_MEAN,
     SIGLIP_STD,
@@ -468,7 +500,9 @@ WRAPPERS = {"cand_scan_prefix": topk.cand_scan_prefix,
             "cand_scan": topk.cand_scan,
             "cand_scan_int8": topk.cand_scan_int8,
             "block_scan_int8": topk.block_scan_int8,
-            "block_scan_bf16": topk.block_scan_bf16}
+            "block_scan_bf16": topk.block_scan_bf16,
+            "rms_attn_half": fl.rms_attn_half,
+            "gated_mlp_half": fl.gated_mlp_half}
 # the scan each serving tier runs: the four mirror dtypes, then the IVF
 # tier over the bf16 mirror; every search path also encodes (B2, B3),
 # every ingest runs the vision tower (B5, B6)
@@ -518,6 +552,16 @@ SIGLIP_ATTN_SHAPES = ((1, 64, 12, False), (64, 64, 12, False),
 # tower once, either the module tower (12 B3 launches) or the fused encode
 # (12 B5 and 12 B6 launches); its ingest runs the module vision tower (B3)
 SIGLIP_PATH = ("cand_scan_prefix", "attention", "attn_half", "mlp_half")
+# AIMv2-L/14 LiT: B3's head width-128 shapes (B, S, heads, causal), the
+# text tower's singles and fused batches (6 heads, causal; 4 words are an
+# 8-token bucket) and the vision tower's 256 frames (8 heads, S = 256);
+# its serving path, as SigLIP's with the gated halves; its ingest path
+AIMV2 = "apple/aimv2-large-patch14-224-lit"
+AIMV2_ATTN_SHAPES = ((1, 8, 6, True), (64, 16, 6, True),
+                     (256, 256, 8, False))
+AIMV2_PATH = ("cand_scan_prefix", "attention", "rms_attn_half",
+              "gated_mlp_half")
+AIMV2_INGEST = ("rms_attn_half", "gated_mlp_half")
 # /api/search queries shaped like image URIs that hold no image (no
 # OpenCV on the card's machine decodes one either): searched as text
 IMAGE_SHAPED_TEXT = ("data:image", "data:imagex,abc")
@@ -659,14 +703,15 @@ def codes_tile_ptxas(qn: int, rounds: int, int4: bool) -> str:
 
 # -- phase 3: kernels vs plain ------------------------------------------------
 
-def compare_attention(dev, shapes=ATTN_SHAPES, row=(64, 77)) -> dict:
+def compare_attention(dev, shapes=ATTN_SHAPES, row=(64, 77),
+                      hd: int = HEAD_DIM) -> dict:
     """B3 against its plain version and SDPA at ``shapes`` (by default
     the CLIP text shapes, 8 heads, causal, and the vision tower's, B = 256
-    frames, S = 50, 12 heads, non-causal); returns the ``row`` = (B, S)
-    result, the kernels line's."""
+    frames, S = 50, 12 heads, non-causal) and head width ``hd``; returns
+    the ``row`` = (B, S) result, the kernels line's."""
     out = {}
     for b, s, heads, causal in shapes:
-        d = 64 * heads
+        d = hd * heads
         g = torch.Generator(device=dev).manual_seed(1000 * s + b)
         q, k, v = ((0.5 * torch.randn(b, s, d, generator=g, device=dev))
                    .bfloat16() for _ in range(3))
@@ -675,18 +720,18 @@ def compare_attention(dev, shapes=ATTN_SHAPES, row=(64, 77)) -> dict:
             return attention(q, k, v, num_heads=heads, causal=causal)
 
         def plain():
-            qs = (q.float() * 64 ** -0.5).bfloat16()
+            qs = (q.float() * hd ** -0.5).bfloat16()
             return attention_ref(qs, k, v, num_heads=heads, valid_len=s,
                                  causal=causal)
 
         # the yardstick: PyTorch's fused attention, one call on the same
-        # inputs in the [B, heads, S, 64] layout (used nowhere in the port)
-        qh, kh, vh = (t.view(b, s, heads, 64).transpose(1, 2)
+        # inputs in the [B, heads, S, hd] layout (used nowhere in the port)
+        qh, kh, vh = (t.view(b, s, heads, hd).transpose(1, 2)
                       for t in (q, k, v))
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=causal, scale=64 ** -0.5)
+                qh, kh, vh, is_causal=causal, scale=hd ** -0.5)
 
         err = (kern().float() - plain().float()).abs().max().item()
         require(err <= ATTN_ATOL, f"B3 B={b} S={s}: max_abs_err {err}")
@@ -697,7 +742,7 @@ def compare_attention(dev, shapes=ATTN_SHAPES, row=(64, 77)) -> dict:
         # over the (causal) pairs
         pairs = s * (s + 1) / 2 if causal else s * s
         lim = bound(4 * b * s * d * 2, 4 * b * d * pairs, "bf16")
-        log(f"B3 attention B={b} S={s} H={heads} "
+        log(f"B3 attention B={b} S={s} H={heads} hd={hd} "
             f"{'causal' if causal else 'non-causal'}: max_abs_err "
             f"{err:.3e} (atol {ATTN_ATOL}) kernel {ms:.4f} ms sdpa "
             f"{lms:.4f} ms (device, graph replay; eager {eager:.4f} / "
@@ -797,18 +842,29 @@ def half_bounds(t: int, d: int, f: int, s: int) -> tuple:
                   4 * t * f * d, "bf16"))
 
 
-def time_halves(halves: dict, shape: str) -> tuple:
+def two_ulps(t: torch.Tensor) -> float:
+    """Two bf16 ulps at ``t``'s largest magnitude (a GEMM output may round
+    to the other side of a tie)."""
+    top = t.float().abs().max().item()
+    return 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def time_halves(halves: dict, shape: str, atol=None) -> tuple:
     """Each layer half against its plain version (max_abs_err within
-    LAYER_ATOL) and timed: ``{name: (kernel, plain, bound)}`` -> their
-    kernels-line numbers, in order."""
+    LAYER_ATOL, or ``atol(plain output)``) and timed: ``{name: (kernel,
+    plain, bound)}`` -> their kernels-line numbers, in order."""
     out = []
     with torch.inference_mode():
         for name, (kern, plain, lim) in halves.items():
-            err = (kern().float() - plain().float()).abs().max().item()
-            require(err <= LAYER_ATOL, f"{name} {shape}: max_abs_err {err}")
+            want = plain()
+            tol = LAYER_ATOL if atol is None else atol(want)
+            err = (kern().float() - want.float()).abs().max().item()
+            del want
+            require(err <= tol, f"{name} {shape}: max_abs_err {err} "
+                    f"(atol {tol})")
             ms, eager = graph_ms(kern, 10), cuda_ms(kern, 10)
             pms = cuda_ms(plain, 10)
-            log(f"{name} {shape}: max_abs_err {err:.3e} (atol {LAYER_ATOL}) "
+            log(f"{name} {shape}: max_abs_err {err:.3e} (atol {tol}) "
                 f"kernel {ms:.3f} ms (device, graph replay; eager "
                 f"{eager:.3f}) plain {pms:.3f} ms bound "
                 f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
@@ -3401,31 +3457,34 @@ def corpus_on_card_rows(dev, seed: int, n_rows: int,
     return out
 
 
-def check_siglip_launches(engine: VideoSearchEngine, launches: dict) -> int:
-    """The SigLIP search path launched B1 once a search dispatch, and per
-    dispatch the text tower once: the module tower (12 B3 launches) or
-    the fused encode (12 B5 and 12 B6), at least once each; no other
-    kernel; both fallback counters 0. Returns the fused flushes."""
-    log(f"[siglip] launches during the path: {launches}")
+def check_tower_launches(engine: VideoSearchEngine, launches: dict,
+                         tag: str = "siglip", path: tuple = SIGLIP_PATH
+                         ) -> int:
+    """The search path of the SigLIP (or, with ``path`` AIMV2_PATH, the
+    AIMv2) engine launched B1 once a search dispatch, and per dispatch
+    the text tower once: the module tower (one B3 launch a layer) or the
+    fused encode (one launch of each half a layer, ``path[2:]``), at
+    least once each; no other kernel; both fallback counters 0. Returns
+    the fused flushes."""
+    log(f"[{tag}] launches during the path: {launches}")
     layers = engine._get_embedder().cfg.text.num_layers
-    b1, b3 = launches["cand_scan_prefix"], launches["attention"]
-    b5, b6 = launches["attn_half"], launches["mlp_half"]
+    b1, b3, b5, b6 = (launches[name] for name in path)
     for name, count in launches.items():
-        if name not in SIGLIP_PATH:
-            require(count == 0, f"[siglip] {name} launched {count} times")
-    require(b3 > 0 and b3 % layers == 0, f"[siglip] B3 launches {b3}")
+        if name not in path:
+            require(count == 0, f"[{tag}] {name} launched {count} times")
+    require(b3 > 0 and b3 % layers == 0, f"[{tag}] B3 launches {b3}")
     require(b5 > 0 and b5 == b6 and b5 % layers == 0,
-            f"[siglip] B5/B6 launches {b5}/{b6}")
+            f"[{tag}] B5/B6 launches {b5}/{b6}")
     require(b1 == b3 // layers + b5 // layers,
-            f"[siglip] B1 launches {b1} != one a search dispatch "
+            f"[{tag}] B1 launches {b1} != one a search dispatch "
             f"({b3 // layers} module-tower + {b5 // layers} fused)")
     for name in ("embed_fallbacks", "fused_search_fallbacks"):
         count = engine.metrics.counter(name)
-        require(count == 0, f"[siglip] {name} = {count}")
-    log(f"[siglip] {b5 // layers} fused flushes x {layers} B5 + {layers} B6 "
-        f"(tanh-GELU), {b3 // layers} module-tower encodes x {layers} B3, "
-        f"{b1} B1 scans (one a search dispatch); fallback counters: "
-        "embed_fallbacks 0, fused_search_fallbacks 0")
+        require(count == 0, f"[{tag}] {name} = {count}")
+    log(f"[{tag}] {b5 // layers} fused flushes x {layers} {path[2]} + "
+        f"{layers} {path[3]}, {b3 // layers} module-tower encodes x "
+        f"{layers} B3, {b1} B1 scans (one a search dispatch); fallback "
+        "counters: embed_fallbacks 0, fused_search_fallbacks 0")
     return b5 // layers
 
 
@@ -3495,7 +3554,7 @@ def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
             server.server_close()
             thread.join(30)
             engine.close()
-        check_siglip_launches(engine, launches)
+        check_tower_launches(engine, launches)
         check_served("siglip", embedder, corpus, name_of, served, device)
         del engine, server, corpus
     gc.collect()
@@ -3504,6 +3563,234 @@ def phase_siglip_engine(embedder: SigLIPEmbedder, args, device,
         f"batch of 64 {timings['batch_ms']:.2f} ms, ingest "
         f"{ingested['frames_s']:.1f} frames/s")
     return launches, ingested
+
+
+# -- phases 3 and 6: AIMv2 ----------------------------------------------------
+
+def compare_aimv2_halves(embedder: AIMv2Embedder, seed: int,
+                         b: int = 256) -> tuple:
+    """B5 with RMSNorm and bias-free projections and B6 with the
+    SiLU-gated epilogue against their plain versions on one block of the
+    seeded AIMv2 vision tower, bf16, at an ingest batch of ``b`` frames
+    (N(0, 1) activations; within two bf16 ulps of the plain output's
+    largest magnitude), with cuBLAS's two bare GEMMs of each half as the
+    GEMM core's yardstick."""
+    c = embedder.cfg.vision
+    ops = embedder._layer_ops(embedder.params, "vision")[0]
+    d, f, s = c.hidden_size, c.intermediate_size, c.seq_len
+    t = b * s
+    g = torch.Generator(device=embedder.device).manual_seed(seed + 17)
+    x = torch.randn(t, d, generator=g, device=embedder.device).bfloat16()
+    kw = {"s": s, "heads": c.num_heads, "eps": c.rms_norm_eps,
+          "causal": False}
+    # x read and out written, the half's matrices read (bf16) and its
+    # RMSNorm scale (f32); B5's QKV and out-proj GEMMs plus QK^T and PV,
+    # B6's gate, up and down GEMMs
+    b5 = bound(2 * 2 * t * d + 2 * 4 * d * d + 4 * d,
+               8 * t * d * d + 4 * t * s * d, "bf16")
+    b6 = bound(2 * 2 * t * d + 2 * 3 * d * f + 4 * d, 6 * t * d * f, "bf16")
+    with torch.inference_mode():
+        h = torch.randn(t, f, generator=g, device=embedder.device).bfloat16()
+        rms, wqkv, wout, wgu, wdown = ops
+        mm = {"B5": (cuda_ms(lambda: torch.matmul(x, wqkv), 10),
+                     cuda_ms(lambda: torch.matmul(x, wout), 10)),
+              "B6": (cuda_ms(lambda: torch.matmul(x, wgu), 10),
+                     cuda_ms(lambda: torch.matmul(h, wdown), 10))}
+        del h
+    log(f"cuBLAS AIMv2 GEMMs B={b}: B5's [{t}, {d}] @ [{d}, {3 * d}] "
+        f"{mm['B5'][0]:.3f} ms + [{t}, {d}] @ [{d}, {d}] {mm['B5'][1]:.3f} "
+        f"ms = {sum(mm['B5']):.3f} ms; B6's [{t}, {d}] @ [{d}, {2 * f}] "
+        f"{mm['B6'][0]:.3f} ms + [{t}, {f}] @ [{f}, {d}] {mm['B6'][1]:.3f} "
+        f"ms = {sum(mm['B6']):.3f} ms")
+    return time_halves({
+        "B5 attention half (AIMv2, RMSNorm, no biases)": (
+            lambda: fl.rms_attn_half(x, ops, **kw),
+            lambda: fl.rms_attn_half_ref(x, ops, **kw), b5),
+        "B6 MLP half (AIMv2, SiLU-gated)": (
+            lambda: fl.gated_mlp_half(x, ops, eps=c.rms_norm_eps),
+            lambda: fl.gated_mlp_half_ref(x, ops, eps=c.rms_norm_eps), b6),
+    }, f"B={b} frames (T={t}, D={d}, F={f}, S={s})", atol=two_ulps)
+
+
+def compare_aimv2_encodes(embedder: AIMv2Embedder, seed: int,
+                          b_text: int = 64, b_frames: int = 256) -> None:
+    """The fused vision encode of ``b_frames`` seeded frames and the fused
+    text encode of ``b_text`` queries on the kernels against the same
+    encodes on the halves' plain versions: rows at per-row cosine >=
+    MIN_COS, unit-norm within UNIT_ATOL."""
+    model = embedder.params
+    vops = embedder._layer_ops(model, "vision")
+    tops = embedder._layer_ops(model)
+    rng = np.random.default_rng(seed + 19)
+    ids = embedder.prepare_text_ids(embedder.tokenizer(
+        [words(rng, 11) for _ in range(b_text)]))
+    ids_t = embedder.ids_tensor(ids)
+    frames = torch.from_numpy(seeded_frames(seed, 10_003, b_frames)).to(
+        embedder.device)
+    plain = {"attn": fl.rms_attn_half_ref, "mlp": fl.gated_mlp_half_ref}
+    with torch.inference_mode():
+        pixels = normalize_images(frames, dtype=embedder.dtype)
+        encodes = (
+            (f"AIMv2 vision encode B={b_frames} frames S="
+             f"{model.cfg.vision.seq_len} x{len(vops)} layers (fused: B5 "
+             "RMSNorm + B6 gated)", b_frames, "frames",
+             lambda: fused_aimv2_vision_encode(model, pixels, vops),
+             lambda: fused_aimv2_vision_encode(model, pixels, vops, **plain),
+             3),
+            (f"AIMv2 text encode B={b_text} S={ids.shape[1]} x{len(tops)} "
+             "layers (fused, causal)", b_text, "rows",
+             lambda: fused_aimv2_text_encode(model, ids_t, tops),
+             lambda: fused_aimv2_text_encode(model, ids_t, tops, **plain),
+             10))
+        for name, n, unit, kern, ref, iters in encodes:
+            a, p = kern(), ref()
+            cos = torch.nn.functional.cosine_similarity(a, p, dim=-1).min()
+            norm = (torch.linalg.vector_norm(a, dim=-1) - 1).abs().max()
+            require(a.shape == (n, embedder.embed_dim)
+                    and bool(torch.isfinite(a).all()), f"{name}: output")
+            require(cos.item() >= MIN_COS, f"{name}: min cosine {cos}")
+            require(norm.item() <= UNIT_ATOL, f"{name}: norm error {norm}")
+            ms, pms = cuda_ms(kern, iters), cuda_ms(ref, iters)
+            log(f"{name} (bf16): min cosine {cos.item():.6f} (>= {MIN_COS}) "
+                f"vs the plain halves, max |norm - 1| {norm.item():.2e} (<= "
+                f"{UNIT_ATOL}); kernels {ms:.3f} ms plain {pms:.3f} ms = "
+                f"{n / ms * 1e3:.0f} {unit}/s on the kernels")
+
+
+def phase_aimv2_kernels(embedder: AIMv2Embedder, device, seed: int) -> dict:
+    """Phase 3's AIMv2 part: B3 at head width 128 beside SDPA, the gated
+    halves at 256 frames, both fused encodes; returns the kernels-line
+    numbers (B3 at the vision shape and at the singles' text shape)."""
+    b3 = {}
+    for shape in AIMV2_ATTN_SHAPES:
+        b3[shape[:2]] = compare_attention(device, (shape,), row=shape[:2],
+                                          hd=128)
+    b5, b6 = compare_aimv2_halves(embedder, seed)
+    compare_aimv2_encodes(embedder, seed)
+    return {"attention": b3[(256, 256)], "attention_text": b3[(1, 8)],
+            "rms_attn_half": b5, "gated_mlp_half": b6}
+
+
+def phase_aimv2_engine(embedder: AIMv2Embedder, args, device,
+                       smi: str) -> tuple:
+    """``model.family = "aimv2"`` at full width, bf16 tier, as the SigLIP
+    engine of this phase: a seeded corpus of ``args.videos`` x
+    ``args.frames`` rows x 512 drawn on the card and appended, an ingest
+    of INGEST_VIDEOS seeded videos through the decode pipeline and the
+    fused vision encode (24 launches of each gated half an embed batch,
+    no other kernel; ``attention.launches_hd128`` stays 0, B3 running
+    inside B5), then the HTTP searches, held against the host exact
+    top-K, with every B3 launch of the path at head width 128. Returns
+    the search path's launches (with ``attention_hd128``) and the
+    ingest's."""
+    n = args.videos * args.frames
+    scratch = ROOT / "build" / "smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(args.seed + 4)
+    timings = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as videos:
+        config = EngineConfig()
+        config.model.family = "aimv2"
+        config.index.device_dtype = "bfloat16"
+        engine = VideoSearchEngine(videos, config=config, embedder=embedder,
+                                   device=device)
+        require(config.index.embed_dim == DIM,
+                f"[aimv2] index.embed_dim {config.index.embed_dim}")
+        engine.startup()
+        require_seeded("aimv2", engine)
+        t0 = time.perf_counter()
+        corpus = corpus_on_card_rows(device, args.seed + 13, n, DIM)
+        engine.index.reserve(n)
+        stamps = [0.5 * t for t in range(args.frames)]
+        for v in range(args.videos):
+            engine.index.add_batch(
+                corpus[v * args.frames:(v + 1) * args.frames],
+                video_name(v), stamps)
+        del corpus
+        engine.index.sync_mirror()
+        require(len(engine.index) == n, "[aimv2] corpus row count")
+        log(f"[aimv2] corpus: {n} rows x {engine.index.dim} from seed "
+            f"{args.seed + 13} drawn on the card, appended and placed in "
+            f"{time.perf_counter() - t0:.1f} s ({engine.accuracy_mode()})")
+        attention.launches_hd128 = 0
+        ingested = ingest_tier(engine, "bfloat16", videos, args, device,
+                               tag="aimv2", path=AIMV2_INGEST)
+        require(attention.launches_hd128 == 0,
+                f"[aimv2] ingest: {attention.launches_hd128} B3 launches "
+                "outside B5")
+        corpus = engine.index._emb[: len(engine.index)]
+
+        def name_of(row: int) -> str:
+            if row < n:
+                return video_name(row // args.frames)
+            return ingest_name((row - n) // args.frames)
+
+        server = create_server(engine, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            for wrapper in WRAPPERS.values():
+                wrapper.launches = 0
+            attention.launches_hd128 = 0
+            served = drive(base, "aimv2", rng, timings)
+            launches = {name: w.launches for name, w in WRAPPERS.items()}
+            wide = attention.launches_hd128
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(30)
+            engine.close()
+        check_tower_launches(engine, launches, "aimv2", AIMV2_PATH)
+        require(wide == launches["attention"],
+                f"[aimv2] {wide} of {launches['attention']} B3 launches at "
+                "head width 128")
+        check_served("aimv2", embedder, corpus, name_of, served, device)
+        del engine, server, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[aimv2] on {smi}: single p50 {timings['single_p50_ms']:.2f} ms, "
+        f"batch of 64 {timings['batch_ms']:.2f} ms, ingest "
+        f"{ingested['frames_s']:.1f} frames/s")
+    return dict(launches, attention_hd128=wide), ingested
+
+
+def aimv2_kernel_entries(ak: dict, al: dict, ai: dict) -> list:
+    """The kernels line's AIMv2 entries: phase 3's numbers ``ak``, the
+    engine's search launches ``al`` and ingest ``ai``."""
+    src = "video_quierer_tpu_torch/csrc/"
+    ingest = ai["launches"]
+    return [
+        {"name": "attention_aimv2_vision", "route": "cuda",
+         "source": src + "attention.cu", "replaces": None,
+         "launches": ingest["rms_attn_half"], "via": "rms_attn_half",
+         **ak["attention"]},
+        {"name": "attention_aimv2_text", "route": "cuda",
+         "source": src + "attention.cu", "replaces": None,
+         "launches": al["attention_hd128"], **ak["attention_text"]},
+        {"name": "rms_attn_half", "route": "cuda",
+         "source": src + "fused_layer.cu", "replaces": None,
+         "launches": ingest["rms_attn_half"],
+         "search_launches": al["rms_attn_half"], **ak["rms_attn_half"]},
+        {"name": "gated_mlp_half", "route": "cuda",
+         "source": src + "fused_layer.cu", "replaces": None,
+         "launches": ingest["gated_mlp_half"],
+         "search_launches": al["gated_mlp_half"], **ak["gated_mlp_half"]}]
+
+
+def phase_aimv2(args, device, smi: str) -> list:
+    """Phase 3's AIMv2 part, then phase 6's AIMv2 engine on the same
+    seeded towers; returns the kernels line's AIMv2 entries."""
+    with timed("3, AIMv2 kernels"):
+        aimv2 = AIMv2Embedder(model_name=AIMV2, dtype=torch.bfloat16,
+                              device=device, seed=args.seed)
+        ak = phase_aimv2_kernels(aimv2, device, args.seed)
+    with timed("6, AIMv2 engine"):
+        al, ai = phase_aimv2_engine(aimv2, args, device, smi)
+    del aimv2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return aimv2_kernel_entries(ak, al, ai)
 
 
 # -- phase 9: checkpoints -----------------------------------------------------
@@ -3856,7 +4143,7 @@ def serve_grown(tag: str, engine: VideoSearchEngine, tower, args, device,
         thread.join(30)
         engine.close()
     if siglip:
-        check_siglip_launches(engine, launches)
+        check_tower_launches(engine, launches)
     else:
         check_launches(tag, engine, launches, "cand_scan_prefix")
     check_served("bfloat16", tower, corpus, name_of, served, device, tag=tag)
@@ -5896,6 +6183,51 @@ with torch.inference_mode():
         causal=False), 10)
     row["B6 device"] = graph_ms(
         lambda: fl.mlp_half(x, vops, eps=vc.layer_norm_eps), 10)
+    del x
+
+
+def rand(*shape, scale=1.0):
+    return (scale * torch.randn(*shape, device=dev)).bfloat16()
+
+
+def b3_device(s, heads, hd):
+    q, k, v = (rand(256, s, heads * hd, scale=0.5) for _ in range(3))
+    return graph_ms(lambda: attention(q, k, v, num_heads=heads), 10)
+
+
+# ViT-L/14's vision shapes (256 frames, S = 257, D = 1,024, F = 4,096) on
+# random operands, and AIMv2-L/14's (S = 256, F = 2,816) where the tree
+# has its kernels
+with torch.inference_mode():
+    row["B3 L/14 device"] = b3_device(257, 16, 64)
+    d, f, t = 1024, 4096, 256 * 257
+    x = rand(t, d)
+    ln = torch.stack([1 + 0.1 * torch.randn(d), 0.1 * torch.randn(d),
+                      1 + 0.1 * torch.randn(d), 0.1 * torch.randn(d)]
+                     ).to(dev)
+    lops = (ln, rand(d, 3 * d, scale=d ** -0.5), rand(3 * d, scale=0.02),
+            rand(d, d, scale=d ** -0.5), rand(d, scale=0.02),
+            rand(d, f, scale=d ** -0.5), rand(f, scale=0.02),
+            rand(f, d, scale=f ** -0.5), rand(d, scale=0.02))
+    row["B5 L/14 device"] = graph_ms(lambda: fl.attn_half(
+        x, lops, s=257, heads=16, eps=1e-5, causal=False), 10)
+    row["B6 L/14 device"] = graph_ms(
+        lambda: fl.mlp_half(x, lops, eps=1e-5), 10)
+    del x, lops
+    if hasattr(fl, "gated_mlp_half"):
+        row["B3-128 device"] = b3_device(256, 8, 128)
+        d, f, t = 1024, 2816, 256 * 256
+        x = rand(t, d)
+        gops = (1 + 0.1 * torch.randn(2, d, device=dev),
+                rand(d, 3 * d, scale=d ** -0.5), rand(d, d, scale=d ** -0.5),
+                fl.interleave_gate_up(rand(d, f, scale=d ** -0.5),
+                                      rand(d, f, scale=d ** -0.5)),
+                rand(f, d, scale=f ** -0.5))
+        row["B5-RMS device"] = graph_ms(lambda: fl.rms_attn_half(
+            x, gops, s=256, heads=8, eps=1e-5, causal=False), 10)
+        row["B6-gated device"] = graph_ms(
+            lambda: fl.gated_mlp_half(x, gops, eps=1e-5), 10)
+        del x, gops
 if scans:
     store, perm = c.corpus_on_card(dev, n_rows, seed)
     row["B1"] = c.compare_cand_scan(store, perm, n_rows, seed)["ms"]
@@ -6038,9 +6370,11 @@ def phase_ab(parent: Path, args) -> int:
             log(proc.stderr[-4000:])
             return 1
         rows.append(json.loads(proc.stdout.split("ab-row ")[-1]))
+    # a kernel one tree lacks reads "-" in its runs
+    keys = dict.fromkeys(k for r in rows for k in r)
     log("A/B kernel ms (parent, change, change, parent): " + "; ".join(
-        f"{k} " + " / ".join(f"{r[k]:.4f}" for r in rows)
-        for k in rows[0]))
+        f"{k} " + " / ".join(f"{r[k]:.4f}" if k in r else "-" for r in rows)
+        for k in keys))
     return 0
 
 
@@ -6067,6 +6401,9 @@ def main() -> int:
     ap.add_argument("--towers", action="store_true",
                     help="only phase 11 (the MoE engine, MoE fine-tuning, "
                          "the pp engine, ViT-L/14 pipelined)")
+    ap.add_argument("--aimv2", action="store_true",
+                    help="only phase 3's AIMv2 part and phase 6's AIMv2 "
+                         "engine")
     ap.add_argument("--pp-cards", type=int, default=0, metavar="N",
                     help="only ViT-L/14's pipelined encode over N cards "
                          "(stage s on cuda:s) against its sequential tower")
@@ -6151,6 +6488,11 @@ def main() -> int:
             pc = compare_pp_cards(l14, args.seed, args.pp_cards)
         log(f"pp cards summary ({smi}): " + json.dumps(pc))
         return 0
+    if args.aimv2:
+        entries = phase_aimv2(args, device, smi)
+        log(f"AIMv2 kernels ({smi}): " + json.dumps(entries))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.towers:
         dense = CLIPEmbedder(dtype=torch.bfloat16, device=device,
                              seed=args.seed)
@@ -6200,6 +6542,7 @@ def main() -> int:
                                                           device, smi)
     with timed("6, SigLIP engine"):
         sl, si = phase_siglip_engine(siglip, args, device, smi)
+    aimv2_entries = phase_aimv2(args, device, smi)
     with timed("9, checkpoints"):
         ck = phase_checkpoints(embedder, siglip, l14, args, device, smi)
     with timed("10, training"):
@@ -6342,6 +6685,7 @@ def main() -> int:
                                      ("mlp_half", "mlp_half"))}
     # phase 10: B3 under autograd in the trainer's steps; phase 13: in the
     # mesh steps
+    kernels_line["kernels"] += aimv2_entries
     kernels_line["kernels"] += train_kernel_entries(tr)
     kernels_line["kernels"].append(train_mesh_kernel_entry(tm))
     # phase 11: the MoE, MoE-training and pp paths

@@ -1,8 +1,9 @@
-// Kernel B3: multi-head attention for the CLIP text tower.
+// Kernel B3: multi-head attention for the CLIP, SigLIP and AIMv2 towers.
 //
 // Replaces the TPU kernel video_quierer_tpu/ops/attention.py:_fused_attention
 // (kernel body _attn_kernel). Same contract: q, k, v are the h-minor
-// projections [B, S, H*64] at any row stride; logits accumulate in f32;
+// projections [B, S, H*hd] at any row stride, hd 64 or 128 (a compile-time
+// instance each); logits accumulate in f32;
 // keys at position >= valid are masked (and keys after the query for causal
 // text); the bf16 tower uses the clamped unstabilised softmax with its bf16
 // rounding chain (e = bf16(exp(bf16(min(l, 60)))), den = bf16(sum e), w =
@@ -37,6 +38,13 @@
 // text and vision layers (fused_layer.cu) launch the same kernels on the
 // strided q/k/v column blocks of their QKV buffer, with the hd^-0.5 scale
 // on the f32 logits instead of on q.
+//
+// Head width 128 (AIMv2's towers) is the same code at twice the width:
+// 272-byte shared rows, twice the k16 steps of Q K^T and the output
+// n-tiles of w @ V, so 64 f32 accumulators a thread; one CTA an SM (at S =
+// 256, Q, K and V of one pair take 204 KB), up to 255 registers a thread.
+// Its f32 branch keeps K in shared memory and reads V rows from global
+// memory (one coalesced 512-byte row a key), so S <= 400 still fits.
 #include "common.cuh"
 
 namespace {
@@ -44,22 +52,36 @@ namespace {
 using vqt::bf16;
 using vqt::rnd;
 
-constexpr int HD = 64;     // head dim (every CLIP tower)
+// head widths: CLIP and SigLIP towers 64, AIMv2 towers 128
+constexpr int HD64 = 64, HD128 = 128;
 
 // -- f32: CUDA cores ----------------------------------------------------------
 
-constexpr int KS = HD + 1; // padded shared-memory row stride
 constexpr int WARPS = 4;
 
+// V rows in shared memory (hd 64), or read from global memory (hd 128, so
+// that K alone fills shared memory)
+template <int HD>
+__host__ __device__ constexpr bool v_shared() { return HD == HD64; }
+
+template <int HD>
+constexpr size_t f32_smem(int seq) {
+  return (size_t)((v_shared<HD>() ? 2 : 1) * seq * (HD + 1) + WARPS * HD +
+                  WARPS * seq) * sizeof(float);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(WARPS * 32)
 attn_f32(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ v, float* __restrict__ out, int seq,
          int in_stride, int out_stride, int valid, int causal, float q_scale,
          float scale) {
+  constexpr int KS = HD + 1;       // padded shared-memory row stride
+  constexpr bool VS = v_shared<HD>();
   extern __shared__ float smem[];
   float* ks = smem;                // [seq][KS]
-  float* vs = ks + seq * KS;       // [seq][KS]
-  float* qs = vs + seq * KS;       // [WARPS][HD]
+  float* vs = ks + seq * KS;       // [seq][KS] when VS
+  float* qs = vs + (VS ? seq * KS : 0);  // [WARPS][HD]
   float* ps = qs + WARPS * HD;     // [WARPS][seq]
   const size_t row0 = (size_t)blockIdx.x * seq;
   const int col0 = blockIdx.y * HD;
@@ -68,7 +90,7 @@ attn_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int s = i / HD, d = i % HD;
     const size_t g = (row0 + s) * (size_t)in_stride + col0 + d;
     ks[s * KS + d] = k[g];
-    vs[s * KS + d] = v[g];
+    if constexpr (VS) vs[s * KS + d] = v[g];
   }
   __syncthreads();
 
@@ -77,8 +99,9 @@ attn_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* pw = ps + warp * seq;
   for (int i = warp; i < seq; i += WARPS) {
     const size_t gq = (row0 + i) * (size_t)in_stride + col0;
-    qw[lane] = q[gq + lane] * q_scale;
-    qw[lane + 32] = q[gq + lane + 32] * q_scale;
+#pragma unroll
+    for (int u = 0; u < HD / 32; ++u)
+      qw[lane + 32 * u] = q[gq + lane + 32 * u] * q_scale;
     __syncwarp();
     // keys [0, jn) are live for this row; the rest contribute e = 0
     int jn = valid < seq ? valid : seq;
@@ -101,32 +124,40 @@ attn_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     sum = vqt::warp_sum(sum);
     __syncwarp();
-    float o0 = 0.f, o1 = 0.f;
+    float o[HD / 32];
+#pragma unroll
+    for (int u = 0; u < HD / 32; ++u) o[u] = 0.f;
     for (int j = 0; j < jn; ++j) {
       const float w = pw[j] / sum;
-      o0 = fmaf(w, vs[j * KS + lane], o0);
-      o1 = fmaf(w, vs[j * KS + lane + 32], o1);
+#pragma unroll
+      for (int u = 0; u < HD / 32; ++u)
+        o[u] = fmaf(w,
+                    VS ? vs[j * KS + lane + 32 * u]
+                       : v[(row0 + j) * (size_t)in_stride + col0 + lane +
+                           32 * u],
+                    o[u]);
     }
     const size_t go = (row0 + i) * (size_t)out_stride + col0;
-    out[go + lane] = o0;
-    out[go + lane + 32] = o1;
+#pragma unroll
+    for (int u = 0; u < HD / 32; ++u) out[go + lane + 32 * u] = o[u];
     __syncwarp();
   }
 }
 
+template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int batch, int seq, int heads, int in_stride, int out_stride,
                int valid, int causal, float q_scale, float scale,
                cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * seq * KS + WARPS * HD + WARPS * seq) * sizeof(float);
+  const size_t smem = f32_smem<HD>(seq);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attn_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(batch, heads);
-  attn_f32<<<grid, WARPS * 32, smem, stream>>>(
+  attn_f32<HD><<<grid, WARPS * 32, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, seq,
       in_stride, out_stride, valid, causal, q_scale, scale);
   return (int)cudaGetLastError();
@@ -134,7 +165,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 
 // -- bf16: tensor cores -------------------------------------------------------
 
-constexpr int LDS = HD + 8;        // bf16 row stride in shared memory (144 B)
 constexpr int MAX_WARPS = 8;
 constexpr int KC = 80;             // keys per chunk (10 n-tiles of 8)
 
@@ -170,21 +200,32 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// min 3 CTAs of 8 warps an SM: at most 85 registers a thread
-__global__ void __launch_bounds__(MAX_WARPS * 32, 3)
+// bf16 row stride in shared memory (144 B at hd 64, 272 B at hd 128)
+template <int HD>
+__host__ __device__ constexpr int lds() { return HD + 8; }
+
+// hd 64: min 3 CTAs of 8 warps an SM, at most 85 registers a thread; hd
+// 128: one CTA an SM (shared memory bounds it anyway)
+template <int HD>
+__host__ __device__ constexpr int min_ctas() { return HD == HD64 ? 3 : 1; }
+
+template <int HD>
+__global__ void __launch_bounds__(MAX_WARPS * 32, min_ctas<HD>())
 attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, bf16* __restrict__ out, int pairs,
           int heads, int seq, int spad, int per_cta, int in_stride,
           int out_stride, int valid, int causal, float q_scale,
           float scale) {
+  constexpr int LDS = lds<HD>();
+  constexpr int VPR = HD / 8;      // 16-byte vectors a row
   extern __shared__ __align__(16) bf16 sm[];
   const int tile = spad * LDS;     // one operand of one pair
   const int p0 = blockIdx.x * per_cta;
   const int np = min(per_cta, pairs - p0);
 
-  // stage Q, K (group 0) and V (group 1) of the CTA's pairs: 8 x 16 B a
+  // stage Q, K (group 0) and V (group 1) of the CTA's pairs: VPR x 16 B a
   // row, pad rows zero
-  const int c8 = threadIdx.x & 7;
+  const int c8 = threadIdx.x % VPR;
   auto stage = [&](int which) {
     const bf16* src0 = which == 0 ? q : which == 1 ? k : v;
     for (int j = 0; j < np; ++j) {
@@ -192,7 +233,7 @@ attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* src = src0 + (size_t)(p / heads) * seq * in_stride +
                         (p % heads) * HD + c8 * 8;
       bf16* dst = sm + (3 * j + which) * tile + c8 * 8;
-      for (int r = threadIdx.x >> 3; r < spad; r += blockDim.x >> 3) {
+      for (int r = threadIdx.x / VPR; r < spad; r += blockDim.x / VPR) {
         if (r < seq)
           asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                            smem_addr(dst + r * LDS)),
@@ -239,7 +280,7 @@ attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float c[4] = {0.f, 0.f, 0.f, 0.f};
         if (n0 < kend) {
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
+          for (int kk = 0; kk < HD / 16; ++kk) {
             const bf16* qk = qs + kk * 16 + 2 * t;
             const uint32_t a[4] = {ld32(qk + r0 * LDS), ld32(qk + r1 * LDS),
                                    ld32(qk + r0 * LDS + 8),
@@ -270,11 +311,11 @@ attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // pre-scale), in place: only this warp reads them
       if (q_scale != 1.f) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < HD / 16; ++i) {
           const int idx = lane + 32 * i;
           uint4* vec =
-              reinterpret_cast<uint4*>(qs + (qb * 16 + idx / 8) * LDS) +
-              idx % 8;
+              reinterpret_cast<uint4*>(qs + (qb * 16 + idx / VPR) * LDS) +
+              idx % VPR;
           uint4 w = *vec;
           uint32_t* h = reinterpret_cast<uint32_t*>(&w);
 #pragma unroll
@@ -343,8 +384,8 @@ attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int p = p0 + j;
     bf16* dst = out + (size_t)(p / heads) * seq * out_stride + (p % heads) * HD;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = lane + 32 * i, r = qb * 16 + idx / 8, c = idx % 8;
+    for (int i = 0; i < HD / 16; ++i) {
+      const int idx = lane + 32 * i, r = qb * 16 + idx / VPR, c = idx % VPR;
       if (r < seq)
         *reinterpret_cast<uint4*>(dst + (size_t)r * out_stride + c * 8) =
             *reinterpret_cast<const uint4*>(qs + r * LDS + c * 8);
@@ -352,6 +393,7 @@ attn_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int batch, int seq, int heads, int in_stride, int out_stride,
                 int valid, int causal, float q_scale, float scale,
@@ -366,13 +408,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const int warps =
       per_cta * qblocks < MAX_WARPS ? per_cta * qblocks : MAX_WARPS;
   const int pairs = batch * heads;
-  const size_t smem = (size_t)per_cta * 3 * spad * LDS * sizeof(bf16);
+  const size_t smem =
+      (size_t)per_cta * 3 * spad * lds<HD>() * sizeof(bf16);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attn_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  attn_bf16<<<(pairs + per_cta - 1) / per_cta, warps * 32, smem, stream>>>(
+  attn_bf16<HD><<<(pairs + per_cta - 1) / per_cta, warps * 32, smem,
+                  stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, pairs, heads,
       seq, spad, per_cta, in_stride, out_stride, valid, causal, q_scale,
       scale);
@@ -386,15 +431,19 @@ extern "C" int vqt_attention(const void* q, const void* k, const void* v,
                              int head_dim, int in_stride, int out_stride,
                              int valid, int causal, float q_scale,
                              float scale, int dtype, void* stream) {
-  if (head_dim != HD || seq <= 0 || batch <= 0 || heads <= 0)
+  if ((head_dim != HD64 && head_dim != HD128) || seq <= 0 || batch <= 0 ||
+      heads <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool wide = head_dim == HD128;
   if (dtype == vqt::DT_BF16)
-    return launch_bf16(q, k, v, out, batch, seq, heads, in_stride,
-                       out_stride, valid, causal, q_scale, scale, s);
+    return (wide ? launch_bf16<HD128> : launch_bf16<HD64>)(
+        q, k, v, out, batch, seq, heads, in_stride, out_stride, valid,
+        causal, q_scale, scale, s);
   if (dtype == vqt::DT_F32)
-    return launch_f32(q, k, v, out, batch, seq, heads, in_stride, out_stride,
-                      valid, causal, q_scale, scale, s);
+    return (wide ? launch_f32<HD128> : launch_f32<HD64>)(
+        q, k, v, out, batch, seq, heads, in_stride, out_stride, valid,
+        causal, q_scale, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

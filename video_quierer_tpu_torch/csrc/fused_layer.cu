@@ -1,4 +1,4 @@
-// Kernels B2, B5 and B6: pre-LN CLIP encoder blocks.
+// Kernels B2, B5 and B6: pre-norm encoder blocks (CLIP, SigLIP, AIMv2).
 //
 // Replace the TPU kernels of video_quierer_tpu/ops/fused_layer.py:
 // - B5 _attn_half_call (kernel _attn_half_kernel = _attn_math): LN1 (f32
@@ -47,6 +47,18 @@
 //   two CTAs share an SM, so one's epilogue overlaps the other's loads.
 // - f32: a shared-memory tiled FMA loop on the CUDA cores (64x64 tile,
 //   4x4 outputs per thread) with the LayerNorm fused as its prologue.
+//
+// AIMv2's blocks (models/aimv2) take the same halves with two compile-time
+// choices each: RMSNorm in place of LayerNorm (no mean, no shift: rms_bf16,
+// or ln_stats<RMS> in the f32 prologue) and bias-free projections
+// (EPI_NO_BIAS: T(acc), then the residual); their MLP half is SiLU-gated
+// (vqt_gated_mlp_half): the gate and up matrices are interleaved by 8
+// columns at load (W' [D, 2F]: columns 16 i .. 16 i + 7 gate features
+// 8 i .. 8 i + 7, the next 8 the same up features), so each accumulator
+// fragment of one wgmma tile holds a gate and its up value for the same
+// features, and the epilogue (EPI_SILU_GATE) writes T(silu(T(g)) T(u))
+// into the [T, F] hidden buffer, half the tile's width; then the down
+// GEMM adds the residual.
 // Bound on the H100: at the vision tower's ingest batch (12,800 tokens x
 // 768 wide, 62 + 121 GFLOP a layer) the tensor-core peak bounds both
 // halves; what keeps the kernel from it is the non-persistent grid (the
@@ -75,8 +87,9 @@ using vqt::to_f;
 constexpr int BM = 64, BN = 64;
 
 // Per-row LayerNorm statistics of A rows [m0, m0 + BM) (f32, two-pass),
-// into mu/rs; rows past M get zeros. All threads of the CTA take part.
-template <typename T>
+// into mu/rs; rows past M get zeros. RMS: mean 0 (RMSNorm's statistics).
+// All threads of the CTA take part.
+template <typename T, bool RMS>
 __device__ void ln_stats(const T* __restrict__ A, int M, int K, int m0,
                          float eps, float* mu, float* rs) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -85,9 +98,11 @@ __device__ void ln_stats(const T* __restrict__ A, int M, int K, int m0,
     float mean = 0.f, rstd = 0.f;
     if (m < M) {
       const T* row = A + (size_t)m * K;
-      float s = 0.f;
-      for (int c = lane; c < K; c += 32) s += to_f(row[c]);
-      mean = vqt::warp_sum(s) / K;
+      if constexpr (!RMS) {
+        float s = 0.f;
+        for (int c = lane; c < K; c += 32) s += to_f(row[c]);
+        mean = vqt::warp_sum(s) / K;
+      }
       float v = 0.f;
       for (int c = lane; c < K; c += 32) {
         const float x = to_f(row[c]) - mean;
@@ -103,8 +118,9 @@ __device__ void ln_stats(const T* __restrict__ A, int M, int K, int m0,
   __syncthreads();
 }
 
-// Prologue: A[m, kk] (LayerNorm-ed and rounded to T when gamma is given)
-template <typename T>
+// Prologue: A[m, kk] (LayerNorm-ed, or RMSNorm-ed, and rounded to T when
+// gamma is given)
+template <typename T, bool RMS>
 __device__ __forceinline__ float a_elem(const T* __restrict__ A, int M, int K,
                                         int m0, int r, int kk,
                                         const float* gamma, const float* beta,
@@ -112,12 +128,16 @@ __device__ __forceinline__ float a_elem(const T* __restrict__ A, int M, int K,
   const int m = m0 + r;
   if (m >= M) return 0.f;
   const float a = to_f(A[(size_t)m * K + kk]);
-  return gamma != nullptr ? rnd<T>((a - mu[r]) * rs[r] * gamma[kk] + beta[kk])
-                          : a;
+  if (gamma == nullptr) return a;
+  if constexpr (RMS) return rnd<T>(a * rs[r] * gamma[kk]);
+  return rnd<T>((a - mu[r]) * rs[r] * gamma[kk] + beta[kk]);
 }
 
-// the epilogue's activation (ops/fused_layer.py:ACT_CODES)
+// the epilogue's activation (ops/fused_layer.py:ACT_CODES), and the
+// bias-free epilogues of AIMv2's blocks: EPI_NO_BIAS (T(acc)) and
+// EPI_SILU_GATE (the gated pair, gated() below)
 constexpr int ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU_TANH = 2;
+constexpr int EPI_NO_BIAS = 3, EPI_SILU_GATE = 4;
 
 // Epilogue of one output from its f32 accumulator, before the residual:
 // T(acc) + bias in T, then the activation in T, every step rounded to T
@@ -129,6 +149,7 @@ constexpr int ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU_TANH = 2;
 template <typename T, int ACT>
 __device__ __forceinline__ float epilogue(float acc, float bias) {
   float t = rnd<T>(acc);
+  if constexpr (ACT == EPI_NO_BIAS) return t;
   t = rnd<T>(t + bias);
   if constexpr (ACT == ACT_QUICK_GELU) {
     const float e = rnd<T>(expf(rnd<T>(rnd<T>(-1.702f) * t)));
@@ -143,13 +164,23 @@ __device__ __forceinline__ float epilogue(float acc, float bias) {
   return t;
 }
 
+// The SiLU-gated pair from its gate and up accumulators, every step
+// rounded to T: g = T(acc_g), u = T(acc_u), T(T(g (1 / (1 + exp(-g)))) u)
+// (models/aimv2, ops/fused_layer.py:gated_mlp_half_ref)
+template <typename T>
+__device__ __forceinline__ float gated(float acc_g, float acc_u) {
+  const float g = rnd<T>(acc_g), u = rnd<T>(acc_u);
+  const float e = rnd<T>(expf(-g));
+  return rnd<T>(rnd<T>(g * rnd<T>(1.f / rnd<T>(1.f + e))) * u);
+}
+
 // ... then + residual in T, stored
 template <typename T, int ACT>
 __device__ __forceinline__ void store_out(float acc, int m, int n, int N,
                                           const T* __restrict__ bias,
                                           const T* __restrict__ res,
                                           T* __restrict__ C) {
-  float t = epilogue<T, ACT>(acc, to_f(bias[n]));
+  float t = epilogue<T, ACT>(acc, ACT == EPI_NO_BIAS ? 0.f : to_f(bias[n]));
   if (res != nullptr) t = rnd<T>(to_f(res[(size_t)m * N + n]) + t);
   C[(size_t)m * N + n] = from_f<T>(t);
 }
@@ -157,7 +188,7 @@ __device__ __forceinline__ void store_out(float acc, int m, int n, int N,
 // f32: C[M, N] = epilogue(prologue(A)[M, K] @ W[K, N]) on the CUDA cores
 constexpr int F_BK = 16, F_TM = 4, F_TN = 4, F_THREADS = 256;
 
-template <int ACT>
+template <int ACT, bool RMS>
 __global__ void __launch_bounds__(F_THREADS)
 gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
          const float* __restrict__ bias, const float* __restrict__ gamma,
@@ -169,7 +200,7 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if (gamma != nullptr) ln_stats(A, M, K, m0, eps, mu, rs);
+  if (gamma != nullptr) ln_stats<float, RMS>(A, M, K, m0, eps, mu, rs);
 
   float acc[F_TM][F_TN];
 #pragma unroll
@@ -180,7 +211,8 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
   for (int k0 = 0; k0 < K; k0 += F_BK) {
     for (int i = tid; i < BM * F_BK; i += F_THREADS) {
       const int r = i / F_BK, c = i % F_BK;
-      As[c][r] = a_elem(A, M, K, m0, r, k0 + c, gamma, beta, mu, rs);
+      As[c][r] = a_elem<float, RMS>(A, M, K, m0, r, k0 + c, gamma, beta,
+                                    mu, rs);
     }
     for (int i = tid; i < F_BK * BN; i += F_THREADS) {
       const int r = i / BN, c = i % BN;
@@ -201,6 +233,25 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
     }
     __syncthreads();
   }
+  if constexpr (ACT == EPI_SILU_GATE) {
+    // a thread's columns are all gate or all up (tx + 16 j): the tile
+    // goes through shared memory, then each output of the tile's 32
+    // features is formed from its gate and up columns (N / 2 wide)
+    __shared__ float Cs[BM][BN + 1];
+#pragma unroll
+    for (int i = 0; i < F_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < F_TN; ++j) Cs[ty + 16 * i][tx + 16 * j] = acc[i][j];
+    __syncthreads();
+    for (int idx = tid; idx < BM * BN / 2; idx += F_THREADS) {
+      const int r = idx / (BN / 2), o = idx % (BN / 2), m = m0 + r;
+      if (m >= M) continue;
+      const int c = 16 * (o / 8) + o % 8;
+      C[(size_t)m * (N / 2) + n0 / 2 + o] = gated<float>(Cs[r][c],
+                                                         Cs[r][c + 8]);
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < F_TM; ++i) {
     const int m = m0 + ty + 16 * i;
@@ -212,16 +263,16 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
-// f32: launch gemm_f32 (LayerNorm fused when gamma is given)
-template <int ACT>
+// f32: launch gemm_f32 (LayerNorm, or RMSNorm, fused when gamma is given)
+template <int ACT, bool RMS>
 int gemm_f32_launch(const float* a, const float* w, const float* bias,
                     const float* gamma, const float* beta, const float* res,
                     float* c, int m, int n, int k, float eps,
                     cudaStream_t stream) {
   if (n % BN || k % F_BK) return (int)cudaErrorInvalidValue;
   dim3 grid(n / BN, (m + BM - 1) / BM);
-  gemm_f32<ACT><<<grid, F_THREADS, 0, stream>>>(a, w, bias, gamma, beta,
-                                                res, c, m, n, k, eps);
+  gemm_f32<ACT, RMS><<<grid, F_THREADS, 0, stream>>>(
+      a, w, bias, gamma, beta, res, c, m, n, k, eps);
   return (int)cudaGetLastError();
 }
 
@@ -282,6 +333,62 @@ ln_bf16(const bf16* __restrict__ x, const float* __restrict__ gamma,
       e[j] = from_f<bf16>((to_f(e[j]) - mean) * rstd * ga[j] + be[j]);
     *reinterpret_cast<uint4*>(y + (size_t)row * K + c) = v[i];
   }
+}
+
+// y = bf16(x rstd gamma), rstd = 1 / sqrt(mean(x^2) + eps) in f32: RMSNorm
+// (AIMv2), ln_bf16's layout without the mean and the shift
+template <int V>
+__global__ void __launch_bounds__(LN_ROWS * 32)
+rms_bf16(const bf16* __restrict__ x, const float* __restrict__ gamma,
+         bf16* __restrict__ y, int M, int K, float eps) {
+  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const bf16* xr = x + (size_t)row * K;
+  uint4 v[V];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = (lane + 32 * i) * 8;
+    v[i] = c < K ? *reinterpret_cast<const uint4*>(xr + c)
+                 : make_uint4(0, 0, 0, 0);
+    const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += to_f(e[j]) * to_f(e[j]);
+  }
+  const float rstd = 1.f / sqrtf(vqt::warp_sum(ss) / K + eps);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = (lane + 32 * i) * 8;
+    if (c >= K) continue;
+    const float4* g4 = reinterpret_cast<const float4*>(gamma + c);
+    const float4 g0 = g4[0], g1 = g4[1];
+    const float ga[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    bf16* e = reinterpret_cast<bf16*>(&v[i]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = from_f<bf16>(to_f(e[j]) * rstd * ga[j]);
+    *reinterpret_cast<uint4*>(y + (size_t)row * K + c) = v[i];
+  }
+}
+
+int rms_launch(const bf16* x, const float* gamma, bf16* y, int m, int k,
+               float eps, cudaStream_t stream) {
+  if (k % 8 || k > LN_MAX_K ||
+      (((uintptr_t)x | (uintptr_t)y | (uintptr_t)gamma) & 15))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + LN_ROWS - 1) / LN_ROWS), block(LN_ROWS * 32);
+  switch ((k + 255) / 256) {
+    case 1: rms_bf16<1><<<grid, block, 0, stream>>>(x, gamma, y, m, k, eps);
+      break;
+    case 2: rms_bf16<2><<<grid, block, 0, stream>>>(x, gamma, y, m, k, eps);
+      break;
+    case 3: rms_bf16<3><<<grid, block, 0, stream>>>(x, gamma, y, m, k, eps);
+      break;
+    default: rms_bf16<4><<<grid, block, 0, stream>>>(x, gamma, y, m, k,
+                                                     eps); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 int ln_launch(const bf16* x, const float* gamma, const float* beta, bf16* y,
@@ -445,11 +552,32 @@ gemm_wgmma(const __grid_constant__ CUtensorMap amap,
   // fragment: rows g and g + 8 of the warp's 16, columns 8 j + 2 t, + 1
   const int g = lane / 4, t = lane % 4;
   const int r0 = m0 + wg * 64 + (warp % 4) * 16 + g;
+  if constexpr (ACT == EPI_SILU_GATE) {
+    // n-tiles 2 i (gate) and 2 i + 1 (up) hold the same 8 features of the
+    // N / 2 wide output
+#pragma unroll
+    for (int j = 0; j < BN / 8; j += 2) {
+      const int c = n0 / 2 + 4 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (r >= M) continue;
+        const float v0 = gated<bf16>(acc[4 * j + 2 * h],
+                                     acc[4 * j + 4 + 2 * h]);
+        const float v1 = gated<bf16>(acc[4 * j + 2 * h + 1],
+                                     acc[4 * j + 4 + 2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)r * (N / 2) + c) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int c = n0 + 8 * j + 2 * t;
-    const __nv_bfloat162 bb =
-        *reinterpret_cast<const __nv_bfloat162*>(bias + c);
+    __nv_bfloat162 bb{};
+    if constexpr (ACT != EPI_NO_BIAS)
+      bb = *reinterpret_cast<const __nv_bfloat162*>(bias + c);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
@@ -520,22 +648,24 @@ int gemm_bf16(const bf16* a, const bf16* w, const bf16* bias, const bf16* res,
   return launch_wgmma<64, 64, ACT>(a, w, bias, res, c, m, n, k, dev, stream);
 }
 
-// One GEMM of a block: C = epilogue(LN?(A) @ W). f32: gemm_f32 with the
-// LayerNorm fused; bf16: ln_bf16 into `lnbuf` ([m, k], when gamma is given),
-// then gemm_wgmma.
-template <typename T, int ACT>
+// One GEMM of a block: C = epilogue(norm?(A) @ W), norm LayerNorm or (RMS)
+// RMSNorm. f32: gemm_f32 with the norm fused; bf16: ln_bf16 or rms_bf16
+// into `lnbuf` ([m, k], when gamma is given), then gemm_wgmma.
+template <typename T, int ACT, bool RMS = false>
 int layer_gemm(const void* a, const void* w, const void* bias,
                const float* gamma, const float* beta, void* lnbuf,
                const void* res, void* c, int m, int n, int k, float eps,
                cudaStream_t stream) {
   if (sizeof(T) == 4)
-    return gemm_f32_launch<ACT>((const float*)a, (const float*)w,
-                                (const float*)bias, gamma, beta,
-                                (const float*)res, (float*)c, m, n, k, eps,
-                                stream);
+    return gemm_f32_launch<ACT, RMS>((const float*)a, (const float*)w,
+                                     (const float*)bias, gamma, beta,
+                                     (const float*)res, (float*)c, m, n, k,
+                                     eps, stream);
   if (gamma != nullptr) {
-    const int e = ln_launch((const bf16*)a, gamma, beta, (bf16*)lnbuf, m, k,
-                            eps, stream);
+    const int e = RMS ? rms_launch((const bf16*)a, gamma, (bf16*)lnbuf, m, k,
+                                   eps, stream)
+                      : ln_launch((const bf16*)a, gamma, beta, (bf16*)lnbuf,
+                                  m, k, eps, stream);
     if (e) return e;
     a = lnbuf;
   }
@@ -543,16 +673,20 @@ int layer_gemm(const void* a, const void* w, const void* bias,
                         (const bf16*)res, (bf16*)c, m, n, k, stream);
 }
 
-// B5: LN1 -> QKV -> per-item attention -> out-proj + residual (launches 1-3)
-template <typename T>
+// B5: LN1 -> QKV -> per-item attention -> out-proj + residual (launches
+// 1-3). AIMv2 (RMS, no BIAS): RMSNorm-1 (ln holds its scale alone) and
+// bias-free QKV and out-proj.
+template <typename T, bool RMS = false, bool BIAS = true>
 int attn_half(const void* x, void* out, void* qkv, void* attn,
               const float* ln, const void* wqkv, const void* bqkv,
               const void* wout, const void* bout, int tokens, int seq, int d,
               int heads, float eps, int causal, int dtype, cudaStream_t s) {
+  constexpr int EPI = BIAS ? ACT_NONE : EPI_NO_BIAS;
   int e;
   // 1. LN1 -> QKV (bf16: LN1 into attn, free until step 2)
-  if ((e = layer_gemm<T, ACT_NONE>(x, wqkv, bqkv, ln, ln + d, attn, nullptr,
-                                   qkv, tokens, 3 * d, d, eps, s)))
+  if ((e = layer_gemm<T, EPI, RMS>(x, wqkv, bqkv, ln, RMS ? nullptr : ln + d,
+                                   attn, nullptr, qkv, tokens, 3 * d, d, eps,
+                                   s)))
     return e;
   // 2. per-item attention over the q/k/v column blocks (row stride 3D);
   //    q is not pre-scaled: the f32 logits take hd^-0.5 (_attn_math)
@@ -564,8 +698,26 @@ int attn_half(const void* x, void* out, void* qkv, void* attn,
                          s)))
     return e;
   // 3. out-proj + residual
-  return layer_gemm<T, ACT_NONE>(attn, wout, bout, nullptr, nullptr, nullptr,
-                                 x, out, tokens, d, d, eps, s);
+  return layer_gemm<T, EPI>(attn, wout, bout, nullptr, nullptr, nullptr, x,
+                            out, tokens, d, d, eps, s);
+}
+
+// AIMv2's B6: RMSNorm-2 -> x W' (W' [d, 2f], gate and up interleaved by 8
+// columns) -> T(silu(g) u) [tokens, f] -> down + residual, no biases
+template <typename T>
+int gated_mlp_half(const void* x3, void* out, void* h, const float* rms2,
+                   const void* wgu, const void* wdown, int tokens, int d,
+                   int f, float eps, cudaStream_t s) {
+  int e;
+  // 4. RMSNorm-2 -> gate and up -> the gated pair (bf16: the norm into
+  //    out, free until step 5)
+  if ((e = layer_gemm<T, EPI_SILU_GATE, true>(x3, wgu, nullptr, rms2,
+                                              nullptr, out, nullptr, h,
+                                              tokens, 2 * f, d, eps, s)))
+    return e;
+  // 5. down + residual
+  return layer_gemm<T, EPI_NO_BIAS>(h, wdown, nullptr, nullptr, nullptr,
+                                    nullptr, x3, out, tokens, d, f, eps, s);
 }
 
 // B6: LN2 (ln rows 2-3) -> fc1 -> GELU -> fc2 + residual (launches 4-5)
@@ -604,6 +756,46 @@ bool bad_shape(int tokens, int seq, int d, int heads) {
 }
 
 }  // namespace
+
+// AIMv2's B5: rms holds RMSNorm-1's scale [d] (f32); no biases
+extern "C" int vqt_rms_attn_half(const void* x, void* out, void* qkv,
+                                 void* attn, const void* rms,
+                                 const void* wqkv, const void* wout,
+                                 int tokens, int seq, int d, int heads,
+                                 float eps, int causal, int dtype,
+                                 void* stream) {
+  if (bad_shape(tokens, seq, d, heads)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* r = (const float*)rms;
+  if (dtype == vqt::DT_BF16)
+    return attn_half<bf16, true, false>(x, out, qkv, attn, r, wqkv, nullptr,
+                                        wout, nullptr, tokens, seq, d, heads,
+                                        eps, causal, dtype, s);
+  if (dtype == vqt::DT_F32)
+    return attn_half<float, true, false>(x, out, qkv, attn, r, wqkv, nullptr,
+                                         wout, nullptr, tokens, seq, d,
+                                         heads, eps, causal, dtype, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// AIMv2's B6: rms holds RMSNorm-2's scale [d] (f32); wgu [d, 2f] the
+// interleaved gate and up matrices, wdown [f, d]; h [tokens, f]
+extern "C" int vqt_gated_mlp_half(const void* x3, void* out, void* h,
+                                  const void* rms, const void* wgu,
+                                  const void* wdown, int tokens, int d,
+                                  int f, float eps, int dtype,
+                                  void* stream) {
+  if (tokens <= 0 || f % 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* r = (const float*)rms;
+  if (dtype == vqt::DT_BF16)
+    return gated_mlp_half<bf16>(x3, out, h, r, wgu, wdown, tokens, d, f, eps,
+                                s);
+  if (dtype == vqt::DT_F32)
+    return gated_mlp_half<float>(x3, out, h, r, wgu, wdown, tokens, d, f,
+                                 eps, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int vqt_attn_half(const void* x, void* out, void* qkv, void* attn,
                              const void* ln, const void* wqkv,

@@ -12,8 +12,9 @@ fields included (``index.kind = "ivf"``, ``ivf_nlist``, ``ivf_nprobe``,
 ``ivf_min_rows``: the engine serves through ``index/ivf.py``) and the
 corpus mesh's (``index.corpus_shards``, ``index.corpus_slices``,
 ``VQT_CORPUS_SHARDS``/``VQT_CORPUS_SLICES``: the engine shards its index,
-``parallel/mesh.py``) and the model family's (``model.family`` "clip" or
-"siglip", ``VQT_MODEL_FAMILY``: the engine builds that family's towers)
+``parallel/mesh.py``) and the model family's (``model.family`` "clip",
+"siglip" or "aimv2" — the port's own, with no JAX counterpart —,
+``VQT_MODEL_FAMILY``: the engine builds that family's towers)
 and the HF checkpoint's (``model.checkpoint_dir``,
 ``VQT_CLIP_CHECKPOINT``: the towers load it, ``models/clip/convert.py``)
 and the fine-tuned checkpoint's (``model.orbax_checkpoint``: a checkpoint

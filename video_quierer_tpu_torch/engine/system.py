@@ -30,16 +30,19 @@ in the collectives' timeout, never in a silent wrong answer).
   md5(name, size, mtime), ingest the new and changed videos (all of them
   without a cache) and save the cache; then bring the device mirrors up
   to date;
-- the towers: ``model.family`` "clip" (``models/clip``) or "siglip"
+- the towers: ``model.family`` "clip" (``models/clip``), "siglip"
   (``models/siglip``: 768-wide rows, so ``index.embed_dim`` 512 becomes
-  768), seeded;
+  768) or "aimv2" (``models/aimv2``: ``index.embed_dim`` is its
+  projection's width, 512; ``model.name`` left at the CLIP default serves
+  AIMv2-L/14 LiT), seeded;
 - ingest (``_ingest``, ``process_video``): the threaded decode pipeline
   (``ingest/pipeline.py``) yields cross-video batches of 256 frames, the
   frames sampled by the interval rule or, with ``ingest.sampling_strategy``
   other than "interval" or ``ingest.quality_filter`` set, by
   ``ingest/samplers.py`` (``strategy_extract``); each
   is embedded on the device (CLIP: the fused vision encode, kernels B5 +
-  B6; SigLIP: the module tower),
+  B6; AIMv2: the same halves with RMSNorm and the gated MLP; SigLIP: the
+  module tower),
   appended to the host store per video, and streamed into the device
   mirrors from the embedder's device output in one step per batch
   (``DeviceVideoIndex.stream_rows_device``); ``cache.frame_memo_size > 0``
@@ -92,6 +95,7 @@ from video_quierer_tpu_torch.engine.cache import QueryResultCache
 from video_quierer_tpu_torch.engine.config import (
     ApiConfig,
     EngineConfig,
+    ModelConfig,
     load_engine_config,
 )
 from video_quierer_tpu_torch.engine.fallback import (
@@ -132,6 +136,13 @@ VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def _aimv2_name(m: ModelConfig) -> str:
+    """The AIMv2 tower ``model.name`` names; the CLIP default name (left
+    unset) means the family's default tower."""
+    from video_quierer_tpu_torch.models.aimv2.config import DEFAULT_NAME
+    return DEFAULT_NAME if m.name == ModelConfig.name else m.name
+
+
 def format_timestamp(ts: float) -> str:
     """``"{m}m{s}s"`` (reference result shaping)."""
     return f"{int(ts // 60)}m{int(ts % 60)}s"
@@ -155,6 +166,12 @@ class VideoSearchEngine:
                 self.config.index.embed_dim == 512:
             # SigLIP towers are 768-wide (no projection head)
             self.config.index.embed_dim = 768
+        if self.config.model.family == "aimv2":
+            # AIMv2's rows are its projection's width
+            from video_quierer_tpu_torch.models.aimv2.config import \
+                get_config
+            self.config.index.embed_dim = get_config(
+                _aimv2_name(self.config.model)).projection_dim
         self.device = resolve_device(device)
         self.videos_dir = Path(videos_dir or self.config.videos_dir)
         self.videos_dir.mkdir(parents=True, exist_ok=True)
@@ -215,7 +232,16 @@ class VideoSearchEngine:
                       orbax_checkpoint=Path(m.orbax_checkpoint)
                       if m.orbax_checkpoint else None,
                       dtype=_DTYPES[m.dtype], device=self.device)
-            if m.family == "siglip":
+            if m.family == "aimv2":
+                if m.parallel != "none":
+                    raise ValueError(
+                        "model.parallel='pp' is implemented for the clip "
+                        "family (parallel/pipeline.py)")
+                from video_quierer_tpu_torch.models.aimv2.embedder import \
+                    AIMv2Embedder
+                self._embedder = AIMv2Embedder(model_name=_aimv2_name(m),
+                                               **kw)
+            elif m.family == "siglip":
                 if m.parallel != "none":
                     raise ValueError(
                         "model.parallel='pp' is implemented for the clip "

@@ -79,7 +79,7 @@ from video_quierer_tpu_torch.models.clip.bridge import (
     init_params,
     params_from_jax,
 )
-from video_quierer_tpu_torch.models.clip.config import CLIPConfig, get_config
+from video_quierer_tpu_torch.models.clip.config import get_config
 from video_quierer_tpu_torch.models.clip.model import CLIP
 from video_quierer_tpu_torch.models.clip.tokenizer import (
     TokenizerBase,
@@ -197,9 +197,7 @@ class CLIPEmbedder:
         """``mesh``: serve over a data mesh's devices (its ``data_axis``,
         the JAX embedder's argument, must be ``"data"``); results land on
         ``device``."""
-        self.cfg: CLIPConfig = get_config(model_name)
-        self.device = resolve_device(device)
-        self.dtype = dtype
+        self._begin(get_config(model_name), device, dtype)
         if parallel not in ("none", "pp"):
             raise ValueError(f"unknown parallel mode {parallel!r}")
         if mesh is not None and data_axis not in mesh.shape:
@@ -210,15 +208,11 @@ class CLIPEmbedder:
                 "model.parallel='pp' with a data mesh: the port's pipelined "
                 "tower runs on its own pipe of cards (parallel/pipeline.py) "
                 "and does not split batches over a data mesh as well")
-        self.mesh = mesh
         if parallel == "pp" and self.cfg.vision.moe_experts:
             raise ValueError(
                 "model.parallel='pp' pipelines the dense encoder block; a "
                 "Switch-MoE tower (vision.moe_experts > 0) cannot be "
                 "pipelined")
-        self._pipe_microbatches = pipeline_microbatches
-        self.pretrained = False
-        self.load_seconds: Dict[str, float] = {}
         ckpt = checkpoint_dir
         if orbax_checkpoint is not None:
             # fine-tuned weights from the port's trainer: the train → serve
@@ -243,31 +237,57 @@ class CLIPEmbedder:
                     "dir).")
                 state_dict = init_params(self.cfg,
                                          torch.Generator().manual_seed(seed))
-        self.params = place_module(CLIP, self.cfg, state_dict, self.device,
-                                   dtype, self.load_seconds)
+        params = place_module(CLIP, self.cfg, state_dict, self.device,
+                              dtype, self.load_seconds)
         del state_dict
-        self.tokenizer: TokenizerBase = load_tokenizer(ckpt)
-        self._pipe_stages = None
+        stages = None
         if parallel == "pp":
             if pipe_devices is None:
                 pipe_devices = mesh_mod.pipe_devices(
                     devices=None if self.device.type == "cuda"
                     else [self.device], depth=self.cfg.vision.num_layers)
-            self._pipe_stages = shard_layers(self.params.vision.layers,
-                                             pipe_devices)
+            stages = shard_layers(params.vision.layers, pipe_devices)
+        self._serve(params, load_tokenizer(ckpt), mesh=mesh,
+                    pipe_stages=stages,
+                    pipeline_microbatches=pipeline_microbatches)
         self._fused_text = fused_text_tower_eligible(self.cfg.text)
         self._fused_vision = (self._pipe_stages is None
                               and fused_vision_tower_eligible(
                                   self.cfg.vision))
-        self._ops: Dict[tuple, List[LayerOps]] = {}
+
+    def _begin(self, cfg, device: str | torch.device,
+               dtype: torch.dtype) -> None:
+        """The state every family's embedder sets before it reads its
+        weights: the tower config, the device, the dtype and the load
+        record (``pretrained``, ``load_seconds``)."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.pretrained = False
+        self.load_seconds: Dict[str, float] = {}
+
+    def _serve(self, params: torch.nn.Module, tokenizer: TokenizerBase, *,
+               mesh: Optional[mesh_mod.DataMesh] = None,
+               pipe_stages=None, pipeline_microbatches: int = 4) -> None:
+        """The serving state every family's embedder sets once its module
+        is placed, and which the methods here read: the module and its
+        replicas over ``mesh``'s data rows, the tokenizer, the pipe
+        stages, the layer-operand cache and the bound text encode. A
+        family without a data mesh or a pipe passes neither."""
+        self.params = params
+        self.tokenizer = tokenizer
+        self.mesh = mesh
+        self._pipe_stages = pipe_stages
+        self._pipe_microbatches = pipeline_microbatches
+        self._ops: Dict[tuple, list] = {}
         # one module a data row: the parameters themselves on the
         # embedder's device, one copy on each other device
-        self._replicas: List[CLIP] = [self.params]
+        self._replicas: List[torch.nn.Module] = [params]
         if mesh is not None:
-            by_device = {self.device: self.params}
+            by_device = {self.device: params}
             for d in mesh.data_devices:
                 if d not in by_device:
-                    by_device[d] = copy.deepcopy(self.params).to(d)
+                    by_device[d] = copy.deepcopy(params).to(d)
             self._replicas = [by_device[d] for d in mesh.data_devices]
         # bound ONCE, as the reference's: callers hand it to the index
         self.text_encode_fn = self._encode_text_fn

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -63,7 +63,6 @@ from video_quierer_tpu_torch.models.siglip.spm import (
     find_spiece_model,
 )
 from video_quierer_tpu_torch.ops.fused_layer import (
-    LayerOps,
     fused_batch_eligible,
     fused_text_tower_eligible,
 )
@@ -72,7 +71,6 @@ from video_quierer_tpu_torch.ops.preprocess import (
     SIGLIP_STD,
     normalize_images,
 )
-from video_quierer_tpu_torch.utils.env import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -103,11 +101,7 @@ class SigLIPEmbedder(CLIPEmbedder):
                  seed: int = 0,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  orbax_checkpoint: Optional[Path] = None):
-        self.cfg = cfg or siglip_base_patch16()
-        self.device = resolve_device(device)
-        self.dtype = dtype
-        self.pretrained = False
-        self.load_seconds: Dict[str, float] = {}
+        self._begin(cfg or siglip_base_patch16(), device, dtype)
         if orbax_checkpoint is not None:
             logger.info("Loading fine-tuned SigLIP params from %s",
                         orbax_checkpoint)
@@ -126,16 +120,12 @@ class SigLIPEmbedder(CLIPEmbedder):
                 logger.warning("No local SigLIP checkpoint — seeded init")
                 state_dict = init_params(self.cfg,
                                          torch.Generator().manual_seed(seed))
-        self.params = place_module(SigLIP, self.cfg, state_dict, self.device,
-                                   dtype, self.load_seconds)
+        params = place_module(SigLIP, self.cfg, state_dict, self.device,
+                              dtype, self.load_seconds)
         del state_dict
-        self.tokenizer = siglip_tokenizer(self.cfg, checkpoint_dir)
-        self._fused_text = fused_text_tower_eligible(self.cfg.text)
-        self._ops: Dict[tuple, List[LayerOps]] = {}
         # no data mesh: the JAX SigLIP embedder takes none
-        self.mesh = None
-        self._replicas = [self.params]
-        self.text_encode_fn = self._encode_text_fn
+        self._serve(params, siglip_tokenizer(self.cfg, checkpoint_dir))
+        self._fused_text = fused_text_tower_eligible(self.cfg.text)
 
     @property
     def embed_dim(self) -> int:

@@ -1,11 +1,13 @@
-"""Multi-head attention for the CLIP and SigLIP towers (counterpart of
-``video_quierer_tpu/ops/attention.py``).
+"""Multi-head attention for the CLIP, SigLIP and AIMv2 towers
+(counterpart of ``video_quierer_tpu/ops/attention.py``).
 
 :func:`attention` takes ``q, k, v`` in the towers' h-minor projection
 layout ``[B, S, H*hd]`` and returns ``[B, S, H*hd]``. On a CUDA tensor it
-launches kernel B3 (``csrc/attention.cu``); on a CPU tensor it runs the
-plain version :func:`attention_ref`. Both follow the TPU kernel's
-contract:
+launches kernel B3 (``csrc/attention.cu``; head width 64, CLIP and
+SigLIP, or 128, AIMv2: one compiled instance each, the second counted on
+``attention.launches_hd128`` besides ``attention.launches``); on a CPU
+tensor it runs the plain version :func:`attention_ref`. Both follow the
+TPU kernel's contract:
 
 - q is pre-scaled by ``hd**-0.5`` in f32, then rounded back to its dtype
   (on the card the kernel does it as it loads q);
@@ -35,8 +37,17 @@ import torch
 
 from video_quierer_tpu_torch.ops import kernels
 
-HEAD_DIM = 64       # the kernel's head width (every CLIP tower)
-MAX_SEQ = 400       # K and V of one head (f32) must fit one SM's 227 KB
+HEAD_DIM = 64       # the CLIP and SigLIP towers' head width
+HEAD_DIM_WIDE = 128     # the AIMv2 towers' head width
+# the longest S of each instance: one head's K (and V at hd 64) in f32,
+# and Q, K and V of one head in bf16 at hd 128, must fit one SM's 227 KB
+MAX_SEQ = {HEAD_DIM: 400, HEAD_DIM_WIDE: 272}
+HEAD_DIMS = tuple(MAX_SEQ)
+
+
+def kernel_takes(s: int, hd: int) -> bool:
+    """Whether B3 has an instance for head width ``hd`` at length ``s``."""
+    return hd in MAX_SEQ and 0 < s <= MAX_SEQ[hd]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -144,9 +155,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("q, k, v must share shape and dtype")
-    if hd != HEAD_DIM or d != num_heads * hd or not 0 < s <= MAX_SEQ:
-        raise ValueError(f"attention kernel takes head_dim {HEAD_DIM} and "
-                         f"S <= {MAX_SEQ}, got D={d}, H={num_heads}, S={s}")
+    if d != num_heads * hd or not kernel_takes(s, hd):
+        raise ValueError(f"attention kernel takes head_dim and S in "
+                         f"{MAX_SEQ} (S at most), got D={d}, "
+                         f"H={num_heads}, S={s}")
     if q.dtype == torch.bfloat16 \
             and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the bf16 attention kernel loads 16-byte vectors: "
@@ -155,11 +167,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(dev):
         kernels.check(kernels.lib().vqt_attention(
             kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-            kernels.ptr(out), b, s, num_heads, HEAD_DIM, d, d,
+            kernels.ptr(out), b, s, num_heads, hd, d, d,
             int(valid_len), int(causal), hd ** -0.5, 1.0,
             kernels.dtype_code(q), kernels.stream(dev)), "attention")
     kernels.count_launch(attention)
+    if hd == HEAD_DIM_WIDE:
+        kernels.count_launch(attention, "launches_hd128")
     return out
 
 
 attention.launches = 0
+attention.launches_hd128 = 0

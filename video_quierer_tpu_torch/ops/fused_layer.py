@@ -12,6 +12,15 @@ its plain version on a CPU tensor:
 - :func:`fused_layer` (kernel B2; plain :func:`fused_layer_ref`): the
   causal text block, B5 then B6 inside one C call.
 
+AIMv2's blocks (``models/aimv2``) take the same two kernels with their
+compile-time choices of RMSNorm, bias-free projections and a SiLU-gated
+MLP (:func:`rms_attn_half`, :func:`gated_mlp_half` and their plain
+versions; operands :data:`GatedOps`). Their rounding points are the
+CLIP halves' with the bias steps left out: RMSNorm ``T(x · rstd · γ)``
+with f32 statistics, ``T(x @ w)``, the gate and up products each rounded
+to T, then ``T(T(g · T(1 / T(1 + T(exp(-g))))) · u)``
+(:func:`silu_gate_kernel_form`), the residual adds in T.
+
 All follow the TPU kernels' math and bf16 rounding points: LayerNorm with
 f32 statistics, ``T(x @ w)`` then ``+ bias`` in T, attention with the
 attention kernel's softmax contract and the ``hd**-0.5`` scale on the f32
@@ -49,7 +58,11 @@ from typing import List, Sequence, Tuple
 import torch
 
 from video_quierer_tpu_torch.ops import kernels
-from video_quierer_tpu_torch.ops.attention import HEAD_DIM, attention_ref
+from video_quierer_tpu_torch.ops.attention import (
+    HEAD_DIM,
+    HEAD_DIMS,
+    attention_ref,
+)
 
 # Minimum tokens (B·S) for the fused text encode: the reference's
 # single-batch policy (fused_layer.py:MIN_TOKENS)
@@ -65,6 +78,16 @@ ACT_CODES = {"quick_gelu": 1, "gelu_tanh": 2}
 # sqrt(2 / pi) and the cubic coefficient of tanh-GELU (_mlp_math)
 GELU_TANH_C1 = 0.7978845608028654
 GELU_TANH_C2 = 0.044715
+
+
+# AIMv2's block operands: (rms [2, D] f32 — RMSNorm-1 and -2 scales —,
+# wqkv [D, 3D], wout [D, D], wgu [D, 2F] — gate and up interleaved by 8
+# columns, :func:`interleave_gate_up` —, wdown [F, D]), every matrix
+# [in, out] row-major
+GatedOps = Tuple[torch.Tensor, ...]
+# the gated epilogue's interleave: 8 gate columns, then the same 8 up
+# columns (one n-tile of the GEMM's accumulator fragment each)
+GATE_GROUP = 8
 
 
 def _width_eligible(d: int, heads: int) -> bool:
@@ -302,6 +325,154 @@ def fused_layer(x2: torch.Tensor, ops: LayerOps, *, s: int, heads: int,
 
 
 fused_layer.launches = 0
+
+
+def interleave_gate_up(wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """``[D, F]`` gate and up matrices (``[in, out]``) → ``[D, 2F]``:
+    columns ``16 i .. 16 i + 7`` are gate features ``8 i .. 8 i + 7``,
+    the next 8 the same up features."""
+    d, f = wg.shape
+    g = GATE_GROUP
+    return torch.stack([wg.reshape(d, f // g, g), wu.reshape(d, f // g, g)],
+                       dim=2).reshape(d, 2 * f)
+
+
+def split_gate_up(wgu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of :func:`interleave_gate_up`: ``(wg, wu)``."""
+    d, f2 = wgu.shape
+    w = wgu.reshape(d, f2 // (2 * GATE_GROUP), 2, GATE_GROUP)
+    return w[:, :, 0].reshape(d, f2 // 2), w[:, :, 1].reshape(d, f2 // 2)
+
+
+def gated_tower_eligible(d: int, f: int, heads: int) -> bool:
+    """Static eligibility of an AIMv2 tower for the gated halves: whole
+    heads of a width B3 has an instance for, GEMM-tileable widths (F in
+    whole 32-feature output tiles) and the bf16 norm pass's width."""
+    return (d % heads == 0 and d // heads in HEAD_DIMS and d % 64 == 0
+            and f % 32 == 0 and d <= BF16_MAX_WIDTH)
+
+
+def rms_f32(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            out_dtype) -> torch.Tensor:
+    """RMSNorm over the last axis with f32 statistics:
+    ``T(x · rsqrt(mean(x²) + eps) · scale)``."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(out_dtype)
+
+
+def _dot_nb(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``T(a @ w)`` with an f32 matmul, no bias (``w`` is ``[in, out]``)."""
+    return (a.float() @ w.float()).to(a.dtype)
+
+
+def silu_gate_kernel_form(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The gated epilogue in ``g``'s dtype, every operation rounded to it:
+    ``g · (1 / (1 + exp(-g))) · u``."""
+    return g * (1.0 / (1.0 + torch.exp(-g))) * u
+
+
+def rms_attn_half_ref(x2: torch.Tensor, ops: GatedOps, *, s: int,
+                      heads: int, eps: float, causal: bool) -> torch.Tensor:
+    """Plain PyTorch version of AIMv2's B5 over ``[B·S, D]`` tokens:
+    RMSNorm-1 → QKV → per-item attention → out-proj → residual, no
+    biases."""
+    rms, wqkv, wout = ops[:3]
+    t, d = x2.shape
+    y = rms_f32(x2, rms[0], eps, x2.dtype)
+    qkv = _dot_nb(y, wqkv).reshape(t // s, s, 3 * d)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    attn = attention_ref(q, k, v, num_heads=heads, valid_len=s,
+                         causal=causal, scale=(d // heads) ** -0.5)
+    return x2 + _dot_nb(attn.reshape(t, d), wout)
+
+
+def gated_mlp_half_ref(x3: torch.Tensor, ops: GatedOps, *,
+                       eps: float) -> torch.Tensor:
+    """Plain PyTorch version of AIMv2's B6: RMSNorm-2 → gate and up →
+    ``silu(g) · u`` → down → residual, no biases."""
+    rms, wgu, wdown = ops[0], ops[3], ops[4]
+    z = rms_f32(x3, rms[1], eps, x3.dtype)
+    wg, wu = split_gate_up(wgu)
+    h = silu_gate_kernel_form(_dot_nb(z, wg), _dot_nb(z, wu))
+    return x3 + _dot_nb(h, wdown)
+
+
+def _check_gated_operands(x2: torch.Tensor, ops: GatedOps, *, s: int = 1,
+                          heads: int = 0) -> torch.device:
+    """:func:`_check_operands` for AIMv2's operands; ``heads`` 0 skips
+    the attention checks."""
+    rms, wqkv, wout, wgu, wdown = ops
+    dev = kernels.require_cuda(x2, *ops)
+    t, d = x2.shape
+    f = wdown.shape[0]
+    if rms.dtype != torch.float32 or rms.shape != (2, d) \
+            or any(w.dtype != x2.dtype for w in ops[1:]):
+        raise ValueError("gated layer operands: rms f32 [2, D], the rest in "
+                         "the activation dtype")
+    if wqkv.shape != (d, 3 * d) or wout.shape != (d, d) \
+            or wgu.shape != (d, 2 * f) or wdown.shape != (f, d) \
+            or (heads and (d % heads or d // heads not in HEAD_DIMS)) \
+            or d % 64 or f % 32 or t % s \
+            or any(o.data_ptr() % 16 for o in (x2, *ops)) \
+            or (x2.dtype == torch.bfloat16 and d > BF16_MAX_WIDTH):
+        raise ValueError(f"unsupported gated layer shape: T={t} D={d} "
+                         f"F={f} heads={heads} S={s} (operands must start "
+                         f"16-byte aligned; bf16 D <= {BF16_MAX_WIDTH})")
+    return dev
+
+
+def rms_attn_half(x2: torch.Tensor, ops: GatedOps, *, s: int, heads: int,
+                  eps: float, causal: bool) -> torch.Tensor:
+    """AIMv2's first block half over flat ``[B·S, D]`` tokens: kernel B5
+    with RMSNorm and bias-free projections on a CUDA tensor (B3 at head
+    width 128 inside), :func:`rms_attn_half_ref` on a CPU tensor."""
+    if x2.device.type == "cpu":
+        return rms_attn_half_ref(x2, ops, s=s, heads=heads, eps=eps,
+                                 causal=causal)
+    dev = _check_gated_operands(x2, ops, s=s, heads=heads)
+    rms, wqkv, wout = ops[:3]
+    t, d = x2.shape
+    out = torch.empty_like(x2)
+    qkv = torch.empty((t, 3 * d), dtype=x2.dtype, device=dev)
+    attn = torch.empty_like(x2)
+    p = kernels.ptr
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_rms_attn_half(
+            p(x2), p(out), p(qkv), p(attn), p(rms), p(wqkv), p(wout), t, s,
+            d, heads, float(eps), int(causal), kernels.dtype_code(x2),
+            kernels.stream(dev)), "RMSNorm attention half")
+    kernels.count_launch(rms_attn_half)
+    return out
+
+
+rms_attn_half.launches = 0
+
+
+def gated_mlp_half(x3: torch.Tensor, ops: GatedOps, *,
+                   eps: float) -> torch.Tensor:
+    """AIMv2's second block half: kernel B6 with RMSNorm and the SiLU-gated
+    epilogue on a CUDA tensor, :func:`gated_mlp_half_ref` on a CPU
+    tensor."""
+    if x3.device.type == "cpu":
+        return gated_mlp_half_ref(x3, ops, eps=eps)
+    dev = _check_gated_operands(x3, ops)
+    rms, wgu, wdown = ops[0], ops[3], ops[4]
+    t, d = x3.shape
+    f = wdown.shape[0]
+    out = torch.empty_like(x3)
+    h = torch.empty((t, f), dtype=x3.dtype, device=dev)
+    p = kernels.ptr
+    with torch.cuda.device(dev):
+        kernels.check(kernels.lib().vqt_gated_mlp_half(
+            p(x3), p(out), p(h), p(rms[1]), p(wgu), p(wdown), t, d, f,
+            float(eps), kernels.dtype_code(x3), kernels.stream(dev)),
+            "gated MLP half")
+    kernels.count_launch(gated_mlp_half)
+    return out
+
+
+gated_mlp_half.launches = 0
 
 
 def _normalize_out(feats: torch.Tensor, dtype) -> torch.Tensor:

@@ -70,6 +70,9 @@ _SIGNATURES = {
                       _F, _I, _I, _P),
     "vqt_mlp_half": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                      _I, _P),
+    "vqt_rms_attn_half": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _I, _I, _P),
+    "vqt_gated_mlp_half": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }
 
 # return types other than the launchers' int error code
@@ -198,7 +201,8 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def count_launch(wrapper) -> None:
-    """One more launch on ``wrapper.launches`` (thread-safe)."""
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """One more launch on ``wrapper.launches``, or on the wrapper's
+    ``counter`` of one kernel instance (thread-safe)."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
